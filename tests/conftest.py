@@ -9,6 +9,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA); skips without one"
+    )
+
+
 def pytest_addoption(parser):
     """Deterministic test sharding for the CI tier-1 matrix: each shard
     keeps the tests whose node-id hashes onto its slot.  The hash is a
