@@ -23,6 +23,19 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   5. exact    f32 at full width and 2 layers: greedy tokens of both kernel
               policies identical to fixed:XLA_NT
   6. imports  no jax in the process
+  7. train    repro_torch.launch.train.main on smollm-135m at full config
+              in bf16 (remat full, AdamW), batch 8 x seq 256, 6 steps, under
+              the fused-TNN kernel policy, the TNN kernel policy with the
+              unfused attention plan, and fixed:XLA_NT, from the same
+              weights and batches: every loss finite, step-0 loss and
+              grad norm of each kernel policy near cuBLAS's and no further
+              from an f32 cuBLAS step than twice cuBLAS's distance, every
+              kernel of the training path launched and none under cuBLAS;
+              ms/step, tokens/s, launches per step and a profiled step's
+              device busy share per policy
+  8. train_exact  f32 at full width and 2 layers: every gradient leaf of
+              step 0 under both kernel policies within relative L2 1e-4 of
+              fixed:XLA_NT's, and the losses of 3 steps within 1e-5
 
 The full results, every case included, go to ``build/chip_smoke.json``.
 
@@ -34,6 +47,7 @@ outside a checkout, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -73,7 +87,39 @@ KERNEL_SOURCES = {
     "matmul_nt": ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul_nt.py:81"),
     "attention_fused": ("src/repro_torch/csrc/attention_fused.cu",
                         "src/repro/kernels/attention_fused.py:338"),
+    "matmul_tnn_fused": ("src/repro_torch/csrc/matmul_tnn_fused.cu",
+                         "src/repro/kernels/matmul_tnn_fused.py:90"),
+    "matmul_bnt": ("src/repro_torch/csrc/matmul_batched.cu",
+                   "src/repro/kernels/matmul_batched.py:124"),
+    "matmul_bnn": ("src/repro_torch/csrc/matmul_batched.cu",
+                   "src/repro/kernels/matmul_batched.py:124"),
 }
+
+# The kernels the serving policies name.
+SERVE_KERNELS = ("transpose", "matmul_nn", "matmul_nt", "attention_fused")
+
+# Training: smollm-135m at full config, bf16, remat full, AdamW.
+DEVICE = "cuda"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_ARGS = ["--arch", "smollm-135m", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--steps", "6", "--seed", "0", "--log-every", "1", "--device", DEVICE]
+TRAIN_POLICIES = {
+    "fused": "fixed:nt=PALLAS_TNN_FUSED,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,"
+             "bnn=PALLAS_BNN,attn=fused",
+    "tnn": "fixed:nt=PALLAS_TNN,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,bnn=PALLAS_BNN,"
+           "attn=unfused",
+}
+# The kernels those two policies name (the direct NT kernel is held by the
+# serve phase: no training policy names it).
+TRAIN_KERNELS = ("transpose", "matmul_nn", "attention_fused", "matmul_tnn_fused",
+                 "matmul_bnt", "matmul_bnn")
+# Step 0, bf16: a wrong kernel moves the loss and the gradient norm by
+# O(1); bf16 rounding of 30 random layers moves them by well under these.
+LOSS_REL = 1e-2
+GRAD_NORM_REL = 5e-2
+# train_exact, f32 at 2 layers: sums in another order only
+EXACT_GRAD_REL_L2 = 1e-4
+EXACT_LOSS_REL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -157,6 +203,23 @@ def kernel_cases(torch):
             cases.append(("matmul_nt", f"({m},{k})x({n},{k})^T", dt, {"a": a, "b": w}))
             cases.append(("matmul_nn", f"({m},{k})x({k},{n})", dt,
                           {"a": a, "b": w.t().contiguous()}))
+        # the training path: fused-TNN forwards at 2048 tokens and a decode
+        # shape; the attention backward's batched contractions (batch 8 x
+        # 3 kv heads, 3 heads folded x 256 queries, 256 keys, d_head 64)
+        # and the unfused decode plan's (g 12, m 3, n 512)
+        for m, n, k in ((2048, 49152, 576), (2048, 1536, 576), (8, 1536, 576)):
+            cases.append(("matmul_tnn_fused", f"({m},{k})x({n},{k})^T", dt,
+                          {"a": randn(m, k, dtype=dt), "b": randn(n, k, dtype=dt)}))
+        for name, g, m, n, k in (("matmul_bnt", 24, 768, 256, 64),
+                                 ("matmul_bnn", 24, 768, 64, 256),
+                                 ("matmul_bnn", 24, 256, 64, 768),
+                                 ("matmul_bnt", 12, 3, 512, 64),
+                                 ("matmul_bnn", 12, 3, 64, 512)):
+            b_shape = (g, n, k) if name == "matmul_bnt" else (g, k, n)
+            label = (f"({g},{m},{k})x({g},{n},{k})^T" if name == "matmul_bnt"
+                     else f"({g},{m},{k})x({g},{k},{n})")
+            cases.append((name, label, dt, {"a": randn(g, m, k, dtype=dt),
+                                            "b": randn(*b_shape, dtype=dt)}))
         lens = torch.randint(1, 513, (12,), generator=gen, device="cuda", dtype=torch.int32)
         geoms = [
             ("decode g=12 m=3 n=512 ragged", 12, 3, 512, lens, MaskParams()),
@@ -182,7 +245,14 @@ def run_case(torch, name, inp, dt):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.attention_fused import attention_fused
-    from repro_torch.kernels.ops import matmul_nn, matmul_nt, transpose
+    from repro_torch.kernels.ops import (
+        matmul_bnn,
+        matmul_bnt,
+        matmul_nn,
+        matmul_nt,
+        matmul_tnn_fused,
+        transpose,
+    )
 
     dname = str(dt).split(".")[-1]
     ds = torch.finfo(dt).bits // 8
@@ -192,11 +262,15 @@ def run_case(torch, name, inp, dt):
         rtol, atol = 0.0, 0.0
         n, k = b.shape
         b_ms, by = bound(2 * n * k * ds, 0.0, dname)
-    elif name in ("matmul_nn", "matmul_nt"):
+    elif name in ("matmul_nn", "matmul_nt", "matmul_tnn_fused"):
         a, b = inp["a"], inp["b"]
         if name == "matmul_nt":
             kern, plain, lib = (lambda: matmul_nt(a, b)), (lambda: ref.matmul_nt(a, b)), \
                 (lambda: torch.matmul(a, b.t()))
+            n = b.shape[0]
+        elif name == "matmul_tnn_fused":
+            kern, plain, lib = (lambda: matmul_tnn_fused(a, b)), \
+                (lambda: ref.matmul_tnn_fused(a, b)), (lambda: torch.matmul(a, b.t()))
             n = b.shape[0]
         else:
             kern, plain, lib = (lambda: matmul_nn(a, b)), (lambda: ref.matmul_nn(a, b)), \
@@ -205,6 +279,19 @@ def run_case(torch, name, inp, dt):
         m, k = a.shape
         rtol, atol = tol(dname, k)
         b_ms, by = bound((m * k + k * n + m * n) * ds, 2.0 * m * n * k, dname)
+    elif name in ("matmul_bnt", "matmul_bnn"):
+        a, b = inp["a"], inp["b"]
+        g, m, k = a.shape
+        if name == "matmul_bnt":
+            kern, plain, lib = (lambda: matmul_bnt(a, b)), (lambda: ref.matmul_bnt(a, b)), \
+                (lambda: torch.bmm(a, b.transpose(1, 2)))
+            n = b.shape[1]
+        else:
+            kern, plain, lib = (lambda: matmul_bnn(a, b)), (lambda: ref.matmul_bnn(a, b)), \
+                (lambda: torch.bmm(a, b))
+            n = b.shape[2]
+        rtol, atol = tol(dname, k)
+        b_ms, by = bound(g * (m * k + k * n + m * n) * ds, 2.0 * g * m * n * k, dname)
     else:
         q, k, v, lengths, mask = (inp[x] for x in ("q", "k", "v", "lengths", "mask"))
         g, m, dh = q.shape
@@ -293,29 +380,26 @@ def first_token_logits(torch, engine, policy_spec, prompt, dtype=None):
     return logits[0, -1, : engine.cfg.vocab].float()
 
 
-def decode_profile(torch, engine, cls):
-    """One bucketed decode step of ``cls`` (largest bucket, all rows on the
-    null slot): host wall time, and the device time of its kernels from
-    torch.profiler, so device busy share = device / wall."""
+def busy_profile(torch, step, reps=5):
+    """Host wall time of ``step`` (median of ``reps`` after one warmup) and
+    the device time of its kernels from torch.profiler over one more run,
+    so device busy share = device / wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    bb = engine.buckets.decode_batches[-1]
-    null = torch.full((bb,), engine.kv.null_slot, dtype=torch.long, device="cuda")
-    zeros = torch.zeros((bb,), dtype=torch.long, device="cuda")
-
-    def step():
-        engine._decode_step(cls, zeros[:, None], null, zeros)
+    def synced():
+        step()
         torch.cuda.synchronize()
 
-    step()
+    synced()
     walls = []
-    for _ in range(5):
+    for _ in range(reps):
         t0 = time.perf_counter()
-        step()
+        synced()
         walls.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
+        synced()
+
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
@@ -327,10 +411,153 @@ def decode_profile(torch, engine, cls):
     wall_ms = statistics.median(walls) * 1e3
     top = sorted(events, key=dev_us, reverse=True)[:6]
     return {
-        "batch": bb, "wall_ms": wall_ms, "device_ms": device_ms,
+        "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms if device_ms else None,
         "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top},
     }
+
+
+def decode_profile(torch, engine, cls):
+    """One bucketed decode step of ``cls`` (largest bucket, all rows on the
+    null slot), profiled by ``busy_profile``."""
+    bb = engine.buckets.decode_batches[-1]
+    null = torch.full((bb,), engine.kv.null_slot, dtype=torch.long, device="cuda")
+    zeros = torch.zeros((bb,), dtype=torch.long, device="cuda")
+    prof = busy_profile(torch, lambda: engine._decode_step(cls, zeros[:, None], null, zeros))
+    return {"batch": bb, **prof}
+
+
+# -- phase 7/8 helpers --------------------------------------------------------
+
+
+def rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def train(extra):
+    from repro_torch.launch import train as train_mod
+
+    return train_mod.main(TRAIN_ARGS + extra)
+
+
+def train_batch(torch, cfg, step):
+    """The launcher's batch ``step`` (``--seed 0``) on the card."""
+    from repro_torch.data import make_train_batch
+
+    return {k: torch.as_tensor(v, device=DEVICE).long()
+            for k, v in make_train_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step, seed=0).items()}
+
+
+def global_norm(torch, grads):
+    from repro_torch.optim import tree_leaves
+
+    return float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads))))
+
+
+def train_step_profile(torch, run):
+    """One more train step of ``run`` (its policy, its final state, the next
+    batch), profiled by ``busy_profile`` (3 timed repeats)."""
+    from repro_torch.launch.steps import TrainStepConfig, make_train_step
+
+    step_fn = make_train_step(run.cfg, TrainStepConfig(total_steps=len(run.times)),
+                              policy=run.policy)
+    batch = train_batch(torch, run.cfg, len(run.times))
+    return busy_profile(torch, lambda: step_fn(run.state, batch), reps=3)
+
+
+def phase_train(torch, card):
+    """Phase 7; returns its row and each policy's kernel launches."""
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_map
+
+    runs, train_launches = {}, {}
+    for spec in [*TRAIN_POLICIES.values(), CUBLAS_POLICY]:
+        reset_launches()
+        runs[spec] = train(["--policy", spec])
+        train_launches[spec] = dict(LAUNCHES)
+    for spec, run in runs.items():
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in run.metrics), f"{spec}: a non-finite loss or grad norm")
+    check(not any(train_launches[CUBLAS_POLICY].values()),
+          f"cuBLAS training launched kernels: {train_launches[CUBLAS_POLICY]}")
+    unused = [k for k in TRAIN_KERNELS
+              if not any(train_launches[s][k] for s in TRAIN_POLICIES.values())]
+    check(not unused, f"kernels of the training path never launched: {unused}")
+    cfg = runs[CUBLAS_POLICY].cfg
+    params32 = tree_map(lambda p: p.float(), lm.init_lm(0, cfg, device=DEVICE))
+    _, g32 = loss_and_grads(cfg.replace(param_dtype="float32"), params32,
+                            train_batch(torch, cfg, 0), policy_from_spec(CUBLAS_POLICY))
+    gn32 = global_norm(torch, g32)
+    del params32, g32
+    x0 = runs[CUBLAS_POLICY].metrics[0]
+    step0 = {spec: {"loss": r.metrics[0]["loss"], "grad_norm": r.metrics[0]["grad_norm"],
+                    "loss_rel_vs_cublas": rel(r.metrics[0]["loss"], x0["loss"]),
+                    "grad_norm_rel_vs_cublas": rel(r.metrics[0]["grad_norm"], x0["grad_norm"]),
+                    "grad_norm_rel_vs_f32": rel(r.metrics[0]["grad_norm"], gn32)}
+             for spec, r in runs.items()}
+    for spec in TRAIN_POLICIES.values():
+        row = step0[spec]
+        check(row["loss_rel_vs_cublas"] <= LOSS_REL,
+              f"{spec}: step-0 loss {row['loss']} vs cuBLAS {x0['loss']}")
+        check(row["grad_norm_rel_vs_cublas"] <= GRAD_NORM_REL,
+              f"{spec}: step-0 grad norm {row['grad_norm']} vs cuBLAS {x0['grad_norm']}")
+        limit = F32_DISTANCE_RATIO * step0[CUBLAS_POLICY]["grad_norm_rel_vs_f32"] \
+            + F32_DISTANCE_FLOOR
+        check(row["grad_norm_rel_vs_f32"] <= limit,
+              f"{spec}: step-0 grad norm is {row['grad_norm_rel_vs_f32']} from f32 "
+              f"({gn32}), beyond {limit}")
+    n_steps = len(runs[CUBLAS_POLICY].times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    train_row = {
+        "phase": "train", "card": card, "arch": cfg.name, "dtype": cfg.param_dtype,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": n_steps, "remat": cfg.remat,
+        "f32_grad_norm": gn32, "step0": step0,
+        "losses": {spec: [m["loss"] for m in r.metrics] for spec, r in runs.items()},
+        "ms_per_step": {spec: statistics.median(r.times[1:]) * 1e3 for spec, r in runs.items()},
+        "step_ms_all": {spec: [t * 1e3 for t in r.times] for spec, r in runs.items()},
+        "tokens_per_s": {spec: tokens / statistics.median(r.times[1:])
+                         for spec, r in runs.items()},
+        "launches_per_step": {spec: {k: v / n_steps for k, v in train_launches[spec].items() if v}
+                              for spec in TRAIN_POLICIES.values()},
+        "dispatch_calls_per_step": {spec: r.policy.stats.calls / n_steps
+                                    for spec, r in runs.items()},
+    }
+    train_row["step_profile"] = {spec: train_step_profile(torch, r) for spec, r in runs.items()}
+    return train_row, train_launches
+
+
+def phase_train_exact(torch):
+    """Phase 8: f32 at full width and 2 layers."""
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    f32_args = ["--layers", "2", "--dtype", "float32", "--steps", "3"]
+    specs = [*TRAIN_POLICIES.values(), CUBLAS_POLICY]
+    runs = {spec: train(f32_args + ["--policy", spec]) for spec in specs}
+    losses = {spec: [m["loss"] for m in r.metrics] for spec, r in runs.items()}
+    for spec in TRAIN_POLICIES.values():
+        for a, b in zip(losses[spec], losses[CUBLAS_POLICY]):
+            check(rel(a, b) <= EXACT_LOSS_REL,
+                  f"f32 losses under {spec}: {losses[spec]} vs cuBLAS {losses[CUBLAS_POLICY]}")
+    cfg = runs[CUBLAS_POLICY].cfg
+    params = lm.init_lm(0, cfg, device=DEVICE)
+    batch = train_batch(torch, cfg, 0)
+    grads = {spec: loss_and_grads(cfg, params, batch, policy_from_spec(spec))[1]
+             for spec in specs}
+    worst = {}
+    for spec in TRAIN_POLICIES.values():
+        dists = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                 for a, b in zip(tree_leaves(grads[spec]), tree_leaves(grads[CUBLAS_POLICY]))]
+        worst[spec] = max(dists)
+        check(worst[spec] <= EXACT_GRAD_REL_L2,
+              f"f32 gradient under {spec}: a leaf is {worst[spec]} from cuBLAS's (rel L2)")
+    return {"phase": "train_exact", "layers": 2, "dtype": "float32",
+            "worst_leaf_rel_l2": worst, "losses": losses}
 
 
 def main() -> int:
@@ -388,8 +615,8 @@ def main() -> int:
     eng_k = serve(kernel_policy_args())
     launches = dict(LAUNCHES)
     check_engine(eng_k, 16, "kernel policies")
-    for kname, count in launches.items():
-        check(count > 0, f"kernel {kname} was not launched on the serve path")
+    for kname in SERVE_KERNELS:
+        check(launches[kname] > 0, f"kernel {kname} was not launched on the serve path")
     reset_launches()
     eng_x = serve(["--policy", CUBLAS_POLICY])
     check_engine(eng_x, 16, "cuBLAS policy")
@@ -447,21 +674,43 @@ def main() -> int:
     # 6. imports
     check("jax" not in sys.modules, "jax was imported")
 
-    # the contract line: one row per kernel, main-path shape in bf16
-    contract = {"matmul_nt": "(8,576)x(49152,576)^T", "matmul_nn": "(8,576)x(576,49152)",
-                "transpose": "(49152,576)", "attention_fused": "decode g=12 m=3 n=512 ragged"}
+    # 7. train smollm-135m, full config, bf16
+    train_row, train_launches = phase_train(torch, card)
+    emit(train_row)
+    results["train"] = train_row
+
+    # 8. train_exact: f32, full width, 2 layers
+    exact_row = phase_train_exact(torch)
+    emit(exact_row)
+    results["train_exact"] = exact_row
+    check("jax" not in sys.modules, "jax was imported")
+
+    # the contract line: one row per kernel at a main-path shape; launches
+    # are the serve path's kernel-policy run plus the two kernel-policy
+    # training runs
+    contract = {
+        "matmul_nt": ("(8,576)x(49152,576)^T", "bfloat16"),
+        "matmul_nn": ("(8,576)x(576,49152)", "bfloat16"),
+        "transpose": ("(49152,576)", "bfloat16"),
+        "attention_fused": ("decode g=12 m=3 n=512 ragged", "bfloat16"),
+        "matmul_tnn_fused": ("(2048,576)x(49152,576)^T", "bfloat16"),
+        "matmul_bnt": ("(24,768,64)x(24,256,64)^T", "float32"),
+        "matmul_bnn": ("(24,256,768)x(24,768,64)", "float32"),
+    }
     kernels = []
-    for kname, case in contract.items():
+    for kname, (case, dtype) in contract.items():
         row = next(r for r in rows if r["kernel"] == kname and r["case"] == case
-                   and r["dtype"] == "bfloat16")
+                   and r["dtype"] == dtype)
         source, replaces = KERNEL_SOURCES[kname]
+        by_path = {"serve": launches.get(kname, 0),
+                   "train": sum(train_launches[s][kname] for s in TRAIN_POLICIES.values())}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["err"] for r in rows if r["kernel"] == kname),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": case,
-            "dtype": "bfloat16",
+            "dtype": dtype,
         })
     results["kernels"] = kernels
     results["card"] = card

@@ -48,6 +48,9 @@ class ArchConfig:
     activation: str = "gelu"
     # numerics: params in param_dtype, and activations follow them
     param_dtype: str = "bfloat16"
+    # training: rematerialisation per layer unit and the optimizer
+    remat: str = "full"  # none | full ('dots' is not ported)
+    optimizer: str = "adamw"  # adamw ('adafactor' is not ported)
 
     @property
     def vocab_padded(self) -> int:

@@ -45,7 +45,8 @@ def _shrink_segments(segments, max_units: int = 1):
 
 
 def smoke_config(name: str) -> ArchConfig:
-    """Tiny same-family config: one step must run on the CPU."""
+    """Tiny same-family config: one forward or train step must run on the
+    CPU."""
     full = get_config(name)
     kw = dict(
         d_model=64,
@@ -55,6 +56,8 @@ def smoke_config(name: str) -> ArchConfig:
         segments=_shrink_segments(full.segments),
         attn_chunk=16,
         param_dtype="float32",
+        remat="none",
+        optimizer="adamw",
     )
     if full.n_kv == 1:
         kw.update(n_heads=4, n_kv=1, d_head=16)  # keep MQA

@@ -13,12 +13,16 @@ Built-in candidates, by op kind (layouts in ``core/opkey.py``):
         XLA_TNN     materialised B^T (torch), then torch.matmul
         PALLAS_NT   the direct NT CUDA kernel (csrc/matmul.cu)
         PALLAS_TNN  the transpose kernel + the NN kernel (the paper's TNN)
+        PALLAS_TNN_FUSED  one kernel reading B in its stored layout
+                    (csrc/matmul_tnn_fused.cu)
   NN    XLA_NN      torch.matmul
         PALLAS_NN   the NN CUDA kernel
   TN    XLA_TN      torch.matmul on A^T, no materialised transpose
         PALLAS_TN   the transpose kernel + the NN kernel
   BNT   XLA_BNT     torch.bmm with B^T
+        PALLAS_BNT  the batched NT CUDA kernel (csrc/matmul_batched.cu)
   BNN   XLA_BNN     torch.bmm
+        PALLAS_BNN  the batched NN CUDA kernel
   ATTN  UNFUSED_ATTN  batched logits, f32 softmax, batched mix (torch)
         FUSED_ATTN    the fused attention CUDA kernel
 
@@ -27,9 +31,6 @@ its non-kernel references; here they are plain PyTorch calls, which is
 cuBLAS on the card.  The ``PALLAS_*`` names and ``FUSED_ATTN`` are the
 ported kernels: each launches its CUDA kernel for a CUDA operand, runs
 its plain version for a CPU operand, and raises on anything else.
-``PALLAS_TNN_FUSED``, ``PALLAS_BNT`` and ``PALLAS_BNN`` are not
-registered until their kernels are ported (ROADMAP queue B), so a spec
-naming them fails with the unknown-candidate error.
 """
 
 from __future__ import annotations
@@ -206,6 +207,13 @@ def _pallas_tnn(a, b, block=None):
     return ops.matmul_tnn(a, b, block=block)
 
 
+@register_candidate("PALLAS_TNN_FUSED", tunable=True)
+def _pallas_tnn_fused(a, b, block=None):
+    from repro_torch.kernels import ops
+
+    return ops.matmul_tnn_fused(a, b, block=block)
+
+
 @register_candidate("PALLAS_NN", tunable=True, ops=("NN",))
 def _pallas_nn(a, b, block=None):
     from repro_torch.kernels import ops
@@ -220,6 +228,20 @@ def _pallas_tn(a, b, block=None):
     return ops.matmul_tn(a, b, block=block)
 
 
+@register_candidate("PALLAS_BNT", tunable=True, ops=("BNT",))
+def _pallas_bnt(a, b, block=None):
+    from repro_torch.kernels import ops
+
+    return ops.matmul_bnt(a, b, block=block)
+
+
+@register_candidate("PALLAS_BNN", tunable=True, ops=("BNN",))
+def _pallas_bnn(a, b, block=None):
+    from repro_torch.kernels import ops
+
+    return ops.matmul_bnn(a, b, block=block)
+
+
 @register_candidate(
     "FUSED_ATTN", tunable=True, ops=("ATTN",), arity=3, config_arity=2
 )
@@ -232,12 +254,15 @@ def _fused_attn(q, k, v, block=None):
 # the paper's binary setting (the forward op)
 PAPER_PAIR: Tuple[str, str] = ("XLA_NT", "XLA_TNN")
 
-# Per-op binary pairs (direct arm, alternative arm), restricted to the
-# registered names: BNT and BNN have no registered kernel arm yet.
+# Per-op binary pairs (direct arm, alternative arm): the paper's NT-vs-TNN
+# dichotomy carried over to the backward GEMMs and the attention
+# contractions.
 BINARY_PAIRS_BY_OP: Dict[str, Tuple[str, str]] = {
     "NT": PAPER_PAIR,
     "NN": ("XLA_NN", "PALLAS_NN"),
     "TN": ("XLA_TN", "PALLAS_TN"),
+    "BNT": ("XLA_BNT", "PALLAS_BNT"),
+    "BNN": ("XLA_BNN", "PALLAS_BNN"),
     "ATTN": ("UNFUSED_ATTN", "FUSED_ATTN"),
 }
 

@@ -1,5 +1,5 @@
 """The dispatch engine: every GEMM and attention block of the model lands
-here, forward only.
+here, forward and backward.
 
 ``dispatch(op, a, b)`` computes one dense-layer GEMM -- ``"NT"``
 (``a @ b^T``), ``"NN"`` (``a @ b``) or ``"TN"`` (``a^T @ b``) -- through
@@ -10,12 +10,34 @@ answers the whole ``softmax(mask(Q K^T)) V`` subgraph with one plan: the
 fused kernel (``FUSED_ATTN``) or the unfused plan, whose BNT and BNN
 sub-GEMMs dispatch under their own keys.
 
+All three entry points are differentiable through
+``torch.autograd.Function``s that mirror the JAX package's ``custom_vjp``
+rules op for op (``_GRADS`` and ``_DispatchAttn``), and every gradient
+GEMM re-enters ``_run``/``_run3``, so the policy in scope when the
+backward runs selects it and ``dispatch_report`` counts it:
+
+  NT  dA = G @ B (NN),      dB = G^T @ A (TN)
+  NN  dA = G @ B^T (NT),    dB = A^T @ G (TN)
+  TN  dA = B @ G^T (NT),    dB = A @ G (NN)
+  BNT dA = G @ B (BNN),     dB = G^T @ A (BNN of the swapped cotangent)
+  BNN dA = G @ B^T (BNT),   dB = A^T @ G (BNN of the swapped operand)
+  ATTN  flash backward: q, k, v and lengths are saved, never the
+        probabilities; the softmax (softcap included) is recomputed and
+        dV, dP, dQ, dK go through four batched dispatches in f32, after
+        the recomputed logits' BNT.
+
+Wrap the forward and ``backward()`` in one ``use_policy`` block, as the
+JAX package wraps ``value_and_grad``.  The autograd engine runs the
+backward of CUDA tensors on a thread of its own, which re-enters the
+forward's block while it is open (``policy.resume_scope``); a backward
+after its block closed, with no other in scope, raises.  First-order
+gradients only, as ``custom_vjp``.
+
 PyTorch runs eagerly, so the policy selects on every call (the JAX
 engine selects once per key at trace time); ``dispatch_report`` counts
 calls.  A failing candidate raises: the JAX engine's fault-fallback
 chain is not in this slice (ROADMAP queue A, item 4, with ``faults.py``),
 so a kernel fault on the card can never hide behind a fallback.
-Gradients are not in this slice either (ROADMAP queue A, item 1).
 """
 
 from __future__ import annotations
@@ -35,6 +57,8 @@ from .policy import (
     FixedPolicy,
     SelectionPolicy,
     current_policy,
+    current_scope,
+    resume_scope,
     use_policy,
 )
 
@@ -135,6 +159,43 @@ def _run3(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return run_decision(key, policy_select(current_policy(), key), a, b)
 
 
+def _swap(x: torch.Tensor) -> torch.Tensor:
+    """The last two axes swapped, materialised: kernels take no views."""
+    return x.transpose(-1, -2).contiguous()
+
+
+# op -> (dA, dB) of C = op(A, B) with cotangent G, as dispatched GEMMs: the
+# JAX engine's _dispatch2_bwd and _dispatch3_bwd.
+_GRADS = {
+    "NT": (lambda a, b, g: _run("NN", g, b), lambda a, b, g: _run("TN", g, a)),
+    "NN": (lambda a, b, g: _run("NT", g, b), lambda a, b, g: _run("TN", a, g)),
+    "TN": (lambda a, b, g: _run("NT", b, g), lambda a, b, g: _run("NN", a, g)),
+    "BNT": (lambda a, b, g: _run3("BNN", g, b), lambda a, b, g: _run3("BNN", _swap(g), a)),
+    "BNN": (lambda a, b, g: _run3("BNT", g, b), lambda a, b, g: _run3("BNN", _swap(a), g)),
+}
+
+
+class _Dispatch(torch.autograd.Function):
+    """One 2-D or batched GEMM, differentiable through ``_GRADS``."""
+
+    @staticmethod
+    def forward(ctx, op, a, b):
+        ctx.op, ctx.scope = op, current_scope()
+        ctx.save_for_backward(a, b)
+        return (_run3 if op in BATCHED_OPS else _run)(op, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.contiguous()
+        grads = [None, None]
+        with resume_scope(ctx.scope):
+            for i, (fn, x) in enumerate(zip(_GRADS[ctx.op], (a, b))):
+                if ctx.needs_input_grad[1 + i]:
+                    grads[i] = fn(a, b, g).to(x.dtype)
+        return None, *grads
+
+
 # ---------------------------------------------------------------------------
 # The attention plan: one ATTN decision spanning the BNT+BNN pair.
 # ---------------------------------------------------------------------------
@@ -201,6 +262,37 @@ def _run_attn(mask: MaskParams, q, k, v, lengths):
     return _unfused_attn_plan(mask, q, k, v, lengths)
 
 
+class _DispatchAttn(torch.autograd.Function):
+    """The attention plan; the backward is ``_dispatch_attn_bwd`` of the
+    JAX engine (flash-style: recompute, never save, the probabilities)."""
+
+    @staticmethod
+    def forward(ctx, mask, q, k, v, lengths):
+        ctx.mask, ctx.scope = mask, current_scope()
+        ctx.save_for_backward(q, k, v, lengths)
+        return _run_attn(mask, q, k, v, lengths)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lengths = ctx.saved_tensors
+        mask = ctx.mask
+        with resume_scope(ctx.scope):
+            s_raw = _attn_logits(q, k)
+            probs = _attn_probs(mask, s_raw, lengths)  # (g, m, n) f32
+            dout32 = dout.float().contiguous()
+            # dV = P^T dO; masked probabilities are 0, so invalid rows get 0
+            dv = _run3("BNN", _swap(probs), dout32)
+            # dP = dO V^T, V zeroed beyond lengths as in the forward mix
+            dp = _run3("BNT", dout32, _zero_invalid_kv(v, lengths).float().contiguous())
+            # softmax vjp: dS = P * (dP - sum(dP * P)); masked entries stay 0
+            ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
+            if mask.softcap:
+                ds = ds * (1.0 - torch.tanh(s_raw / mask.softcap) ** 2)
+            dq = _run3("BNN", ds, k.float())
+            dk = _run3("BNN", _swap(ds), q.float())
+        return None, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
 def dispatch_attention(
     q,
     k,
@@ -225,7 +317,7 @@ def dispatch_attention(
     g)``.  ``causal``, ``window``, ``prefix_len``, ``q_start``/``k_start``,
     ``q_seg`` (row ``r`` sits at ``q_start + r % q_seg``), per-slice
     ``lengths`` and ``softcap`` are plan parameters.  Queries come
-    pre-scaled by ``d_head**-0.5``."""
+    pre-scaled by ``d_head**-0.5``.  Differentiable in q, k and v."""
     if policy is not None:
         with use_policy(policy):
             return dispatch_attention(
@@ -267,7 +359,7 @@ def dispatch_attention(
         q_seg=int(q_seg or 0),
         softcap=float(softcap or 0.0),
     )
-    out = _run_attn(mask, q3, k3, v3, lengths3)
+    out = _DispatchAttn.apply(mask, q3, k3, v3, lengths3)
     return out.reshape(lead + out.shape[-2:])
 
 
@@ -281,7 +373,8 @@ def dispatch(op: str, a, b, policy: Optional[SelectionPolicy] = None):
 
     For NT, ``b`` is a weight in the (out, in) convention, so a dense
     layer's forward pass is the paper's NT operation.  Leading dims of
-    ``a`` flatten for NT/NN.  An explicit ``policy=`` scopes this call."""
+    ``a`` flatten for NT/NN.  An explicit ``policy=`` scopes this call's
+    forward only; the gradients dispatch under the scope of the backward."""
     check_op(op)
     if op == "ATTN":
         raise ValueError(
@@ -293,9 +386,9 @@ def dispatch(op: str, a, b, policy: Optional[SelectionPolicy] = None):
         with use_policy(policy):
             return dispatch(op, a, b)
     if op == "TN":
-        return _run("TN", a.contiguous(), b.contiguous())
+        return _Dispatch.apply("TN", a.contiguous(), b.contiguous())
     lead = a.shape[:-1]
-    out = _run(op, a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous())
+    out = _Dispatch.apply(op, a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous())
     n = b.shape[0] if op == "NT" else b.shape[1]
     return out.reshape(lead + (n,))
 
@@ -330,7 +423,7 @@ def dispatch_batched(op: str, a, b, policy: Optional[SelectionPolicy] = None):
         )
     a3 = a.reshape((-1,) + a.shape[-2:]).contiguous()
     b3 = b.reshape((-1,) + b.shape[-2:]).contiguous()
-    out = _run3(op, a3, b3)
+    out = _Dispatch.apply(op, a3, b3)
     return out.reshape(lead + out.shape[-2:])
 
 

@@ -12,7 +12,10 @@ returns a ``Decision(name, config)``.  This slice ports ``FixedPolicy``
 (single-name and op-qualified forms).  The learned, analytic, cascade
 and autotune policies are ROADMAP queue A, "The selector stack"; so is
 the ambient default policy: outside any ``use_policy`` scope,
-``current_policy()`` raises.
+``current_policy()`` raises.  A gradient is selected under the scope in
+which the backward runs: wrap the forward and ``backward()`` in one
+``use_policy`` block (``resume_scope`` says how the autograd engine's
+device threads find it).
 
 PyTorch runs eagerly, so a policy selects on every call (JAX selects
 once per key at trace time).  ``stats`` counts every call.
@@ -36,8 +39,11 @@ __all__ = [
     "SelectionPolicy",
     "PolicyBase",
     "FixedPolicy",
+    "PolicyScope",
     "use_policy",
     "current_policy",
+    "current_scope",
+    "resume_scope",
 ]
 
 
@@ -179,24 +185,43 @@ class FixedPolicy(PolicyBase):
 
 # -- context scoping ----------------------------------------------------------
 
-_POLICY: contextvars.ContextVar[Optional[SelectionPolicy]] = contextvars.ContextVar(
-    "repro_torch_selection_policy", default=None
+
+class PolicyScope:
+    """One ``use_policy`` block: its policy, and whether it is still open.
+    The backward of a dispatched op and the recompute of a checkpointed
+    unit keep the scope their forward ran under (``resume_scope``)."""
+
+    __slots__ = ("policy", "open")
+
+    def __init__(self, policy: SelectionPolicy):
+        self.policy = policy
+        self.open = True
+
+
+_SCOPE: contextvars.ContextVar[Optional[PolicyScope]] = contextvars.ContextVar(
+    "repro_torch_policy_scope", default=None
 )
+
+
+def current_scope() -> Optional[PolicyScope]:
+    """The innermost open ``use_policy`` block of this thread, or None."""
+    return _SCOPE.get()
 
 
 def current_policy() -> SelectionPolicy:
     """The policy in scope: the innermost ``use_policy``.  There is no
     ambient default in this slice (the learned default policy is ROADMAP
     queue A, "The selector stack"), so no scope is an error."""
-    pol = _POLICY.get()
-    if pol is None:
+    scope = _SCOPE.get()
+    if scope is None:
         raise RuntimeError(
             "no dispatch policy in scope: wrap the call in "
             "use_policy(FixedPolicy(...)) or use_policy(policy_from_spec("
-            "'fixed:...')); the default learned policy is not ported yet "
+            "'fixed:...')) -- for training, around the forward and the "
+            "backward both; the default learned policy is not ported yet "
             "(ROADMAP.md queue A, 'The selector stack')"
         )
-    return pol
+    return scope.policy
 
 
 @contextlib.contextmanager
@@ -206,8 +231,30 @@ def use_policy(policy) -> Iterator[SelectionPolicy]:
     ``FixedPolicy``).  Nesting restores the outer policy on exit."""
     if isinstance(policy, str):
         policy = FixedPolicy(policy)
-    token = _POLICY.set(policy)
+    scope = PolicyScope(policy)
+    token = _SCOPE.set(scope)
     try:
         yield policy
     finally:
-        _POLICY.reset(token)
+        scope.open = False
+        _SCOPE.reset(token)
+
+
+@contextlib.contextmanager
+def resume_scope(scope: Optional[PolicyScope]) -> Iterator[None]:
+    """Run a backward (or a checkpoint's recompute) under the policy in
+    scope in this thread, as the JAX package selects under the scope that
+    wraps ``value_and_grad``.  A thread with no policy in scope -- the
+    autograd engine runs the backward of CUDA tensors on a device thread
+    of its own, which does not see the caller's context variables --
+    re-enters ``scope``, the block the forward ran under, if that block is
+    still open.  Otherwise nothing is entered, and dispatch raises as it
+    does with no scope."""
+    if _SCOPE.get() is None and scope is not None and scope.open:
+        token = _SCOPE.set(scope)
+        try:
+            yield
+        finally:
+            _SCOPE.reset(token)
+    else:
+        yield

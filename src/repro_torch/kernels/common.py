@@ -41,6 +41,9 @@ LAUNCHES: Dict[str, int] = {
     "matmul_nn": 0,
     "matmul_nt": 0,
     "attention_fused": 0,
+    "matmul_tnn_fused": 0,
+    "matmul_bnt": 0,
+    "matmul_bnn": 0,
 }
 
 

@@ -5,6 +5,9 @@ kernel arms call these).
   matmul_nt    C = A @ B^T    direct NT, tile turned around in shared memory
   matmul_tnn   C = A @ B^T    the paper's TNN: transpose kernel + NN kernel
   matmul_tn    C = A^T @ B    weight-gradient TN: transpose kernel + NN kernel
+  matmul_tnn_fused  C = A @ B^T  one kernel consuming B's stored layout
+  matmul_bnt   C_i = A_i @ B_i^T  batched NT (attention logits, dP)
+  matmul_bnn   C_i = A_i @ B_i    batched NN (probs @ V, dQ, dK, dV)
   transpose    B^T            out-of-place, bandwidth-bound
 
 The two-kernel schedules take an optional ``tblock=(b_rows, b_cols)`` for
@@ -19,11 +22,14 @@ from typing import Optional, Tuple
 import torch
 
 from .common import validate_config
+from .matmul_batched import matmul_bnn, matmul_bnt
 from .matmul_nn import matmul_nn
 from .matmul_nt import matmul_nt
+from .matmul_tnn_fused import matmul_tnn_fused
 from .transpose import transpose
 
-__all__ = ["transpose", "matmul_nn", "matmul_nt", "matmul_tnn", "matmul_tn"]
+__all__ = ["transpose", "matmul_nn", "matmul_nt", "matmul_tnn", "matmul_tn",
+           "matmul_tnn_fused", "matmul_bnt", "matmul_bnn"]
 
 
 def matmul_tnn(

@@ -16,6 +16,9 @@ __all__ = [
     "matmul_nt",
     "matmul_tn",
     "matmul_tnn",
+    "matmul_tnn_fused",
+    "matmul_bnt",
+    "matmul_bnn",
     "attention_visibility",
     "attention_fused",
 ]
@@ -41,8 +44,22 @@ def matmul_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float().t(), b.float()).to(a.dtype)
 
 
-# TNN computes the same function as NT; only the schedule differs.
+# TNN and fused TNN compute the same function as NT; only the schedule
+# differs.
 matmul_tnn = matmul_nt
+matmul_tnn_fused = matmul_nt
+
+
+def matmul_bnt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C_i = A_i @ B_i^T with A:(g,m,k), B:(g,n,k) -> (g,m,n); accumulate in
+    f32."""
+    return torch.bmm(a.float(), b.float().transpose(1, 2)).to(a.dtype)
+
+
+def matmul_bnn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C_i = A_i @ B_i with A:(g,m,k), B:(g,k,n) -> (g,m,n); accumulate in
+    f32."""
+    return torch.bmm(a.float(), b.float()).to(a.dtype)
 
 
 def attention_visibility(mask, lengths: torch.Tensor, m: int, n: int) -> torch.Tensor:

@@ -85,7 +85,7 @@ def _class_policies(args, parser):
         parser.error(str(e))
 
 
-def _config(args):
+def config_from_args(args):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = cfg.replace(segments=tuple(
@@ -100,7 +100,7 @@ def _engine_main(args, parser):
     from repro_torch.serving import QueueFullError, ServeEngine
 
     device = resolve_device(args.device)
-    cfg = _config(args)
+    cfg = config_from_args(args)
     policies = _class_policies(args, parser)
     max_seq = args.max_seq or (args.prompt_len + args.gen)
     params = lm.init_lm(args.seed, cfg, device=device)

@@ -32,6 +32,7 @@ __all__ = [
     "softcap",
     "init_gated_mlp",
     "gated_mlp",
+    "cross_entropy_loss",
 ]
 
 Param = Dict[str, Any]
@@ -118,3 +119,22 @@ def gated_mlp(p: Param, x: torch.Tensor, activation: str = "gelu") -> torch.Tens
     act = F.gelu(g, approximate="tanh") if activation == "gelu" else F.silu(g)
     h = act * dense(p["up"], x)
     return dense(p["down"], h)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    z_loss: float = 0.0,
+) -> torch.Tensor:
+    """Mean next-token CE in f32; ``mask`` zeroes ignored positions."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(logz)
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -5,7 +5,10 @@ them).  Entry points:
   init_lm        seeded random params, the JAX package's tree and
                  distributions (weights differ: torch.Generator is not
                  jax.random; ``repro_torch.convert`` carries JAX weights over)
-  lm_forward     full-sequence logits
+  lm_forward     full-sequence logits; ``cfg.remat == "full"`` checkpoints
+                 each layer unit, so its forward GEMMs run again in the
+                 backward (``jax.checkpoint`` in the JAX package)
+  lm_loss        mean next-token cross-entropy of ``lm_forward``
   lm_prefill     forward that also emits the decode cache
   lm_decode      one-token step against a cache, updated in place
   init_lm_cache  zero cache with the tree lm_prefill produces
@@ -13,11 +16,14 @@ them).  Entry points:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.core.policy import current_scope, resume_scope
 
 from .blocks import (
     apply_block,
@@ -26,9 +32,18 @@ from .blocks import (
     init_block_cache,
     prefill_block,
 )
-from .layers import Param, embed, init_embedding, init_rmsnorm, rmsnorm, softcap, unembed
+from .layers import (
+    Param,
+    cross_entropy_loss,
+    embed,
+    init_embedding,
+    init_rmsnorm,
+    rmsnorm,
+    softcap,
+    unembed,
+)
 
-__all__ = ["init_lm", "lm_forward", "lm_prefill", "lm_decode", "init_lm_cache"]
+__all__ = ["init_lm", "lm_forward", "lm_loss", "lm_prefill", "lm_decode", "init_lm_cache"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -79,6 +94,44 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, count: int):
+    """The ``count`` layers of a stacked tree, as one tree per layer; a
+    single ``unbind`` per leaf, whose backward stacks the layer gradients
+    in one op."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
+    return list(torch.unbind(tree))
+
+
+def _remat_contexts():
+    """Checkpoint contexts: nothing around the forward; around the
+    recompute, the policy scope the forward ran under (the recompute runs
+    in the backward, on the autograd engine's thread)."""
+    return contextlib.nullcontext(), resume_scope(current_scope())
+
+
+def _remat_wrap(fn, cfg):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the dots, recompute the rest) is not ported "
+            "(ROADMAP.md queue A); use 'full' or 'none'"
+        )
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+
+    def wrapped(x, *args):
+        # 'full': save only unit boundaries; the model draws no random numbers
+        return torch.utils.checkpoint.checkpoint(
+            fn, x, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=_remat_contexts,
+        )
+
+    return wrapped
+
+
 def _embed_input(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     if cfg.input_mode != "tokens":
         raise NotImplementedError(f"input_mode {cfg.input_mode!r} is not ported")
@@ -94,10 +147,24 @@ def _logits(params: Param, cfg, x: torch.Tensor) -> torch.Tensor:
 def lm_forward(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     x = _embed_input(params, cfg, batch)
     for (count, blocks), slot_params in zip(cfg.segments, params["segments"]):
+        def unit(h, unit_params, _blocks=blocks):
+            for b, bp in zip(_blocks, unit_params):
+                h = apply_block(bp, h, b, cfg)
+            return h
+
+        body = _remat_wrap(unit, cfg)
+        layers = [_unstack(sp, count) for sp in slot_params]
         for i in range(count):
-            for b, sp in zip(blocks, slot_params):
-                x = apply_block(_index(sp, i), x, b, cfg)
+            x = body(x, tuple(per_slot[i] for per_slot in layers))
     return _logits(params, cfg, x)
+
+
+def lm_loss(params: Param, cfg, batch: Dict[str, torch.Tensor]):
+    """(mean next-token cross-entropy, {"loss": it}); ``batch`` holds
+    ``tokens`` and ``labels`` and may hold a ``loss_mask``."""
+    logits = lm_forward(params, cfg, batch)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"loss": loss}
 
 
 # -- prefill ------------------------------------------------------------------

@@ -38,12 +38,16 @@ def J():
     from repro.kernels import ref as jref
     from repro.kernels.attention_fused import MaskParams as JMask
     from repro.kernels.attention_fused import attention_fused as attention
+    from repro.kernels.matmul_batched import matmul_bnn as bnn
+    from repro.kernels.matmul_batched import matmul_bnt as bnt
     from repro.kernels.matmul_nn import matmul_nn as nn
     from repro.kernels.matmul_nt import matmul_nt as nt
+    from repro.kernels.matmul_tnn_fused import matmul_tnn_fused as tnn_fused
     from repro.kernels.transpose import transpose
 
     return types.SimpleNamespace(jnp=jnp, ref=jref, Mask=JMask, attention=attention,
-                                 nn=nn, nt=nt, transpose=transpose)
+                                 nn=nn, nt=nt, transpose=transpose, tnn_fused=tnn_fused,
+                                 bnt=bnt, bnn=bnn)
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -118,6 +122,55 @@ def test_matmul_nt_and_tnn_plain_match_pallas(J, m, n, k, dtype_name):
         np.testing.assert_allclose(_np(out), want, **_tol(dtype_name, k))
 
 
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_matmul_tnn_fused_plain_matches_pallas(J, m, n, k, dtype_name):
+    rng = np.random.RandomState(5 * m + 3 * n + k)
+    (ja, ta), (jb, tb) = (_pair(J, rng.randn(*s).astype(np.float32), dtype_name)
+                          for s in ((m, k), (n, k)))
+    out = ops.matmul_tnn_fused(ta, tb)
+    assert out.shape == (m, n) and out.dtype == ta.dtype
+    np.testing.assert_allclose(_np(out), _np(J.tnn_fused(ja, jb, interpret=True)),
+                               **_tol(dtype_name, k))
+    np.testing.assert_allclose(_np(out), _np(J.ref.matmul_tnn_fused(ja, jb)),
+                               **_tol(dtype_name, k))
+
+
+BATCHED_SHAPES = ((1, 1, 127, 129), (3, 127, 1, 33), (2, 65, 129, 17), (5, 3, 70, 64))
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("g,m,n,k", BATCHED_SHAPES)
+@pytest.mark.parametrize("op", ["bnt", "bnn"])
+def test_matmul_batched_plain_matches_pallas(J, op, g, m, n, k, dtype_name):
+    rng = np.random.RandomState(g + 7 * m + 3 * n + k)
+    b_shape = (g, n, k) if op == "bnt" else (g, k, n)
+    (ja, ta), (jb, tb) = (_pair(J, rng.randn(*s).astype(np.float32), dtype_name)
+                          for s in ((g, m, k), b_shape))
+    out = getattr(ops, f"matmul_{op}")(ta, tb)
+    assert out.shape == (g, m, n) and out.dtype == ta.dtype
+    np.testing.assert_allclose(_np(out), _np(getattr(J, op)(ja, jb, interpret=True)),
+                               **_tol(dtype_name, k))
+    np.testing.assert_allclose(_np(out), _np(getattr(J.ref, f"matmul_{op}")(ja, jb)),
+                               **_tol(dtype_name, k))
+
+
+@pytest.mark.parametrize("make", [
+    lambda: (torch.zeros(2, 4, 8), torch.zeros(3, 6, 8)),  # batch mismatch
+    lambda: (torch.zeros(2, 4, 8), torch.zeros(2, 6, 7)),  # contraction mismatch
+    lambda: (torch.zeros(4, 8), torch.zeros(6, 8)),  # 2-D
+    lambda: (torch.zeros(2, 8, 4).transpose(1, 2), torch.zeros(2, 6, 8)),  # a view
+])
+def test_batched_wrappers_reject_what_the_kernel_does_not_take(make):
+    a, b = make()
+    with pytest.raises((TypeError, ValueError)):
+        ops.matmul_bnt(a, b)
+    with pytest.raises((TypeError, ValueError)):
+        ops.matmul_bnn(a, b.transpose(-1, -2).contiguous())
+    with pytest.raises(ValueError):
+        ops.matmul_bnt(torch.zeros(1, 2, 8), torch.zeros(1, 3, 8), block=(8, 8))
+
+
 def test_matmul_tn_plain_matches_ref(J):
     rng = np.random.RandomState(5)
     (ja, ta), (jb, tb) = (_pair(J, rng.randn(*s).astype(np.float32), "float32")
@@ -133,6 +186,8 @@ def test_gemm_tile_configs_are_validated(bad):
         ops.matmul_nt(a, a, block=bad)
     with pytest.raises(ValueError):
         ops.matmul_tnn(a, a, block=bad)
+    with pytest.raises(ValueError):
+        ops.matmul_tnn_fused(a, a, block=bad)
 
 
 @pytest.mark.parametrize("make", [
@@ -151,6 +206,9 @@ def test_cpu_route_launches_nothing():
     reset_launches()
     a = torch.randn(4, 8)
     ops.matmul_tnn(a, torch.randn(6, 8))
+    ops.matmul_tnn_fused(a, torch.randn(6, 8))
+    ops.matmul_bnt(torch.randn(2, 3, 8), torch.randn(2, 5, 8))
+    ops.matmul_bnn(torch.randn(2, 3, 8), torch.randn(2, 8, 5))
     attention_fused(torch.randn(2, 3, 8), torch.randn(2, 5, 8), torch.randn(2, 5, 8))
     assert not any(LAUNCHES.values())
 
@@ -259,3 +317,72 @@ def test_attention_kernel_matches_plain_on_card(cuda, mask_name, dtype):
     bound = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(attention_fused(q, k, v, lengths, mask=mask).float(),
                                want.float(), rtol=bound, atol=bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES + ((2048, 192, 576), (8, 1536, 576),
+                                                 (130, 49152, 576), (2048, 576, 1536)))
+def test_tnn_fused_kernel_matches_plain_on_card(cuda, m, n, k, dtype):
+    dt = getattr(torch, dtype)
+    a, w = torch.randn(m, k, device=cuda).to(dt), torch.randn(n, k, device=cuda).to(dt)
+    reset_launches()
+    out = ops.matmul_tnn_fused(a, w)
+    assert LAUNCHES["matmul_tnn_fused"] == 1
+    torch.testing.assert_close(out.float(), ref.matmul_nt(a, w).float(), **_tol(dtype, k))
+    # an operand that starts 2 bytes past an aligned address takes the scalar loads
+    a_odd = torch.randn(m * k + 1, device=cuda).to(dt)[1:].view(m, k)
+    torch.testing.assert_close(ops.matmul_tnn_fused(a_odd, w).float(),
+                               ref.matmul_nt(a_odd, w).float(), **_tol(dtype, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,m,n,k", BATCHED_SHAPES + ((24, 768, 256, 64), (24, 256, 64, 768),
+                                                      (12, 3, 512, 64)))
+def test_batched_kernels_match_plain_on_card(cuda, g, m, n, k, dtype):
+    dt = getattr(torch, dtype)
+    a = torch.randn(g, m, k, device=cuda).to(dt)
+    b_nt = torch.randn(g, n, k, device=cuda).to(dt)
+    b_nn = b_nt.transpose(1, 2).contiguous()
+    reset_launches()
+    tol = _tol(dtype, k)
+    torch.testing.assert_close(ops.matmul_bnt(a, b_nt).float(), ref.matmul_bnt(a, b_nt).float(),
+                               **tol)
+    torch.testing.assert_close(ops.matmul_bnn(a, b_nn).float(), ref.matmul_bnn(a, b_nn).float(),
+                               **tol)
+    assert LAUNCHES["matmul_bnt"] == LAUNCHES["matmul_bnn"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [
+    "fixed:nt=PALLAS_TNN_FUSED,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,bnn=PALLAS_BNN,attn=fused",
+    "fixed:nt=PALLAS_TNN,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,bnn=PALLAS_BNN,attn=unfused",
+])
+def test_training_gradients_on_card_match_the_cpu(cuda, spec):
+    """The backward of CUDA tensors runs on the autograd engine's own
+    thread: it must find the policy scope (and so launch the kernels),
+    including in the recompute of checkpointed units.  f32, smoke size:
+    the card's kernels against the CPU's plain versions, 1e-4 relative."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    cfg = smoke_config("smollm-135m").replace(remat="full")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(0)),
+             "labels": torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = lm.init_lm(0, cfg, device=dev)
+        reset_launches()
+        out[dev] = loss_and_grads(cfg, params, {k: v.to(dev) for k, v in batch.items()},
+                                  policy_from_spec(spec))
+        if dev == "cuda":
+            used = {k for k, v in LAUNCHES.items() if v}
+            assert {"matmul_nn", "transpose", "matmul_bnt", "matmul_bnn"} <= used, LAUNCHES
+    (loss_c, g_c), (loss_g, g_g) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(g_g), tree_leaves(g_c)):
+        assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm()) + 1e-12

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import PagedKVCache, ServeEngine  # noqa: E402
 
@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops, "
         "repro_torch.kernels.attention_fused, repro_torch.models.lm, "
-        "repro_torch.serving, repro_torch.launch.serve, repro_torch.convert\n"
+        "repro_torch.serving, repro_torch.launch.serve, repro_torch.convert, "
+        "repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint, "
+        "repro_torch.data\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"
@@ -82,6 +84,24 @@ def test_entry_points_raise_on_cuda_without_a_card(no_card):
 def test_launcher_rejects_what_this_slice_does_not_serve(argv):
     with pytest.raises(SystemExit):
         serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu"] + argv)
+
+
+def test_train_launcher_raises_on_cuda_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1",
+                    "--policy", "fixed:XLA_NT"])
+
+
+@pytest.mark.parametrize("argv", [["--chaos", "raise:*"], ["--mesh", "2x4"]])
+def test_train_launcher_rejects_what_this_slice_does_not_train(argv):
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1",
+                    "--policy", "fixed:XLA_NT"] + argv)
+
+
+def test_train_launcher_default_policy_names_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1"])
 
 
 def test_launcher_serves_on_cpu_and_returns_the_engine(capsys):
