@@ -10,7 +10,10 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   3. kernels  each CUDA kernel against its plain PyTorch version at the
               serving shapes, in f32 and bf16, with CUDA-event times of the
               kernel, the plain version and one library call (a yardstick
-              only), and the datasheet bound of the same work
+              only), the profiler's device time of the kernel and the
+              library call, the variant that ran, and the datasheet bound
+              of the same work; the two bf16 NT kernels redesigned for
+              Hopper are timed beside the kernels they replaced
   4. serve    repro_torch.launch.serve.main on smollm-135m at full config
               in bf16: class interactive under fixed:nt=PALLAS_TNN,attn=fused,
               class bulk under fixed:nt=PALLAS_NT,attn=fused, then the same
@@ -84,7 +87,7 @@ CUBLAS_POLICY = "fixed:XLA_NT"
 KERNEL_SOURCES = {
     "transpose": ("src/repro_torch/csrc/transpose.cu", "src/repro/kernels/transpose.py:64"),
     "matmul_nn": ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul_nn.py:77"),
-    "matmul_nt": ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul_nt.py:81"),
+    "matmul_nt": ("src/repro_torch/csrc/matmul_nt.cu", "src/repro/kernels/matmul_nt.py:81"),
     "attention_fused": ("src/repro_torch/csrc/attention_fused.cu",
                         "src/repro/kernels/attention_fused.py:338"),
     "matmul_tnn_fused": ("src/repro_torch/csrc/matmul_tnn_fused.cu",
@@ -162,6 +165,31 @@ def time_ms(fn, iters=30, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def dev_us(event) -> float:
+    return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, iters=20) -> float:
+    """Mean device time of the kernels one call of ``fn`` launches, from
+    torch.profiler: the host's launch cost, which ``time_ms`` includes when
+    the host is slower than the card, left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(dev_us(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+        if total > 0:
+            break
+    return total / iters / 1e3
+
+
 def bound(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -197,17 +225,21 @@ def kernel_cases(torch):
     for dt in (torch.bfloat16, torch.float32):
         for n, k in ((49152, 576), (1536, 576)):
             cases.append(("transpose", f"({n},{k})", dt, {"b": randn(n, k, dtype=dt)}))
-        # decode LM head / MLP up at batch 8, and a 64-token prefill
-        for m, n, k in ((8, 49152, 576), (8, 1536, 576), (64, 1536, 576), (64, 576, 1536)):
+        # decode LM head / MLP up at batch 8, a 64-token prefill, and every
+        # projection of a decode step at bucket 4 (k/v, q/o, MLP down, LM head)
+        for m, n, k in ((8, 49152, 576), (8, 1536, 576), (64, 1536, 576), (64, 576, 1536),
+                        (4, 192, 576), (4, 576, 576), (4, 576, 1536), (4, 49152, 576)):
             a, w = randn(m, k, dtype=dt), randn(n, k, dtype=dt)  # unscaled: see tol()
             cases.append(("matmul_nt", f"({m},{k})x({n},{k})^T", dt, {"a": a, "b": w}))
             cases.append(("matmul_nn", f"({m},{k})x({k},{n})", dt,
                           {"a": a, "b": w.t().contiguous()}))
-        # the training path: fused-TNN forwards at 2048 tokens and a decode
-        # shape; the attention backward's batched contractions (batch 8 x
-        # 3 kv heads, 3 heads folded x 256 queries, 256 keys, d_head 64)
-        # and the unfused decode plan's (g 12, m 3, n 512)
-        for m, n, k in ((2048, 49152, 576), (2048, 1536, 576), (8, 1536, 576)):
+        # the training path: fused-TNN forwards at 2048 tokens (LM head, MLP
+        # up, k/v, q/o, MLP down) and a decode shape; the attention
+        # backward's batched contractions (batch 8 x 3 kv heads, 3 heads
+        # folded x 256 queries, 256 keys, d_head 64) and the unfused decode
+        # plan's (g 12, m 3, n 512)
+        for m, n, k in ((2048, 49152, 576), (2048, 1536, 576), (2048, 192, 576),
+                        (2048, 576, 576), (2048, 576, 1536), (8, 1536, 576)):
             cases.append(("matmul_tnn_fused", f"({m},{k})x({n},{k})^T", dt,
                           {"a": randn(m, k, dtype=dt), "b": randn(n, k, dtype=dt)}))
         for name, g, m, n, k in (("matmul_bnt", 24, 768, 256, 64),
@@ -245,6 +277,7 @@ def run_case(torch, name, inp, dt):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.attention_fused import attention_fused
+    from repro_torch.kernels.matmul_tnn_fused import tnn_fused_variant
     from repro_torch.kernels.ops import (
         matmul_bnn,
         matmul_bnt,
@@ -256,6 +289,7 @@ def run_case(torch, name, inp, dt):
 
     dname = str(dt).split(".")[-1]
     ds = torch.finfo(dt).bits // 8
+    variant = None
     if name == "transpose":
         b = inp["b"]
         kern, plain, lib = (lambda: transpose(b)), (lambda: ref.transpose(b)), (lambda: b.t().contiguous())
@@ -268,10 +302,14 @@ def run_case(torch, name, inp, dt):
             kern, plain, lib = (lambda: matmul_nt(a, b)), (lambda: ref.matmul_nt(a, b)), \
                 (lambda: torch.matmul(a, b.t()))
             n = b.shape[0]
+            variant = nt_variant(torch, a, b)
         elif name == "matmul_tnn_fused":
             kern, plain, lib = (lambda: matmul_tnn_fused(a, b)), \
                 (lambda: ref.matmul_tnn_fused(a, b)), (lambda: torch.matmul(a, b.t()))
             n = b.shape[0]
+            v, bn = tnn_fused_variant(dt, a.shape[0], n, a.shape[1], a.data_ptr(),
+                                      b.data_ptr())
+            variant = f"wgmma 128x{bn}" if v == "wgmma" else f"{v} 64x64"
         else:
             kern, plain, lib = (lambda: matmul_nn(a, b)), (lambda: ref.matmul_nn(a, b)), \
                 (lambda: torch.matmul(a, b))
@@ -314,12 +352,55 @@ def run_case(torch, name, inp, dt):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err, ok = compare(out, want, rtol, atol)
+    prev = replaced_kernel(torch, name, inp["a"], inp["b"]) if "a" in inp else None
+    if prev is not None:  # the replaced kernel must still agree, or its times mean nothing
+        ok = ok and compare(prev(), want, rtol, atol)[1]
     return {
-        "err": err, "ok": ok, "rtol": rtol, "atol": atol,
+        "variant": variant, "err": err, "ok": ok, "rtol": rtol, "atol": atol,
         "ms": time_ms(kern), "plain_ms": time_ms(plain),
         "library_ms": time_ms(lib) if lib is not None else None,
+        "device_ms": device_ms(kern),
+        "library_device_ms": device_ms(lib) if lib is not None else None,
+        "replaced_ms": time_ms(prev) if prev is not None else None,
+        "replaced_device_ms": device_ms(prev) if prev is not None else None,
         "bound_ms": b_ms, "bound_by": by,
     }
+
+
+def replaced_kernel(torch, name, a, b):
+    """For the two bf16 kernels redesigned for Hopper, a call of the kernel
+    each replaced (still built: the NT instance of csrc/matmul.cu and the
+    mma.sync variant of csrc/matmul_tnn_fused.cu), launched directly
+    without the wrapper's checks; else None."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul_nn import launch_matmul
+
+    if a.dtype != torch.bfloat16 or name not in ("matmul_nt", "matmul_tnn_fused"):
+        return None
+    (m, k), n = a.shape, b.shape[0]
+    if name == "matmul_nt":
+        return lambda: launch_matmul(a, b, m, n, k, b_stored_nk=True)
+
+    def mma_sync():
+        c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        _build.launch("matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a),
+                      _build.ptr(b), _build.ptr(c), m, n, k, _build.dtype_code(a.dtype),
+                      _build.stream_of(a))
+        return c
+
+    return mma_sync
+
+
+def nt_variant(torch, a, b):
+    """The direct NT kernel a call with these operands launches."""
+    from repro_torch.kernels.matmul_nt import nt_split
+
+    if a.dtype == torch.float32:
+        return "fma (matmul.cu)"
+    m, k = a.shape
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits, _ = nt_split(m, b.shape[0], k, sms)
+    return f"swap-AB mma.sync, split-k {splits}" if splits > 1 else "swap-AB mma.sync"
 
 
 # -- phase 4/5 helpers --------------------------------------------------------
@@ -400,20 +481,20 @@ def busy_profile(torch, step, reps=5):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         synced()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
     # device-side events only: a CPU op's self device time repeats the time
     # of the kernels it launched, which are listed as events of their own
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and dev_us(e) > 0]
-    device_ms = sum(dev_us(e) for e in events) / 1e3
+    kernel_ms = sum(dev_us(e) for e in events) / 1e3
     wall_ms = statistics.median(walls) * 1e3
-    top = sorted(events, key=dev_us, reverse=True)[:6]
+    by_name = {}  # every kernel's device time, by its name without arguments
+    for e in sorted(events, key=dev_us, reverse=True):
+        short = e.key.replace("(anonymous namespace)::", "").split("(", 1)[0]
+        by_name[short] = by_name.get(short, 0.0) + dev_us(e) / 1e3
     return {
-        "wall_ms": wall_ms, "device_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms if device_ms else None,
-        "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top},
+        "wall_ms": wall_ms, "device_ms": kernel_ms,
+        "device_busy_share": kernel_ms / wall_ms if kernel_ms else None,
+        "kernels_ms": by_name,
     }
 
 
@@ -709,8 +790,9 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["err"] for r in rows if r["kernel"] == kname),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": case,
-            "dtype": dtype,
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"], "shape": case,
+            "dtype": dtype, "variant": row["variant"],
         })
     results["kernels"] = kernels
     results["card"] = card

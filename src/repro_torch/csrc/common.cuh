@@ -46,6 +46,69 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
+// Tensor-core helpers shared by the bf16 GEMM kernels.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8x8 b16 matrices; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// D(16 x 8, f32) += A(16 x 16, row-major) . B(16 x 8, column-major), bf16.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Host-side facts a launch needs on every call, looked up once per device.
+constexpr int kMaxDevices = 64;
+
+inline int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
+inline int sm_count() {
+  static int cache[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < kMaxDevices && cache[dev] != 0) return cache[dev];
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < kMaxDevices) cache[dev] = sms;
+  return sms;
+}
+
+// Lets `Kernel` take `bytes` of dynamic shared memory (above the default
+// 48 KB), once per device.
+template <auto Kernel>
+cudaError_t allow_dynamic_smem(int bytes) {
+  static bool done[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return e;
+}
 
 }  // namespace repro

@@ -6,28 +6,48 @@
 // matrix unit with no explicit re-orientation, and walks an n-major grid
 // (j, i, k) so that one B strip stays resident while A streams.
 //
-// The Hopper counterpart, bf16: tensor cores through
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.  The "col" B operand
-// of that instruction is a (k x n) column-major fragment, which is exactly
-// B's stored (n, k) row-major layout: both operand tiles are copied along k
-// into shared memory and kept K-major, and ldmatrix (without .trans) loads
-// the fragments of both from those rows.  Nothing turns B around, in shared
-// memory or anywhere else; that is what separates this arm from the direct
-// NT kernel (csrc/matmul.cu), which transposes each B tile in shared memory.
-// f32: the same K-major tiles feed FMA (no TF32: the port's f32 bound of
-// 1e-5*sqrt(k) needs full f32 products), with one padding column against
-// bank conflicts.
+// The regime: the training forward, m = 2048 tokens, n 192-49152, k 576 or
+// 1536 -- bound by operations (300-600 flop per byte, above the bf16 ridge
+// of ~295).  This is the wide arm of the two NT kernels; the direct NT
+// kernel (csrc/matmul_nt.cu) is the skinny, streaming, split-k one.  On
+// Hopper's tensor cores neither turns B around: B's stored rows are the
+// K-major operand both instructions want.
 //
-// Block order: blockIdx.x walks the m-tiles and blockIdx.y the n-tiles, so
-// consecutive blocks share one B strip, which stays in L2 while the A tiles
-// stream past it -- the Pallas grid's (j, i, k) order.
+// Three variants, picked by the wrapper (kernels/matmul_tnn_fused.py)
+// before the launch, from dtype, shape and alignment:
 //
-// Bound on the H100: at the training shapes (m = 2048 tokens, n 192-49152,
-// k 576 or 1536) operations (about 300-600 flop per byte, above the bf16
-// ridge of ~295); at decode shapes (m <= 8) bytes.  This is the simple
-// version: one 64x64 tile per block of 4 warps, each warp 32x32, loads and
-// compute not overlapped.  cp.async pipelining, then wgmma with TMA, are
-// later work.  Ragged edges load zeros and are masked on the store.
+//   wgmma (bf16, k % 8 == 0, A and B 16-byte aligned).  A persistent grid
+//   of at most one CTA per SM walks the output tiles n-major (consecutive
+//   tiles share one B strip, which stays in L2 while A streams).  CTA tile
+//   128 x BN x 64, BN one of 64, 96, 192, 256: the wrapper picks the width
+//   whose waves of tiles cost least.  A producer warpgroup's one thread issues TMA
+//   loads (cp.async.bulk.tensor.2d, 128-byte swizzle, zero fill outside
+//   the matrix) of both operands, K-major, into a 3-4 stage shared-memory
+//   ring guarded by full/empty mbarriers; two consumer warpgroups, 64 rows
+//   each, run wgmma.mma_async m64nBNk16 with both operands as
+//   shared-memory descriptors and hand each stage back as soon as its
+//   products are done (keeping one group of products in flight measured
+//   no faster: the other warpgroup's products fill the gap).  The epilogue stages each warpgroup's 64 x BN tile
+//   in padded shared memory and writes C with coalesced 16-byte stores,
+//   masked at the ragged edges.  The tensor maps are encoded per call on
+//   the host (the caching allocator reuses addresses) with
+//   cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint.
+//
+//   mma.sync (bf16, any other shape or alignment): one 64x64 tile per
+//   block of 4 warps, mma.sync.aligned.m16n8k16.row.col, whose "col" B
+//   operand (k x n, column-major) is B's stored (n, k) rows; both tiles
+//   are copied along k into shared memory and ldmatrix (no .trans) loads
+//   the fragments.  Loads and compute are not overlapped; unaligned rows
+//   take a zero-filling scalar path.
+//
+//   FMA (f32): the same K-major tiles feed FMA (no TF32: the port's f32
+//   bound of 1e-5*sqrt(k) needs full f32 products), with one padding
+//   column against bank conflicts.
+//
+// The mma.sync and FMA blocks walk the m-tiles along blockIdx.x and the
+// n-tiles along blockIdx.y, so consecutive blocks share one B strip.
+#include <cuda.h>  // CUtensorMap and its enums; the driver call is fetched at run time
+
 #include "common.cuh"
 
 namespace {
@@ -39,25 +59,9 @@ constexpr int kLd = kBK + 8;  // bf16 row stride: 80 bytes, ldmatrix conflict-fr
 constexpr int kMmaThreads = 128;  // 4 warps, 2 x 2 over the tile
 constexpr int kFmaThreads = 256;  // 16 x 16, 4 x 4 outputs each
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using repro::ldmatrix_x4;
+using repro::mma_bf16;
+using repro::smem_addr;
 
 union Chunk {  // 8 bf16 = 16 bytes, one vector load; raw bits
   uint4 v;
@@ -228,6 +232,375 @@ __global__ void __launch_bounds__(kFmaThreads)
   }
 }
 
+
+// -- the wgmma variant ---------------------------------------------------------
+
+constexpr int kWgBM = 128;        // two consumer warpgroups x 64 rows
+constexpr int kWgBK = 64;         // 64 bf16 = 128 bytes, one 128-byte swizzle row
+constexpr int kWgThreads = 384;   // warpgroups 0, 1 consume; warpgroup 2 loads
+constexpr long long kHangCycles = 1LL << 34;  // ~9 s: a lost barrier traps, not hangs
+
+template <int BN>
+struct WgCfg {
+  static constexpr int kStages = BN == 256 ? 3 : 4;
+  static constexpr int kABytes = kWgBM * kWgBK * 2;  // 16 KB
+  static constexpr int kBBytes = BN * kWgBK * 2;
+  static constexpr int kRing = kStages * (kABytes + kBBytes);
+  // epilogue: 64 rows x BN per consumer warpgroup; 16 bytes of padding per
+  // row put the 8 rows of one bf16x2 store in 8 different bank quads
+  static constexpr int kEpiPitch = BN + 8;
+  static constexpr int kEpiBytes = 2 * 64 * kEpiPitch * 2;
+  // 1024 bytes of slack: the 128-byte swizzle wants 1024-byte aligned tiles
+  static constexpr int kSmem = 1024 + kRing + kEpiBytes + 2 * kStages * 8;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A barrier that
+// never completes (a bug, not a slow load) traps after kHangCycles, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > kHangCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile in the 128-byte swizzle
+// layout TMA writes: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO),
+// LBO unused for this layout.  Stepping k by 16 adds 32 bytes to the start.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns the registers.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void named_bar(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// D(64 x N, f32 registers) += A(64 x 16) . B(N x 16)^T, both K-major in
+// shared memory.  Accumulator i of a thread: row 16*warp + lane/4 + 8*((i/2)%2),
+// column 8*(i/4) + 2*(lane%4) + i%2.  One overload per N, by the array size.
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[48], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    tnn_fused_wgmma(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    __nv_bfloat16* __restrict__ c, int m, int n, int k) {
+  using Cfg = WgCfg<BN>;
+  constexpr int S = Cfg::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t a_ring = base;                         // S x 128 rows x 128 B
+  const uint32_t b_ring = base + S * Cfg::kABytes;      // S x BN rows x 128 B
+  __nv_bfloat16* epi =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + (base - raw) + Cfg::kRing);
+  const uint32_t full = base + Cfg::kRing + Cfg::kEpiBytes;  // S barriers of 8 B
+  const uint32_t empty = full + S * 8;
+
+  const int m_tiles = (m + kWgBM - 1) / kWgBM;
+  const int tiles = m_tiles * ((n + BN - 1) / BN);
+  const int nkb = (k + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's arrive + the TMA bytes
+      mbar_init(empty + 8 * s, 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile t covers rows (t % m_tiles) * 128 and columns (t / m_tiles) * BN:
+  // n-major, as the Pallas grid.  Producer and consumers walk the same list.
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t % m_tiles) * kWgBM, n0 = (t / m_tiles) * BN;
+        for (int kb = 0; kb < nkb; ++kb) {
+          mbar_wait(empty + 8 * s, phase ^ 1);  // the first pass finds it free
+          mbar_expect_tx(full + 8 * s, Cfg::kABytes + Cfg::kBBytes);
+          tma_load_2d(a_ring + s * Cfg::kABytes, &map_a, full + 8 * s, kb * kWgBK, m0);
+          tma_load_2d(b_ring + s * Cfg::kBBytes, &map_b, full + 8 * s, kb * kWgBK, n0);
+          if (++s == S) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    __nv_bfloat16* my_epi = epi + wg * 64 * Cfg::kEpiPitch;
+    constexpr int kChunks = BN / 8;  // 16-byte chunks per epilogue row
+    const bool vec_store = (n % 8 == 0);
+    float acc[BN / 2];
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % m_tiles) * kWgBM, n0 = (t / m_tiles) * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(full + 8 * s, phase);
+        fence_regs(acc);
+        wgmma_fence();
+        const uint32_t a_tile = a_ring + s * Cfg::kABytes + wg * 64 * 128;
+        const uint32_t b_tile = b_ring + s * Cfg::kBBytes;
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {
+          wgmma_bf16(acc, sw128_desc(a_tile + kk * 32), sw128_desc(b_tile + kk * 32));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (tid == 0) mbar_arrive(empty + 8 * s);  // the slot is free for the next load
+        if (++s == S) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      // epilogue: registers -> padded shared tile -> 16-byte stores
+      named_bar(1 + wg);  // the previous tile's stores have read the buffer
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int row = warp * 16 + lane / 4, col = j * 8 + (lane % 4) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(&my_epi[row * Cfg::kEpiPitch + col]) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(&my_epi[(row + 8) * Cfg::kEpiPitch + col]) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      named_bar(1 + wg);
+      for (int idx = tid; idx < 64 * kChunks; idx += 128) {
+        const int r = idx / kChunks, ch = idx % kChunks;
+        const int gr = m0 + wg * 64 + r, gc = n0 + ch * 8;
+        if (gr >= m || gc >= n) continue;
+        const __nv_bfloat16* src = &my_epi[r * Cfg::kEpiPitch + ch * 8];
+        __nv_bfloat16* dst = c + static_cast<size_t>(gr) * n + gc;
+        if (vec_store) {  // n % 8 == 0: the chunk is inside and 16-byte aligned
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (gc + e < n) dst[e] = src[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// -- host side of the wgmma variant ----------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call; the library links only the
+// runtime, so it asks the runtime for the driver's entry point (whose
+// lookup call changed its signature in CUDA 12.5).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, k) row-major bf16 matrix, read in boxes of 64 k x box_rows rows
+// with the 128-byte swizzle; reads outside the matrix fill zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kWgBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* a, const void* b, void* c, int m, int n, int k,
+                         cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  if (!encode_map(&map_a, a, m, k, kWgBM) || !encode_map(&map_b, b, n, k, BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t e = repro::allow_dynamic_smem<tnn_fused_wgmma<BN>>(WgCfg<BN>::kSmem);
+  if (e != cudaSuccess) return e;
+  const int sms = repro::sm_count();
+  const long long tiles =
+      static_cast<long long>(repro::cdiv(m, kWgBM)) * repro::cdiv(n, BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  tnn_fused_wgmma<BN><<<grid, kWgThreads, WgCfg<BN>::kSmem, s>>>(
+      map_a, map_b, static_cast<__nv_bfloat16*>(c), m, n, k);
+  return cudaGetLastError();
+}
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
@@ -249,4 +622,19 @@ REPRO_EXPORT int repro_matmul_tnn_fused(const void* a, const void* b, void* c,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 only; the wrapper calls it when k % 8 == 0 and A, B are 16-byte
+// aligned (TMA's rule for addresses and row strides).  block_n: 64, 96, 192
+// or 256.
+REPRO_EXPORT int repro_matmul_tnn_fused_wgmma(const void* a, const void* b, void* c, int m,
+                                              int n, int k, int block_n, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (block_n) {
+    case 64: return static_cast<int>(launch_wgmma<64>(a, b, c, m, n, k, s));
+    case 96: return static_cast<int>(launch_wgmma<96>(a, b, c, m, n, k, s));
+    case 192: return static_cast<int>(launch_wgmma<192>(a, b, c, m, n, k, s));
+    case 256: return static_cast<int>(launch_wgmma<256>(a, b, c, m, n, k, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

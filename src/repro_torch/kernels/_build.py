@@ -33,7 +33,8 @@ __all__ = ["SOURCES", "build_all", "build_dir", "library_path", "launch", "ptr",
            "stream_of", "dtype_code"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("transpose", "matmul", "attention_fused", "matmul_tnn_fused", "matmul_batched")
+SOURCES = ("transpose", "matmul", "matmul_nt", "attention_fused", "matmul_tnn_fused",
+           "matmul_batched")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -48,7 +49,11 @@ _SIGNATURES = {
     "attention_fused": {
         "repro_attention_fused": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
     },
-    "matmul_tnn_fused": {"repro_matmul_tnn_fused": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    "matmul_nt": {"repro_matmul_nt": [_P] * 4 + [_I] * 5 + [_P]},
+    "matmul_tnn_fused": {
+        "repro_matmul_tnn_fused": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "repro_matmul_tnn_fused_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
     "matmul_batched": {"repro_matmul_batched": [_P, _P, _P] + [_I] * 6 + [_P]},
 }
 

@@ -2,35 +2,79 @@
 stored layout -- no transpose kernel, no turned-around tile.
 
 Replaces the Pallas kernel ``repro/kernels/matmul_tnn_fused.py:90``.  On
-CUDA tensors the wrapper launches ``csrc/matmul_tnn_fused.cu``: bf16 on the
-tensor cores (``mma.sync`` m16n8k16, whose column-major B operand is B's
-stored (n, k) rows, loaded with ``ldmatrix`` and no ``.trans``), f32 on FMA
-over the same K-major tiles; blocks walk the m-tiles fastest so neighbours
-share one B strip in L2 (the Pallas grid's n-major order).  On CPU tensors
-it runs the plain version in ``ref.py``.  Bound on the H100: operations at
-the training shapes (m = 2048 tokens), bytes at decode.
+CUDA tensors the wrapper launches ``csrc/matmul_tnn_fused.cu``, whose
+variant it picks before the launch from dtype, shape and alignment
+(``tnn_fused_variant``):
+
+- ``wgmma`` (bf16, k % 8 == 0, A and B 16-byte aligned, as TMA needs): the
+  wide arm of the two NT kernels, built for the training forward (m = 2048
+  tokens, bound by operations).  A persistent grid walks 128 x BN output
+  tiles n-major; TMA loads both operands K-major into a shared-memory ring
+  and two warpgroups run ``wgmma`` on B's stored rows.  BN (64, 96, 192 or
+  256) is the width whose waves of tiles over 132 SMs cost least.
+- ``mma_sync`` (bf16, any other k or alignment): ``mma.sync`` m16n8k16 on
+  64 x 64 tiles, whose column-major B operand is B's stored (n, k) rows,
+  loaded with ``ldmatrix`` and no ``.trans``; unaligned rows take a
+  zero-filling scalar path.
+- ``fma`` (f32): FMA over the same K-major tiles, no TF32.
+
+The skinny arm, for serving, is the direct NT kernel (``matmul_nt``).  A
+launch that fails raises; no variant stands in for another.  On CPU tensors
+the wrapper runs the plain version in ``ref.py``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, check_operand, route, validate_config
+from .common import LAUNCHES, cdiv, check_operand, route, validate_config
 
-__all__ = ["matmul_tnn_fused"]
+__all__ = ["matmul_tnn_fused", "tnn_fused_variant"]
 
-_TILE = 64  # csrc kBM = kBN
-_MAX_N = 65535 * _TILE  # gridDim.y walks the n-tiles
+_TILE = 64  # csrc kBM = kBN of the mma.sync and FMA variants
+_MAX_N = 65535 * _TILE  # their gridDim.y walks the n-tiles
+_WG_BM = 128  # csrc kWgBM: the wgmma variant's tile rows
+_SMS = 132  # an H100's SMs: the persistent grid's width
+# The wgmma variant's tile widths (csrc launch_wgmma instances), widest
+# first so that a tie picks the wider one, and the relative cost of a tile
+# column at each: a 64- or 96-wide wgmma reads A from shared memory for few
+# columns and is bound by shared memory, not by the tensor cores.
+_WG_BN_COST = {256: 1.0, 192: 1.0, 96: 1.15, 64: 1.3}
+_MAX_TILES = 2**31 - 1  # the wgmma variant numbers its tiles with an int
+
+
+def tnn_fused_variant(dtype: torch.dtype, m: int, n: int, k: int, a_ptr: int,
+                      b_ptr: int) -> Tuple[str, Optional[int]]:
+    """The kernel variant a CUDA call launches, and the wgmma variant's
+    tile width BN: ``("wgmma", BN)``, ``("mma_sync", None)`` or
+    ``("fma", None)``.  A pure function of dtype, shape and the operands'
+    addresses, decided before the launch."""
+    if dtype == torch.float32:
+        return "fma", None
+    if k > 0 and k % 8 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0:
+        return "wgmma", _wgmma_block_n(m, n)
+    return "mma_sync", None
+
+
+@functools.lru_cache(maxsize=None)  # a model repeats a few shapes on every step
+def _wgmma_block_n(m: int, n: int) -> int:
+    """The tile width whose waves of 128 x BN tiles over 132 SMs cost least:
+    waves x BN x the width's cost per column (every tile of a shape has the
+    same k)."""
+    m_tiles = cdiv(m, _WG_BM)
+    return min(_WG_BN_COST,
+               key=lambda bn: cdiv(m_tiles * cdiv(n, bn), _SMS) * bn * _WG_BN_COST[bn])
 
 
 def matmul_tnn_fused(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
     """C = A @ B^T in A's dtype, f32 accumulation.  ``block`` is validated as
-    a (bm, bn, bk) tile config; the CUDA kernel's tiles are fixed."""
+    a (bm, bn, bk) tile config; the CUDA kernel picks its own tiles."""
     if block is not None:
         validate_config(block)
     check_operand("a", a, 2)
@@ -42,13 +86,24 @@ def matmul_tnn_fused(
                          f"{tuple(b.shape)}^T {b.dtype}")
     if route(a, b) == "plain":
         return ref.matmul_tnn_fused(a, b)
-    if n > _MAX_N:
+    variant, bn = tnn_fused_variant(a.dtype, m, n, k, a.data_ptr(), b.data_ptr())
+    if variant == "wgmma":
+        if cdiv(m, _WG_BM) * cdiv(n, bn) > _MAX_TILES:
+            raise ValueError(f"fused TNN kernel takes at most {_MAX_TILES} tiles, "
+                             f"got ({m}, {n})")
+    elif n > _MAX_N:
         raise ValueError(f"fused TNN kernel takes at most {_MAX_N} columns, got {n}")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel():
-        _build.launch(
-            "matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a), _build.ptr(b),
-            _build.ptr(c), m, n, k, _build.dtype_code(a.dtype), _build.stream_of(a),
-        )
+        if variant == "wgmma":
+            _build.launch(
+                "matmul_tnn_fused", "repro_matmul_tnn_fused_wgmma", _build.ptr(a),
+                _build.ptr(b), _build.ptr(c), m, n, k, bn, _build.stream_of(a),
+            )
+        else:
+            _build.launch(
+                "matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a), _build.ptr(b),
+                _build.ptr(c), m, n, k, _build.dtype_code(a.dtype), _build.stream_of(a),
+            )
         LAUNCHES["matmul_tnn_fused"] += 1
     return c

@@ -26,6 +26,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.attention_fused import MaskParams, attention_fused  # noqa: E402
 from repro_torch.kernels.common import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.matmul_nt import nt_split, nt_workspace_shape  # noqa: E402
+from repro_torch.kernels.matmul_tnn_fused import tnn_fused_variant  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -213,6 +215,55 @@ def test_cpu_route_launches_nothing():
     assert not any(LAUNCHES.values())
 
 
+# -- the CUDA kernels' launch choices (pure functions, checked here) -----------------
+
+
+@pytest.mark.parametrize("dtype,m,n,k,a_ptr,b_ptr,want", [
+    (torch.bfloat16, 2048, 49152, 576, 0, 0, ("wgmma", 256)),  # LM head: 24 waves, a tie
+    (torch.bfloat16, 130, 49152, 576, 256, 512, ("wgmma", 256)),
+    (torch.bfloat16, 2048, 1536, 576, 0, 0, ("wgmma", 192)),  # 128 tiles: one wave
+    (torch.bfloat16, 2048, 576, 1536, 0, 0, ("wgmma", 96)),  # 96 tiles: one wave
+    (torch.bfloat16, 2048, 192, 576, 0, 0, ("wgmma", 64)),
+    (torch.bfloat16, 8, 1536, 576, 0, 0, ("wgmma", 64)),
+    (torch.bfloat16, 8, 49152, 576, 0, 0, ("wgmma", 192)),
+    (torch.bfloat16, 2048, 576, 129, 0, 0, ("mma_sync", None)),  # k % 8 != 0
+    (torch.bfloat16, 2048, 576, 576, 2, 0, ("mma_sync", None)),  # A 2 bytes off
+    (torch.bfloat16, 2048, 576, 576, 0, 8, ("mma_sync", None)),  # B 8 bytes off
+    (torch.bfloat16, 4, 4, 0, 0, 0, ("mma_sync", None)),  # k = 0: no tensor map
+    (torch.float32, 2048, 49152, 576, 0, 0, ("fma", None)),
+])
+def test_tnn_fused_variant_follows_shape_and_alignment(dtype, m, n, k, a_ptr, b_ptr, want):
+    assert tnn_fused_variant(dtype, m, n, k, a_ptr, b_ptr) == want
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (4, 49152, 576, (1, 9)),  # 384 blocks fill 132 SMs: no split
+    (8, 49152, 576, (1, 9)),
+    (4, 192, 576, (9, 1)),  # 3 blocks: one split per k-block
+    (4, 1536, 576, (9, 1)),
+    (4, 576, 1536, (24, 1)),
+    (64, 1536, 576, (3, 3)),  # partials capped at B's bytes: k // (2 m) = 4
+    (64, 576, 1536, (12, 2)),
+    (1, 1, 129, (3, 1)),
+    (4, 4, 0, (1, 1)),
+    (2048, 576, 1536, (2, 12)),  # 160 blocks: two splits
+])
+def test_nt_split_and_workspace(m, n, k, want):
+    assert nt_split(m, n, k, 132) == want
+    splits = want[0]
+    assert nt_workspace_shape(m, n, k, 132) == ((splits, m, n) if splits > 1 else None)
+
+
+def test_nt_split_covers_every_k_block_once():
+    for m, n, k, sms in itertools.product((1, 4, 8, 63, 64, 65, 130, 2048),
+                                          (1, 192, 576, 1536, 49152),
+                                          (1, 8, 129, 576, 1536), (78, 132)):
+        splits, per = nt_split(m, n, k, sms)
+        nkb = -(-k // 64)
+        assert splits >= 1 and per >= 1
+        assert splits * per >= nkb and (splits - 1) * per < max(nkb, 1), (m, n, k, sms)
+
+
 # -- fused attention -----------------------------------------------------------------
 
 ATTN_SHAPES = ((1, 129, 257, 33), (2, 64, 200, 16), (3, 1, 96, 64))
@@ -292,15 +343,31 @@ def test_transpose_kernel_matches_plain_on_card(cuda, n, k, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,n,k", GEMM_SHAPES + ((8, 49152, 576), (64, 576, 1536)))
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES + (
+    (8, 49152, 576), (64, 576, 1536),
+    # the serve path's projections at decode bucket 4 and prefill (split-k
+    # at every width but the LM head), ragged m around the 64-row A tile,
+    # k % 8 != 0, and a k that is no multiple of the 64-wide stage
+    (1, 192, 576), (4, 576, 576), (4, 1536, 576), (4, 576, 1536), (4, 49152, 576),
+    (63, 1536, 576), (64, 1536, 576), (65, 192, 1536), (130, 576, 129), (2048, 1536, 576),
+    (65, 197, 136)))
 def test_gemm_kernels_match_plain_on_card(cuda, m, n, k, dtype):
     dt = getattr(torch, dtype)
     a, w = torch.randn(m, k, device=cuda).to(dt), torch.randn(n, k, device=cuda).to(dt)
     tol = _tol(dtype, k)
+    reset_launches()
     torch.testing.assert_close(ops.matmul_nt(a, w).float(), ref.matmul_nt(a, w).float(), **tol)
+    assert LAUNCHES["matmul_nt"] == 1  # one call, split-k or not
     torch.testing.assert_close(ops.matmul_tnn(a, w).float(), ref.matmul_nt(a, w).float(), **tol)
     wt = w.t().contiguous()
     torch.testing.assert_close(ops.matmul_nn(a, wt).float(), ref.matmul_nn(a, wt).float(), **tol)
+    assert LAUNCHES["transpose"] == 1 and LAUNCHES["matmul_nn"] == 2
+    # an operand that starts one element past an aligned address takes the
+    # NT kernel's scalar loads
+    a_odd = torch.randn(m * k + 1, device=cuda).to(dt)[1:].view(m, k)
+    torch.testing.assert_close(ops.matmul_nt(a_odd, w).float(), ref.matmul_nt(a_odd, w).float(),
+                               **tol)
+    assert LAUNCHES["matmul_nt"] == 2
 
 
 @pytest.mark.gpu
@@ -321,8 +388,13 @@ def test_attention_kernel_matches_plain_on_card(cuda, mask_name, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,n,k", GEMM_SHAPES + ((2048, 192, 576), (8, 1536, 576),
-                                                 (130, 49152, 576), (2048, 576, 1536)))
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES + (
+    (2048, 192, 576), (8, 1536, 576), (130, 49152, 576), (2048, 576, 1536),
+    # the training forward's LM head and MLP up (wgmma, BN 256 and 192),
+    # ragged m around the 128-row tile, k % 8 != 0 (mma.sync), a k that is
+    # no multiple of the 64-wide TMA box and an n that is no multiple of 8
+    (2048, 49152, 576), (2048, 1536, 576), (1, 576, 576), (4, 49152, 576),
+    (63, 1536, 576), (64, 192, 1536), (65, 576, 129), (65, 197, 136)))
 def test_tnn_fused_kernel_matches_plain_on_card(cuda, m, n, k, dtype):
     dt = getattr(torch, dtype)
     a, w = torch.randn(m, k, device=cuda).to(dt), torch.randn(n, k, device=cuda).to(dt)
@@ -330,10 +402,13 @@ def test_tnn_fused_kernel_matches_plain_on_card(cuda, m, n, k, dtype):
     out = ops.matmul_tnn_fused(a, w)
     assert LAUNCHES["matmul_tnn_fused"] == 1
     torch.testing.assert_close(out.float(), ref.matmul_nt(a, w).float(), **_tol(dtype, k))
-    # an operand that starts 2 bytes past an aligned address takes the scalar loads
+    # an operand that starts one element past an aligned address takes the
+    # mma.sync variant's scalar loads (bf16) or the FMA kernel (f32)
     a_odd = torch.randn(m * k + 1, device=cuda).to(dt)[1:].view(m, k)
+    assert tnn_fused_variant(dt, m, n, k, a_odd.data_ptr(), w.data_ptr())[0] != "wgmma"
     torch.testing.assert_close(ops.matmul_tnn_fused(a_odd, w).float(),
                                ref.matmul_nt(a_odd, w).float(), **_tol(dtype, k))
+    assert LAUNCHES["matmul_tnn_fused"] == 2
 
 
 @pytest.mark.gpu
