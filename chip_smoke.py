@@ -12,8 +12,9 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               kernel, the plain version and one library call (a yardstick
               only), the profiler's device time of the kernel and the
               library call, the variant that ran, and the datasheet bound
-              of the same work; the two bf16 NT kernels redesigned for
-              Hopper are timed beside the kernels they replaced
+              of the same work; the kernels redesigned for Hopper (bf16
+              NT, fused TNN and NN; batched in both dtypes) are timed
+              beside the kernels they replaced, which must agree too
   4. serve    repro_torch.launch.serve.main on smollm-135m at full config
               in bf16: class interactive under fixed:nt=PALLAS_TNN,attn=fused,
               class bulk under fixed:nt=PALLAS_NT,attn=fused, then the same
@@ -35,7 +36,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               from an f32 cuBLAS step than twice cuBLAS's distance, every
               kernel of the training path launched and none under cuBLAS;
               ms/step, tokens/s, launches per step and a profiled step's
-              device busy share per policy
+              device busy share per policy; the profiled kernel-policy
+              steps must run no FMA kernel the redesigns replaced
   8. train_exact  f32 at full width and 2 layers: every gradient leaf of
               step 0 under both kernel policies within relative L2 1e-4 of
               fixed:XLA_NT's, and the losses of 3 steps within 1e-5
@@ -86,7 +88,7 @@ KERNEL_POLICIES = {
 CUBLAS_POLICY = "fixed:XLA_NT"
 KERNEL_SOURCES = {
     "transpose": ("src/repro_torch/csrc/transpose.cu", "src/repro/kernels/transpose.py:64"),
-    "matmul_nn": ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul_nn.py:77"),
+    "matmul_nn": ("src/repro_torch/csrc/matmul_nn.cu", "src/repro/kernels/matmul_nn.py:77"),
     "matmul_nt": ("src/repro_torch/csrc/matmul_nt.cu", "src/repro/kernels/matmul_nt.py:81"),
     "attention_fused": ("src/repro_torch/csrc/attention_fused.cu",
                         "src/repro/kernels/attention_fused.py:338"),
@@ -100,6 +102,20 @@ KERNEL_SOURCES = {
 
 # The kernels the serving policies name.
 SERVE_KERNELS = ("transpose", "matmul_nn", "matmul_nt", "attention_fused")
+
+# The bf16 NN GEMMs of a train step at 2048 tokens (batch 8 x seq 256):
+# the data gradients G . W (q/o, k/v, MLP up, MLP down, LM head), then
+# stage 2 of the weight gradients transpose(G) . X, as (m, n, k).
+NN_TRAIN_SHAPES = (
+    (2048, 576, 576), (2048, 576, 192), (2048, 576, 1536), (2048, 1536, 576),
+    (2048, 576, 49152),
+    (576, 576, 2048), (192, 576, 2048), (1536, 576, 2048), (576, 1536, 2048),
+    (49152, 576, 2048),
+)
+# The FMA kernels the redesigned NN and batched kernels replaced, by the
+# name prefix the profiler gives them: a profiled kernel-policy train step
+# must run none of them.
+REPLACED_FMA_KERNELS = ("matmul_kernel<__nv_bfloat16", "batched_kernel<")
 
 # Training: smollm-135m at full config, bf16, remat full, AdamW.
 DEVICE = "cuda"
@@ -252,6 +268,11 @@ def kernel_cases(torch):
                      else f"({g},{m},{k})x({g},{k},{n})")
             cases.append((name, label, dt, {"a": randn(g, m, k, dtype=dt),
                                             "b": randn(*b_shape, dtype=dt)}))
+        # the backward's NN GEMMs of a train step at 2048 tokens: the data
+        # gradients G . W, then stage 2 of the weight gradients transpose(G) . X
+        for m, n, k in (NN_TRAIN_SHAPES if dt == torch.bfloat16 else ()):
+            cases.append(("matmul_nn", f"({m},{k})x({k},{n})", dt,
+                          {"a": randn(m, k, dtype=dt), "b": randn(k, n, dtype=dt)}))
         lens = torch.randint(1, 513, (12,), generator=gen, device="cuda", dtype=torch.int32)
         geoms = [
             ("decode g=12 m=3 n=512 ragged", 12, 3, 512, lens, MaskParams()),
@@ -314,6 +335,7 @@ def run_case(torch, name, inp, dt):
             kern, plain, lib = (lambda: matmul_nn(a, b)), (lambda: ref.matmul_nn(a, b)), \
                 (lambda: torch.matmul(a, b))
             n = b.shape[1]
+            variant = nn_label(torch, a, b)
         m, k = a.shape
         rtol, atol = tol(dname, k)
         b_ms, by = bound((m * k + k * n + m * n) * ds, 2.0 * m * n * k, dname)
@@ -328,6 +350,7 @@ def run_case(torch, name, inp, dt):
             kern, plain, lib = (lambda: matmul_bnn(a, b)), (lambda: ref.matmul_bnn(a, b)), \
                 (lambda: torch.bmm(a, b))
             n = b.shape[2]
+        variant = batched_label(torch, a, b, name == "matmul_bnt")
         rtol, atol = tol(dname, k)
         b_ms, by = bound(g * (m * k + k * n + m * n) * ds, 2.0 * g * m * n * k, dname)
     else:
@@ -368,16 +391,32 @@ def run_case(torch, name, inp, dt):
 
 
 def replaced_kernel(torch, name, a, b):
-    """For the two bf16 kernels redesigned for Hopper, a call of the kernel
-    each replaced (still built: the NT instance of csrc/matmul.cu and the
-    mma.sync variant of csrc/matmul_tnn_fused.cu), launched directly
+    """For the kernels redesigned for Hopper -- bf16 NT, fused TNN and NN,
+    batched in both dtypes -- a call of the kernel each replaced (still
+    built: the FMA kernels of csrc/matmul.cu and csrc/matmul_batched.cu and
+    the mma.sync variant of csrc/matmul_tnn_fused.cu), launched directly
     without the wrapper's checks; else None."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.matmul_nn import launch_matmul
+    from repro_torch.kernels.common import launch_matmul
 
-    if a.dtype != torch.bfloat16 or name not in ("matmul_nt", "matmul_tnn_fused"):
+    if name in ("matmul_bnt", "matmul_bnn"):
+        (g, m, k), nt = a.shape, name == "matmul_bnt"
+        n = b.shape[1] if nt else b.shape[2]
+
+        def fma_batched():
+            c = torch.empty((g, m, n), dtype=a.dtype, device=a.device)
+            _build.launch("matmul_batched", "repro_matmul_batched_fma", _build.ptr(a),
+                          _build.ptr(b), _build.ptr(c), g, m, n, k, int(nt),
+                          _build.dtype_code(a.dtype), _build.stream_of(a))
+            return c
+
+        return fma_batched
+    if a.dtype != torch.bfloat16 or name not in ("matmul_nt", "matmul_tnn_fused", "matmul_nn"):
         return None
-    (m, k), n = a.shape, b.shape[0]
+    m, k = a.shape
+    if name == "matmul_nn":
+        return lambda: launch_matmul(a, b, m, b.shape[1], k, b_stored_nk=False)
+    n = b.shape[0]
     if name == "matmul_nt":
         return lambda: launch_matmul(a, b, m, n, k, b_stored_nk=True)
 
@@ -401,6 +440,31 @@ def nt_variant(torch, a, b):
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     splits, _ = nt_split(m, b.shape[0], k, sms)
     return f"swap-AB mma.sync, split-k {splits}" if splits > 1 else "swap-AB mma.sync"
+
+
+def nn_label(torch, a, b):
+    """The NN kernel a call with these operands launches."""
+    from repro_torch.kernels.matmul_nn import nn_variant
+
+    (m, k), n = a.shape, b.shape[1]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    variant, bn, splits, _ = nn_variant(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms)
+    label = {"wgmma": f"wgmma 128x{bn}", "skinny": "swap-AB mma.sync",
+             "fma": "fma (matmul.cu)"}[variant]
+    return f"{label}, split-k {splits}" if splits > 1 else label
+
+
+def batched_label(torch, a, b, nt):
+    """The batched kernel a call with these operands launches."""
+    from repro_torch.kernels.matmul_batched import batched_variant
+
+    g, m, k = a.shape
+    n = b.shape[1] if nt else b.shape[2]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    variant, splits, _ = batched_variant(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(),
+                                         sms)
+    label = {"tiled": "tiled f32 64x64", "mma": "mma.sync 64x64", "fma": "fma"}[variant]
+    return f"{label}, split-k {splits}" if splits > 1 else label
 
 
 # -- phase 4/5 helpers --------------------------------------------------------
@@ -607,6 +671,11 @@ def phase_train(torch, card):
                                     for spec, r in runs.items()},
     }
     train_row["step_profile"] = {spec: train_step_profile(torch, r) for spec, r in runs.items()}
+    for spec in TRAIN_POLICIES.values():
+        fma = {k: v for k, v in train_row["step_profile"][spec]["kernels_ms"].items()
+               if any(p in k for p in REPLACED_FMA_KERNELS)}
+        train_row["step_profile"][spec]["replaced_fma_kernels_ms"] = fma
+        check(not fma, f"{spec}: a profiled train step ran replaced FMA kernels: {fma}")
     return train_row, train_launches
 
 

@@ -11,12 +11,12 @@ Built-in candidates, by op kind (layouts in ``core/opkey.py``):
 
   NT    XLA_NT      cuBLAS through torch.matmul -- the "cuBLAS NT" arm
         XLA_TNN     materialised B^T (torch), then torch.matmul
-        PALLAS_NT   the direct NT CUDA kernel (csrc/matmul.cu)
+        PALLAS_NT   the direct NT CUDA kernel (csrc/matmul_nt.cu)
         PALLAS_TNN  the transpose kernel + the NN kernel (the paper's TNN)
         PALLAS_TNN_FUSED  one kernel reading B in its stored layout
                     (csrc/matmul_tnn_fused.cu)
   NN    XLA_NN      torch.matmul
-        PALLAS_NN   the NN CUDA kernel
+        PALLAS_NN   the NN CUDA kernel (csrc/matmul_nn.cu)
   TN    XLA_TN      torch.matmul on A^T, no materialised transpose
         PALLAS_TN   the transpose kernel + the NN kernel
   BNT   XLA_BNT     torch.bmm with B^T

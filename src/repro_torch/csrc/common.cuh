@@ -60,6 +60,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
+// The same, each matrix transposed on the way: lane t receives column t/4,
+// rows 2*(t%4) and +1, of the stored 8x8 matrix -- the fragment of an
+// operand whose shared tile is stored with the other dimension contiguous.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
 // Two 8x8 b16 matrices; lanes 0-15 give the row addresses.
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
@@ -75,6 +85,44 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte asynchronous copy to shared memory; `in` false writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The second pass of a deterministic split-k: out = sum over splits of
+// ws[s] (mn f32 partials each), added in split order, cast to T.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    splitk_reduce(const float* __restrict__ ws, T* __restrict__ out, size_t mn, int splits) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < mn;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float sum = 0.f;
+    for (int s = 0; s < splits; ++s) sum += ws[s * mn + i];
+    out[i] = from_float<T>(sum);
+  }
+}
+
+template <typename T>
+cudaError_t launch_splitk_reduce(const float* ws, T* out, size_t mn, int splits,
+                                 cudaStream_t s) {
+  const size_t blocks = (mn + 255) / 256;
+  splitk_reduce<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      ws, out, mn, splits);
+  return cudaGetLastError();
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }

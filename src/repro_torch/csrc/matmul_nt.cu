@@ -26,8 +26,8 @@
 // different bank quads.  gridDim.y walks 64-row tiles of A (right at every
 // m, tuned for m <= 64).  gridDim.z splits k when there are too few blocks
 // to fill the card: each split writes f32 partials into a workspace the
-// wrapper allocates, and nt_reduce sums them in split order (deterministic)
-// and casts to bf16.  The split count is the wrapper's pure function of
+// wrapper allocates, and splitk_reduce (csrc/common.cuh) sums them in
+// split order (deterministic) and casts to bf16.  The split count is the wrapper's pure function of
 // (m, n, k, SM count).
 //
 // Unaligned operands (k % 8 != 0, or A or B not 16-byte aligned) take a
@@ -51,21 +51,6 @@ struct NtCfg {
   static constexpr int kSmem = kStages * kStageElems * 2;
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Rows [r0, r0 + R) x k-columns [k0, k0 + 64) of a row-major (rows, k) bf16
 // matrix into a K-major shared tile of pitch kPitch, zeros outside.
 template <int R>
@@ -76,7 +61,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
       const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
       const int gr = r0 + r, gk = k0 + kc;
       const bool in = gr < rows && gk < k;  // k % 8 == 0: a chunk is all in or all out
-      cp_async16(repro::smem_addr(dst + r * kPitch + kc),
+      repro::cp_async16(repro::smem_addr(dst + r * kPitch + kc),
                  in ? src + static_cast<size_t>(gr) * k + gk : src, in);
     }
   } else {
@@ -126,13 +111,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nkb) load_stage(s, kb0 + s);
-    cp_async_commit();
+    repro::cp_async_commit();
   }
   for (int i = 0; i < nkb; ++i) {
-    cp_async_wait<kStages - 2>();  // stage i has landed (this thread's copies)
+    repro::cp_async_wait<kStages - 2>();  // stage i has landed (this thread's copies)
     __syncthreads();               // ... everyone's; and slot (i - 1) is free
     if (i + kStages - 1 < nkb) load_stage((i + kStages - 1) % kStages, kb0 + i + kStages - 1);
-    cp_async_commit();
+    repro::cp_async_commit();
     const __nv_bfloat16* bs = nt_smem + (i % kStages) * Cfg::kStageElems;
     const __nv_bfloat16* as = bs + Cfg::kBElems;
 #pragma unroll
@@ -158,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  cp_async_wait<0>();
+  repro::cp_async_wait<0>();
 
   // acc[j] is the m16n8 tile (B rows warp*16.., A rows j*8..): element e at
   // B row lane/4 + 8*(e/2), A row 2*(lane%4) + e%2 -- stored transposed.
@@ -176,18 +161,6 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-  }
-}
-
-// C = sum over splits of ws[s], in split order, cast to bf16.
-__global__ void __launch_bounds__(256)
-    nt_reduce(const float* __restrict__ ws, __nv_bfloat16* __restrict__ c, size_t mn,
-              int splits) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < mn;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float sum = 0.f;
-    for (int s = 0; s < splits; ++s) sum += ws[s * mn + i];
-    c[i] = __float2bfloat16(sum);
   }
 }
 
@@ -232,9 +205,6 @@ REPRO_EXPORT int repro_matmul_nt(const void* a, const void* b, void* c, void* ws
     e = launch_nt<64>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
   }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const size_t mn = static_cast<size_t>(m) * n;
-  const size_t blocks = (mn + 255) / 256;
-  nt_reduce<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(wp, cp, mn,
-                                                                                 splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      repro::launch_splitk_reduce(wp, cp, static_cast<size_t>(m) * n, splits, s));
 }

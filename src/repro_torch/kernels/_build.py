@@ -34,7 +34,7 @@ __all__ = ["SOURCES", "build_all", "build_dir", "library_path", "launch", "ptr",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("transpose", "matmul", "matmul_nt", "attention_fused", "matmul_tnn_fused",
-           "matmul_batched")
+           "matmul_batched", "matmul_nn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -54,7 +54,15 @@ _SIGNATURES = {
         "repro_matmul_tnn_fused": [_P, _P, _P, _I, _I, _I, _I, _P],
         "repro_matmul_tnn_fused_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
-    "matmul_batched": {"repro_matmul_batched": [_P, _P, _P] + [_I] * 6 + [_P]},
+    "matmul_batched": {
+        "repro_matmul_batched_fma": [_P] * 3 + [_I] * 6 + [_P],
+        "repro_matmul_batched_f32": [_P] * 4 + [_I] * 7 + [_P],
+        "repro_matmul_batched_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    },
+    "matmul_nn": {
+        "repro_matmul_nn_wgmma": [_P] * 4 + [_I] * 6 + [_P],
+        "repro_matmul_nn_skinny": [_P] * 4 + [_I] * 5 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()

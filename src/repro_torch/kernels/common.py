@@ -1,5 +1,6 @@
 """Shared helpers of the port's kernel wrappers: tile-config validation,
-operand checks, routing by device and the launch counters.
+operand checks, routing by device, the launch counters, the card's SM
+count and the launcher of the FMA GEMM that the NN and NT wrappers share.
 
 Routing rule of every wrapper: an operand on the CPU runs the kernel's
 plain PyTorch version (``ref.py``); an operand on a CUDA device launches
@@ -10,12 +11,17 @@ same rejections as the card.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from . import _build
+
 __all__ = [
     "cdiv",
+    "sm_count",
+    "launch_matmul",
     "DEFAULT_CONFIG_KEY",
     "config_key",
     "parse_config_key",
@@ -54,6 +60,31 @@ def reset_launches() -> None:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_FMA_MAX_M = 65535 * 16  # csrc/matmul.cu: gridDim.y of the smallest row tile
+
+
+def launch_matmul(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
+                  b_stored_nk: bool) -> torch.Tensor:
+    """Allocate C and launch the FMA kernel of ``csrc/matmul.cu``
+    (``repro_matmul``): NN, or NT with ``b_stored_nk``, in f32 or bf16.
+    The NN and NT wrappers route to it; it counts no launch itself."""
+    if m > _FMA_MAX_M:
+        raise ValueError(f"matmul kernel takes at most {_FMA_MAX_M} rows, got {m}")
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if c.numel():
+        _build.launch(
+            "matmul", "repro_matmul", _build.ptr(a), _build.ptr(b), _build.ptr(c),
+            m, n, k, int(b_stored_nk), _build.dtype_code(a.dtype), _build.stream_of(a),
+        )
+    return c
 
 
 def config_key(config: Optional[TileConfig]) -> str:

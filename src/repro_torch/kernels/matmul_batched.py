@@ -5,26 +5,79 @@
 
 Replace the Pallas kernel ``repro/kernels/matmul_batched.py:124``
 (``_matmul_batched``, behind ``matmul_bnt`` and ``matmul_bnn``).  On CUDA
-tensors the wrappers launch ``csrc/matmul_batched.cu``: one block per
-(slice, output tile), ``blockIdx.z`` the slice, a k loop inside the block,
-f32 accumulation, a 16-row tile for m <= 16.  On CPU tensors they run the
-plain versions in ``ref.py``.  Bound on the H100: operations for the
-training backward's f32 contractions, bytes at decode.
+tensors the wrappers launch one of three kernels of
+``csrc/matmul_batched.cu``, picked before the launch by
+``batched_variant`` from dtype, shape and the operands' addresses:
+
+- ``tiled`` (f32, k a multiple of 4, BNN's n too, 16-byte aligned
+  operands): the attention backward's contractions, bound by operations
+  at the f32 FMA rate (exact FFMA, no TF32).  64 x 64 tiles, an 8 x 4
+  register micro-tile per thread fed by float4 reads of shared memory,
+  double-buffered 16-deep k steps; k splits over the grid up to three
+  blocks per SM (``_tiled_split``: n = 64 leaves few tiles), and a second
+  kernel sums the f32 partials in split order.
+- ``mma`` (bf16, k a multiple of 8, BNN's n too, 16-byte aligned):
+  ``mma.sync`` m16n8k16 with f32 accumulation on 64 x 64 tiles through a
+  ``cp.async`` ring; BNT's B is read with ``ldmatrix``, BNN's with
+  ``ldmatrix.trans``.
+- ``fma`` (any other operands): FMA over f32-staged shared tiles, one
+  block per (slice, 64-column tile), a 16-row tile for m <= 16.
+
+Each call counts one launch, split or not.  On CPU tensors the wrappers
+run the plain versions in ``ref.py``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, check_operand, route, validate_config
+from .common import LAUNCHES, cdiv, check_operand, route, sm_count, validate_config
 
-__all__ = ["matmul_bnt", "matmul_bnn"]
+__all__ = ["matmul_bnt", "matmul_bnn", "batched_variant"]
 
-_MAX_G = 65535  # gridDim.z
+_MAX_Z = 65535  # gridDim.z: slices (times splits for the tiled kernel)
 _MAX_M = 65535 * 16  # gridDim.y of the smallest row tile
+_TILE = 64  # the tiled and mma kernels' output tile, 64 x 64
+_TILED_BK = 16  # the tiled kernel's k step, the unit of a split
+_MIN_STEPS_PER_SPLIT = 4  # a split walks at least 64 of k
+_BLOCKS_PER_SM = 3  # the most blocks per SM the tiled kernel's split aims for
+
+
+def batched_variant(dtype: torch.dtype, g: int, m: int, n: int, k: int, nt: bool,
+                    a_ptr: int, b_ptr: int, sms: int) -> Tuple[str, int, int]:
+    """The kernel a CUDA call launches and its split of k: ``("tiled",
+    splits, k-steps per split)`` (f32), ``("mma", 1, 1)`` (bf16) or
+    ``("fma", 1, 1)``.  A pure function of dtype, shape, layout (``nt``:
+    B is (g, n, k)), the operands' addresses and the card's SM count,
+    decided before the launch.  The tiled kernel's vector loads need k (and
+    BNN's n, B's row length) to be a multiple of 4 floats, the mma kernel's
+    of 8 bf16, and both operands 16-byte aligned."""
+    vec = 4 if dtype == torch.float32 else 8
+    if not (k > 0 and k % vec == 0 and (nt or n % vec == 0)
+            and a_ptr % 16 == 0 and b_ptr % 16 == 0):
+        return "fma", 1, 1
+    if dtype == torch.bfloat16:
+        return "mma", 1, 1
+    return ("tiled",) + _tiled_split(g, m, n, k, sms)
+
+
+@functools.lru_cache(maxsize=None)  # the attention backward repeats its shapes
+def _tiled_split(g: int, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(splits, 16-deep k-steps per split) of the tiled kernel: split k
+    while the grid stays within ``_BLOCKS_PER_SM`` blocks per SM, each
+    split at least ``_MIN_STEPS_PER_SPLIT`` steps deep, and g x splits
+    within gridDim.z.  No split is empty."""
+    steps = cdiv(k, _TILED_BK)
+    blocks = g * cdiv(m, _TILE) * cdiv(n, _TILE)
+    want = min(max(1, _BLOCKS_PER_SM * sms // blocks),
+               max(1, steps // _MIN_STEPS_PER_SPLIT), max(1, _MAX_Z // g))
+    per = cdiv(steps, want)
+    return cdiv(steps, per), per
 
 
 def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
@@ -39,18 +92,29 @@ def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
                          f"{tuple(b.shape)} {b.dtype} ({'BNT' if nt else 'BNN'})")
     if route(a, b) == "plain":
         return ref.matmul_bnt(a, b) if nt else ref.matmul_bnn(a, b)
-    if g > _MAX_G:
-        raise ValueError(f"batched kernel takes at most {_MAX_G} slices, got {g}")
+    if g > _MAX_Z:
+        raise ValueError(f"batched kernel takes at most {_MAX_Z} slices, got {g}")
     if m > _MAX_M:
         raise ValueError(f"batched kernel takes at most {_MAX_M} rows, got {m}")
     c = torch.empty((g, m, n), dtype=a.dtype, device=a.device)
-    if c.numel():
-        _build.launch(
-            "matmul_batched", "repro_matmul_batched", _build.ptr(a), _build.ptr(b),
-            _build.ptr(c), g, m, n, k, int(nt), _build.dtype_code(a.dtype),
-            _build.stream_of(a),
-        )
-        LAUNCHES["matmul_bnt" if nt else "matmul_bnn"] += 1
+    if not c.numel():
+        return c
+    variant, splits, per = batched_variant(a.dtype, g, m, n, k, nt, a.data_ptr(),
+                                           b.data_ptr(), sm_count(torch.cuda.current_device()))
+    args = (_build.ptr(a), _build.ptr(b), _build.ptr(c))
+    if variant == "tiled":
+        ws = (torch.empty((splits, g, m, n), dtype=torch.float32, device=a.device)
+              if splits > 1 else None)
+        _build.launch("matmul_batched", "repro_matmul_batched_f32", *args,
+                      _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
+                      g, m, n, k, int(nt), splits, per, _build.stream_of(a))
+    elif variant == "mma":
+        _build.launch("matmul_batched", "repro_matmul_batched_bf16", *args, g, m, n, k,
+                      int(nt), _build.stream_of(a))
+    else:
+        _build.launch("matmul_batched", "repro_matmul_batched_fma", *args, g, m, n, k,
+                      int(nt), _build.dtype_code(a.dtype), _build.stream_of(a))
+    LAUNCHES["matmul_bnt" if nt else "matmul_bnn"] += 1
     return c
 
 
@@ -58,7 +122,7 @@ def matmul_bnt(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
     """Batched NT in A's dtype, f32 accumulation.  ``block`` is validated as
-    a (bm, bn, bk) tile config; the CUDA kernel picks its own tiles."""
+    a (bm, bn, bk) tile config; the CUDA kernels pick their own tiles."""
     return _batched(a, b, True, block)
 
 
@@ -66,5 +130,5 @@ def matmul_bnn(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
     """Batched NN in A's dtype, f32 accumulation.  ``block`` is validated as
-    a (bm, bn, bk) tile config; the CUDA kernel picks its own tiles."""
+    a (bm, bn, bk) tile config; the CUDA kernels pick their own tiles."""
     return _batched(a, b, False, block)

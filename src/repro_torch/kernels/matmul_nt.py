@@ -16,6 +16,9 @@ tensors the wrapper launches:
 - f32: the NT instance of ``csrc/matmul.cu`` (FMA, no TF32), which reads
   B along k and turns each tile around in shared memory.
 
+The NN wrapper's skinny kernel (``csrc/matmul_nn.cu``) has the same block
+geometry and takes its split from ``nt_split`` too.
+
 The wide arm, for training, is the fused TNN kernel.  On CPU tensors the
 wrapper runs the plain version in ``ref.py``.
 """
@@ -29,8 +32,15 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, cdiv, check_operand, route, validate_config
-from .matmul_nn import launch_matmul
+from .common import (
+    LAUNCHES,
+    cdiv,
+    check_operand,
+    launch_matmul,
+    route,
+    sm_count,
+    validate_config,
+)
 
 __all__ = ["matmul_nt", "nt_split", "nt_workspace_shape"]
 
@@ -63,11 +73,6 @@ def nt_workspace_shape(m: int, n: int, k: int, sms: int) -> Optional[Tuple[int, 
     return (splits, m, n) if splits > 1 else None
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def matmul_nt(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
@@ -91,7 +96,7 @@ def matmul_nt(
             raise ValueError(f"NT kernel takes at most {_MAX_M} rows, got {m}")
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
         if c.numel():
-            sms = _sm_count(torch.cuda.current_device())
+            sms = sm_count(torch.cuda.current_device())
             splits, per = nt_split(m, n, k, sms)
             shape = nt_workspace_shape(m, n, k, sms)
             ws = None if shape is None else torch.empty(shape, dtype=torch.float32,

@@ -1,8 +1,8 @@
 """Public wrappers over the port's kernels (the candidate registry's
 kernel arms call these).
 
-  matmul_nn    C = A @ B      one blocked kernel
-  matmul_nt    C = A @ B^T    direct NT, tile turned around in shared memory
+  matmul_nn    C = A @ B      one kernel: wgmma (wide), swap-AB mma.sync (skinny) or FMA
+  matmul_nt    C = A @ B^T    direct NT: B's stored rows are the tensor-core operand
   matmul_tnn   C = A @ B^T    the paper's TNN: transpose kernel + NN kernel
   matmul_tn    C = A^T @ B    weight-gradient TN: transpose kernel + NN kernel
   matmul_tnn_fused  C = A @ B^T  one kernel consuming B's stored layout

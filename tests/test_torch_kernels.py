@@ -26,6 +26,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.attention_fused import MaskParams, attention_fused  # noqa: E402
 from repro_torch.kernels.common import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.matmul_batched import batched_variant  # noqa: E402
+from repro_torch.kernels.matmul_nn import nn_variant  # noqa: E402
 from repro_torch.kernels.matmul_nt import nt_split, nt_workspace_shape  # noqa: E402
 from repro_torch.kernels.matmul_tnn_fused import tnn_fused_variant  # noqa: E402
 
@@ -264,6 +266,94 @@ def test_nt_split_covers_every_k_block_once():
         assert splits * per >= nkb and (splits - 1) * per < max(nkb, 1), (m, n, k, sms)
 
 
+# The bf16 NN GEMMs of a train step (smollm-135m, 2048 tokens): the data
+# gradients G . W, then stage 2 of the weight gradients transpose(G) . X.
+NN_TRAIN_SHAPES = (
+    (2048, 576, 576), (2048, 576, 192), (2048, 576, 1536), (2048, 1536, 576),
+    (2048, 576, 49152),
+    (576, 576, 2048), (192, 576, 2048), (1536, 576, 2048), (576, 1536, 2048),
+    (49152, 576, 2048),
+)
+
+
+@pytest.mark.parametrize("m,n,k,a_ptr,b_ptr,dtype,want", [
+    (2048, 576, 576, 0, 0, torch.bfloat16, "wgmma"),
+    (2048, 576, 49152, 0, 0, torch.bfloat16, "wgmma"),
+    (65, 200, 136, 0, 0, torch.bfloat16, "wgmma"),  # m just past the skinny kernel's 64
+    (64, 1536, 576, 0, 0, torch.bfloat16, "skinny"),
+    (8, 49152, 576, 256, 512, torch.bfloat16, "skinny"),
+    (1, 96, 136, 0, 0, torch.bfloat16, "skinny"),
+    (2048, 197, 576, 0, 0, torch.bfloat16, "fma"),  # n % 8 != 0: B's rows off 16 bytes
+    (2048, 576, 129, 0, 0, torch.bfloat16, "fma"),  # k % 8 != 0
+    (8, 576, 576, 2, 0, torch.bfloat16, "fma"),  # A 2 bytes off
+    (2048, 576, 576, 0, 8, torch.bfloat16, "fma"),  # B 8 bytes off
+    (4, 8, 0, 0, 0, torch.bfloat16, "fma"),  # k = 0: no tensor map
+    (2048, 576, 576, 0, 0, torch.float32, "fma"),
+])
+def test_nn_variant_follows_shape_and_alignment(m, n, k, a_ptr, b_ptr, dtype, want):
+    variant, bn, splits, per = nn_variant(m, n, k, dtype, a_ptr, b_ptr, 132)
+    assert variant == want
+    assert (bn in (64, 128, 192, 256)) == (variant == "wgmma")
+    assert splits >= 1 and per >= 1
+    if variant == "fma":
+        assert (splits, per) == (1, 1)
+    if variant == "skinny":
+        assert (splits, per) == nt_split(m, n, k, 132)
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (2048, 576, 49152, (192, 8, 96)),  # 48 tiles for 132 SMs, each walking 768 k-blocks
+    (192, 576, 2048, (64, 4, 8)),  # the k/v weight gradient: 18 tiles
+    (2048, 1536, 576, (192, 1, 9)),  # 128 tiles: one wave
+    (49152, 576, 2048, (192, 1, 32)),  # 1152 tiles: no split
+])
+def test_nn_wgmma_plan_splits_where_tiles_cannot_fill_the_card(m, n, k, want):
+    assert nn_variant(m, n, k, torch.bfloat16, 0, 0, 132)[1:] == want
+
+
+def test_nn_split_covers_every_k_block_once():
+    for m, n, k, sms in itertools.product((1, 8, 64, 65, 129, 192, 576, 2048, 49152),
+                                          (8, 96, 200, 576, 1536, 49152),
+                                          (8, 136, 192, 576, 2048, 49152), (78, 132)):
+        variant, _, splits, per = nn_variant(m, n, k, torch.bfloat16, 0, 0, sms)
+        assert variant in ("wgmma", "skinny")
+        nkb = -(-k // 64)
+        covered = [kb for s in range(splits) for kb in range(s * per, min(nkb, (s + 1) * per))]
+        assert covered == list(range(nkb)), (m, n, k, sms)
+        assert all(s * per < nkb for s in range(splits)), (m, n, k, sms)  # none empty
+
+
+@pytest.mark.parametrize("dtype,g,m,n,k,nt,a_ptr,b_ptr,want", [
+    (torch.float32, 24, 768, 256, 64, True, 0, 0, ("tiled", 1, 4)),  # logits, dP: 1152 tiles
+    (torch.float32, 24, 256, 64, 768, False, 0, 0, ("tiled", 4, 12)),  # dK, dV: 96 tiles
+    (torch.float32, 24, 768, 64, 256, False, 0, 0, ("tiled", 1, 16)),  # dQ: 288 tiles
+    (torch.float32, 12, 3, 64, 512, False, 0, 0, ("tiled", 8, 4)),  # decode probs @ V
+    (torch.float32, 1, 127, 129, 64, True, 0, 0, ("tiled", 1, 4)),  # BNT takes any n; 64 of k: no split
+    (torch.float32, 1, 127, 129, 64, False, 0, 0, ("fma", 1, 1)),  # BNN's rows of 129 floats
+    (torch.float32, 2, 65, 70, 63, True, 0, 0, ("fma", 1, 1)),  # k % 4 != 0
+    (torch.float32, 24, 768, 256, 64, True, 4, 0, ("fma", 1, 1)),  # A 4 bytes off
+    (torch.bfloat16, 24, 768, 64, 256, False, 0, 0, ("mma", 1, 1)),  # probs @ V, TNN policy
+    (torch.bfloat16, 24, 768, 256, 64, True, 0, 0, ("mma", 1, 1)),
+    (torch.bfloat16, 2, 65, 70, 68, True, 0, 0, ("fma", 1, 1)),  # k % 8 != 0
+    (torch.bfloat16, 2, 65, 68, 64, False, 0, 0, ("fma", 1, 1)),  # BNN's n % 8 != 0
+    (torch.bfloat16, 24, 768, 64, 256, False, 0, 2, ("fma", 1, 1)),  # B 2 bytes off
+    (torch.bfloat16, 2, 4, 8, 0, True, 0, 0, ("fma", 1, 1)),  # k = 0
+])
+def test_batched_variant_follows_shape_and_alignment(dtype, g, m, n, k, nt, a_ptr, b_ptr, want):
+    assert batched_variant(dtype, g, m, n, k, nt, a_ptr, b_ptr, 132) == want
+
+
+def test_batched_split_covers_every_k_step_once():
+    for g, m, n, k, sms in itertools.product((1, 12, 24, 40000), (1, 3, 256, 768),
+                                             (64, 256, 512), (4, 64, 256, 768, 4096),
+                                             (78, 132)):
+        variant, splits, per = batched_variant(torch.float32, g, m, n, k, False, 0, 0, sms)
+        assert variant == "tiled"
+        steps = -(-k // 16)
+        assert splits * per >= steps and (splits - 1) * per < steps, (g, m, n, k, sms)
+        assert g * splits <= 65535 and per >= min(4, steps), (g, m, n, k, sms)
+
+
 # -- fused attention -----------------------------------------------------------------
 
 ATTN_SHAPES = ((1, 129, 257, 33), (2, 64, 200, 16), (3, 1, 96, 64))
@@ -427,6 +517,87 @@ def test_batched_kernels_match_plain_on_card(cuda, g, m, n, k, dtype):
     torch.testing.assert_close(ops.matmul_bnn(a, b_nn).float(), ref.matmul_bnn(a, b_nn).float(),
                                **tol)
     assert LAUNCHES["matmul_bnt"] == LAUNCHES["matmul_bnn"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", NN_TRAIN_SHAPES)
+def test_nn_kernel_matches_plain_at_training_shapes_on_card(cuda, m, n, k):
+    """The wgmma variant at every bf16 NN shape of a train step, the
+    split-k ones included; a split sums in a fixed order, so a second call
+    gives the same bits."""
+    a = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    b = torch.randn(k, n, device=cuda).to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert nn_variant(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms)[0] == "wgmma"
+    reset_launches()
+    out = ops.matmul_nn(a, b)
+    assert LAUNCHES["matmul_nn"] == 1
+    torch.testing.assert_close(out.float(), ref.matmul_nn(a, b).float(), **_tol("bfloat16", k))
+    assert torch.equal(ops.matmul_nn(a, b), out)
+    assert LAUNCHES["matmul_nn"] == 2
+
+
+NN_EDGE_SHAPES = (
+    # ragged m around the skinny kernel's 64 rows and the wgmma kernel's
+    # 128, n a multiple of 8 but not of 64 (96, 200) or not of 8 (197), a k
+    # that is no multiple of the 64-deep stage, and k = 49152 (split k)
+    (1, 96, 136), (63, 200, 136), (64, 1536, 576), (65, 200, 136), (129, 96, 136),
+    (65, 197, 136), (129, 200, 576), (8, 49152, 576), (1, 576, 49152), (129, 96, 49152),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,m,n,k", [
+    (dt, m, n, k) for dt in ("float32", "bfloat16") for m, n, k in NN_EDGE_SHAPES
+    if dt == "bfloat16" or k < 49152  # f32 is the unchanged FMA kernel
+])
+def test_nn_kernel_variants_match_plain_on_card(cuda, m, n, k, dtype):
+    dt = getattr(torch, dtype)
+    a, b = torch.randn(m, k, device=cuda).to(dt), torch.randn(k, n, device=cuda).to(dt)
+    tol = _tol(dtype, k)
+    reset_launches()
+    torch.testing.assert_close(ops.matmul_nn(a, b).float(), ref.matmul_nn(a, b).float(), **tol)
+    assert LAUNCHES["matmul_nn"] == 1
+    # an operand that starts one element past an aligned address takes the
+    # FMA kernel, chosen before the launch
+    a_odd = torch.randn(m * k + 1, device=cuda).to(dt)[1:].view(m, k)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert nn_variant(m, n, k, dt, a_odd.data_ptr(), b.data_ptr(), sms)[0] == "fma"
+    torch.testing.assert_close(ops.matmul_nn(a_odd, b).float(), ref.matmul_nn(a_odd, b).float(),
+                               **tol)
+    assert LAUNCHES["matmul_nn"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,m,n,k", [
+    (2, 65, 70, 63),  # k % 4 != 0: the FMA kernel
+    (12, 3, 64, 512), (12, 3, 512, 64),  # m = 3 (decode), split k at f32
+    (1, 200, 96, 136),  # g = 1
+    (24, 768, 256, 64), (24, 256, 64, 768), (24, 768, 64, 256),  # the main path
+])
+def test_batched_kernel_variants_match_plain_on_card(cuda, g, m, n, k, dtype):
+    dt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    a = torch.randn(g, m, k, device=cuda).to(dt)
+    a_odd = torch.randn(g * m * k + 1, device=cuda).to(dt)[1:].view(g, m, k)
+    tol = _tol(dtype, k)
+    for nt in (True, False):
+        name = "matmul_bnt" if nt else "matmul_bnn"
+        fn, want_fn = getattr(ops, name), getattr(ref, name)
+        b = torch.randn(*((g, n, k) if nt else (g, k, n)), device=cuda).to(dt)
+        variant = batched_variant(dt, g, m, n, k, nt, a.data_ptr(), b.data_ptr(), sms)[0]
+        vec = 4 if dtype == "float32" else 8
+        assert (variant == "fma") == (k % vec != 0 or (not nt and n % vec != 0))
+        reset_launches()
+        out = fn(a, b)
+        torch.testing.assert_close(out.float(), want_fn(a, b).float(), **tol)
+        assert torch.equal(fn(a, b), out)  # split k sums in a fixed order
+        # one element off alignment: the FMA kernel
+        assert batched_variant(dt, g, m, n, k, nt, a_odd.data_ptr(), b.data_ptr(),
+                               sms)[0] == "fma"
+        torch.testing.assert_close(fn(a_odd, b).float(), want_fn(a_odd, b).float(), **tol)
+        assert LAUNCHES[name] == 3
 
 
 @pytest.mark.gpu
