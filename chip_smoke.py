@@ -13,8 +13,9 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               only), the profiler's device time of the kernel and the
               library call, the variant that ran, and the datasheet bound
               of the same work; the kernels redesigned for Hopper (bf16
-              NT, fused TNN and NN; batched in both dtypes) are timed
-              beside the kernels they replaced, which must agree too
+              NT, fused TNN and NN; batched in both dtypes; attention's
+              split-KV and flash routes) are timed beside the kernels they
+              replaced, which must agree too
   4. serve    repro_torch.launch.serve.main on smollm-135m at full config
               in bf16: class interactive under fixed:nt=PALLAS_TNN,attn=fused,
               class bulk under fixed:nt=PALLAS_NT,attn=fused, then the same
@@ -23,7 +24,9 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               must have launched, and first-token logits must agree with
               the cuBLAS run and sit no further from an f32 run of the
               same weights than twice the cuBLAS run does; a profiled
-              decode step per policy gives the device's busy share
+              decode step per policy, with every row at position 0 and
+              again at max_seq - 1 (a full cache), gives the device's busy
+              share
   5. exact    f32 at full width and 2 layers: greedy tokens of both kernel
               policies identical to fixed:XLA_NT
   6. imports  no jax in the process
@@ -37,7 +40,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               kernel of the training path launched and none under cuBLAS;
               ms/step, tokens/s, launches per step and a profiled step's
               device busy share per policy; the profiled kernel-policy
-              steps must run no FMA kernel the redesigns replaced
+              steps must run no FMA kernel the redesigns replaced, and the
+              fused policy's must run the flash attention kernel
   8. train_exact  f32 at full width and 2 layers: every gradient leaf of
               step 0 under both kernel policies within relative L2 1e-4 of
               fixed:XLA_NT's, and the losses of 3 steps within 1e-5
@@ -115,7 +119,11 @@ NN_TRAIN_SHAPES = (
 # The FMA kernels the redesigned NN and batched kernels replaced, by the
 # name prefix the profiler gives them: a profiled kernel-policy train step
 # must run none of them.
-REPLACED_FMA_KERNELS = ("matmul_kernel<__nv_bfloat16", "batched_kernel<")
+REPLACED_FMA_KERNELS = ("matmul_kernel<__nv_bfloat16", "batched_kernel<",
+                        "attention_kernel<__nv_bfloat16")
+# The attention forward of a train step: batch 8 x 3 kv heads, 3 heads
+# folded x 256 queries, 256 keys, causal.
+TRAIN_ATTN_CASE = "train causal g=24 m=768 n=256 q_seg=256"
 
 # Training: smollm-135m at full config, bf16, remat full, AdamW.
 DEVICE = "cuda"
@@ -185,10 +193,10 @@ def dev_us(event) -> float:
     return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, iters=20) -> float:
+def device_ms(fn, iters=20):
     """Mean device time of the kernels one call of ``fn`` launches, from
     torch.profiler: the host's launch cost, which ``time_ms`` includes when
-    the host is slower than the card, left out."""
+    the host is slower than the card, left out; and the kernels' names."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -200,10 +208,28 @@ def device_ms(fn, iters=20) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(dev_us(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+        events = [e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU and dev_us(e) > 0]
+        total = sum(dev_us(e) for e in events)
         if total > 0:
             break
-    return total / iters / 1e3
+    return total / iters / 1e3, sorted({kernel_name(e.key) for e in events})
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel name without its return type, namespaces of this
+    repo's kernels and argument list (the last balanced parenthesis group,
+    which may hold namespaced types), cut before torch's lambda suffixes."""
+    name = key.replace("(anonymous namespace)::", "")
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += (name[i] == ")") - (name[i] == "(")
+            if depth == 0:
+                name = name[:i]
+                break
+    name = name.split("(", 1)[0].strip()
+    return name[len("void "):] if name.startswith("void ") else (name or key)
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -273,22 +299,28 @@ def kernel_cases(torch):
         for m, n, k in (NN_TRAIN_SHAPES if dt == torch.bfloat16 else ()):
             cases.append(("matmul_nn", f"({m},{k})x({k},{n})", dt,
                           {"a": randn(m, k, dtype=dt), "b": randn(k, n, dtype=dt)}))
+        # attention: decode (split-KV), prefill, and a train step's forward
+        # (flash for bf16), at d_head 64 and 128
         lens = torch.randint(1, 513, (12,), generator=gen, device="cuda", dtype=torch.int32)
+        train_mask = MaskParams(causal=True, q_seg=256)
         geoms = [
-            ("decode g=12 m=3 n=512 ragged", 12, 3, 512, lens, MaskParams()),
-            ("prefill causal g=3 m=192 n=64 q_seg=64", 3, 192, 64, None,
+            ("decode g=12 m=3 n=512 ragged", 12, 3, 512, 64, lens, MaskParams()),
+            ("prefill causal g=3 m=192 n=64 q_seg=64", 3, 192, 64, 64, None,
              MaskParams(causal=True, q_seg=64)),
-            ("window+prefix+softcap g=3 m=192 n=256 q_seg=64", 3, 192, 256, None,
+            ("window+prefix+softcap g=3 m=192 n=256 q_seg=64", 3, 192, 256, 64, None,
              MaskParams(causal=True, window=48, prefix_len=16, q_start=192,
                         q_seg=64, softcap=30.0)),
+            (TRAIN_ATTN_CASE, 24, 768, 256, 64, None, train_mask),
+            (TRAIN_ATTN_CASE + " dh=128", 24, 768, 256, 128, None, train_mask),
+            ("decode g=12 m=3 n=512 ragged dh=128", 12, 3, 512, 128, lens, MaskParams()),
         ]
-        for label, g, m, n, lengths, mask in geoms:
-            q = randn(g, m, 64, dtype=dt) * 0.125
+        for label, g, m, n, dh, lengths, mask in geoms:
+            q = randn(g, m, dh, dtype=dt) * dh ** -0.5
             cases.append(("attention_fused", label, dt, {
-                "q": q, "k": randn(g, n, 64, dtype=dt), "v": randn(g, n, 64, dtype=dt),
+                "q": q, "k": randn(g, n, dh, dtype=dt), "v": randn(g, n, dh, dtype=dt),
                 "lengths": lengths if lengths is not None else
                 torch.full((g,), n, dtype=torch.int32, device="cuda"),
-                "mask": mask,
+                "mask": mask, "heads": 3 if label.startswith(TRAIN_ATTN_CASE) else None,
             }))
     return cases
 
@@ -359,9 +391,15 @@ def run_case(torch, name, inp, dt):
         n = k.shape[1]
         kern = lambda: attention_fused(q, k, v, lengths, mask=mask)  # noqa: E731
         plain = lambda: ref.attention_fused(q, k, v, lengths, mask)  # noqa: E731
+        variant = attention_label(torch, q, k, v)
         vis = ref.attention_visibility(mask, lengths, m, n)
         lib = None
-        if not mask.softcap:  # SDPA has no softcap: no library call computes it
+        if inp["heads"]:  # the same function unfolded: heads x queries over one kv head
+            h = inp["heads"]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.view(g, h, m // h, dh), k.view(g, 1, n, dh), v.view(g, 1, n, dh),
+                is_causal=True, enable_gqa=True, scale=1.0)
+        elif not mask.softcap:  # SDPA has no softcap: no library call computes it
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=vis, scale=1.0)
         # tests/test_attention_fused.py: f32 1e-4, bf16 2e-2, relative; the
@@ -375,30 +413,47 @@ def run_case(torch, name, inp, dt):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err, ok = compare(out, want, rtol, atol)
-    prev = replaced_kernel(torch, name, inp["a"], inp["b"]) if "a" in inp else None
+    prev = replaced_kernel(torch, name, inp, variant)
+    prev_err = None
     if prev is not None:  # the replaced kernel must still agree, or its times mean nothing
-        ok = ok and compare(prev(), want, rtol, atol)[1]
+        prev_err, prev_ok = compare(prev(), want, rtol, atol)
+        ok = ok and prev_ok
+    if lib is not None:
+        lib_device_ms, lib_kernels = device_ms(lib)
+        lib_err = (compare(lib().reshape(want.shape), want, rtol, atol)[0]
+                   if name == "attention_fused" else None)
+    else:
+        lib_device_ms, lib_kernels, lib_err = None, None, None
+    dev, kernels = device_ms(kern)
     return {
         "variant": variant, "err": err, "ok": ok, "rtol": rtol, "atol": atol,
         "ms": time_ms(kern), "plain_ms": time_ms(plain),
         "library_ms": time_ms(lib) if lib is not None else None,
-        "device_ms": device_ms(kern),
-        "library_device_ms": device_ms(lib) if lib is not None else None,
+        "device_ms": dev, "device_kernels": kernels,
+        "library_device_ms": lib_device_ms, "library_kernels": lib_kernels,
+        "library_err": lib_err,
         "replaced_ms": time_ms(prev) if prev is not None else None,
-        "replaced_device_ms": device_ms(prev) if prev is not None else None,
+        "replaced_device_ms": device_ms(prev)[0] if prev is not None else None,
+        "replaced_err": prev_err,
         "bound_ms": b_ms, "bound_by": by,
     }
 
 
-def replaced_kernel(torch, name, a, b):
+def replaced_kernel(torch, name, inp, variant):
     """For the kernels redesigned for Hopper -- bf16 NT, fused TNN and NN,
-    batched in both dtypes -- a call of the kernel each replaced (still
-    built: the FMA kernels of csrc/matmul.cu and csrc/matmul_batched.cu and
+    batched in both dtypes, attention's split-KV and flash routes -- a call
+    of the kernel each replaced (still built: the FMA kernels of
+    csrc/matmul.cu, csrc/matmul_batched.cu and csrc/attention_fused.cu and
     the mma.sync variant of csrc/matmul_tnn_fused.cu), launched directly
     without the wrapper's checks; else None."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import launch_matmul
 
+    if name == "attention_fused":
+        return None if variant == "fma" else fma_attention(torch, inp)
+    if name == "transpose":
+        return None
+    a, b = inp["a"], inp["b"]
     if name in ("matmul_bnt", "matmul_bnn"):
         (g, m, k), nt = a.shape, name == "matmul_bnt"
         n = b.shape[1] if nt else b.shape[2]
@@ -428,6 +483,41 @@ def replaced_kernel(torch, name, a, b):
         return c
 
     return mma_sync
+
+
+def fma_attention(torch, inp):
+    """A call of the FMA attention kernel on the case's inputs."""
+    from repro_torch.kernels import _build
+
+    q, k, v, lengths, mask = (inp[x] for x in ("q", "k", "v", "lengths", "mask"))
+    g, m, dh = q.shape
+
+    def call():
+        out = torch.empty_like(q)
+        _build.launch("attention_fused", "repro_attention_fused_fma", _build.ptr(q),
+                      _build.ptr(k), _build.ptr(v), _build.ptr(lengths), _build.ptr(out),
+                      g, m, k.shape[1], dh, int(mask.causal), int(mask.window),
+                      int(mask.q_start), int(mask.k_start), int(mask.prefix_len),
+                      int(mask.q_seg), float(mask.softcap), _build.dtype_code(q.dtype),
+                      _build.stream_of(q))
+        return out
+
+    return call
+
+
+def attention_label(torch, q, k, v):
+    """The attention kernel a call with these operands launches."""
+    from repro_torch.kernels.attention_fused import attention_variant, decode_split_plan
+
+    g, m, dh = q.shape
+    n = k.shape[1]
+    variant = attention_variant(q.dtype, g, m, n, dh,
+                                all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    if variant == "decode_split":
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits, per = decode_split_plan(g, n, sms)
+        return f"decode_split, {splits} splits of {per} keys"
+    return variant
 
 
 def nt_variant(torch, a, b):
@@ -553,23 +643,27 @@ def busy_profile(torch, step, reps=5):
     wall_ms = statistics.median(walls) * 1e3
     by_name = {}  # every kernel's device time, by its name without arguments
     for e in sorted(events, key=dev_us, reverse=True):
-        short = e.key.replace("(anonymous namespace)::", "").split("(", 1)[0]
+        short = kernel_name(e.key)
         by_name[short] = by_name.get(short, 0.0) + dev_us(e) / 1e3
     return {
         "wall_ms": wall_ms, "device_ms": kernel_ms,
         "device_busy_share": kernel_ms / wall_ms if kernel_ms else None,
         "kernels_ms": by_name,
+        "kernel_keys": sorted({e.key for e in events}),  # full names, for the checks
     }
 
 
-def decode_profile(torch, engine, cls):
+def decode_profile(torch, engine, cls, pos=0):
     """One bucketed decode step of ``cls`` (largest bucket, all rows on the
-    null slot), profiled by ``busy_profile``."""
+    null slot at position ``pos``: at 0 attention sees one key, at
+    max_seq - 1 the full cache), profiled by ``busy_profile``."""
     bb = engine.buckets.decode_batches[-1]
     null = torch.full((bb,), engine.kv.null_slot, dtype=torch.long, device="cuda")
     zeros = torch.zeros((bb,), dtype=torch.long, device="cuda")
-    prof = busy_profile(torch, lambda: engine._decode_step(cls, zeros[:, None], null, zeros))
-    return {"batch": bb, **prof}
+    at = torch.full((bb,), pos, dtype=torch.long, device="cuda")
+    prof = busy_profile(torch, lambda: engine._decode_step(cls, zeros[:, None], null, at))
+    prof.pop("kernel_keys")
+    return {"batch": bb, "pos": pos, **prof}
 
 
 # -- phase 7/8 helpers --------------------------------------------------------
@@ -671,11 +765,16 @@ def phase_train(torch, card):
                                     for spec, r in runs.items()},
     }
     train_row["step_profile"] = {spec: train_step_profile(torch, r) for spec, r in runs.items()}
-    for spec in TRAIN_POLICIES.values():
-        fma = {k: v for k, v in train_row["step_profile"][spec]["kernels_ms"].items()
-               if any(p in k for p in REPLACED_FMA_KERNELS)}
-        train_row["step_profile"][spec]["replaced_fma_kernels_ms"] = fma
+    for spec in runs:
+        keys = train_row["step_profile"][spec].pop("kernel_keys")
+        if spec not in TRAIN_POLICIES.values():
+            continue
+        fma = [k[:160] for k in keys if any(p in k for p in REPLACED_FMA_KERNELS)]
+        train_row["step_profile"][spec]["replaced_fma_kernels"] = fma
         check(not fma, f"{spec}: a profiled train step ran replaced FMA kernels: {fma}")
+    check(any("attention_flash" in k for k in
+              train_row["step_profile"][TRAIN_POLICIES["fused"]]["kernels_ms"]),
+          "the fused policy's profiled train step ran no flash attention kernel")
     return train_row, train_launches
 
 
@@ -788,6 +887,10 @@ def main() -> int:
               f"{limit} (the cuBLAS policy's distance is {to_f32[CUBLAS_POLICY]})")
     profiles = {spec: decode_profile(torch, eng_k, cls) for cls, spec in KERNEL_POLICIES.items()}
     profiles[CUBLAS_POLICY] = decode_profile(torch, eng_x, "interactive")
+    full = eng_k.max_seq - 1
+    full_cache = {spec: decode_profile(torch, eng_k, cls, full)
+                  for cls, spec in KERNEL_POLICIES.items()}
+    full_cache[CUBLAS_POLICY] = decode_profile(torch, eng_x, "interactive", full)
     agree = {}
     for cls, spec in KERNEL_POLICIES.items():
         pairs = [(a, b) for r in eng_k.requests.values() if r.cls == cls
@@ -798,6 +901,7 @@ def main() -> int:
         "phase": "serve", "card": card, "arch": "smollm-135m", "dtype": "bfloat16",
         "launches": launches, "first_token_rel_l2": rel, "rel_l2_bound": LOGITS_REL_L2,
         "first_token_rel_l2_to_f32": to_f32, "decode_step_profile": profiles,
+        "decode_step_profile_full_cache": full_cache,
         "greedy_agreement_vs_cublas": agree,
         "tokens_per_s": {"kernel_policies": n_tok(eng_k) / eng_k.run_seconds,
                          CUBLAS_POLICY: n_tok(eng_x) / eng_x.run_seconds},

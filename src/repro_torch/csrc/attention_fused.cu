@@ -14,16 +14,57 @@
 // decode rows see slot 0): masked entries add exactly 0 here, so such a row
 // comes out 0, where the Pallas kernel's result depends on its tiling.
 //
-// Bound on the H100: at decode (m = 3 rows per kv head, n = cache extent)
-// the kernel is bound by bytes -- K and V of the live prefix are read once;
-// at prefill by its FMA work.  Design: one block of 128 threads per
-// (slice, 16 query rows), a loop inside the block over 32-key tiles (the
-// Pallas sequential kv grid axis).  The block computes the live key range
-// from the mask parameters and visits only the tiles in it, which replaces
-// the TPU's banded grid (`_kv_band`).  Q, K, V tiles and the tile's scores
-// sit in shared memory as f32; each thread owns one query row's slice of
-// the f32 output accumulator in registers.  dh is not padded (up to 128).
+// Three kernels; the wrapper picks one per call from dtype and shape
+// (kernels/attention_fused.py::attention_variant):
+//
+// attention_flash -- bf16, dh 64 or 128, m > 16: prefill and training.
+//   Bound on the H100: bytes.  At the training shape (g 24, m 768 = 3 heads
+//   x 256 queries folded, n 256, causal, dh 64) Q, K, V and the output are
+//   6.3 MB, 1.9 us at 3.35 TB/s, against 0.6 us of tensor-core work.
+//   Design: a flash-attention forward on the tensor cores.  A block is one
+//   warpgroup and takes 64 query rows.  64-key K/V tiles of the block's
+//   live key range (the Pallas `_kv_band`) come through a 2-stage cp.async
+//   ring of 16-byte copies, written in the 128-byte swizzle the wgmma
+//   descriptors read; keys at or beyond `lengths` are never read, they land
+//   as 0.  S = Q K^T is wgmma with Q's tile and K's stored (n, dh) rows as
+//   K-major operands in shared memory; the online softmax runs in
+//   registers (row max and sum over the lane quad by shuffles, exp2 of
+//   log2e-scaled logits on the SFU); P is rounded to bf16 in registers and
+//   is the register A operand of P V, whose B is V's tile read MN-major.
+//   Tiles wholly inside the visible band skip the per-element mask.  Under
+//   a causal mask the q-blocks that see most keys launch first.  wgmma, not
+//   mma.sync: at these short sweeps (a 64-row block sees at most a few
+//   tiles) each warp's chain of dependent instructions per tile sets the
+//   time, and an mma.sync version (64 mma and 32 ldmatrix a warp per tile)
+//   measured slower on the card than the 8 wgmma that replace them.
+//
+// attention_decode_split + attention_combine -- m <= 16 (decode: one kv
+//   head's GQA group of rows), both dtypes, any dh up to 128.  Bound on the
+//   H100: bytes (K and V of the live prefix, read once) and, at decode's
+//   size, launch latency.  Design: split-KV ("flash decoding").  The grid
+//   is (g, splits), splits (at most 64) chosen on the host from n and the
+//   SM count so that g x splits fills the card; a split with no live key
+//   writes a "no key" partial and exits.  Inside a block every row is
+//   handled at once: each warp walks a run of keys, `lanes` lanes sharing
+//   a key row with 16-byte loads (8 lanes for a 64-dim bf16 row), the next
+//   step's loads in flight, dot products reduced by shuffles, FFMA in f32,
+//   an online softmax per lane group,
+//   merged over the warp by shuffles and over the block through shared
+//   memory.  Each split writes f32 partials (acc[m][dh], max[m], sum[m]);
+//   attention_combine folds them in split order (the same bits on every
+//   call), each scaled by exp(max_i - max).  With one split the block
+//   writes the output itself: one launch.
+//
+// attention_kernel -- FMA: f32 at m > 16, and any other dh.  The kernel of
+//   the port's first slice, kept as it was.  Bound at prefill by its FMA
+//   work: one block of 128 threads per (slice, 16 query rows), a loop
+//   inside the block over 32-key tiles of the live range; Q, K, V tiles and
+//   the tile's scores sit in shared memory as f32; each thread owns one
+//   query row's slice of the f32 output accumulator in registers.  It is
+//   also the bf16 kernel the flash and split kernels replaced
+//   (repro_attention_fused_fma launches it for any operands).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -44,6 +85,71 @@ struct Mask {
   int q_seg;
   float softcap;
 };
+
+// Helpers of the flash and split kernels.
+
+// The key columns a query at position q_pos sees: lo <= col <= hi (valid,
+// causal, window), or col < pre (valid and in the prefix).
+struct VisibleCols {
+  int lo, hi, pre;
+};
+
+__device__ __forceinline__ VisibleCols visible_cols(int q_pos, int len, const Mask& mask) {
+  VisibleCols c{0, len - 1, 0};
+  if (mask.causal) c.hi = min(c.hi, q_pos - mask.k_start);
+  if (mask.window > 0) c.lo = q_pos - mask.window + 1 - mask.k_start;
+  if (mask.prefix_len > 0) c.pre = min(len, mask.prefix_len - mask.k_start);
+  return c;
+}
+
+__device__ __forceinline__ bool visible(int col, const VisibleCols& c) {
+  return (col >= c.lo && col <= c.hi) || col < c.pre;
+}
+
+// The fold residues [min_mod, max_mod] of rows r_lo..r_hi: rows spanning a
+// fold boundary hold every residue of the segment.
+struct Residues {
+  int min_mod, max_mod;
+};
+
+__device__ __forceinline__ Residues residues(int r_lo, int r_hi, int seg) {
+  if (r_lo / seg == r_hi / seg) return {r_lo % seg, r_hi % seg};
+  return {0, seg - 1};
+}
+
+// The live key columns [lo, hi] of rows with these residues (empty when
+// hi < lo): the columns outside see none of the rows.
+struct KeyRange {
+  int lo, hi;
+};
+
+__device__ __forceinline__ KeyRange live_keys(Residues res, int len, const Mask& mask) {
+  int lo = 0, hi = len - 1;
+  if (mask.causal) hi = min(hi, mask.q_start + res.max_mod - mask.k_start);
+  if (mask.window > 0) {
+    lo = max(0, mask.q_start + res.min_mod - mask.window + 1 - mask.k_start);
+  }
+  if (mask.prefix_len > 0) {  // prefix keys stay visible to every row
+    lo = 0;
+    hi = max(hi, min(len, mask.prefix_len - mask.k_start) - 1);
+  }
+  return {lo, hi};
+}
+
+// Whether every key column in [c0, c1] is visible to every row with these
+// residues: such a tile needs no per-element mask.
+__device__ __forceinline__ bool all_visible(int c0, int c1, Residues res, int len,
+                                            const Mask& mask) {
+  if (c1 >= len) return false;
+  const int k_lo = mask.k_start + c0, k_hi = mask.k_start + c1;
+  bool all = true;
+  if (mask.causal) all = all && k_hi <= mask.q_start + res.min_mod;
+  if (mask.window > 0) all = all && k_lo > mask.q_start + res.max_mod - mask.window;
+  if (mask.prefix_len > 0) all = all || k_hi < mask.prefix_len;
+  return all;
+}
+
+// -- attention_kernel (FMA) ---------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -176,11 +282,607 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- attention_flash ----------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kFlashRows = 64;     // query rows per block: one warpgroup, 16 rows a warp
+constexpr int kFlashKeys = 64;     // keys per K/V tile
+constexpr int kFlashThreads = 128;
+constexpr int kFlashStages = 2;    // (K, V) tiles in the ring
+
+// 2^x by the SFU, flushing a subnormal result to 0 (a p below 2^-126 adds
+// nothing that a bf16 P or an f32 sum of terms up to 1 can hold).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The first row of the q-block that block `rank` takes.  Under a causal
+// mask a later row sees more keys, so the latest blocks (the latest in
+// each fold segment, when whole blocks tile the segments) go first and
+// the longest do not trail the grid.
+__device__ __forceinline__ int flash_block_row(int rank, int blocks, int rows, int m, int seg,
+                                               bool causal) {
+  if (!causal) return rank * rows;
+  if (seg < m && seg % rows == 0 && m % seg == 0) {
+    const int per_seg = seg / rows, segs = m / seg;
+    return ((rank % segs) * per_seg + per_seg - 1 - rank / segs) * rows;
+  }
+  return (blocks - 1 - rank) * rows;
+}
+
+// The 128-byte swizzle of a K-major tile of `rows` rows x DH bf16, as the
+// wgmma descriptors read it: 64-column chunks of rows x 128 bytes, the
+// 16-byte piece c of row r at position (c % 8) ^ (r % 8) of its row.
+__device__ __forceinline__ uint32_t sw_piece(int r, int c, int rows) {
+  return (c / 8) * rows * 128 + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D(64 x N) += A(64 x 16) . B(16 x N), N = 64 or 128: A from registers
+// (each warp's 16 rows in the layout of the mma.sync A fragment, which is
+// the layout of an m64nNk16 accumulator pair), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+struct FlashCfg {
+  static constexpr int kTileBytes = 64 * DH * 2;  // a Q, K or V tile of 64 rows
+  // Q, then the stages' (K, V); 1024 bytes of slack align the tiles for the swizzle
+  static constexpr int kSmem = 1024 + (1 + 2 * kFlashStages) * kTileBytes;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kFlashThreads)
+    attention_flash(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out, int m, int n, Mask mask) {
+  constexpr int kRows = kFlashRows, kKeys = kFlashKeys, kThreads = kFlashThreads;
+  constexpr int kStages = kFlashStages;
+  constexpr int kChunks = DH / 8;  // 16-byte pieces of a row
+  constexpr int kStep = kThreads / kChunks;
+  constexpr int kTile = FlashCfg<DH>::kTileBytes;
+  static_assert(kRows % kStep == 0 && kKeys % kStep == 0, "copy layout");
+  extern __shared__ __align__(16) uint8_t flash_smem[];
+  const uint32_t base = (repro::smem_addr(flash_smem) + 1023) & ~1023u;
+  uint8_t* gbase = flash_smem + (base - repro::smem_addr(flash_smem));
+  const uint32_t qs = base;  // the Q tile, at the end the output's
+  auto k_tile = [&](int slot) { return base + kTile * (1 + 2 * slot); };
+  auto v_tile = [&](int slot) { return base + kTile * (2 + 2 * slot); };
+
+  const int slice = blockIdx.x;
+  const int seg = mask.q_seg > 0 ? mask.q_seg : m;
+  const int q0 = flash_block_row(blockIdx.y, gridDim.y, kRows, m, seg, mask.causal != 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int len = min(max(lengths[slice], 0), n);
+  q += static_cast<size_t>(slice) * m * DH;
+  out += static_cast<size_t>(slice) * m * DH;
+  k += static_cast<size_t>(slice) * n * DH;
+  v += static_cast<size_t>(slice) * n * DH;
+
+  const KeyRange keys = live_keys(residues(q0, min(q0 + kRows, m) - 1, seg), len, mask);
+  const int tile_lo = keys.lo / kKeys;
+  const int n_tiles = keys.hi >= keys.lo ? keys.hi / kKeys - tile_lo + 1 : 0;
+
+  // 16-byte copies: the thread takes piece c_of of rows r_of, r_of + kStep, ...
+  const int r_of = threadIdx.x / kChunks, c_of = threadIdx.x % kChunks;
+#pragma unroll
+  for (int i = 0; i < kRows / kStep; ++i) {
+    const int r = r_of + i * kStep;
+    const bool in = q0 + r < m;
+    repro::cp_async16(qs + sw_piece(r, c_of, kRows),
+                      in ? q + static_cast<size_t>(q0 + r) * DH + c_of * 8 : q, in);
+  }
+  // Tile t into its ring slot; K and V rows at or beyond lengths are not
+  // read: they land as 0.  One commit group per tile, empty past the last.
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      const int t0 = (tile_lo + t) * kKeys;
+#pragma unroll
+      for (int i = 0; i < kKeys / kStep; ++i) {
+        const int r = r_of + i * kStep;
+        const bool in = t0 + r < len;
+        const size_t off = static_cast<size_t>(t0 + r) * DH + c_of * 8;
+        repro::cp_async16(k_tile(t % kStages) + sw_piece(r, c_of, kKeys), in ? k + off : k, in);
+        repro::cp_async16(v_tile(t % kStages) + sw_piece(r, c_of, kKeys), in ? v + off : v, in);
+      }
+    }
+    repro::cp_async_commit();
+  };
+  load_tile(0);  // with Q
+
+  // This warp's 16 rows; the thread holds rows lane / 4 and lane / 4 + 8.
+  const int w0 = q0 + warp * 16;
+  const Residues w_res = residues(w0, min(w0 + 15, m - 1), seg);
+  const int row_a = w0 + lane / 4;
+  const VisibleCols cols[2] = {visible_cols(mask.q_start + row_a % seg, len, mask),
+                               visible_cols(mask.q_start + (row_a + 8) % seg, len, mask)};
+
+  // wgmma accumulators: i of a thread sits at row 16 * warp + lane / 4 +
+  // 8 * ((i / 2) % 2) of the block, column 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float row_max[2] = {kNegInf, kNegInf}, row_sum[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro::cp_async_wait<0>();  // tile it (first with Q) has landed: this thread's copies,
+    fence_proxy_async();        // made visible to the tensor cores' reads,
+    __syncthreads();            // then everyone's; and slot it - 1 is free
+    load_tile(it + 1);
+    const int t0 = (tile_lo + it) * kKeys;
+    const uint32_t ks = k_tile(it % kStages), vs = v_tile(it % kStages);
+
+    // S = Q K^T, 64 rows x 64 keys: Q's tile (A) and K's stored rows (B,
+    // K-major) straight from shared memory, one wgmma per 16 of dh.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      repro::wgmma_bf16<0>(s, repro::sw128_desc(qs + off), repro::sw128_desc(ks + off));
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    repro::fence_regs(s);
+
+    if (mask.softcap != 0.f) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = mask.softcap * tanhf(s[i] / mask.softcap);
+    }
+    if (!all_visible(t0, t0 + kKeys - 1, w_res, len, mask)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = t0 + 8 * (i / 4) + (lane % 4) * 2 + (i & 1);
+        if (!visible(col, cols[(i / 2) % 2])) s[i] = kNegInf;
+      }
+    }
+    // online softmax of rows a (i % 4 = 0, 1) and b (2, 3); all state f32
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(row_max[h], mx);
+      const float alpha = fast_exp2((row_max[h] - m_new) * kLog2e);
+      // No visible key so far (m_new is NEG_INF): every logit is NEG_INF,
+      // and against a shift of 0 each p is exactly 0 -- never
+      // exp(NEG_INF - NEG_INF) = 1.
+      const float shift = m_new > kNegInf ? m_new * kLog2e : 0.f;
+      float sum[2] = {0.f, 0.f};  // two chains: columns 2t and 2t + 1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = fast_exp2(fmaf(s[4 * j + 2 * h + e], kLog2e, -shift));
+          s[4 * j + 2 * h + e] = p;
+          sum[e] += p;
+        }
+      }
+      row_sum[h] = row_sum[h] * alpha + (sum[0] + sum[1]);
+      row_max[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j + 2 * h] *= alpha;
+        o[4 * j + 2 * h + 1] *= alpha;
+      }
+    }
+    // O += P V: P rounded to bf16 in registers is the A operand (the
+    // Pallas p.astype(v.dtype); accumulators 8kk..8kk+7 are the A fragment
+    // of key step kk); V's (key, dh) tile is the MN-major B.
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      wgmma_rs(o, a, repro::sw128_mn_desc(vs + kk * 16 * 128, kKeys * 128));
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    repro::fence_regs(o);
+  }
+
+  // Epilogue through the Q tile, which no wgmma reads any more: rows as
+  // bf16 pairs, then 16-byte stores of the real rows.
+  repro::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = row_sum[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float denom = sum == 0.f ? 1.f : sum;
+    const int r = warp * 16 + lane / 4 + 8 * h;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int col = 8 * j + (lane % 4) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(gbase + sw_piece(r, col / 8, kRows) + (col % 8) * 2) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h] / denom, o[4 * j + 2 * h + 1] / denom);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kRows / kStep; ++i) {
+    const int r = r_of + i * kStep;
+    if (q0 + r < m) {
+      *reinterpret_cast<int4*>(out + static_cast<size_t>(q0 + r) * DH + c_of * 8) =
+          *reinterpret_cast<const int4*>(gbase + sw_piece(r, c_of, kRows));
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_flash(const void* q, const void* k, const void* v, const int* lengths,
+                         void* out, int g, int m, int n, Mask mask, cudaStream_t s) {
+  const cudaError_t e = repro::allow_dynamic_smem<attention_flash<DH>>(FlashCfg<DH>::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(g, repro::cdiv(m, kFlashRows));
+  attention_flash<DH><<<grid, kFlashThreads, FlashCfg<DH>::kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), m, n,
+      mask);
+  return cudaGetLastError();
+}
+
+// -- attention_decode_split, attention_combine ---------------------------------
+
+constexpr int kDecodeThreads = 128;
+constexpr int kDecodeWarps = kDecodeThreads / 32;
+constexpr int kDecodeMaxRows = 16;  // the split kernel takes m <= 16
+
+// K (or V) values a lane holds of one key row: CPL chunks of VEC elements
+// (16-byte chunks; with scalar loads up to 4 chunks of one, 128 / 32).
+template <int VEC>
+struct DecodeCfg {
+  static constexpr int kCpl = VEC == 1 ? kDhMax / 32 : 1;
+  static constexpr int kElems = kCpl * VEC;
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ p, float* dst) {
+  if constexpr (VEC == 1) {
+    dst[0] = repro::to_float(p[0]);
+  } else {
+    static_assert(VEC * sizeof(T) == 16, "a vector chunk is 16 bytes");
+    const int4 raw = __ldg(reinterpret_cast<const int4*>(p));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = repro::to_float(e[i]);
+  }
+}
+
+// e^x by the SFU (2^(x log2 e)); e^(NEG_INF - finite) is exactly 0.
+__device__ __forceinline__ float fast_exp(float x) { return fast_exp2(x * kLog2e); }
+
+// One (slice, split) per block.  Keys [split * per, split * per + per) of
+// the live range; `lanes` lanes share a key row (a power of two, at least
+// dh / VEC chunks or 32).  ws == nullptr: a single split, which writes the
+// output; else the split's f32 partial goes to ws at
+// ((slice * splits + split) * m * (dh + 2)): acc[m][dh], max[m], sum[m].
+template <typename T, int VEC, int MR>
+__global__ void __launch_bounds__(kDecodeThreads)
+    attention_decode_split(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const int* __restrict__ lengths,
+                           T* __restrict__ out, float* __restrict__ ws, int m, int n, int dh,
+                           int per, int lanes, Mask mask) {
+  constexpr int kCpl = DecodeCfg<VEC>::kCpl;
+  constexpr int kElems = DecodeCfg<VEC>::kElems;
+  __shared__ float q_s[MR][kDhMax];
+  __shared__ float red_max[kDecodeWarps][MR];
+  __shared__ float red_sum[kDecodeWarps][MR];
+  __shared__ float red_acc[kDecodeWarps][MR][kDhMax];
+
+  const int slice = blockIdx.x, split = blockIdx.y;
+  const int len = min(max(lengths[slice], 0), n);
+  const int seg = mask.q_seg > 0 ? mask.q_seg : m;
+  const KeyRange live = live_keys(residues(0, m - 1, seg), len, mask);
+  const int k0 = max(live.lo, split * per), k1 = min(live.hi, split * per + per - 1);
+  const size_t o_off = static_cast<size_t>(slice) * m * dh;
+  const size_t part = (static_cast<size_t>(slice) * gridDim.y + split) * m * (dh + 2);
+
+  if (k0 > k1) {  // no live key: a "no key" partial, or unsplit a zero output
+    for (int i = threadIdx.x; i < m * dh; i += kDecodeThreads) {
+      if (ws != nullptr) {
+        ws[part + i] = 0.f;
+      } else {
+        out[o_off + i] = repro::from_float<T>(0.f);
+      }
+    }
+    if (ws != nullptr) {
+      for (int r = threadIdx.x; r < m; r += kDecodeThreads) {
+        ws[part + m * dh + r] = kNegInf;
+        ws[part + m * dh + m + r] = 0.f;
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane % lanes;  // this lane's place in its key row
+  const int keys_per_warp = 32 / lanes;
+  const int stride = kDecodeWarps * keys_per_warp;  // keys a block takes a step
+  const int chunks = dh / VEC;
+  k += static_cast<size_t>(slice) * n * dh;
+  v += static_cast<size_t>(slice) * n * dh;
+
+  // This lane's K and V chunks of key `col`; zeros past the run's end.
+  auto load_key = [&](int col, float (&kf)[kElems], float (&vf)[kElems]) {
+#pragma unroll
+    for (int c = 0; c < kCpl; ++c) {
+      const int chunk = sub + c * lanes;
+      if (col <= k1 && chunk < chunks) {
+        const size_t off = static_cast<size_t>(col) * dh + chunk * VEC;
+        load_chunk<T, VEC>(k + off, kf + c * VEC);
+        load_chunk<T, VEC>(v + off, vf + c * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kf[c * VEC + e] = vf[c * VEC + e] = 0.f;
+      }
+    }
+  };
+  // the first step's keys are in flight while Q is staged
+  int col = k0 + warp * keys_per_warp + lane / lanes;
+  float kf[kElems], vf[kElems];
+  load_key(col, kf, vf);
+  for (int i = threadIdx.x; i < m * dh; i += kDecodeThreads) {
+    q_s[i / dh][i % dh] = repro::to_float(q[o_off + i]);
+  }
+  __syncthreads();
+
+  float acc[MR][kElems], row_max[MR], row_sum[MR];
+#pragma unroll
+  for (int r = 0; r < MR; ++r) {
+    row_max[r] = kNegInf;
+    row_sum[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) acc[r][e] = 0.f;
+  }
+
+  // Each warp takes keys_per_warp keys a step, the next step's loads in
+  // flight; every lane of a warp runs the same steps, so the shuffles see
+  // the whole warp.
+  for (int base = k0 + warp * keys_per_warp; base <= k1; base += stride, col += stride) {
+    float kn[kElems], vn[kElems];
+    load_key(col + stride, kn, vn);
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r >= m) break;
+      float d = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCpl; ++c) {
+        const int chunk = sub + c * lanes;
+        if (chunk < chunks) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) d = fmaf(q_s[r][chunk * VEC + e], kf[c * VEC + e], d);
+        }
+      }
+      for (int off = lanes / 2; off > 0; off /= 2) d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (mask.softcap != 0.f) d = mask.softcap * tanhf(d / mask.softcap);
+      if (col <= k1 && visible(col, visible_cols(mask.q_start + r % seg, len, mask))) {
+        const float m_new = fmaxf(row_max[r], d);
+        const float alpha = fast_exp(row_max[r] - m_new), p = fast_exp(d - m_new);
+        row_sum[r] = row_sum[r] * alpha + p;
+        const float pv = repro::round_to<T>(p);  // p in V's dtype for the PV product
+#pragma unroll
+        for (int e = 0; e < kElems; ++e) acc[r][e] = fmaf(pv, vf[e], acc[r][e] * alpha);
+        row_max[r] = m_new;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) {
+      kf[e] = kn[e];
+      vf[e] = vn[e];
+    }
+  }
+
+  // Merge the warp's lane groups (a group that saw no key has max NEG_INF,
+  // sum and acc 0, and adds 0), then the warps through shared memory.
+  for (int off = lanes; off < 32; off *= 2) {
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r >= m) break;
+      const float o_max = __shfl_xor_sync(0xffffffffu, row_max[r], off);
+      const float o_sum = __shfl_xor_sync(0xffffffffu, row_sum[r], off);
+      const float mx = fmaxf(row_max[r], o_max);
+      const float a = fast_exp(row_max[r] - mx), b = fast_exp(o_max - mx);
+      row_sum[r] = row_sum[r] * a + o_sum * b;
+#pragma unroll
+      for (int e = 0; e < kElems; ++e) {
+        acc[r][e] = acc[r][e] * a + __shfl_xor_sync(0xffffffffu, acc[r][e], off) * b;
+      }
+      row_max[r] = mx;
+    }
+  }
+  if (lane < lanes) {
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r >= m) break;
+#pragma unroll
+      for (int c = 0; c < kCpl; ++c) {
+        const int chunk = sub + c * lanes;
+        if (chunk < chunks) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) red_acc[warp][r][chunk * VEC + e] = acc[r][c * VEC + e];
+        }
+      }
+      if (lane == 0) {
+        red_max[warp][r] = row_max[r];
+        red_sum[warp][r] = row_sum[r];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m * dh; i += kDecodeThreads) {
+    const int r = i / dh, d = i % dh;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) mx = fmaxf(mx, red_max[w][r]);
+    float sum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float sc = fast_exp(red_max[w][r] - mx);
+      sum += red_sum[w][r] * sc;
+      a += red_acc[w][r][d] * sc;
+    }
+    if (ws == nullptr) {
+      out[o_off + i] = repro::from_float<T>(a / (sum == 0.f ? 1.f : sum));
+    } else {
+      ws[part + i] = a;
+      if (d == 0) {
+        ws[part + m * dh + r] = mx;
+        ws[part + m * dh + m + r] = sum;
+      }
+    }
+  }
+}
+
+constexpr int kCombineMaxSplits = 64;  // splits whose scales the combine keeps in shared memory
+
+// out = (sum_i acc_i e^(max_i - max)) / (sum_i sum_i e^(max_i - max)) over
+// the splits, added in split order; one block per slice.  Warp w finds the
+// max and the scales of rows w, w + 4, ... with one split a lane; a split
+// that saw no key scales by exactly 0.
+template <typename T>
+__global__ void __launch_bounds__(kDecodeThreads)
+    attention_combine(const float* __restrict__ ws, T* __restrict__ out, int m, int dh,
+                      int splits) {
+  static_assert(kCombineMaxSplits <= 64, "two splits a lane");
+  __shared__ float scale[kDecodeMaxRows][kCombineMaxSplits];
+  __shared__ float sums[kDecodeMaxRows][kCombineMaxSplits];
+  __shared__ float denom[kDecodeMaxRows];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t stride = static_cast<size_t>(m) * (dh + 2);
+  const float* part = ws + static_cast<size_t>(blockIdx.x) * splits * stride;
+  for (int r = warp; r < m; r += kDecodeWarps) {
+    float p_max[2], p_sum[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sp = lane + 32 * h;
+      p_max[h] = sp < splits ? part[sp * stride + m * dh + r] : kNegInf;
+      p_sum[h] = sp < splits ? part[sp * stride + m * dh + m + r] : 0.f;
+    }
+    float mx = fmaxf(p_max[0], p_max[1]);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sp = lane + 32 * h;
+      if (sp < splits) {
+        scale[r][sp] = p_max[h] == kNegInf ? 0.f : fast_exp(p_max[h] - mx);
+        sums[r][sp] = p_sum[h];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float sum = 0.f;
+      for (int sp = 0; sp < splits; ++sp) sum += sums[r][sp] * scale[r][sp];
+      denom[r] = sum == 0.f ? 1.f : sum;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m * dh; i += kDecodeThreads) {
+    const int r = i / dh;
+    float a = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < splits; ++sp) a += part[sp * stride + i] * scale[r][sp];
+    out[static_cast<size_t>(blockIdx.x) * m * dh + i] = repro::from_float<T>(a / denom[r]);
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_decode(const T* q, const T* k, const T* v, const int* lengths, T* out,
+                          float* ws, int g, int m, int n, int dh, int splits, int per,
+                          Mask mask, cudaStream_t s) {
+  int lanes = 1;
+  while (lanes < 32 && lanes * VEC < dh) lanes *= 2;
+  const dim3 grid(g, splits);
+  float* part = splits > 1 ? ws : nullptr;
+  if (m <= 4) {
+    attention_decode_split<T, VEC, 4><<<grid, kDecodeThreads, 0, s>>>(
+        q, k, v, lengths, out, part, m, n, dh, per, lanes, mask);
+  } else {
+    attention_decode_split<T, VEC, kDecodeMaxRows><<<grid, kDecodeThreads, 0, s>>>(
+        q, k, v, lengths, out, part, m, n, dh, per, lanes, mask);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  attention_combine<T><<<g, kDecodeThreads, 0, s>>>(ws, out, m, dh, splits);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_decode_any(const void* q, const void* k, const void* v, const int* lengths,
+                              void* out, void* ws, int g, int m, int n, int dh, int splits,
+                              int per, Mask mask, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const auto* qp = static_cast<const T*>(q);
+  const auto* kp = static_cast<const T*>(k);
+  const auto* vp = static_cast<const T*>(v);
+  auto* op = static_cast<T*>(out);
+  auto* wp = static_cast<float*>(ws);
+  // 16-byte loads when every key row starts on a 16-byte boundary
+  const bool vec = dh % kVec == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  return vec ? launch_decode<T, kVec>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits, per,
+                                      mask, s)
+             : launch_decode<T, 1>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits, per, mask,
+                                   s);
+}
+
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
 
-REPRO_EXPORT int repro_attention_fused(
+// The FMA kernel, for any operands of either dtype.
+REPRO_EXPORT int repro_attention_fused_fma(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int g, int m, int n, int dh, int causal, int window,
     int q_start, int k_start, int prefix_len, int q_seg, float softcap,
@@ -205,4 +907,51 @@ REPRO_EXPORT int repro_attention_fused(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16, dh 64 or 128, q, k, v and out 16-byte aligned (the wrapper checks).
+REPRO_EXPORT int repro_attention_fused_flash(
+    const void* q, const void* k, const void* v, const void* lengths, void* out, int g, int m,
+    int n, int dh, int causal, int window, int q_start, int k_start, int prefix_len, int q_seg,
+    float softcap, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  if (dh == 64) {
+    return static_cast<int>(launch_flash<64>(q, k, v, len, out, g, m, n, mask, s));
+  }
+  if (dh == 128) {
+    return static_cast<int>(launch_flash<128>(q, k, v, len, out, g, m, n, mask, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// m <= 16, dh <= 128, either dtype; splits * per must cover the n keys.
+// splits > 1: ws holds g x splits x m x (dh + 2) f32 (allocated by the
+// caller) and a second kernel combines them into out.
+REPRO_EXPORT int repro_attention_fused_decode(
+    const void* q, const void* k, const void* v, const void* lengths, void* out, void* ws,
+    int g, int m, int n, int dh, int causal, int window, int q_start, int k_start,
+    int prefix_len, int q_seg, float softcap, int splits, int per, int dtype, void* stream) {
+  if (m < 1 || m > kDecodeMaxRows || dh < 1 || dh > kDhMax || splits < 1 || per < 1 ||
+      splits > kCombineMaxSplits || static_cast<long long>(splits) * per < n ||
+      (splits > 1 && ws == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  if (dtype == repro::kF32) {
+    return static_cast<int>(launch_decode_any<float>(q, k, v, len, out, ws, g, m, n, dh, splits,
+                                                     per, mask, s));
+  }
+  if (dtype == repro::kBF16) {
+    return static_cast<int>(launch_decode_any<__nv_bfloat16>(q, k, v, len, out, ws, g, m, n, dh,
+                                                              splits, per, mask, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,7 +47,9 @@ _SIGNATURES = {
     "transpose": {"repro_transpose": [_P, _P, _I, _I, _I, _P]},
     "matmul": {"repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "attention_fused": {
-        "repro_attention_fused": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
+        "repro_attention_fused_fma": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
+        "repro_attention_fused_flash": [_P] * 5 + [_I] * 10 + [_F, _P],
+        "repro_attention_fused_decode": [_P] * 6 + [_I] * 10 + [_F, _I, _I, _I, _P],
     },
     "matmul_nt": {"repro_matmul_nt": [_P] * 4 + [_I] * 5 + [_P]},
     "matmul_tnn_fused": {

@@ -21,6 +21,8 @@ __all__ = [
     "matmul_bnn",
     "attention_visibility",
     "attention_fused",
+    "attention_split_partials",
+    "attention_split_combine",
 ]
 
 
@@ -84,6 +86,23 @@ def attention_visibility(mask, lengths: torch.Tensor, m: int, n: int) -> torch.T
     return vis.expand(-1, m, n)
 
 
+def _masked_logits(q, k, lengths, mask):
+    """f32 logits, softcapped, at the finite NEG_INF where not visible, and
+    the visibility."""
+    from .attention_fused import NEG_INF
+
+    s = torch.matmul(q.float(), k.float().transpose(1, 2))
+    if mask.softcap:
+        s = mask.softcap * torch.tanh(s / mask.softcap)
+    vis = attention_visibility(mask, lengths, q.shape[1], k.shape[1])
+    return torch.where(vis, s, torch.full_like(s, NEG_INF)), vis
+
+
+def _zero_v_beyond_lengths(v, lengths):
+    valid = torch.arange(v.shape[1], device=v.device)[None, :, None] < lengths.reshape(-1, 1, 1)
+    return torch.where(valid, v, torch.zeros_like(v))
+
+
 def attention_fused(q, k, v, lengths, mask) -> torch.Tensor:
     """softmax(mask(Q K^T)) V per slice, computed densely.
 
@@ -93,19 +112,49 @@ def attention_fused(q, k, v, lengths, mask) -> torch.Tensor:
     while the denominator sums the f32 p, and a zero denominator becomes
     1; V rows beyond ``lengths`` are zeroed.  A row that sees no key at
     all comes out 0 (the model never produces one)."""
-    from .attention_fused import NEG_INF
-
-    g, m, _ = q.shape
-    n = k.shape[1]
-    s = torch.matmul(q.float(), k.float().transpose(1, 2))
-    if mask.softcap:
-        s = mask.softcap * torch.tanh(s / mask.softcap)
-    vis = attention_visibility(mask, lengths, m, n)
-    s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+    s, vis = _masked_logits(q, k, lengths, mask)
     p = torch.where(vis, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
     denom = p.sum(dim=-1, keepdim=True)
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    valid = torch.arange(n, device=k.device)[None, :, None] < lengths.reshape(-1, 1, 1)
-    vz = torch.where(valid, v, torch.zeros_like(v))
+    vz = _zero_v_beyond_lengths(v, lengths)
     out = torch.matmul(p.to(v.dtype).float(), vz.float()) / denom
     return out.to(q.dtype)
+
+
+def attention_split_partials(q, k, v, lengths, mask, per: int):
+    """The split-KV arithmetic of the decode kernel, split by split: the
+    keys cut into runs of ``per``, each run's f32 partial (max, sum, acc)
+    over the keys it sees, (splits, g, m, 1), (splits, g, m, 1) and
+    (splits, g, m, dh).  A run in which a row sees no key gives that row
+    max NEG_INF, sum 0 and acc 0.  p is relative to the run's own max and
+    cast to V's dtype before its PV product.  Used by tests only."""
+    s, vis = _masked_logits(q, k, lengths, mask)
+    vz = _zero_v_beyond_lengths(v, lengths)
+    maxes, sums, accs = [], [], []
+    for k0 in range(0, k.shape[1], per):
+        s_i, vis_i = s[..., k0:k0 + per], vis[..., k0:k0 + per]
+        mx = s_i.amax(dim=-1, keepdim=True)
+        p = torch.where(vis_i, torch.exp(s_i - mx), torch.zeros_like(s_i))
+        maxes.append(mx)
+        sums.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.matmul(p.to(v.dtype).float(), vz[:, k0:k0 + per].float()))
+    return torch.stack(maxes), torch.stack(sums), torch.stack(accs)
+
+
+def attention_split_combine(maxes, sums, accs, dtype) -> torch.Tensor:
+    """The combine kernel's arithmetic: (sum_i acc_i e^(max_i - M)) /
+    (sum_i sum_i e^(max_i - M)), M the largest max, added in split order; a
+    split whose max is NEG_INF adds exactly 0, and a zero denominator
+    becomes 1.  Used by tests only."""
+    from .attention_fused import NEG_INF
+
+    top = maxes.amax(dim=0)
+    num = torch.zeros_like(accs[0])
+    den = torch.zeros_like(sums[0])
+    for mx, sm, acc in zip(maxes, sums, accs):
+        seen = mx != NEG_INF
+        scale = torch.where(seen, torch.exp(mx - top), torch.zeros_like(mx))
+        num = num + torch.where(seen, acc * scale, torch.zeros_like(acc))
+        den = den + torch.where(seen, sm * scale, torch.zeros_like(sm))
+    den = torch.where(den == 0.0, torch.ones_like(den), den)
+    return (num / den).to(dtype)

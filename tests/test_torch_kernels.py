@@ -24,7 +24,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.attention_fused import MaskParams, attention_fused  # noqa: E402
+from repro_torch.kernels.attention_fused import (  # noqa: E402
+    NEG_INF,
+    MaskParams,
+    attention_fused,
+    attention_variant,
+    decode_split_plan,
+)
 from repro_torch.kernels.common import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.matmul_batched import batched_variant  # noqa: E402
 from repro_torch.kernels.matmul_nn import nn_variant  # noqa: E402
@@ -420,6 +426,91 @@ def test_attention_rejects_wide_heads_and_bad_tiles():
         attention_fused(y, y, y, block=(16, 32, 8))
 
 
+@pytest.mark.parametrize("dtype,m,dh,aligned,want", [
+    (torch.bfloat16, 1, 64, True, "decode_split"),
+    (torch.bfloat16, 3, 64, True, "decode_split"),
+    (torch.float32, 16, 128, True, "decode_split"),
+    (torch.bfloat16, 16, 33, False, "decode_split"),
+    (torch.bfloat16, 17, 64, True, "flash_mma"),
+    (torch.bfloat16, 768, 64, True, "flash_mma"),
+    (torch.bfloat16, 768, 128, True, "flash_mma"),
+    (torch.bfloat16, 768, 16, True, "fma"),
+    (torch.bfloat16, 768, 33, True, "fma"),
+    (torch.bfloat16, 768, 64, False, "fma"),
+    (torch.float32, 17, 64, True, "fma"),
+    (torch.float32, 768, 128, True, "fma"),
+])
+def test_attention_variant_routes_by_dtype_and_shape(dtype, m, dh, aligned, want):
+    assert attention_variant(dtype, 24, m, 256, dh, aligned) == want
+
+
+@pytest.mark.parametrize("g,n,sms,want", [
+    (12, 512, 132, (16, 32)),  # the decode case of chip_smoke.py: 192 blocks
+    (12, 80, 132, (3, 32)),  # the serve run's cache (max_seq 80)
+    (1, 4096, 132, (64, 64)),  # at most 64 splits
+    (4, 4096, 132, (64, 64)),
+    (300, 64, 132, (1, 64)),  # slices enough to fill the card: one split, one launch
+    (3, 1, 132, (1, 32)),
+])
+def test_decode_split_plan_fills_the_card(g, n, sms, want):
+    assert decode_split_plan(g, n, sms) == want
+
+
+def test_decode_split_plan_covers_every_key_once():
+    for g, n, sms in itertools.product((1, 3, 12, 64, 500), (1, 31, 32, 33, 80, 511, 4097),
+                                       (132, 114)):
+        splits, per = decode_split_plan(g, n, sms)
+        assert per >= 32 and per % 16 == 0 and splits <= 64
+        assert (splits - 1) * per < n <= splits * per  # every key, no empty split
+
+
+SPLIT_GEOMS = {  # (g, m, n, dh, mask, lengths): decode-sized rows, keys in runs
+    "ragged": (3, 3, 200, 64, dict(), [200, 77, 1]),
+    "causal": (2, 16, 150, 32, dict(causal=True, q_start=40), None),  # keys > 55 unseen
+    "folded": (2, 12, 130, 16, dict(causal=True, q_start=126, q_seg=4), None),
+}
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("per", [32, 48])
+@pytest.mark.parametrize("geom", sorted(SPLIT_GEOMS))
+def test_split_then_combine_matches_pallas(J, geom, per, dtype_name):
+    """The decode kernel's split-KV arithmetic (per-split max, sum and
+    V-dtype PV, then the combine) against the Pallas kernel."""
+    g, m, n, dh, kw, lens = SPLIT_GEOMS[geom]
+    rng = np.random.RandomState(per + n)
+    (jq, tq), (jk, tk), (jv, tv) = _attn_operands(J, rng, g, m, n, dh, dtype_name)
+    lengths = np.full(g, n, np.int32) if lens is None else np.asarray(lens, np.int32)
+    want = J.attention(jq, jk, jv, J.jnp.asarray(lengths), mask=J.Mask(**kw), interpret=True)
+    parts = ref.attention_split_partials(tq, tk, tv, torch.from_numpy(lengths),
+                                         MaskParams(**kw), per)
+    out = ref.attention_split_combine(*parts, DTYPES[dtype_name])
+    assert out.dtype == DTYPES[dtype_name]
+    bound = 1e-4 if dtype_name == "float32" else 2e-2
+    np.testing.assert_allclose(_np(out), _np(want), rtol=bound, atol=bound)
+
+
+def test_split_without_visible_keys_adds_exactly_zero():
+    """A split in which a row sees no key leaves max NEG_INF, sum 0, acc 0,
+    and the combine skips it: poisoning its partial changes no bit."""
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+               for s in ((4, 3, 16), (4, 200, 16), (4, 200, 16)))
+    lengths = torch.tensor([200, 77, 1, 0], dtype=torch.int32)
+    mx, sm, acc = ref.attention_split_partials(q, k, v, lengths, MaskParams(), per=32)
+    assert mx.shape[0] == 7
+    for s in range(1, 7):  # slice 2 (length 1) sees key 0 only; slice 3 none
+        assert torch.all(mx[s, 2:] == NEG_INF)
+        assert torch.all(sm[s, 2:] == 0) and torch.all(acc[s, 2:] == 0)
+    out = ref.attention_split_combine(mx, sm, acc, torch.float32)
+    sm2, acc2 = sm.clone(), acc.clone()
+    sm2[1:, 2:], acc2[1:, 2:] = float("nan"), float("nan")
+    assert torch.equal(ref.attention_split_combine(mx, sm2, acc2, torch.float32), out)
+    assert torch.all(out[3] == 0)  # no key at all: exactly 0
+    torch.testing.assert_close(out, ref.attention_fused(q, k, v, lengths, MaskParams()),
+                               rtol=1e-6, atol=1e-6)
+
+
 # -- on the card: each CUDA kernel against its plain version ---------------------------
 
 
@@ -460,20 +551,80 @@ def test_gemm_kernels_match_plain_on_card(cuda, m, n, k, dtype):
     assert LAUNCHES["matmul_nt"] == 2
 
 
+ROUTE_MS = (1, 3, 16, 17, 63, 64, 65, 129)  # around the split kernel's 16 and the 64-row block
+ROUTE_DHS = (64, 128, 16, 33)  # the flash kernel's two, and two it leaves to the others
+
+
+def _check_attention_on_card(q, k, v, lengths, mask, dtype):
+    """One call against the plain version, one launch counted, and a second
+    call giving the same bits."""
+    bound = 1e-4 if dtype == "float32" else 2e-2
+    g, m, dh = q.shape
+    n = k.shape[1]
+    full = torch.full((g,), n, device=q.device, dtype=torch.int32)
+    reset_launches()
+    out = attention_fused(q, k, v, lengths, mask=mask)
+    assert LAUNCHES["attention_fused"] == 1
+    want = ref.attention_fused(q, k, v, full if lengths is None else lengths, mask)
+    variant = attention_variant(q.dtype, g, m, n, dh)
+    torch.testing.assert_close(out.float(), want.float(), rtol=bound, atol=bound,
+                               msg=lambda s: f"{variant}, m {m}, dh {dh}: {s}")
+    assert torch.equal(attention_fused(q, k, v, lengths, mask=mask), out)
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", ROUTE_MS)
 @pytest.mark.parametrize("mask_name", sorted(MASKS))
-def test_attention_kernel_matches_plain_on_card(cuda, mask_name, dtype):
-    g, m, n, dh = 3, 65, 200, 64
+def test_attention_kernel_matches_plain_on_card(cuda, mask_name, m, dtype):
+    """Every route (decode_split at m <= 16, flash_mma for bf16 dh 64 and
+    128, fma for the rest) at n = 200, no multiple of 64; ragged lengths
+    include a slice of length 1, whose later splits see no key."""
+    g, n = 3, 200
+    dt = getattr(torch, dtype)
+    lengths = (torch.tensor([200, 77, 1], device=cuda, dtype=torch.int32)
+               if mask_name == "ragged_lengths" else None)
+    mask = MaskParams(**MASKS[mask_name](m, n))
+    for dh in ROUTE_DHS:
+        q, k, v = (torch.randn(g, s, dh, device=cuda).mul(0.3).to(dt) for s in (m, n, n))
+        _check_attention_on_card(q, k, v, lengths, mask, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,m,n,dh,kw", [
+    (3, 144, 200, 64, dict(causal=True, q_start=152, q_seg=48)),  # folds inside a 64-row block
+    (3, 144, 200, 128, dict(causal=True, q_start=152, q_seg=48)),
+    (24, 768, 256, 64, dict(causal=True, q_seg=256)),  # a train step's forward
+    (24, 768, 256, 128, dict(causal=True, q_seg=256)),
+    (3, 192, 64, 64, dict(causal=True, q_seg=64)),  # a 64-token prefill
+    (300, 3, 64, 64, dict()),  # decode with slices enough for one split
+    (12, 3, 512, 64, dict()),  # decode, 16 splits
+    (1, 16, 4096, 128, dict(causal=True, q_start=4000)),  # most splits see no key
+])
+def test_attention_shapes_match_plain_on_card(cuda, g, m, n, dh, kw, dtype):
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(g, s, dh, device=cuda).mul(0.3).to(dt) for s in (m, n, n))
-    lengths = torch.tensor([200, 77, 1], device=cuda) if mask_name == "ragged_lengths" else None
-    mask = MaskParams(**MASKS[mask_name](m, n))
-    want = ref.attention_fused(q, k, v, lengths if lengths is not None else
-                               torch.full((g,), n, device=cuda), mask)
-    bound = 1e-4 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(attention_fused(q, k, v, lengths, mask=mask).float(),
-                               want.float(), rtol=bound, atol=bound)
+    lengths = torch.randint(1, n + 1, (g,), device=cuda, dtype=torch.int32)
+    _check_attention_on_card(q, k, v, None, MaskParams(**kw), dtype)
+    _check_attention_on_card(q, k, v, lengths, MaskParams(**kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [3, 65])
+def test_attention_ignores_nan_beyond_lengths_on_card(cuda, m, dtype):
+    """K and V beyond lengths are never read: NaN there gives a finite output."""
+    g, n, dh = 3, 200, 64
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(g, s, dh, device=cuda).mul(0.3).to(dt) for s in (m, n, n))
+    lengths = torch.tensor([200, 77, 1], device=cuda, dtype=torch.int32)
+    for i, length in enumerate(lengths.tolist()):
+        k[i, length:] = float("nan")
+        v[i, length:] = float("nan")
+    out = _check_attention_on_card(q, k, v, lengths, MaskParams(), dtype)
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.gpu
