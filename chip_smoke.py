@@ -45,6 +45,33 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   8. train_exact  f32 at full width and 2 layers: every gradient leaf of
               step 0 under both kernel policies within relative L2 1e-4 of
               fixed:XLA_NT's, and the losses of 3 steps within 1e-5
+  9. selector  the paper's loop on the card: measure_candidates times every
+              NT, NN and TN candidate over {2^7..2^12}^3 (216 shapes per op;
+              a cut of the paper's {2^7..2^16}^3, which
+              `python -m repro_torch.benchmarks.table10_fcn --full` measures)
+              in bf16 and in f32; per dtype the class balance, the 5-fold CV
+              accuracy (paper Table IV), the share of the grid each arm wins,
+              a GBDT trained on all of it (NT pair cuBLAS NT vs the paper's
+              TNN, transpose kernel + NN kernel) and saved to
+              build/selector_{bf16,f32}.json, loaded again with the same
+              decisions over the grid, its selection metrics (speedup over
+              always-cuBLAS, regret against the oracle) and a k-way model
+              over the five NT candidates; for the 8 NT shapes where the
+              two arms are closest, the profiler's device time beside the
+              event time, and whether the label flips
+ 10. fcn      the paper's Table X: mnist-3h and synthetic-3h at their
+              published widths, f32, batch 1024, 5 AdamW steps each under
+              CaffeNT (fixed:XLA_NT) and CaffeMTNN (model:build/selector_f32.json)
+              from the same weights and batches: every loss finite, step-0
+              losses within 1e-5 and every step-0 gradient leaf within
+              relative L2 1e-4; forward and backward ms, which arm each op
+              ran, and the launches
+ 11. model_policy  repro_torch.launch.serve.main on smollm-135m at full
+              config with no --policy (the default learned selector):
+              every request finishes, no step crashes; launch.train.main for
+              6 steps under model:build/selector_bf16.json with phase 7's
+              gates against cuBLAS, ms/step and the dispatch report.  No
+              check names a kernel here: the selector decides.
 
 The full results, every case included, go to ``build/chip_smoke.json``.
 
@@ -147,6 +174,15 @@ GRAD_NORM_REL = 5e-2
 # train_exact, f32 at 2 layers: sums in another order only
 EXACT_GRAD_REL_L2 = 1e-4
 EXACT_LOSS_REL = 1e-5
+
+# Phase 9: the selector's grid {2^lo..2^hi}^3, a cut of the paper's 2^7..2^16
+# (the full grid: python -m repro_torch.benchmarks.table10_fcn --full).
+SELECTOR_GRID = (7, 12)
+SELECTOR_DTYPES = {"bfloat16": "bf16", "float32": "f32"}
+CLOSE_PAIRS = 8  # NT shapes whose two arms are closest, timed on the device too
+# Phase 10: the paper's Table X networks at their published widths, f32.
+FCN_NETS = ("mnist-3h", "synthetic-3h")
+FCN_BATCH, FCN_STEPS = 1024, 5
 
 
 class SmokeFailure(RuntimeError):
@@ -809,6 +845,252 @@ def phase_train_exact(torch):
             "worst_leaf_rel_l2": worst, "losses": losses}
 
 
+# -- phase 9/10/11 helpers ----------------------------------------------------
+
+
+def pick_metrics(ds, pred, pair_times):
+    """Selection metrics of ``pred`` (+1: the op pair's direct arm, which is
+    the library call for NT, NN and TN) on the records ``ds``: the paper's
+    Table VII numbers, the speedup of the selected arm over always the
+    library (mean of ratios and ratio of sums) and the regret against the
+    pair's oracle."""
+    import numpy as np
+
+    from repro_torch.core import selection_metrics
+
+    t_direct, t_alt = pair_times
+    t_sel = np.where(pred == 1, t_direct, t_alt)
+    t_best = np.minimum(t_direct, t_alt)
+    return {
+        **selection_metrics(ds, pred),
+        "speedup_vs_library_mean": float(np.mean(t_direct / t_sel)),
+        "speedup_vs_library_total": float(t_direct.sum() / t_sel.sum()),
+        "regret_vs_oracle_mean": float(np.mean(t_sel / t_best) - 1.0),
+        "regret_vs_oracle_total": float(t_sel.sum() / t_best.sum() - 1.0),
+    }
+
+
+def close_pairs(torch, ds, dtype_name, pair):
+    """For the NT shapes where ``pair``'s two arms are closest by event
+    time: both arms' profiler device time, and whether the label flips."""
+    import numpy as np
+
+    from repro_torch.core import get_candidate
+    from repro_torch.core.features import OP_FEATURE
+
+    nt = np.where(ds.X[:, 8] == OP_FEATURE["NT"])[0]
+    gap = np.abs(np.log(ds.times["NT"][nt] / ds.times["TNN"][nt]))
+    rows = []
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for i in nt[np.argsort(gap, kind="stable")[:CLOSE_PAIRS]]:
+        m, n, k = (int(v) for v in ds.mnk[i])
+        a = torch.randn((m, k), generator=gen, device=DEVICE, dtype=dt)
+        b = torch.randn((n, k), generator=gen, device=DEVICE, dtype=dt)
+        device = tuple(device_ms(lambda c=get_candidate(name): c.run(a, b))[0]
+                       for name in pair)
+        event = (float(ds.times["NT"][i]) * 1e3, float(ds.times["TNN"][i]) * 1e3)
+        rows.append({"mnk": [m, n, k], "event_ms": event, "device_ms": device,
+                     "label_event": 1 if event[0] <= event[1] else -1,
+                     "label_device": 1 if device[0] <= device[1] else -1})
+    return rows
+
+
+def phase_selector(torch, card, out_dir):
+    """Phase 9; returns its row, the selector artifacts' paths and the
+    launches of the measurement."""
+    import numpy as np
+
+    from repro_torch.benchmarks.common import CARD_PAIR, MEASURED_OPS, measure_grid
+    from repro_torch.core import (
+        MeasurementCache,
+        MTNNSelector,
+        dataset_from_measurements,
+        device_spec,
+        kfold_cv,
+        paper_grid,
+        train_kway_model,
+        train_paper_model,
+    )
+    from repro_torch.core.opkey import OpKey
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+
+    hw = device_spec(DEVICE)
+    lo, hi = SELECTOR_GRID
+    row = {"phase": "selector", "card": card, "hardware": hw.name, "grid": [lo, hi],
+           "pair": list(CARD_PAIR), "dtypes": {}}
+    paths, launches = {}, {name: 0 for name in LAUNCHES}
+    for dtype, short in SELECTOR_DTYPES.items():
+        t0 = time.perf_counter()
+        reset_launches()
+        cache = measure_grid(MeasurementCache(str(out_dir / f"measured_{short}.json")), dtype,
+                             lo, hi, device=DEVICE)
+        for name, count in LAUNCHES.items():
+            launches[name] += count
+        cache.save()
+        measure_s = time.perf_counter() - t0
+        ds = dataset_from_measurements(cache, pair=CARD_PAIR, dtype=dtype)
+        check(len(ds) == len(MEASURED_OPS) * (hi - lo + 1) ** 3,
+              f"{dtype}: {len(ds)} records, expected every grid shape of every op")
+        cv = kfold_cv(ds)
+        clf, rep = train_paper_model(ds)
+        sel = MTNNSelector(clf, hardware=hw, binary_pair=CARD_PAIR)
+        paths[dtype] = out_dir / f"selector_{short}.json"
+        sel.save(str(paths[dtype]))
+        loaded = MTNNSelector.load(str(paths[dtype]))
+        check(loaded.hardware == hw, f"{dtype}: the artifact resolved to {loaded.hardware}")
+        dsize = torch.finfo(getattr(torch, dtype)).bits // 8
+        keys = [OpKey(op, m, n, k, dsize) for op in MEASURED_OPS for m, n, k in paper_grid(lo, hi)]
+        differ = [key for key in keys if sel.select(key) != loaded.select(key)]
+        check(not differ, f"{dtype}: the loaded artifact decides {len(differ)} keys otherwise")
+        pred = clf.predict(ds.X)
+        ops = np.array([MEASURED_OPS[int(c)] for c in ds.X[:, 8]])
+        per_op = {}
+        for op in MEASURED_OPS:
+            idx = np.where(ops == op)[0]
+            sub = ds.subset(idx)
+            per_op[op] = {
+                "direct_wins": float((sub.y == 1).mean()),
+                "selected_direct": float((pred[idx] == 1).mean()),
+                **pick_metrics(sub, pred[idx], (sub.times["NT"], sub.times["TNN"])),
+            }
+        nt_cache = MeasurementCache()
+        for key, times in cache.records():
+            if key[3] == "NT":
+                nt_cache.put(key, times)
+        ds_nt = dataset_from_measurements(nt_cache, pair=CARD_PAIR, dtype=dtype)
+        nt_names = sorted(c for c in ds_nt.times if c not in ("NT", "TNN"))
+        _, kway = train_kway_model(ds_nt, candidates=nt_names)
+        t_all = np.stack([ds_nt.times[c] for c in nt_names], axis=1)
+        row["dtypes"][dtype] = {
+            "records": len(ds), "class_counts": ds.class_counts(), "cv": cv,
+            "in_sample_accuracy": rep["full_data_accuracy"],
+            "selection": pick_metrics(ds, pred, (ds.times["NT"], ds.times["TNN"])),
+            "per_op": per_op,
+            "nt_fastest_share": {c: float((t_all.argmin(axis=1) == i).mean())
+                                 for i, c in enumerate(nt_names)},
+            "kway_nt": {k: kway[k] for k in ("oracle_match", "mean_slowdown_vs_oracle",
+                                             "mean_speedup_vs_worst")},
+            "close_pairs": close_pairs(torch, ds, dtype, CARD_PAIR),
+            "measure_seconds": measure_s, "artifact": str(paths[dtype].relative_to(ROOT)),
+        }
+    return row, paths, launches
+
+
+def phase_fcn(torch, card, selector_f32):
+    """Phase 10; returns its row and the launches of the training runs."""
+    import numpy as np
+
+    from repro_torch.benchmarks.table10_fcn import bench_phase
+    from repro_torch.configs.fcn_paper import MNIST_FCNS, SYNTHETIC_FCNS
+    from repro_torch.core.engine import dispatch_report, policy_from_spec
+    from repro_torch.examples.train_fcn import make_fcn_step, synthetic_batch
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models.fcn import fcn_loss_and_grads, init_fcn
+    from repro_torch.optim import adamw_init, tree_leaves, warmup_cosine
+
+    nets = {c.name: c for c in (*MNIST_FCNS.values(), *SYNTHETIC_FCNS.values())}
+    specs = {"CaffeNT": CUBLAS_POLICY, "CaffeMTNN": f"model:{selector_f32}"}
+    row = {"phase": "fcn", "card": card, "dtype": "float32", "batch": FCN_BATCH,
+           "steps": FCN_STEPS, "nets": {}}
+    launches = {name: 0 for name in LAUNCHES}
+    for net in FCN_NETS:
+        cfg = nets[net]
+        params0 = init_fcn(0, cfg, device=DEVICE)
+        rng = np.random.RandomState(0)
+        w_true = rng.randn(cfg.input_dim, 8).astype(np.float32)
+        batches = [synthetic_batch(rng, cfg, FCN_BATCH, w_true, DEVICE)
+                   for _ in range(FCN_STEPS)]
+        out, step0 = {}, {}
+        for arm, spec in specs.items():
+            policy = policy_from_spec(spec, device=DEVICE)
+            step0[arm] = fcn_loss_and_grads(params0, batches[0], policy)
+            step_fn = make_fcn_step(policy, warmup_cosine(1e-4, warmup=2, total=FCN_STEPS))
+            params, opt = params0, adamw_init(params0)
+            policy.stats.reset()  # count the training steps' dispatches only
+            reset_launches()
+            losses, times = [], []
+            for step, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                params, opt, loss, _ = step_fn(params, opt, step, batch)
+                losses.append(float(loss))  # waits for the device
+                times.append(time.perf_counter() - t0)
+            run_launches = dict(LAUNCHES)
+            for name, count in run_launches.items():
+                launches[name] += count
+            check(all(math.isfinite(x) for x in losses), f"{net} {arm}: losses {losses}")
+            out[arm] = {
+                "spec": spec, "losses": losses, "step_ms": [t * 1e3 for t in times],
+                "ms_per_step": statistics.median(times[1:]) * 1e3,
+                "by_op": {op: dict(v) for op, v in policy.stats.by_op.items()},
+                "report": dispatch_report(policy).splitlines(),
+                "launches": {k: v for k, v in run_launches.items() if v},
+            }
+            fwd_s, bwd_s = bench_phase(cfg, FCN_BATCH, policy, DEVICE)
+            out[arm].update(fwd_ms=fwd_s * 1e3, bwd_ms=bwd_s * 1e3)
+            del params, opt
+        (l_nt, g_nt), (l_mt, g_mt) = step0["CaffeNT"], step0["CaffeMTNN"]
+        loss_rel = rel(float(l_mt), float(l_nt))
+        check(loss_rel <= EXACT_LOSS_REL, f"{net}: step-0 loss {float(l_mt)} vs {float(l_nt)}")
+        worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    for a, b in zip(tree_leaves(g_mt), tree_leaves(g_nt)))
+        check(worst <= EXACT_GRAD_REL_L2,
+              f"{net}: a step-0 gradient leaf is {worst} from CaffeNT's (rel L2)")
+        row["nets"][net] = {"dims": list(cfg.dims), "step0_loss_rel": loss_rel,
+                            "step0_worst_leaf_rel_l2": worst, **out}
+        del params0, batches, step0, g_nt, g_mt
+    return row, launches
+
+
+def phase_model_policy(torch, card, selector_bf16, train_row):
+    """Phase 11; returns its row and the launches of each run."""
+    from repro_torch.core.engine import dispatch_report
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+
+    reset_launches()
+    eng = serve([])  # no --policy: the default learned selector
+    serve_launches = dict(LAUNCHES)
+    check_engine(eng, 16, "default policy")
+    n_tok = sum(len(r.generated) for r in eng.requests.values())
+    serve_part = {
+        "tokens_per_s": n_tok / eng.run_seconds, "p50_decode_ms": p50_ms(eng),
+        "health": eng.health(), "by_op": eng.class_dispatch_rows(),
+        "reports": {cls: rep.splitlines() for cls, rep in eng.class_reports().items()},
+        "launches": {k: v for k, v in serve_launches.items() if v},
+    }
+    del eng
+    spec = f"model:{selector_bf16}"
+    reset_launches()
+    run = train(["--policy", spec])
+    train_launches = dict(LAUNCHES)
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in run.metrics),
+          f"{spec}: a non-finite loss or grad norm")
+    x0 = train_row["step0"][CUBLAS_POLICY]
+    m0 = run.metrics[0]
+    step0 = {"loss": m0["loss"], "grad_norm": m0["grad_norm"],
+             "loss_rel_vs_cublas": rel(m0["loss"], x0["loss"]),
+             "grad_norm_rel_vs_cublas": rel(m0["grad_norm"], x0["grad_norm"]),
+             "grad_norm_rel_vs_f32": rel(m0["grad_norm"], train_row["f32_grad_norm"])}
+    check(step0["loss_rel_vs_cublas"] <= LOSS_REL,
+          f"{spec}: step-0 loss {m0['loss']} vs cuBLAS {x0['loss']}")
+    check(step0["grad_norm_rel_vs_cublas"] <= GRAD_NORM_REL,
+          f"{spec}: step-0 grad norm {m0['grad_norm']} vs cuBLAS {x0['grad_norm']}")
+    limit = F32_DISTANCE_RATIO * x0["grad_norm_rel_vs_f32"] + F32_DISTANCE_FLOOR
+    check(step0["grad_norm_rel_vs_f32"] <= limit,
+          f"{spec}: step-0 grad norm is {step0['grad_norm_rel_vs_f32']} from f32, beyond {limit}")
+    n_steps = len(run.times)
+    row = {
+        "phase": "model_policy", "card": card, "serve_default_policy": serve_part,
+        "train": {"spec": spec, "steps": n_steps, "step0": step0,
+                  "losses": [m["loss"] for m in run.metrics],
+                  "ms_per_step": statistics.median(run.times[1:]) * 1e3,
+                  "cublas_ms_per_step": train_row["ms_per_step"][CUBLAS_POLICY],
+                  "report": dispatch_report(run.policy).splitlines(),
+                  "launches_per_step": {k: v / n_steps for k, v in train_launches.items() if v}},
+    }
+    return row, serve_launches, train_launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
@@ -937,11 +1219,28 @@ def main() -> int:
     exact_row = phase_train_exact(torch)
     emit(exact_row)
     results["train_exact"] = exact_row
+
+    # 9. selector: measure, train, save, load, select
+    selector_row, artifacts, selector_launches = phase_selector(torch, card, out_dir)
+    emit(selector_row)
+    results["selector"] = selector_row
+
+    # 10. fcn: the paper's Table X, CaffeNT against CaffeMTNN
+    fcn_row, fcn_launches = phase_fcn(torch, card, artifacts["float32"])
+    emit(fcn_row)
+    results["fcn"] = fcn_row
+
+    # 11. model_policy: the default selector serving, the card's selector training
+    mp_row, mp_serve_launches, mp_train_launches = phase_model_policy(
+        torch, card, artifacts["bfloat16"], train_row)
+    emit(mp_row)
+    results["model_policy"] = mp_row
     check("jax" not in sys.modules, "jax was imported")
 
     # the contract line: one row per kernel at a main-path shape; launches
-    # are the serve path's kernel-policy run plus the two kernel-policy
-    # training runs
+    # are the sum over the paths: the serve path's kernel-policy run, the two
+    # kernel-policy training runs, the selector's measurements, the FCN runs
+    # and the runs under the learned policies (each counted from 0)
     contract = {
         "matmul_nt": ("(8,576)x(49152,576)^T", "bfloat16"),
         "matmul_nn": ("(8,576)x(576,49152)", "bfloat16"),
@@ -957,7 +1256,11 @@ def main() -> int:
                    and r["dtype"] == dtype)
         source, replaces = KERNEL_SOURCES[kname]
         by_path = {"serve": launches.get(kname, 0),
-                   "train": sum(train_launches[s][kname] for s in TRAIN_POLICIES.values())}
+                   "train": sum(train_launches[s][kname] for s in TRAIN_POLICIES.values()),
+                   "selector_measure": selector_launches[kname],
+                   "fcn": fcn_launches[kname],
+                   "model_policy_serve": mp_serve_launches[kname],
+                   "model_policy_train": mp_train_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -4,8 +4,11 @@
 returns, with every leaf already converted to a numpy f32 array by the
 caller (numpy has no bf16), and returns the port's params: the same tree
 of dicts, lists and tuples, with torch tensors in ``cfg.param_dtype`` on
-``device``.  Both packages then compute the same function; a shared seed
-would not do it, since ``jax.random`` and ``torch.Generator`` differ.
+``device``.  ``fcn_params_from_numpy(tree)`` does the same for the tree
+``repro.models.fcn.init_fcn`` returns: ``{"layers": [{"w": (out, in),
+"b": (out,)}, ...]}``.  Both packages then compute the same function; a
+shared seed would not do it, since ``jax.random`` and ``torch.Generator``
+differ.
 """
 
 from __future__ import annotations
@@ -15,12 +18,24 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "fcn_params_from_numpy"]
 
 
 def params_from_numpy(tree, cfg, *, device="cuda"):
+    return _convert(tree, cfg.param_dtype, device)
+
+
+def fcn_params_from_numpy(tree, *, dtype="float32", device="cuda"):
+    if not (isinstance(tree, dict) and set(tree) == {"layers"} and tree["layers"]
+            and all(isinstance(layer, dict) and set(layer) == {"w", "b"}
+                    for layer in tree["layers"])):
+        raise ValueError("an FCN tree is {'layers': [{'w': (out, in), 'b': (out,)}, ...]}")
+    return _convert(tree, dtype, device)
+
+
+def _convert(tree, dtype_name: str, device):
     dev = resolve_device(device)
-    dtype = getattr(torch, cfg.param_dtype)
+    dtype = getattr(torch, dtype_name)
 
     def convert(node):
         if isinstance(node, dict):

@@ -1,5 +1,7 @@
-"""repro_torch.core -- the dispatch engine, the candidate registry and the
-scoped selection policies of the port."""
+"""repro_torch.core -- the dispatch engine, the candidate registry, the
+scoped selection policies, and the selector stack of the port: the
+analytic cost model, measurement, datasets, the GBDT and the MTNN
+selector."""
 
 from .candidates import (
     BINARY_PAIRS_BY_OP,
@@ -17,8 +19,29 @@ from .engine import (
     dispatch_report,
     policy_from_spec,
 )
+from .dataset import (
+    SelectionDataset,
+    collect_analytic,
+    collect_measured,
+    dataset_from_measurements,
+    paper_grid,
+)
+from .hardware import H100, SIMULATED_CHIPS, HardwareSpec, device_spec, host_spec
+from .measure import MeasurementCache, bench_fn, measure_candidates
 from .opkey import OPS, OpKey
-from .policy import Decision, FixedPolicy, current_policy, use_policy
+from .policy import (
+    AnalyticPolicy,
+    AutotunePolicy,
+    CascadePolicy,
+    Decision,
+    FixedPolicy,
+    ModelPolicy,
+    current_policy,
+    default_policy,
+    use_policy,
+)
+from .selector import MTNNSelector, default_selector, set_default_selector
+from .train_model import kfold_cv, selection_metrics, train_kway_model, train_paper_model
 
 __all__ = [
     "BINARY_PAIRS_BY_OP",
@@ -33,10 +56,35 @@ __all__ = [
     "dispatch_batched",
     "dispatch_report",
     "policy_from_spec",
+    "SelectionDataset",
+    "collect_analytic",
+    "collect_measured",
+    "dataset_from_measurements",
+    "paper_grid",
+    "H100",
+    "SIMULATED_CHIPS",
+    "HardwareSpec",
+    "device_spec",
+    "host_spec",
+    "MeasurementCache",
+    "bench_fn",
+    "measure_candidates",
     "OPS",
     "OpKey",
+    "AnalyticPolicy",
+    "AutotunePolicy",
+    "CascadePolicy",
     "Decision",
     "FixedPolicy",
+    "ModelPolicy",
     "current_policy",
+    "default_policy",
     "use_policy",
+    "MTNNSelector",
+    "default_selector",
+    "set_default_selector",
+    "kfold_cv",
+    "selection_metrics",
+    "train_kway_model",
+    "train_paper_model",
 ]

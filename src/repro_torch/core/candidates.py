@@ -3,9 +3,16 @@
 Candidates are added with a registration decorator, as in the JAX
 package:
 
-    @register_candidate("MY_NT", ops=("NT",), platforms=("gpu",))
+    @register_candidate("MY_NT", sim_algo="NT_DIRECT", ops=("NT",),
+                        platforms=("gpu",))
     def my_nt(a, b):
         ...
+
+``sim_algo`` names the analytic-cost-model arm that describes the
+candidate (``core/simulate.py``), ``extra_memory`` marks the ones that
+materialise a transpose (the paper's OOM guard) and ``distributed_safe``
+the ones the JAX package may run inside a partitioned program; the values
+are the JAX registry's.
 
 Built-in candidates, by op kind (layouts in ``core/opkey.py``):
 
@@ -31,6 +38,16 @@ its non-kernel references; here they are plain PyTorch calls, which is
 cuBLAS on the card.  The ``PALLAS_*`` names and ``FUSED_ATTN`` are the
 ported kernels: each launches its CUDA kernel for a CUDA operand, runs
 its plain version for a CPU operand, and raises on anything else.
+
+Every candidate here runs on both platforms (``ALL_PLATFORMS``), so the
+selectors' per-key memos need no platform in their key.
+
+Tile space: the CUDA wrappers accept a ``block=`` config and check it, but
+pick their variant and tiles from their own cost models
+(``tnn_fused_variant``, ``nt_split``, ``nn_variant``, ``batched_variant``,
+``attention_variant``).  So each tunable candidate has one config in the
+port: measurement times it once, under ``"default"``, and the learned and
+analytic policies attach ``config=None``.
 """
 
 from __future__ import annotations
@@ -49,6 +66,8 @@ __all__ = [
     "unregister_candidate",
     "get_candidate",
     "current_platform",
+    "candidate_fits_memory",
+    "candidate_allowed",
     "PAPER_PAIR",
     "DEFAULT_BY_OP",
     "BINARY_PAIRS_BY_OP",
@@ -61,6 +80,9 @@ ALL_PLATFORMS: Tuple[str, ...] = ("cpu", "gpu")
 class Candidate:
     name: str
     fn: Callable[..., torch.Tensor]
+    sim_algo: str  # which analytic-cost-model arm describes it
+    distributed_safe: bool = False  # usable directly in a partitioned program
+    extra_memory: bool = False  # needs room for a materialised transpose
     platforms: Tuple[str, ...] = ALL_PLATFORMS  # devices it may run on
     tunable: bool = False  # fn accepts a block=... tile config keyword
     ops: Tuple[str, ...] = ("NT",)  # op kinds the fn implements (opkey.OPS)
@@ -92,6 +114,9 @@ CANDIDATES = _REGISTRY
 def register_candidate(
     name: str,
     *,
+    sim_algo: str,
+    distributed_safe: bool = False,
+    extra_memory: bool = False,
     platforms: Tuple[str, ...] = ALL_PLATFORMS,
     tunable: bool = False,
     ops: Tuple[str, ...] = ("NT",),
@@ -112,6 +137,9 @@ def register_candidate(
         _REGISTRY[name] = Candidate(
             name=name,
             fn=fn,
+            sim_algo=sim_algo,
+            distributed_safe=distributed_safe,
+            extra_memory=extra_memory,
             platforms=tuple(platforms),
             tunable=tunable,
             ops=tuple(check_op(o) for o in ops),
@@ -143,45 +171,81 @@ def current_platform(x: torch.Tensor) -> str:
     return "gpu" if x.device.type == "cuda" else x.device.type
 
 
+# Shared admissibility guards -- the paper's OOM estimate and the
+# distributed/platform filters, used by MTNNSelector, the policies and
+# measurement alike, so their decisions cannot drift apart.
+
+
+def candidate_fits_memory(
+    cand: Candidate, m: int, n: int, k: int, dsize: int, mem_gib: float,
+    budget_frac: float = 0.9, op: str = "NT", g: int = 1,
+) -> bool:
+    """The paper's OOM guard, op- and batch-aware: extra-memory candidates
+    must fit A, B, C *and* their materialised transpose inside the memory
+    budget -- B^T (n*k elements) for the forward NT/TNN schedules, A^T
+    (m*k elements) for the TN weight-gradient schedule -- with every term
+    multiplied by the batch extent ``g``.  (No tile config enters: the
+    CUDA wrappers pick their own tiles.)"""
+    if not cand.extra_memory:
+        return True
+    budget = mem_gib * (1024**3) * budget_frac
+    transposed = m * k if op == "TN" else n * k
+    resident = g * (m * k + n * k + m * n + transposed) * dsize
+    return resident <= budget
+
+
+def candidate_allowed(
+    cand: Candidate, distributed: bool, op: Optional[str] = None,
+    platform: Optional[str] = None,
+) -> bool:
+    """Distributed-safety + platform (+ op) filter.  ``platform`` is the
+    operands' (``current_platform``); None checks no platform, which every
+    port candidate passes anyway."""
+    if distributed and not cand.distributed_safe:
+        return False
+    return cand.supports(platform=platform, op=op)
+
+
 # -- library arms: plain torch calls (cuBLAS on the card) ---------------------
 
 
-@register_candidate("XLA_NT")
+@register_candidate("XLA_NT", sim_algo="NT_DIRECT", distributed_safe=True)
 def xla_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Direct NT: contract the trailing dim of both operands."""
     return torch.matmul(a, b.transpose(-1, -2))
 
 
-@register_candidate("XLA_TNN")
+@register_candidate("XLA_TNN", sim_algo="TNN", distributed_safe=True, extra_memory=True)
 def xla_tnn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """TNN: materialise B^T, then an NN product."""
     return torch.matmul(a, b.transpose(-1, -2).contiguous())
 
 
-@register_candidate("XLA_NN", ops=("NN",))
+@register_candidate("XLA_NN", sim_algo="NN_DIRECT", distributed_safe=True, ops=("NN",))
 def xla_nn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
-@register_candidate("XLA_TN", ops=("TN",))
+@register_candidate("XLA_TN", sim_algo="TN_DIRECT", distributed_safe=True, ops=("TN",))
 def xla_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A:(k,m)^T @ B:(k,n) with no materialised A^T."""
     return torch.matmul(a.t(), b)
 
 
-@register_candidate("XLA_BNT", ops=("BNT",))
+@register_candidate("XLA_BNT", sim_algo="BNT_DIRECT", distributed_safe=True, ops=("BNT",))
 def xla_bnt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched NT: per slice A_i @ B_i^T -- the Q @ K^T reference."""
     return torch.bmm(a, b.transpose(1, 2))
 
 
-@register_candidate("XLA_BNN", ops=("BNN",))
+@register_candidate("XLA_BNN", sim_algo="BNN_DIRECT", distributed_safe=True, ops=("BNN",))
 def xla_bnn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched NN: per slice A_i @ B_i -- the probs @ V reference."""
     return torch.bmm(a, b)
 
 
-@register_candidate("UNFUSED_ATTN", ops=("ATTN",), arity=3)
+@register_candidate("UNFUSED_ATTN", sim_algo="ATTN_UNFUSED", distributed_safe=True,
+                    ops=("ATTN",), arity=3)
 def unfused_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Unfused reference: batched NT logits in f32, f32 softmax, batched
     NN mix, with no dispatch re-entry.  q:(g,m,dh), k/v:(g,n,dh)."""
@@ -193,49 +257,50 @@ def unfused_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
 # -- kernel arms: the ported CUDA kernels (plain versions on the CPU) ---------
 
 
-@register_candidate("PALLAS_NT", tunable=True)
+@register_candidate("PALLAS_NT", sim_algo="NT_DIRECT", tunable=True)
 def _pallas_nt(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_nt(a, b, block=block)
 
 
-@register_candidate("PALLAS_TNN", tunable=True)
+@register_candidate("PALLAS_TNN", sim_algo="TNN", extra_memory=True, tunable=True)
 def _pallas_tnn(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_tnn(a, b, block=block)
 
 
-@register_candidate("PALLAS_TNN_FUSED", tunable=True)
+@register_candidate("PALLAS_TNN_FUSED", sim_algo="TNN_FUSED", tunable=True)
 def _pallas_tnn_fused(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_tnn_fused(a, b, block=block)
 
 
-@register_candidate("PALLAS_NN", tunable=True, ops=("NN",))
+@register_candidate("PALLAS_NN", sim_algo="NN_DIRECT", tunable=True, ops=("NN",))
 def _pallas_nn(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_nn(a, b, block=block)
 
 
-@register_candidate("PALLAS_TN", tunable=True, ops=("TN",))
+@register_candidate("PALLAS_TN", sim_algo="TN_VIA_NN", extra_memory=True, tunable=True,
+                    ops=("TN",))
 def _pallas_tn(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_tn(a, b, block=block)
 
 
-@register_candidate("PALLAS_BNT", tunable=True, ops=("BNT",))
+@register_candidate("PALLAS_BNT", sim_algo="BNT_DIRECT", tunable=True, ops=("BNT",))
 def _pallas_bnt(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_bnt(a, b, block=block)
 
 
-@register_candidate("PALLAS_BNN", tunable=True, ops=("BNN",))
+@register_candidate("PALLAS_BNN", sim_algo="BNN_DIRECT", tunable=True, ops=("BNN",))
 def _pallas_bnn(a, b, block=None):
     from repro_torch.kernels import ops
 
@@ -243,7 +308,8 @@ def _pallas_bnn(a, b, block=None):
 
 
 @register_candidate(
-    "FUSED_ATTN", tunable=True, ops=("ATTN",), arity=3, config_arity=2
+    "FUSED_ATTN", sim_algo="ATTN_FUSED", tunable=True, ops=("ATTN",), arity=3,
+    config_arity=2,
 )
 def _fused_attn(q, k, v, block=None):
     from repro_torch.kernels.attention_fused import attention_fused

@@ -34,9 +34,11 @@ after its block closed, with no other in scope, raises.  First-order
 gradients only, as ``custom_vjp``.
 
 PyTorch runs eagerly, so the policy selects on every call (the JAX
-engine selects once per key at trace time); ``dispatch_report`` counts
-calls.  A failing candidate raises: the JAX engine's fault-fallback
-chain is not in this slice (ROADMAP queue A, item 4, with ``faults.py``),
+engine selects once per key at trace time; the learned, analytic and
+autotune policies memoise per key); ``dispatch_report`` counts calls.
+With no ``use_policy`` block open, the default policy (the learned
+selector) decides.  A failing candidate raises: the JAX engine's
+fault-fallback chain is not ported (ROADMAP queue A, with ``faults.py``),
 so a kernel fault on the card can never hide behind a fallback.
 """
 
@@ -53,11 +55,16 @@ from repro_torch.kernels.ref import attention_visibility
 from .candidates import DEFAULT_BY_OP, current_platform, get_candidate
 from .opkey import BATCHED_OPS, OPS, OpKey, check_op
 from .policy import (
+    AnalyticPolicy,
+    AutotunePolicy,
+    CascadePolicy,
     Decision,
     FixedPolicy,
+    ModelPolicy,
     SelectionPolicy,
     current_policy,
     current_scope,
+    default_policy,
     resume_scope,
     use_policy,
 )
@@ -86,9 +93,6 @@ POLICY_SPEC_HELP = (
 # ``fixed:attn=...`` accepts the plan-member aliases alongside literal
 # candidate names; the fused arm's tile configs are (bq, bk) pairs.
 _ATTN_ALIASES = {"fused": "FUSED_ATTN", "unfused": "UNFUSED_ATTN"}
-
-# Spec kinds of the JAX package that need the selector stack.
-_NOT_PORTED_KINDS = ("model", "analytic", "cascade", "autotune")
 
 _WARNED: set = set()
 
@@ -125,7 +129,7 @@ def policy_select(policy: SelectionPolicy, key: OpKey) -> Decision:
 
 def run_decision(key: OpKey, decision: Decision, *operands):
     """Execute a policy decision.  An exception from the candidate
-    propagates (no fallback chain in this slice)."""
+    propagates (no fallback chain in the port)."""
     cand = get_candidate(decision.name)
     platform = current_platform(operands[0])
     if not cand.supports(platform=platform):
@@ -499,37 +503,56 @@ def _parse_fixed_arg(arg: str) -> FixedPolicy:
     return FixedPolicy(by_op=by_op)
 
 
-def policy_from_spec(spec: str, distributed: bool = False) -> SelectionPolicy:
+def policy_from_spec(spec: str, distributed: bool = False, device="cuda") -> SelectionPolicy:
     """Build a policy from a CLI spec string.
 
+      model[:path]                       learned selector (the default
+                                         selector, or an artifact)
       fixed:XLA_TNN                      FixedPolicy (other ops run each
                                          op's reference)
       fixed:PALLAS_NT@64x64x32           FixedPolicy with a forced tile
       fixed:nt=PALLAS_TNN,attn=fused     op-qualified FixedPolicy
       fixed:attn=fused@16x32             attention plan entry; fused tiles
                                          are (bq, bk)
+      analytic                           AnalyticPolicy (H100 roofline)
+      cascade:A,B,C                      CascadePolicy over the names
+      autotune[:cache.json]              AutotunePolicy measuring on
+                                         ``device`` (default cache:
+                                         ``measure.default_cache_path()``)
 
-    ``model``, ``analytic``, ``cascade`` and ``autotune`` parse but raise
-    ``NotImplementedError``: they need the selector stack (ROADMAP queue
-    A).  ``distributed`` is accepted for the JAX signature; this slice
-    runs on one device."""
+    ``distributed=True`` restricts the guarded policies to the candidates
+    marked distributed-safe and disables autotune measurement, as in the
+    JAX package (the port's launchers run on one device)."""
     kind, _, arg = spec.strip().partition(":")
     kind, arg = kind.strip(), arg.strip()
     if not kind:
         raise _spec_error("empty policy spec")
+    if kind == "model":
+        if not arg:
+            return default_policy()  # the default selector: distributed-safe
+        # recover=True: a corrupt artifact is moved aside and a fallback
+        # selector trained, never a crash
+        return ModelPolicy.from_artifact(arg, distributed=distributed, recover=True)
     if kind == "fixed":
         if not arg:
             raise _spec_error("fixed policy needs a candidate: fixed:<NAME>")
         return _parse_fixed_arg(arg)
-    if kind in _NOT_PORTED_KINDS:
-        raise NotImplementedError(
-            f"policy kind {kind!r} is not ported yet: it needs the selector "
-            "stack (ROADMAP.md queue A, 'The selector stack'); use fixed:..."
-        )
+    if kind == "analytic":
+        return AnalyticPolicy(distributed=distributed)
+    if kind == "autotune":
+        from .measure import default_cache_path
+
+        return AutotunePolicy(cache_path=arg or default_cache_path(),
+                              distributed=distributed, device=device)
+    if kind == "cascade":
+        names = [n.strip() for n in arg.split(",") if n.strip()]
+        if not names:
+            raise _spec_error("cascade policy needs names: cascade:<A,B,...>")
+        return CascadePolicy(names, distributed=distributed)
     raise _spec_error(f"unknown policy spec {spec!r}")
 
 
 def add_policy_argument(parser) -> None:
     """Attach the shared ``--policy`` option to an argparse parser (the
-    JAX package's default string, ``model``, which this slice rejects)."""
+    JAX package's default, ``model``: the default learned selector)."""
     parser.add_argument("--policy", default="model", help=POLICY_SPEC_HELP)

@@ -8,17 +8,30 @@ policy and concurrent threads see their own:
         logits, cache = lm.lm_prefill(params, cfg, batch, max_seq=64)
 
 Every policy's ``select`` takes an ``OpKey`` (``core/opkey.py``) and
-returns a ``Decision(name, config)``.  This slice ports ``FixedPolicy``
-(single-name and op-qualified forms).  The learned, analytic, cascade
-and autotune policies are ROADMAP queue A, "The selector stack"; so is
-the ambient default policy: outside any ``use_policy`` scope,
-``current_policy()`` raises.  A gradient is selected under the scope in
-which the backward runs: wrap the forward and ``backward()`` in one
-``use_policy`` block (``resume_scope`` says how the autograd engine's
-device threads find it).
+returns a ``Decision(name, config)``.  The policy zoo, as in the JAX
+package:
+
+  ModelPolicy     the paper's learned selector (GBDT binary or k-way)
+  FixedPolicy     force one candidate per op -- baselines and A/B arms
+  AnalyticPolicy  argmin of the analytic cost model (``core/simulate.py``)
+  CascadePolicy   ordered preference list with OOM + distributed fallback
+  AutotunePolicy  argmin of measurements on the device
+                  (``core/measure.py``), measuring cold keys
+
+Outside any ``use_policy`` scope, ``current_policy()`` is
+``default_policy()``: the default learned selector.  A gradient is
+selected under the scope in which the backward runs: wrap the forward and
+``backward()`` in one ``use_policy`` block (``resume_scope`` says how the
+autograd engine's device threads find it).  A backward whose forward's
+block has closed raises; the default policy never stands in for it.
+
+The port's candidates pick their own tiles (``core/candidates.py``), so
+the learned, analytic and autotune policies decide a candidate with
+``config=None``.
 
 PyTorch runs eagerly, so a policy selects on every call (JAX selects
-once per key at trace time).  ``stats`` counts every call.
+once per key at trace time).  The learned, analytic and autotune policies
+memoise their decision per ``OpKey``; ``stats`` counts every call.
 """
 
 from __future__ import annotations
@@ -26,9 +39,26 @@ from __future__ import annotations
 import contextlib
 import contextvars
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, NamedTuple, Optional, Protocol, Tuple, runtime_checkable
+from typing import (
+    Dict,
+    Iterator,
+    NamedTuple,
+    Optional,
+    Protocol,
+    Sequence,
+    Tuple,
+    runtime_checkable,
+)
 
-from .candidates import DEFAULT_BY_OP, get_candidate
+from .candidates import (
+    CANDIDATES,
+    DEFAULT_BY_OP,
+    Candidate,
+    candidate_allowed,
+    candidate_fits_memory,
+    get_candidate,
+)
+from .hardware import H100, HardwareSpec
 from .opkey import OPS, OpKey, check_op, coerce_key
 
 __all__ = [
@@ -38,10 +68,15 @@ __all__ = [
     "SelectorStats",
     "SelectionPolicy",
     "PolicyBase",
+    "ModelPolicy",
     "FixedPolicy",
+    "AnalyticPolicy",
+    "CascadePolicy",
+    "AutotunePolicy",
     "PolicyScope",
     "use_policy",
     "current_policy",
+    "default_policy",
     "current_scope",
     "resume_scope",
 ]
@@ -100,10 +135,26 @@ class SelectionPolicy(Protocol):
 
 
 class PolicyBase:
-    """Shared state of the policy zoo: the decision counters."""
+    """Shared guards of the policy zoo -- the paper's OOM check, the
+    distributed-safety and op-support filters -- and the decision
+    counters.  ``hardware`` (default ``H100``) sets the memory budget."""
 
-    def __init__(self):
+    def __init__(
+        self,
+        hardware: Optional[HardwareSpec] = None,
+        distributed: bool = False,
+        mem_budget_frac: float = 0.9,
+    ):
+        self.hardware = hardware or H100
+        self.distributed = distributed
+        self.mem_budget_frac = mem_budget_frac
         self.stats = SelectorStats()
+
+    def _admissible(self, cand: Candidate, key: OpKey) -> bool:
+        return candidate_fits_memory(
+            cand, key.m, key.n, key.k, key.dsize,
+            self.hardware.mem_gib, self.mem_budget_frac, op=key.op, g=key.g,
+        ) and candidate_allowed(cand, self.distributed, op=key.op)
 
     def select(self, key: OpKey) -> Decision:
         raise NotImplementedError
@@ -183,6 +234,280 @@ class FixedPolicy(PolicyBase):
         return f"FixedPolicy(by_op={table})"
 
 
+class ModelPolicy:
+    """The paper's learned selector as a policy.
+
+    Thin adapter over ``MTNNSelector`` (which implements the GBDT / k-way
+    decision, its per-key memo, the OOM guard and the distributed
+    filter); stats are the selector's own, so a report covers dispatches
+    made through either API.  Decisions carry ``config=None``: the port's
+    candidates pick their own tiles."""
+
+    def __init__(self, selector=None):
+        if selector is None:
+            from .selector import default_selector
+
+            selector = default_selector()
+        self.selector = selector
+
+    @classmethod
+    def from_artifact(cls, path: str, **kw) -> "ModelPolicy":
+        from .selector import MTNNSelector
+
+        return cls(MTNNSelector.load(path, **kw))
+
+    @property
+    def stats(self):
+        return self.selector.stats
+
+    def select(self, key: OpKey) -> Decision:
+        return Decision(self.selector.select(key), None)
+
+    def __repr__(self):
+        return f"ModelPolicy(mode={self.selector.mode!r}, hw={self.selector.hardware.name!r})"
+
+
+class AnalyticPolicy(PolicyBase):
+    """Roofline argmin: pick the candidate whose analytic-cost-model arm
+    (``core/simulate.py``, datasheet peaks of ``hardware``) predicts the
+    lowest time.  Needs no training data -- the zero-shot answer for a
+    device with no measured dataset, and the autotune fallback.  The
+    decision is memoised per ``OpKey``."""
+
+    def __init__(
+        self,
+        hardware: Optional[HardwareSpec] = None,
+        candidates: Optional[Sequence[str]] = None,
+        sigma: float = 0.0,  # deterministic by default: no modelled noise
+        **kw,
+    ):
+        super().__init__(hardware=hardware, **kw)
+        self.candidates = tuple(candidates or CANDIDATES)
+        for name in self.candidates:
+            get_candidate(name)
+        self.sigma = sigma
+        self._cache: Dict[OpKey, Decision] = {}
+
+    def select(self, key: OpKey) -> Decision:
+        from .simulate import simulate_time
+
+        key = coerce_key(key)
+        decision = self._cache.get(key)
+        if decision is None:
+            best_t, name = None, None
+            for cand_name in self.candidates:
+                cand = get_candidate(cand_name)
+                if not self._admissible(cand, key):
+                    continue
+                t = simulate_time(
+                    self.hardware, cand.sim_algo, key.m, key.n, key.k,
+                    key.dsize, sigma=self.sigma, g=key.g,
+                )
+                if best_t is None or t < best_t:
+                    best_t, name = t, cand_name
+            # nothing admissible: the op's reference
+            decision = Decision(name or DEFAULT_BY_OP[key.op], None)
+            self._cache[key] = decision
+        self.stats.record(decision.name, decision.config, op=key.op)
+        return decision
+
+    def __repr__(self):
+        return f"AnalyticPolicy(hw={self.hardware.name!r}, candidates={self.candidates})"
+
+
+class CascadePolicy(PolicyBase):
+    """Ordered preference list: first admissible candidate wins.
+
+    Admissibility honours the paper's OOM guard (extra-memory candidates
+    must fit the budget) and the distributed-safety filter.  The *last*
+    entry is the unconditional fallback -- it is returned even when its own
+    guards fail, so the cascade always produces a runnable candidate
+    (mirror of the paper's "if B^T does not fit, use NT").
+    """
+
+    def __init__(self, names: Sequence[str], **kw):
+        super().__init__(**kw)
+        names = tuple(names)
+        if not names:
+            raise ValueError("CascadePolicy needs at least one candidate name")
+        for name in names:
+            get_candidate(name)
+        self.names = names
+
+    def select(self, key: OpKey) -> Decision:
+        key = coerce_key(key)
+        chosen = None
+        for name in self.names:
+            if self._admissible(get_candidate(name), key):
+                chosen = name
+                break
+        if chosen is None:
+            # unconditional fallback: the last entry when it can run this op
+            # at all, else the op's reference (a cascade written for the
+            # forward op must not mis-dispatch a backward GEMM)
+            last = self.names[-1]
+            chosen = last if key.op in get_candidate(last).ops else DEFAULT_BY_OP[key.op]
+        self.stats.record(chosen, op=key.op)
+        return Decision(chosen, None)
+
+    def __repr__(self):
+        return f"CascadePolicy({list(self.names)!r})"
+
+
+class AutotunePolicy(PolicyBase):
+    """Measurement-backed selection: argmin of timings on ``device``.
+
+    ``select`` answers from a persistent ``MeasurementCache`` (warm hit);
+    on a cold key it measures every admissible candidate right there
+    (``measure.measure_candidates``, each candidate once: the port's have
+    one config each), stores the result and persists the cache.  When
+    measurement is disabled -- ``measure=False``, ``distributed=True``, a
+    dtype width with no measurable dtype, or a key over
+    ``max_measure_flops`` -- it answers with ``AnalyticPolicy``.  A
+    candidate that raises while it is measured raises out of ``select``.
+
+    ``device`` is where measurements run (default ``cuda``; resolved at
+    the first measurement, so building the policy needs no card).  Cache
+    keys carry the platform (``gpu``/``cpu``) and the hardware name, so one
+    file can hold measurements of several devices without cross-talk.
+    """
+
+    def __init__(
+        self,
+        cache=None,
+        cache_path: Optional[str] = None,
+        hardware: Optional[HardwareSpec] = None,
+        candidates: Optional[Sequence[str]] = None,
+        measure: bool = True,
+        warmup: int = 1,
+        reps: int = 3,
+        max_measure_flops: float = 1e11,
+        device="cuda",
+        **kw,
+    ):
+        import torch
+
+        from .hardware import device_spec
+        from .measure import MeasurementCache
+
+        self.device = torch.device(device)
+        if hardware is None and (self.device.type != "cuda" or torch.cuda.is_available()):
+            hardware = device_spec(self.device)
+        super().__init__(hardware=hardware, **kw)
+        if cache is None:
+            # recover=True: a corrupt/truncated cache file is moved aside
+            # and rebuilt empty -- autotune re-measures instead of crashing
+            cache = (
+                MeasurementCache.load(cache_path, recover=True)
+                if cache_path
+                else MeasurementCache()
+            )
+        elif cache_path is not None:
+            # a caller handing both means "use this cache, persist it here"
+            cache.path = cache_path
+        self.cache = cache
+        self.candidates = tuple(candidates or CANDIDATES)
+        for name in self.candidates:
+            get_candidate(name)
+        self.measure = measure
+        self.warmup = warmup
+        self.reps = reps
+        self.max_measure_flops = max_measure_flops
+        # the fallback honours the same candidate restriction, so a policy
+        # scoped to a subset can never dispatch outside it via the fallback
+        self.fallback = AnalyticPolicy(
+            hardware=self.hardware,
+            candidates=self.candidates,
+            distributed=self.distributed,
+            mem_budget_frac=self.mem_budget_frac,
+        )
+        # observability: cold keys measured / warm hits / analytic fallbacks
+        self.n_measured = 0
+        self.n_cache_hits = 0
+        self.n_fallbacks = 0
+        self._decisions: Dict[OpKey, Decision] = {}
+
+    def _can_measure(self, dtype: Optional[str], flops: float) -> bool:
+        return (
+            self.measure
+            and not self.distributed
+            and dtype is not None
+            and flops <= self.max_measure_flops
+        )
+
+    def select(self, key: OpKey) -> Decision:
+        from .measure import DTYPE_BY_DSIZE, measure_candidates
+
+        key = coerce_key(key)
+        hit = self._decisions.get(key)
+        if hit is not None:
+            self.n_cache_hits += 1
+            self.stats.record(hit.name, hit.config, op=key.op)
+            return hit
+        dtype = DTYPE_BY_DSIZE.get(key.dsize)
+        cache_key = (
+            "gpu" if self.device.type == "cuda" else self.device.type,
+            self.hardware.name,
+            dtype or f"{8 * key.dsize}-bit",
+            key.op,
+            key.g,
+            key.m,
+            key.n,
+            key.k,
+        )
+        times = self.cache.get(cache_key)
+        if times is not None:
+            self.n_cache_hits += 1
+        elif self._can_measure(dtype, 2.0 * key.g * key.m * key.n * key.k):
+            times = measure_candidates(
+                key.m, key.n, key.k,
+                dtype=dtype,
+                op=key.op,
+                g=key.g,
+                candidates=self.candidates,
+                hardware=self.hardware,
+                distributed=self.distributed,
+                mem_budget_frac=self.mem_budget_frac,
+                warmup=self.warmup,
+                reps=self.reps,
+                device=self.device,
+            )
+            self.n_measured += 1
+            if times:
+                self.cache.put(cache_key, times)
+                if self.cache.path:
+                    self.cache.save()
+        decision = None
+        if times:
+            # re-filter at use time: cached entries may predate a registry /
+            # distributed-mode / candidate-restriction change; each
+            # candidate enters at its best config's time
+            from .measure import best_times
+
+            best = None
+            for cand_name, (_ck, t) in best_times(times).items():
+                if cand_name not in self.candidates or cand_name not in CANDIDATES:
+                    continue
+                if not self._admissible(get_candidate(cand_name), key):
+                    continue
+                if best is None or t < best:
+                    best, decision = t, Decision(cand_name, None)
+        if decision is None:
+            self.n_fallbacks += 1
+            decision = self.fallback.select(key)
+        # memoised either way: a measurement that failed raised instead
+        self._decisions[key] = decision
+        self.stats.record(decision.name, decision.config, op=key.op)
+        return decision
+
+    def __repr__(self):
+        return (
+            f"AutotunePolicy(hw={self.hardware.name!r}, "
+            f"cache={len(self.cache)} shapes, path={self.cache.path!r}, "
+            f"measure={self.measure}, device={str(self.device)!r})"
+        )
+
+
 # -- context scoping ----------------------------------------------------------
 
 
@@ -208,20 +533,31 @@ def current_scope() -> Optional[PolicyScope]:
     return _SCOPE.get()
 
 
+# Default-policy cache: one ModelPolicy per default MTNNSelector instance,
+# so `set_default_selector` swaps are honoured without rebuilding stats.
+_default_pair: Tuple[Optional[object], Optional[ModelPolicy]] = (None, None)
+
+
+def default_policy() -> SelectionPolicy:
+    """The ambient policy: the default learned selector (trained at first
+    use on the analytic H100 dataset), distributed-safe -- what dispatch
+    uses outside any ``use_policy`` scope."""
+    global _default_pair
+    from .selector import default_selector
+
+    sel = default_selector()
+    cached_sel, cached_pol = _default_pair
+    if cached_sel is not sel:
+        cached_pol = ModelPolicy(sel)
+        _default_pair = (sel, cached_pol)
+    return cached_pol
+
+
 def current_policy() -> SelectionPolicy:
-    """The policy in scope: the innermost ``use_policy``.  There is no
-    ambient default in this slice (the learned default policy is ROADMAP
-    queue A, "The selector stack"), so no scope is an error."""
+    """The policy in scope: the innermost ``use_policy``, else
+    ``default_policy()``."""
     scope = _SCOPE.get()
-    if scope is None:
-        raise RuntimeError(
-            "no dispatch policy in scope: wrap the call in "
-            "use_policy(FixedPolicy(...)) or use_policy(policy_from_spec("
-            "'fixed:...')) -- for training, around the forward and the "
-            "backward both; the default learned policy is not ported yet "
-            "(ROADMAP.md queue A, 'The selector stack')"
-        )
-    return scope.policy
+    return scope.policy if scope is not None else default_policy()
 
 
 @contextlib.contextmanager
@@ -248,9 +584,18 @@ def resume_scope(scope: Optional[PolicyScope]) -> Iterator[None]:
     autograd engine runs the backward of CUDA tensors on a device thread
     of its own, which does not see the caller's context variables --
     re-enters ``scope``, the block the forward ran under, if that block is
-    still open.  Otherwise nothing is entered, and dispatch raises as it
-    does with no scope."""
-    if _SCOPE.get() is None and scope is not None and scope.open:
+    still open.  If that block has closed, this raises: the default
+    policy never stands in for the scope a forward was selected under.
+    A forward that ran with no scope (``scope`` None) has its backward
+    selected by whatever this thread has in scope, the default included."""
+    if _SCOPE.get() is None and scope is not None:
+        if not scope.open:
+            raise RuntimeError(
+                "no dispatch policy in scope for this backward: the "
+                "use_policy block its forward ran under has closed, and the "
+                "default policy does not stand in for it -- run the forward "
+                "and backward() in one use_policy block"
+            )
         token = _SCOPE.set(scope)
         try:
             yield

@@ -14,7 +14,8 @@ Only the JAX launcher's engine mode is ported: there is no ``--legacy``
 or ``--chaos``, and ``--mesh`` takes ``1x1`` only.  ``--device`` defaults
 to ``cuda`` and raises when there is no card.  ``--layers`` cuts the
 depth and ``--dtype`` sets the parameter dtype; weights are random from
-``--seed``.
+``--seed``.  The default ``--policy model`` is the default learned
+selector; ``--policy autotune`` measures on ``--device``.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def _class_policies(args, parser):
             parser.error(f"malformed --class-policy {entry!r}; expected CLS=SPEC")
         specs[cls] = spec
     try:
-        return {cls: policy_from_spec(spec) for cls, spec in specs.items()}
+        return {cls: policy_from_spec(spec, device=args.device) for cls, spec in specs.items()}
     except (ValueError, KeyError) as e:
         parser.error(str(e))
 

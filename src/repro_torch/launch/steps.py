@@ -60,7 +60,8 @@ def init_train_state(cfg, params) -> Dict:
 
 def _policy_scope(policy: Optional[SelectionPolicy]):
     """The block a microbatch's forward and backward run in; with no
-    policy, the caller's scope governs (and its absence raises)."""
+    policy, the caller's scope governs (or, with none, the default
+    policy)."""
     return use_policy(policy) if policy is not None else contextlib.nullcontext()
 
 

@@ -18,8 +18,9 @@ The JAX launcher's flags, except that ``--mesh`` takes ``1x1`` only and
 there is no ``--chaos``.  ``--device`` defaults to ``cuda`` and raises
 when there is no card; ``--layers`` cuts the depth and ``--dtype`` sets
 the parameter dtype; weights are random from ``--seed``.  The default
-``--policy model`` needs the selector stack and raises.  ``main`` returns
-a ``TrainRun``: the final state, the per-step metrics and wall times.
+``--policy model`` is the default learned selector; ``--policy autotune``
+measures on ``--device``.  ``main`` returns a ``TrainRun``: the final
+state, the per-step metrics and wall times.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def main(argv=None) -> TrainRun:
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     try:
-        policy = policy_from_spec(args.policy)
+        policy = policy_from_spec(args.policy, device=args.device)
     except (ValueError, KeyError) as e:
         ap.error(str(e))
     step_fn = make_train_step(

@@ -28,7 +28,13 @@ from repro_torch.core.candidates import (  # noqa: E402
     get_candidate,
 )
 from repro_torch.core.opkey import OpKey  # noqa: E402
-from repro_torch.core.policy import Decision, FixedPolicy, current_policy, use_policy  # noqa: E402
+from repro_torch.core.policy import (  # noqa: E402
+    Decision,
+    FixedPolicy,
+    current_policy,
+    default_policy,
+    use_policy,
+)
 
 SPECS = [
     "fixed:XLA_NT",
@@ -69,9 +75,30 @@ def test_unported_kernels_are_unknown_candidates(spec):
 
 @pytest.mark.parametrize("spec", ["model", "model:sel.json", "analytic", "cascade:XLA_NT",
                                   "autotune", "autotune:cache.json"])
-def test_selector_specs_name_the_roadmap_item(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.policy_from_spec(spec)
+def test_selector_specs_name_the_roadmap_item(spec, tmp_path, monkeypatch):
+    """Named when these kinds raised NotImplementedError pointing at the
+    ROADMAP item that ports them; now each builds the same policy kind in
+    both packages (an artifact and a cache path lie under tmp_path)."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "default_cache.json"))
+    if spec == "model:sel.json":
+        from repro.core import selector as jselector
+        from repro.core.gbdt import GBDTClassifier
+
+        clf = GBDTClassifier(n_estimators=2, max_depth=2).fit(np.eye(10), np.array([1, -1] * 5))
+        path = tmp_path / "sel.json"
+        jselector.MTNNSelector(clf).save(str(path))
+        spec = f"model:{path}"
+    elif spec == "autotune:cache.json":
+        spec = f"autotune:{tmp_path / 'cache.json'}"
+    mine, theirs = engine.policy_from_spec(spec), jengine.policy_from_spec(spec)
+    assert type(mine).__name__ == type(theirs).__name__
+    key = OpKey("NT", 64, 96, 128, 4)
+    if spec.startswith("autotune"):
+        assert mine.cache.path == theirs.cache.path
+    else:
+        from repro.core.opkey import OpKey as JOpKey
+
+        assert mine.select(key).name == theirs.select(JOpKey(*key)).name
 
 
 @pytest.mark.parametrize("spec", ["", "fixed:", "fixed:nt=", "fixed:qq=XLA_NT", "bogus",
@@ -93,10 +120,27 @@ def test_registry_tables_are_restricted_to_registered_names():
 
 
 def test_no_policy_in_scope_is_an_error():
-    with pytest.raises(RuntimeError, match="no dispatch policy"):
-        current_policy()
-    with pytest.raises(RuntimeError):
-        engine.dispatch("NT", torch.zeros(2, 4), torch.zeros(3, 4))
+    """Named when no scope raised; now no scope means ``default_policy()``,
+    as in the JAX package, and dispatch runs under it."""
+    assert current_policy() is default_policy()
+    assert type(default_policy()).__name__ == type(jpolicy.default_policy()).__name__
+    a, b = torch.randn(2, 4), torch.randn(3, 4)
+    calls = default_policy().stats.calls
+    torch.testing.assert_close(engine.dispatch("NT", a, b), a @ b.t())
+    assert default_policy().stats.calls == calls + 1
+
+
+def test_backward_after_its_forward_scope_closed_still_raises():
+    """The default policy never stands in for a closed scope."""
+    a = torch.randn(3, 8, requires_grad=True)
+    w = torch.randn(5, 8, requires_grad=True)
+    with use_policy(FixedPolicy("XLA_NT")):
+        out = engine.dispatch("NT", a, w)
+    with pytest.raises(RuntimeError, match="has closed"):
+        out.sum().backward()
+    out = engine.dispatch("NT", a, w)  # no scope: the default selects both ways
+    out.sum().backward()
+    torch.testing.assert_close(a.grad, torch.ones(3, 5) @ w.detach())
 
 
 def test_platform_comes_from_the_operand():

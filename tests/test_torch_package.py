@@ -4,6 +4,7 @@ instead of carrying on on the CPU, and ``chip_smoke.py`` fails without
 a card."""
 
 import ast
+import math
 import os
 import subprocess
 import sys
@@ -51,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels.attention_fused, repro_torch.models.lm, "
         "repro_torch.serving, repro_torch.launch.serve, repro_torch.convert, "
         "repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint, "
-        "repro_torch.data\n"
+        "repro_torch.data, repro_torch.models.fcn, repro_torch.configs.fcn_paper, "
+        "repro_torch.examples.train_fcn, repro_torch.benchmarks.table10_fcn\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"
@@ -100,8 +102,12 @@ def test_train_launcher_rejects_what_this_slice_does_not_train(argv):
 
 
 def test_train_launcher_default_policy_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1"])
+    """Named when the default ``--policy model`` raised; now it trains the
+    smoke config on the CPU under the default learned selector."""
+    run = train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "3",
+                      "--batch", "4", "--seq", "32"])
+    assert len(run.metrics) == 3 and all(math.isfinite(m["loss"]) for m in run.metrics)
+    assert type(run.policy).__name__ == "ModelPolicy" and run.policy.stats.calls > 0
 
 
 def test_launcher_serves_on_cpu_and_returns_the_engine(capsys):
@@ -115,9 +121,13 @@ def test_launcher_serves_on_cpu_and_returns_the_engine(capsys):
     assert "PALLAS_TNN" in capsys.readouterr().out
 
 
-def test_launcher_default_policy_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu"])
+def test_launcher_default_policy_names_the_roadmap_item(capsys):
+    """Named when the default ``--policy model`` raised; now it serves the
+    smoke config on the CPU under the default learned selector."""
+    engine = serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+                         "--requests", "3", "--prompt-len", "9", "--gen", "3", "--slots", "2"])
+    assert engine.health()["finished"] == 3 and engine.health()["crashed_steps"] == 0
+    assert "ModelPolicy" in capsys.readouterr().out
 
 
 def test_chip_smoke_fails_without_a_card():

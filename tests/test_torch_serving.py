@@ -23,6 +23,7 @@ from repro.core import engine as jengine  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.serving import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
+from repro_torch.core.policy import FixedPolicy  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     PagedKVCache,
@@ -191,10 +192,20 @@ def test_warmup_runs_every_bucket_on_the_null_row(weights):
     assert not eng.kv.lengths.any() and eng.kv.n_free == 4
 
 
+class _Crashing(FixedPolicy):
+    """A policy whose select raises: the step it runs in crashes."""
+
+    def __init__(self):
+        super().__init__("XLA_NT")
+
+    def select(self, key):
+        raise RuntimeError("policy fault")
+
+
 def test_crashing_step_is_contained_and_counted(weights):
     _, params = weights
     eng = port_engine(params)
-    eng.policies["bulk"] = None  # no policy in scope: dispatch raises
+    eng.policies["bulk"] = _Crashing()  # None would mean the default policy
     ok = eng.submit(mixed_prompts([4])[0], max_new=3, cls="interactive")
     bad = eng.submit(mixed_prompts([4])[0], max_new=3, cls="bulk")
     with pytest.warns(UserWarning, match="crashed"):
