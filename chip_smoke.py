@@ -8,11 +8,13 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   1. device   the card's name and power limit, torch and CUDA versions
   2. build    nvcc builds every kernel from src/repro_torch/csrc
   3. kernels  each CUDA kernel against its plain PyTorch version at the
-              serving shapes, in f32 and bf16, with CUDA-event times of the
-              kernel, the plain version and one library call (a yardstick
-              only), the profiler's device time of the kernel and the
-              library call, the variant that ran, and the datasheet bound
-              of the same work; the kernels redesigned for Hopper (bf16
+              serving shapes (attention also at d_head 256 and 120: gemma3's
+              decode and windowed prefill, paligemma's MQA prefix prefill,
+              h2o-danube's decode and prefill), in f32 and bf16, with
+              CUDA-event times of the kernel, the plain version and one
+              library call (a yardstick only), the profiler's device time
+              of the kernel and the library call, the variant that ran,
+              and the datasheet bound of the same work; the kernels redesigned for Hopper (bf16
               NT, fused TNN and NN; batched in both dtypes; attention's
               split-KV and flash routes) are timed beside the kernels they
               replaced, which must agree too
@@ -45,6 +47,22 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   8. train_exact  f32 at full width and 2 layers: every gradient leaf of
               step 0 under both kernel policies within relative L2 1e-4 of
               fixed:XLA_NT's, and the losses of 3 steps within 1e-5
+ 8a. arch     the attention-only architectures.  gemma3-4b at full config
+              (34 layers, d 2560, d_head 256, vocab 262144), bf16, through
+              launch.serve.main under phase 4's class policies and then
+              fixed:XLA_NT, 8 requests over 4 slots, --max-seq 2048, one
+              request decoding past the local layers' 1024-slot ring: phase
+              4's gates, and attention_fused launched on its decode_split
+              and fma routes at d_head 256; tokens/s, p50 decode ms and a
+              profiled decode step's busy share per policy.  gemma3-4b in
+              f32 at full width and one unit of each segment (10 layers):
+              greedy tokens of both kernel policies identical to cuBLAS's.
+              gemma2-27b, h2o-danube-3-4b, paligemma-3b (vlm, prefix 256)
+              and musicgen-large (frames) at full width and one segment
+              unit of depth, bf16, batch 2 x seq 512: one forward and two
+              train steps under the fused train policy and fixed:XLA_NT
+              from the same weights and batches: logits within relative
+              L2 5e-2, step-0 loss within 1e-2 and grad norm within 5e-2
   9. selector  the paper's loop on the card: measure_candidates times every
               NT, NN and TN candidate over {2^7..2^12}^3 (216 shapes per op;
               a cut of the paper's {2^7..2^16}^3, which
@@ -151,6 +169,13 @@ REPLACED_FMA_KERNELS = ("matmul_kernel<__nv_bfloat16", "batched_kernel<",
 # The attention forward of a train step: batch 8 x 3 kv heads, 3 heads
 # folded x 256 queries, 256 keys, causal.
 TRAIN_ATTN_CASE = "train causal g=24 m=768 n=256 q_seg=256"
+# gemma3-4b's prefill of a 1024-token chunk (4 kv heads, 2 heads folded,
+# window 1024) and h2o-danube-3-4b's of 512 tokens (8 kv heads, 4 folded)
+GEMMA3_PREFILL_CASE = "gemma3 prefill causal window=1024 g=4 m=2048 n=1024 q_seg=1024"
+H2O_PREFILL_CASE = "h2o prefill causal g=16 m=2048 n=512 q_seg=512"
+# Causal cases whose library yardstick is SDPA on the unfolded heads (is_causal,
+# the GQA group as heads over one kv head): the number of heads folded
+UNFOLDED_HEADS = {TRAIN_ATTN_CASE: 3, GEMMA3_PREFILL_CASE: 2, H2O_PREFILL_CASE: 4}
 
 # Training: smollm-135m at full config, bf16, remat full, AdamW.
 DEVICE = "cuda"
@@ -174,6 +199,24 @@ GRAD_NORM_REL = 5e-2
 # train_exact, f32 at 2 layers: sums in another order only
 EXACT_GRAD_REL_L2 = 1e-4
 EXACT_LOSS_REL = 1e-5
+
+# Phase 8a: gemma3-4b served at full config; prompts of 1..1500 tokens
+# (seed 0 draws one of 1114, prefilled in the 2048 bucket and decoded past
+# the 1024-slot ring of the local layers), 32 new tokens each.
+GEMMA3_GEN = 32
+GEMMA3_ARGS = ["--arch", "gemma3-4b", "--requests", "8", "--prompt-len", "1500",
+               "--gen", str(GEMMA3_GEN), "--slots", "4", "--max-seq", "2048", "--seed", "0"]
+GEMMA3_WINDOW = 1024
+WIDE_DH = 256
+# The other four at full width and one unit of each segment, trained.
+ARCH_TRAIN = {  # arch: the depth it keeps of its full config
+    "gemma2-27b": "2 of 46 layers (one local, global unit)",
+    "h2o-danube-3-4b": "1 of 24 layers",
+    "paligemma-3b": "1 of 18 layers",
+    "musicgen-large": "1 of 48 layers",
+}
+ARCH_BATCH, ARCH_SEQ, ARCH_STEPS = 2, 512, 2
+FORWARD_REL_L2 = 5e-2  # bf16 logits of a kernel policy against cuBLAS's
 
 # Phase 9: the selector's grid {2^lo..2^hi}^3, a cut of the paper's 2^7..2^16
 # (the full grid: python -m repro_torch.benchmarks.table10_fcn --full).
@@ -338,6 +381,8 @@ def kernel_cases(torch):
         # attention: decode (split-KV), prefill, and a train step's forward
         # (flash for bf16), at d_head 64 and 128
         lens = torch.randint(1, 513, (12,), generator=gen, device="cuda", dtype=torch.int32)
+        lens16 = torch.randint(1, 2049, (16,), generator=gen, device="cuda", dtype=torch.int32)
+        lens32 = torch.randint(1, 1025, (32,), generator=gen, device="cuda", dtype=torch.int32)
         train_mask = MaskParams(causal=True, q_seg=256)
         geoms = [
             ("decode g=12 m=3 n=512 ragged", 12, 3, 512, 64, lens, MaskParams()),
@@ -349,6 +394,18 @@ def kernel_cases(torch):
             (TRAIN_ATTN_CASE, 24, 768, 256, 64, None, train_mask),
             (TRAIN_ATTN_CASE + " dh=128", 24, 768, 256, 128, None, train_mask),
             ("decode g=12 m=3 n=512 ragged dh=128", 12, 3, 512, 128, lens, MaskParams()),
+            # the wide heads: gemma3-4b's decode (batch 4 x 4 kv heads, fold 2)
+            # over a full 2048-slot cache and its windowed prefill (fold 2 x
+            # 1024 queries); paligemma-3b's prefill (batch 2, MQA fold 8 x 512
+            # positions, 256 of them a bidirectional prefix); h2o-danube-3-4b's
+            # decode (batch 4 x 8 kv heads, fold 4) and prefill at d_head 120
+            ("decode g=16 m=2 n=2048 ragged dh=256", 16, 2, 2048, 256, lens16, MaskParams()),
+            (GEMMA3_PREFILL_CASE, 4, 2048, 1024, 256, None,
+             MaskParams(causal=True, window=1024, q_seg=1024)),
+            ("paligemma prefill prefix=256 g=2 m=4096 n=512 q_seg=512 dh=256", 2, 4096, 512,
+             256, None, MaskParams(causal=True, prefix_len=256, q_seg=512)),
+            ("decode g=32 m=4 n=1024 ragged dh=120", 32, 4, 1024, 120, lens32, MaskParams()),
+            (H2O_PREFILL_CASE, 16, 2048, 512, 120, None, MaskParams(causal=True, q_seg=512)),
         ]
         for label, g, m, n, dh, lengths, mask in geoms:
             q = randn(g, m, dh, dtype=dt) * dh ** -0.5
@@ -356,7 +413,7 @@ def kernel_cases(torch):
                 "q": q, "k": randn(g, n, dh, dtype=dt), "v": randn(g, n, dh, dtype=dt),
                 "lengths": lengths if lengths is not None else
                 torch.full((g,), n, dtype=torch.int32, device="cuda"),
-                "mask": mask, "heads": 3 if label.startswith(TRAIN_ATTN_CASE) else None,
+                "mask": mask, "heads": UNFOLDED_HEADS.get(label.split(" dh=")[0]),
             }))
     return cases
 
@@ -596,10 +653,10 @@ def batched_label(torch, a, b, nt):
 # -- phase 4/5 helpers --------------------------------------------------------
 
 
-def serve(extra):
+def serve(extra, args=ARCH_ARGS):
     from repro_torch.launch import serve as serve_mod
 
-    return serve_mod.main(ARCH_ARGS + extra)
+    return serve_mod.main(args + extra)
 
 
 def kernel_policy_args():
@@ -700,6 +757,61 @@ def decode_profile(torch, engine, cls, pos=0):
     prof = busy_profile(torch, lambda: engine._decode_step(cls, zeros[:, None], null, at))
     prof.pop("kernel_keys")
     return {"batch": bb, "pos": pos, **prof}
+
+
+def serve_gates_and_metrics(torch, eng_k, eng_x):
+    """Phase 4's checks and numbers, for an engine that ran the kernel
+    policies and one that ran cuBLAS on the same requests: first-token
+    logits of each kernel policy within relative L2 LOGITS_REL_L2 of
+    cuBLAS's and no further from an f32 run of the same weights than
+    F32_DISTANCE_RATIO x cuBLAS's distance + F32_DISTANCE_FLOOR; a profiled
+    decode step per policy at position 0 and at max_seq - 1 (the full
+    cache); greedy agreement, tokens/s and p50 decode ms."""
+    prompt = eng_k.requests[0].tokens
+    ref_logits = first_token_logits(torch, eng_x, CUBLAS_POLICY, prompt)
+    f32_logits = first_token_logits(torch, eng_x, CUBLAS_POLICY, prompt, torch.float32)
+    dist = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    to_ref, to_f32 = {}, {CUBLAS_POLICY: dist(ref_logits, f32_logits)}
+    for cls, spec in KERNEL_POLICIES.items():
+        got = first_token_logits(torch, eng_k, spec, prompt)
+        to_ref[spec], to_f32[spec] = dist(got, ref_logits), dist(got, f32_logits)
+        check(to_ref[spec] <= LOGITS_REL_L2,
+              f"first-token logits under {spec}: rel L2 {to_ref[spec]} > {LOGITS_REL_L2}")
+        limit = F32_DISTANCE_RATIO * to_f32[CUBLAS_POLICY] + F32_DISTANCE_FLOOR
+        check(to_f32[spec] <= limit,
+              f"first-token logits under {spec} are {to_f32[spec]} from f32, beyond "
+              f"{limit} (the cuBLAS policy's distance is {to_f32[CUBLAS_POLICY]})")
+    profiles = {spec: decode_profile(torch, eng_k, cls) for cls, spec in KERNEL_POLICIES.items()}
+    profiles[CUBLAS_POLICY] = decode_profile(torch, eng_x, "interactive")
+    full = eng_k.max_seq - 1
+    full_cache = {spec: decode_profile(torch, eng_k, cls, full)
+                  for cls, spec in KERNEL_POLICIES.items()}
+    full_cache[CUBLAS_POLICY] = decode_profile(torch, eng_x, "interactive", full)
+    agree = {}
+    for cls, spec in KERNEL_POLICIES.items():
+        pairs = [(a, b) for r in eng_k.requests.values() if r.cls == cls
+                 for a, b in zip(r.generated, eng_x.requests[r.rid].generated)]
+        agree[spec] = sum(a == b for a, b in pairs) / len(pairs)
+    n_tok = lambda e: sum(len(r.generated) for r in e.requests.values())  # noqa: E731
+    return {
+        "first_token_rel_l2": to_ref, "rel_l2_bound": LOGITS_REL_L2,
+        "first_token_rel_l2_to_f32": to_f32, "decode_step_profile": profiles,
+        "decode_step_profile_full_cache": full_cache,
+        "greedy_agreement_vs_cublas": agree,
+        "tokens_per_s": {"kernel_policies": n_tok(eng_k) / eng_k.run_seconds,
+                         CUBLAS_POLICY: n_tok(eng_x) / eng_x.run_seconds},
+        "p50_decode_ms": {**{spec: p50_ms(eng_k, cls) for cls, spec in KERNEL_POLICIES.items()},
+                          CUBLAS_POLICY: p50_ms(eng_x)},
+        "health": eng_k.health(),
+    }
+
+
+def check_identical_tokens(e_k, e_x, label):
+    """Phase 5's gate: every request's greedy tokens under the kernel
+    policies equal cuBLAS's."""
+    for r in e_k.requests.values():
+        check(r.generated == e_x.requests[r.rid].generated,
+              f"{label} request {r.rid} ({r.cls}): tokens differ from {CUBLAS_POLICY}")
 
 
 # -- phase 7/8 helpers --------------------------------------------------------
@@ -843,6 +955,161 @@ def phase_train_exact(torch):
               f"f32 gradient under {spec}: a leaf is {worst[spec]} from cuBLAS's (rel L2)")
     return {"phase": "train_exact", "layers": 2, "dtype": "float32",
             "worst_leaf_rel_l2": worst, "losses": losses}
+
+
+# -- phase 8a helpers ---------------------------------------------------------
+
+
+def device_batch(torch, batch):
+    """A numpy train batch on the card: token ids as int64, frames and
+    patches as the f32 the pipeline made (the model casts them)."""
+    return {k: torch.as_tensor(v, device=DEVICE) if v.dtype.kind == "f"
+            else torch.as_tensor(v, device=DEVICE).long() for k, v in batch.items()}
+
+
+def arch_train(torch, arch):
+    """One of the four trained architectures at full width and one unit of
+    each segment, bf16: one forward and ARCH_STEPS train steps under the
+    fused train policy and under cuBLAS, from the same weights and
+    batches.  Returns its row and the fused policy's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.core.policy import use_policy
+    from repro_torch.data import make_train_batch
+    from repro_torch.kernels.common import ATTENTION_ROUTES, LAUNCHES, reset_launches
+    from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(segments=tuple((1, blocks) for _, blocks in full.segments))
+    params = lm.init_lm(0, cfg, device=DEVICE)
+    batches = [device_batch(torch, make_train_batch(cfg, ARCH_SEQ, ARCH_BATCH, step))
+               for step in range(ARCH_STEPS)]
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fused = TRAIN_POLICIES["fused"]
+    specs = (fused, CUBLAS_POLICY)
+    logits, fwd_launches, fwd_routes = {}, {}, {}
+    for spec in specs:
+        reset_launches()
+        with torch.no_grad(), use_policy(policy_from_spec(spec)):
+            logits[spec] = lm.lm_forward(params, cfg, batches[0]).float()
+        fwd_launches[spec], fwd_routes[spec] = dict(LAUNCHES), dict(ATTENTION_ROUTES)
+    fwd_rel = float((logits[fused] - logits[CUBLAS_POLICY]).norm()
+                    / logits[CUBLAS_POLICY].norm())
+    del logits  # before the optimizer's f32 moments: gemma2-27b's take 37 GB at the update
+    runs = {}
+    for spec in specs:
+        torch.cuda.empty_cache()
+        reset_launches()
+        policy = policy_from_spec(spec)
+        step_fn = make_train_step(cfg, TrainStepConfig(total_steps=ARCH_STEPS), policy=policy)
+        state = init_train_state(cfg, params)
+        metrics, times = [], []
+        for batch in batches:
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})  # waits for the device
+            times.append(time.perf_counter() - t1)
+        del state
+        routes = dict(fwd_routes[spec])  # the forward's and the train steps'
+        for key, count in ATTENTION_ROUTES.items():
+            routes[key] = routes.get(key, 0) + count
+        runs[spec] = {"metrics": metrics, "step_ms": [t * 1e3 for t in times],
+                      "launches": {k: fwd_launches[spec][k] + v for k, v in LAUNCHES.items()},
+                      "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()}}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, batches
+    torch.cuda.empty_cache()
+    for spec, run in runs.items():
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in run["metrics"]), f"{arch} {spec}: a non-finite loss or grad norm")
+    check(fwd_rel <= FORWARD_REL_L2, f"{arch}: forward logits rel L2 {fwd_rel} > {FORWARD_REL_L2}")
+    x0, k0 = runs[CUBLAS_POLICY]["metrics"][0], runs[fused]["metrics"][0]
+    loss_rel, gn_rel = rel(k0["loss"], x0["loss"]), rel(k0["grad_norm"], x0["grad_norm"])
+    check(loss_rel <= LOSS_REL, f"{arch}: step-0 loss {k0['loss']} vs cuBLAS {x0['loss']}")
+    check(gn_rel <= GRAD_NORM_REL,
+          f"{arch}: step-0 grad norm {k0['grad_norm']} vs cuBLAS {x0['grad_norm']}")
+    check(not any(runs[CUBLAS_POLICY]["launches"].values()),
+          f"{arch}: cuBLAS training launched kernels: {runs[CUBLAS_POLICY]['launches']}")
+    unused = [k for k in TRAIN_KERNELS if not runs[fused]["launches"][k]]
+    check(not unused, f"{arch}: kernels of the fused training path never launched: {unused}")
+    row = {
+        "arch": arch, "reduced": {"depth": ARCH_TRAIN[arch], "layers": cfg.n_layers},
+        "d_model": cfg.d_model, "d_head": cfg.d_head, "vocab": cfg.vocab,
+        "input_mode": cfg.input_mode, "prefix_len": cfg.prefix_len,
+        "batch": ARCH_BATCH, "seq": ARCH_SEQ, "forward_rel_l2": fwd_rel,
+        "step0_loss_rel_vs_cublas": loss_rel, "step0_grad_norm_rel_vs_cublas": gn_rel,
+        "peak_memory_gb": peak_gb, "init_seconds": init_s,
+        "seconds": time.perf_counter() - t0,
+        **{spec: {**run, "launches": {k: v for k, v in run["launches"].items() if v}}
+           for spec, run in runs.items()},
+    }
+    return row, runs[fused]["launches"]
+
+
+def phase_arch(torch, card):
+    """Phase 8a; returns its row, and the launches of gemma3's kernel-policy
+    serve run and of the four fused-policy training runs."""
+    from repro_torch.kernels.common import ATTENTION_ROUTES, LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    reset_launches()
+    eng_k = serve(kernel_policy_args(), GEMMA3_ARGS)
+    serve_launches, routes = dict(LAUNCHES), dict(ATTENTION_ROUTES)
+    cfg = eng_k.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.d_head, cfg.vocab) == (34, 2560, 256, 262144),
+          f"gemma3-4b served at {cfg.n_layers} layers, d {cfg.d_model}, d_head {cfg.d_head}")
+    check_engine(eng_k, GEMMA3_GEN, "gemma3-4b kernel policies")
+    for kname in SERVE_KERNELS:
+        check(serve_launches[kname] > 0, f"gemma3-4b: kernel {kname} was not launched")
+    for variant in ("decode_split", "fma"):
+        check(routes.get((variant, WIDE_DH), 0) > 0,
+              f"gemma3-4b: attention_fused never ran {variant} at d_head {WIDE_DH}: {routes}")
+    wraps = [r.rid for r in eng_k.requests.values()
+             if r.prompt_len + GEMMA3_GEN - 1 > GEMMA3_WINDOW]
+    check(wraps, f"no gemma3-4b request decodes past the {GEMMA3_WINDOW}-slot ring")
+    reset_launches()
+    eng_x = serve(["--policy", CUBLAS_POLICY], GEMMA3_ARGS)
+    check_engine(eng_x, GEMMA3_GEN, "gemma3-4b cuBLAS policy")
+    check(not any(LAUNCHES.values()), f"gemma3-4b cuBLAS policy launched kernels: {LAUNCHES}")
+    serve_part = {
+        "arch": "gemma3-4b", "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+        "max_seq": eng_k.max_seq, "buckets": {"len_step": eng_k.buckets.len_step,
+                                              "batch": list(eng_k.buckets.decode_batches)},
+        "prompt_lens": [r.prompt_len for r in eng_k.requests.values()],
+        "requests_past_ring": wraps, "launches": serve_launches,
+        "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()},
+        **serve_gates_and_metrics(torch, eng_k, eng_x),
+    }
+    del eng_k, eng_x
+    torch.cuda.empty_cache()
+    serve_s = time.perf_counter() - t0
+
+    # f32, full width, one unit of each segment: identical greedy tokens
+    f32 = ["--layers", "1", "--dtype", "float32"]
+    e_k = serve(f32 + kernel_policy_args(), GEMMA3_ARGS)
+    e_x = serve(f32 + ["--policy", CUBLAS_POLICY], GEMMA3_ARGS)
+    check_engine(e_k, GEMMA3_GEN, "gemma3-4b f32 kernel policies")
+    check_engine(e_x, GEMMA3_GEN, "gemma3-4b f32 cuBLAS policy")
+    check_identical_tokens(e_k, e_x, "gemma3-4b f32")
+    exact_part = {"layers": e_k.cfg.n_layers, "dtype": "float32",
+                  "requests": len(e_k.requests), "identical": True}
+    del e_k, e_x
+    torch.cuda.empty_cache()
+    exact_s = time.perf_counter() - t0 - serve_s
+
+    train_rows, train_launches = {}, {name: 0 for name in LAUNCHES}
+    for arch in ARCH_TRAIN:
+        train_rows[arch], launches = arch_train(torch, arch)
+        for name, count in launches.items():
+            train_launches[name] += count
+    row = {"phase": "arch", "card": card, "serve": serve_part, "exact": exact_part,
+           "train": train_rows, "seconds": time.perf_counter() - t0,
+           "seconds_by_part": {"serve": serve_s, "exact": exact_s,
+                               "train": time.perf_counter() - t0 - serve_s - exact_s}}
+    return row, serve_launches, train_launches
 
 
 # -- phase 9/10/11 helpers ----------------------------------------------------
@@ -1153,44 +1420,8 @@ def main() -> int:
     check_engine(eng_x, 16, "cuBLAS policy")
     check(not any(LAUNCHES.values()), f"cuBLAS policy launched kernels: {LAUNCHES}")
 
-    prompt = eng_k.requests[0].tokens
-    ref_logits = first_token_logits(torch, eng_x, CUBLAS_POLICY, prompt)
-    f32_logits = first_token_logits(torch, eng_x, CUBLAS_POLICY, prompt, torch.float32)
-    dist = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
-    rel, to_f32 = {}, {CUBLAS_POLICY: dist(ref_logits, f32_logits)}
-    for cls, spec in KERNEL_POLICIES.items():
-        got = first_token_logits(torch, eng_k, spec, prompt)
-        rel[spec], to_f32[spec] = dist(got, ref_logits), dist(got, f32_logits)
-        check(rel[spec] <= LOGITS_REL_L2,
-              f"first-token logits under {spec}: rel L2 {rel[spec]} > {LOGITS_REL_L2}")
-        limit = F32_DISTANCE_RATIO * to_f32[CUBLAS_POLICY] + F32_DISTANCE_FLOOR
-        check(to_f32[spec] <= limit,
-              f"first-token logits under {spec} are {to_f32[spec]} from f32, beyond "
-              f"{limit} (the cuBLAS policy's distance is {to_f32[CUBLAS_POLICY]})")
-    profiles = {spec: decode_profile(torch, eng_k, cls) for cls, spec in KERNEL_POLICIES.items()}
-    profiles[CUBLAS_POLICY] = decode_profile(torch, eng_x, "interactive")
-    full = eng_k.max_seq - 1
-    full_cache = {spec: decode_profile(torch, eng_k, cls, full)
-                  for cls, spec in KERNEL_POLICIES.items()}
-    full_cache[CUBLAS_POLICY] = decode_profile(torch, eng_x, "interactive", full)
-    agree = {}
-    for cls, spec in KERNEL_POLICIES.items():
-        pairs = [(a, b) for r in eng_k.requests.values() if r.cls == cls
-                 for a, b in zip(r.generated, eng_x.requests[r.rid].generated)]
-        agree[spec] = sum(a == b for a, b in pairs) / len(pairs)
-    n_tok = lambda e: sum(len(r.generated) for r in e.requests.values())  # noqa: E731
-    serve_row = {
-        "phase": "serve", "card": card, "arch": "smollm-135m", "dtype": "bfloat16",
-        "launches": launches, "first_token_rel_l2": rel, "rel_l2_bound": LOGITS_REL_L2,
-        "first_token_rel_l2_to_f32": to_f32, "decode_step_profile": profiles,
-        "decode_step_profile_full_cache": full_cache,
-        "greedy_agreement_vs_cublas": agree,
-        "tokens_per_s": {"kernel_policies": n_tok(eng_k) / eng_k.run_seconds,
-                         CUBLAS_POLICY: n_tok(eng_x) / eng_x.run_seconds},
-        "p50_decode_ms": {**{spec: p50_ms(eng_k, cls) for cls, spec in KERNEL_POLICIES.items()},
-                          CUBLAS_POLICY: p50_ms(eng_x)},
-        "health": eng_k.health(),
-    }
+    serve_row = {"phase": "serve", "card": card, "arch": "smollm-135m", "dtype": "bfloat16",
+                 "launches": launches, **serve_gates_and_metrics(torch, eng_k, eng_x)}
     emit(serve_row)
     results["serve"] = serve_row
     del eng_k, eng_x
@@ -1201,9 +1432,7 @@ def main() -> int:
     e_x = serve(f32 + ["--policy", CUBLAS_POLICY])
     check_engine(e_k, 16, "f32 kernel policies")
     check_engine(e_x, 16, "f32 cuBLAS policy")
-    for r in e_k.requests.values():
-        check(r.generated == e_x.requests[r.rid].generated,
-              f"f32 request {r.rid} ({r.cls}): tokens differ from {CUBLAS_POLICY}")
+    check_identical_tokens(e_k, e_x, "f32")
     emit({"phase": "exact", "layers": 2, "dtype": "float32",
           "requests": len(e_k.requests), "identical": True})
 
@@ -1219,6 +1448,11 @@ def main() -> int:
     exact_row = phase_train_exact(torch)
     emit(exact_row)
     results["train_exact"] = exact_row
+
+    # 8a. arch: gemma3-4b served at full config; the other four trained
+    arch_row, arch_serve_launches, arch_train_launches = phase_arch(torch, card)
+    emit(arch_row)
+    results["arch"] = arch_row
 
     # 9. selector: measure, train, save, load, select
     selector_row, artifacts, selector_launches = phase_selector(torch, card, out_dir)
@@ -1239,8 +1473,10 @@ def main() -> int:
 
     # the contract line: one row per kernel at a main-path shape; launches
     # are the sum over the paths: the serve path's kernel-policy run, the two
-    # kernel-policy training runs, the selector's measurements, the FCN runs
-    # and the runs under the learned policies (each counted from 0)
+    # kernel-policy training runs, gemma3's kernel-policy serve run and the
+    # four architectures' fused-policy training runs, the selector's
+    # measurements, the FCN runs and the runs under the learned policies
+    # (each counted from 0)
     contract = {
         "matmul_nt": ("(8,576)x(49152,576)^T", "bfloat16"),
         "matmul_nn": ("(8,576)x(576,49152)", "bfloat16"),
@@ -1257,6 +1493,8 @@ def main() -> int:
         source, replaces = KERNEL_SOURCES[kname]
         by_path = {"serve": launches.get(kname, 0),
                    "train": sum(train_launches[s][kname] for s in TRAIN_POLICIES.values()),
+                   "arch_serve": arch_serve_launches[kname],
+                   "arch_train": arch_train_launches[kname],
                    "selector_measure": selector_launches[kname],
                    "fcn": fcn_launches[kname],
                    "model_policy_serve": mp_serve_launches[kname],

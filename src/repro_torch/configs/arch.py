@@ -2,8 +2,8 @@
 
 ``segments`` is a tuple of ``(repeat, (BlockCfg, ...))``: the layer stack
 loops over each segment, one iteration applying the unit's blocks in
-order.  The fields are the JAX package's that this slice reads (MoE, SSM,
-multimodal and sharding fields come with their subsystems).
+order.  The fields are the JAX package's that the ported architectures
+set (MoE, SSM and sharding fields come with their subsystems).
 """
 
 from __future__ import annotations
@@ -44,13 +44,16 @@ class ArchConfig:
     emb_scale: bool = False
     vocab_pad: int = 256
     # modality
-    input_mode: str = "tokens"
+    input_mode: str = "tokens"  # tokens | frames (audio stub) | vlm (patch stub)
+    prefix_len: int = 0  # vlm: bidirectional patch prefix
     activation: str = "gelu"
     # numerics: params in param_dtype, and activations follow them
     param_dtype: str = "bfloat16"
     # training: rematerialisation per layer unit and the optimizer
     remat: str = "full"  # none | full ('dots' is not ported)
     optimizer: str = "adamw"  # adamw ('adafactor' is not ported)
+    # capability flags
+    sub_quadratic: bool = False  # eligible for long_500k
 
     @property
     def vocab_padded(self) -> int:

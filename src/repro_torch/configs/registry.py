@@ -1,9 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution + smoke reductions.
 
-This slice ports ``smollm-135m``; the JAX package's other architectures
-need MoE, SSM or multimodal support and raise ``KeyError`` naming the
-ROADMAP item.  ``smoke_config`` shrinks a full config to a CPU-runnable
-one of the same structure, with the JAX package's reductions.
+The port has the JAX package's six attention-only architectures:
+``smollm-135m``, ``gemma3-4b``, ``gemma2-27b``, ``h2o-danube-3-4b``,
+``paligemma-3b`` (``vlm``) and ``musicgen-large`` (``frames``).  The four
+with MoE or Mamba blocks (``grok-1-314b``, ``kimi-k2-1t``, ``zamba2-7b``,
+``mamba2-2.7b``) raise ``KeyError`` naming the ROADMAP item.
+``smoke_config`` shrinks a full config to a CPU-runnable one of the same
+structure, with the JAX package's reductions.
 """
 
 from __future__ import annotations
@@ -11,19 +14,29 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from . import smollm_135m
+from . import (
+    gemma2_27b,
+    gemma3_4b,
+    h2o_danube3_4b,
+    musicgen_large,
+    paligemma_3b,
+    smollm_135m,
+)
 from .arch import ArchConfig
 
 __all__ = ["ARCHS", "get_config", "list_archs", "smoke_config"]
 
-ARCHS: Dict[str, ArchConfig] = {smollm_135m.CONFIG.name: smollm_135m.CONFIG}
+ARCHS: Dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (gemma2_27b, gemma3_4b, h2o_danube3_4b, smollm_135m, musicgen_large, paligemma_3b)
+}
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(
-            f"arch {name!r} is not ported; have {sorted(ARCHS)} (the other "
-            "architectures wait on ROADMAP.md queue A, 'MoE and SSM')"
+            f"arch {name!r} is not ported; have {sorted(ARCHS)} (the MoE and "
+            "SSM architectures wait on ROADMAP.md queue A, 'MoE and SSM')"
         )
     return ARCHS[name]
 
@@ -65,4 +78,6 @@ def smoke_config(name: str) -> ArchConfig:
         kw.update(n_heads=4, n_kv=4, d_head=16)  # keep MHA
     else:
         kw.update(n_heads=4, n_kv=2, d_head=16)  # keep GQA
+    if full.input_mode == "vlm":
+        kw["prefix_len"] = 4
     return full.replace(**kw)

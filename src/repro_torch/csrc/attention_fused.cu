@@ -39,14 +39,15 @@
 //   measured slower on the card than the 8 wgmma that replace them.
 //
 // attention_decode_split + attention_combine -- m <= 16 (decode: one kv
-//   head's GQA group of rows), both dtypes, any dh up to 128.  Bound on the
+//   head's GQA group of rows), both dtypes, any dh up to 256.  Bound on the
 //   H100: bytes (K and V of the live prefix, read once) and, at decode's
 //   size, launch latency.  Design: split-KV ("flash decoding").  The grid
 //   is (g, splits), splits (at most 64) chosen on the host from n and the
 //   SM count so that g x splits fills the card; a split with no live key
 //   writes a "no key" partial and exits.  Inside a block every row is
 //   handled at once: each warp walks a run of keys, `lanes` lanes sharing
-//   a key row with 16-byte loads (8 lanes for a 64-dim bf16 row), the next
+//   a key row with 16-byte loads (8 lanes for a 64-dim bf16 row, the whole
+//   warp for a 256-dim one; lanes past a ragged row's chunks add 0), the next
 //   step's loads in flight, dot products reduced by shuffles, FFMA in f32,
 //   an online softmax per lane group,
 //   merged over the warp by shuffles and over the block through shared
@@ -63,6 +64,15 @@
 //   query row's slice of the f32 output accumulator in registers.  It is
 //   also the bf16 kernel the flash and split kernels replaced
 //   (repro_attention_fused_fma launches it for any operands).
+//
+// Head dims.  The FMA and split kernels are templates on a head-dim bound,
+// 128 or 256, which the host picks per call: dh <= 128 runs the 128-bound
+// instances, whose shared memory (42 KiB FMA, 41 KiB split) stays static
+// as it always was; dh 129..256 runs the 256-bound ones, whose f32 staging
+// doubles to 82 KiB (FMA) and 81 KiB (split kernel at 16 rows), past the
+// 48 KiB static limit, so it comes from dynamic shared memory (block_smem).
+// The FMA kernel's accumulator doubles to 32 registers a thread.  The
+// flash kernel stays at dh 64 and 128.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -70,11 +80,38 @@ namespace {
 
 constexpr int kBQ = 16;       // query rows per block
 constexpr int kBKV = 32;      // keys per tile
-constexpr int kDhMax = 128;   // largest head dim the kernel takes
+constexpr int kDhSmall = 128;  // the head-dim bounds of the FMA and split kernels
+constexpr int kDhMax = 256;    // largest head dim they take
 constexpr int kThreads = 128;
 constexpr int kLanes = 8;     // threads per query row
-constexpr int kColsPerThread = kDhMax / kLanes;
 constexpr float kNegInf = -1e30f;  // finite: exp(kNegInf - finite) == 0
+constexpr int kStaticSmemMax = 48 * 1024;  // the most static shared memory a block has
+
+// A block's shared memory as one struct S: a static __shared__ variable
+// when S fits the static limit, else the launch's dynamic shared memory,
+// which launch_smem sizes.
+template <typename S>
+__device__ __forceinline__ S& block_smem() {
+  if constexpr (sizeof(S) <= kStaticSmemMax) {
+    __shared__ S s;
+    return s;
+  } else {
+    extern __shared__ __align__(16) uint8_t dyn_smem[];
+    return *reinterpret_cast<S*>(dyn_smem);
+  }
+}
+
+// The dynamic shared memory a launch of `Kernel` with block_smem<S> needs:
+// 0 for a static S; else sizeof(S), after raising the kernel's limit.
+template <typename S, auto Kernel>
+cudaError_t launch_smem(int& bytes) {
+  bytes = 0;
+  if constexpr (sizeof(S) > kStaticSmemMax) {
+    bytes = static_cast<int>(sizeof(S));
+    return repro::allow_dynamic_smem<Kernel>(bytes);
+  }
+  return cudaSuccess;
+}
 
 struct Mask {
   int causal;
@@ -151,18 +188,31 @@ __device__ __forceinline__ bool all_visible(int c0, int c1, Residues res, int le
 
 // -- attention_kernel (FMA) ---------------------------------------------------
 
-template <typename T>
+template <int DHMAX>
+struct FmaSmem {
+  float q_s[kBQ][DHMAX + 1];
+  float k_s[kBKV][DHMAX + 1];
+  float v_s[kBKV][DHMAX];
+  float p_s[kBQ][kBKV + 1];
+  float row_max[kBQ];
+  float row_sum[kBQ];
+  float row_alpha[kBQ];
+};
+
+template <typename T, int DHMAX>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ lengths,
                      T* __restrict__ out, int m, int n, int dh, Mask mask) {
-  __shared__ float q_s[kBQ][kDhMax + 1];
-  __shared__ float k_s[kBKV][kDhMax + 1];
-  __shared__ float v_s[kBKV][kDhMax];
-  __shared__ float p_s[kBQ][kBKV + 1];
-  __shared__ float row_max[kBQ];
-  __shared__ float row_sum[kBQ];
-  __shared__ float row_alpha[kBQ];
+  constexpr int kColsPerThread = DHMAX / kLanes;
+  FmaSmem<DHMAX>& sm = block_smem<FmaSmem<DHMAX>>();
+  auto& q_s = sm.q_s;
+  auto& k_s = sm.k_s;
+  auto& v_s = sm.v_s;
+  auto& p_s = sm.p_s;
+  auto& row_max = sm.row_max;
+  auto& row_sum = sm.row_sum;
+  auto& row_alpha = sm.row_alpha;
 
   const int slice = blockIdx.x;
   const int q0 = blockIdx.y * kBQ;
@@ -579,11 +629,20 @@ constexpr int kDecodeWarps = kDecodeThreads / 32;
 constexpr int kDecodeMaxRows = 16;  // the split kernel takes m <= 16
 
 // K (or V) values a lane holds of one key row: CPL chunks of VEC elements
-// (16-byte chunks; with scalar loads up to 4 chunks of one, 128 / 32).
-template <int VEC>
+// (16-byte chunks; with scalar loads one element a chunk), enough for 32
+// lanes to cover DHMAX.
+template <int VEC, int DHMAX>
 struct DecodeCfg {
-  static constexpr int kCpl = VEC == 1 ? kDhMax / 32 : 1;
+  static constexpr int kCpl = (DHMAX + 32 * VEC - 1) / (32 * VEC);
   static constexpr int kElems = kCpl * VEC;
+};
+
+template <int MR, int DHMAX>
+struct DecodeSmem {
+  float q_s[MR][DHMAX];
+  float red_max[kDecodeWarps][MR];
+  float red_sum[kDecodeWarps][MR];
+  float red_acc[kDecodeWarps][MR][DHMAX];
 };
 
 template <typename T, int VEC>
@@ -604,21 +663,23 @@ __device__ __forceinline__ float fast_exp(float x) { return fast_exp2(x * kLog2e
 
 // One (slice, split) per block.  Keys [split * per, split * per + per) of
 // the live range; `lanes` lanes share a key row (a power of two, at least
-// dh / VEC chunks or 32).  ws == nullptr: a single split, which writes the
-// output; else the split's f32 partial goes to ws at
+// dh / VEC chunks, or 32: then a lane takes chunks sub, sub + 32, ...).
+// ws == nullptr: a single split, which writes the output; else the
+// split's f32 partial goes to ws at
 // ((slice * splits + split) * m * (dh + 2)): acc[m][dh], max[m], sum[m].
-template <typename T, int VEC, int MR>
+template <typename T, int VEC, int MR, int DHMAX>
 __global__ void __launch_bounds__(kDecodeThreads)
     attention_decode_split(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const int* __restrict__ lengths,
                            T* __restrict__ out, float* __restrict__ ws, int m, int n, int dh,
                            int per, int lanes, Mask mask) {
-  constexpr int kCpl = DecodeCfg<VEC>::kCpl;
-  constexpr int kElems = DecodeCfg<VEC>::kElems;
-  __shared__ float q_s[MR][kDhMax];
-  __shared__ float red_max[kDecodeWarps][MR];
-  __shared__ float red_sum[kDecodeWarps][MR];
-  __shared__ float red_acc[kDecodeWarps][MR][kDhMax];
+  constexpr int kCpl = DecodeCfg<VEC, DHMAX>::kCpl;
+  constexpr int kElems = DecodeCfg<VEC, DHMAX>::kElems;
+  DecodeSmem<MR, DHMAX>& sm = block_smem<DecodeSmem<MR, DHMAX>>();
+  auto& q_s = sm.q_s;
+  auto& red_max = sm.red_max;
+  auto& red_sum = sm.red_sum;
+  auto& red_acc = sm.red_acc;
 
   const int slice = blockIdx.x, split = blockIdx.y;
   const int len = min(max(lengths[slice], 0), n);
@@ -837,76 +898,108 @@ __global__ void __launch_bounds__(kDecodeThreads)
   }
 }
 
-template <typename T, int VEC>
+// The split kernel for MR rows at most, head dims up to DHMAX.
+template <typename T, int VEC, int MR, int DHMAX>
+cudaError_t launch_split(const T* q, const T* k, const T* v, const int* lengths, T* out,
+                         float* part, int g, int m, int n, int dh, int splits, int per,
+                         int lanes, Mask mask, cudaStream_t s) {
+  int smem = 0;
+  const cudaError_t e =
+      launch_smem<DecodeSmem<MR, DHMAX>, attention_decode_split<T, VEC, MR, DHMAX>>(smem);
+  if (e != cudaSuccess) return e;
+  attention_decode_split<T, VEC, MR, DHMAX><<<dim3(g, splits), kDecodeThreads, smem, s>>>(
+      q, k, v, lengths, out, part, m, n, dh, per, lanes, mask);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC, int DHMAX>
 cudaError_t launch_decode(const T* q, const T* k, const T* v, const int* lengths, T* out,
                           float* ws, int g, int m, int n, int dh, int splits, int per,
                           Mask mask, cudaStream_t s) {
   int lanes = 1;
   while (lanes < 32 && lanes * VEC < dh) lanes *= 2;
-  const dim3 grid(g, splits);
   float* part = splits > 1 ? ws : nullptr;
-  if (m <= 4) {
-    attention_decode_split<T, VEC, 4><<<grid, kDecodeThreads, 0, s>>>(
-        q, k, v, lengths, out, part, m, n, dh, per, lanes, mask);
-  } else {
-    attention_decode_split<T, VEC, kDecodeMaxRows><<<grid, kDecodeThreads, 0, s>>>(
-        q, k, v, lengths, out, part, m, n, dh, per, lanes, mask);
-  }
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e =
+      m <= 4 ? launch_split<T, VEC, 4, DHMAX>(q, k, v, lengths, out, part, g, m, n, dh, splits,
+                                              per, lanes, mask, s)
+             : launch_split<T, VEC, kDecodeMaxRows, DHMAX>(q, k, v, lengths, out, part, g, m, n,
+                                                           dh, splits, per, lanes, mask, s);
   if (e != cudaSuccess || splits == 1) return e;
   attention_combine<T><<<g, kDecodeThreads, 0, s>>>(ws, out, m, dh, splits);
   return cudaGetLastError();
+}
+
+template <typename T, int DHMAX>
+cudaError_t launch_decode_dh(const T* q, const T* k, const T* v, const int* lengths, T* out,
+                             float* ws, int g, int m, int n, int dh, int splits, int per,
+                             Mask mask, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  // 16-byte loads when every key row starts on a 16-byte boundary
+  const bool vec = dh % kVec == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  return vec ? launch_decode<T, kVec, DHMAX>(q, k, v, lengths, out, ws, g, m, n, dh, splits,
+                                             per, mask, s)
+             : launch_decode<T, 1, DHMAX>(q, k, v, lengths, out, ws, g, m, n, dh, splits, per,
+                                          mask, s);
 }
 
 template <typename T>
 cudaError_t launch_decode_any(const void* q, const void* k, const void* v, const int* lengths,
                               void* out, void* ws, int g, int m, int n, int dh, int splits,
                               int per, Mask mask, cudaStream_t s) {
-  constexpr int kVec = 16 / sizeof(T);
   const auto* qp = static_cast<const T*>(q);
   const auto* kp = static_cast<const T*>(k);
   const auto* vp = static_cast<const T*>(v);
   auto* op = static_cast<T*>(out);
   auto* wp = static_cast<float*>(ws);
-  // 16-byte loads when every key row starts on a 16-byte boundary
-  const bool vec = dh % kVec == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  return vec ? launch_decode<T, kVec>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits, per,
-                                      mask, s)
-             : launch_decode<T, 1>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits, per, mask,
-                                   s);
+  return dh <= kDhSmall
+             ? launch_decode_dh<T, kDhSmall>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits,
+                                             per, mask, s)
+             : launch_decode_dh<T, kDhMax>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits,
+                                           per, mask, s);
+}
+
+// The FMA kernel at head dims up to DHMAX.
+template <typename T, int DHMAX>
+cudaError_t launch_fma_dh(const void* q, const void* k, const void* v, const int* lengths,
+                          void* out, int g, int m, int n, int dh, Mask mask, cudaStream_t s) {
+  int smem = 0;
+  const cudaError_t e = launch_smem<FmaSmem<DHMAX>, attention_kernel<T, DHMAX>>(smem);
+  if (e != cudaSuccess) return e;
+  attention_kernel<T, DHMAX><<<dim3(g, repro::cdiv(m, kBQ)), kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
+      static_cast<T*>(out), m, n, dh, mask);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, const int* lengths,
+                       void* out, int g, int m, int n, int dh, Mask mask, cudaStream_t s) {
+  return dh <= kDhSmall ? launch_fma_dh<T, kDhSmall>(q, k, v, lengths, out, g, m, n, dh, mask, s)
+                        : launch_fma_dh<T, kDhMax>(q, k, v, lengths, out, g, m, n, dh, mask, s);
 }
 
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
 
-// The FMA kernel, for any operands of either dtype.
+// The FMA kernel, for any operands of either dtype, dh <= 256.
 REPRO_EXPORT int repro_attention_fused_fma(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int g, int m, int n, int dh, int causal, int window,
     int q_start, int k_start, int prefix_len, int q_seg, float softcap,
     int dtype, void* stream) {
-  if (dh > kDhMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh < 1 || dh > kDhMax) return static_cast<int>(cudaErrorInvalidValue);
   const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
-  const dim3 grid(g, repro::cdiv(m, kBQ));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   if (dtype == repro::kF32) {
-    attention_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), len, static_cast<float*>(out), m, n, dh,
-        mask);
-  } else if (dtype == repro::kBF16) {
-    attention_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), len,
-        static_cast<__nv_bfloat16*>(out), m, n, dh, mask);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_fma<float>(q, k, v, len, out, g, m, n, dh, mask, s));
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == repro::kBF16) {
+    return static_cast<int>(launch_fma<__nv_bfloat16>(q, k, v, len, out, g, m, n, dh, mask, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16, dh 64 or 128, q, k, v and out 16-byte aligned (the wrapper checks).
@@ -930,7 +1023,7 @@ REPRO_EXPORT int repro_attention_fused_flash(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// m <= 16, dh <= 128, either dtype; splits * per must cover the n keys.
+// m <= 16, dh <= 256, either dtype; splits * per must cover the n keys.
 // splits > 1: ws holds g x splits x m x (dh + 2) f32 (allocated by the
 // caller) and a second kernel combines them into out.
 REPRO_EXPORT int repro_attention_fused_decode(

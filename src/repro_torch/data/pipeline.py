@@ -69,12 +69,25 @@ def make_train_batch(
     arch_cfg, seq_len: int, global_batch: int, step: int,
     n_hosts: int = 1, host_id: int = 0, seed: int = 0,
 ) -> Dict[str, np.ndarray]:
-    """Synthetic batch for one host: the same arrays the JAX package's
-    ``make_train_batch`` gives for a token model."""
-    if arch_cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode {arch_cfg.input_mode!r} is not ported (this slice trains "
-            "token LMs; ROADMAP.md queue A)"
-        )
+    """Modality-aware synthetic batch for one host: the same arrays the JAX
+    package's ``make_train_batch`` gives.  ``tokens``: tokens and labels;
+    ``frames``: f32 frame embeddings (B, S, d_model) and labels; ``vlm``:
+    f32 patch embeddings (B, prefix_len, d_model) and S - prefix_len text
+    tokens and labels."""
     dcfg = DataConfig(arch_cfg.vocab, seq_len, global_batch, n_hosts, host_id, seed)
-    return SyntheticLM(dcfg).batch(step)
+    rng = np.random.RandomState((seed * 7 + step * 13 + host_id) % (2**31))
+    B = dcfg.host_batch
+    if arch_cfg.input_mode == "tokens":
+        return SyntheticLM(dcfg).batch(step)
+    if arch_cfg.input_mode == "frames":
+        lm = SyntheticLM(dcfg).batch(step)
+        frames = rng.randn(B, seq_len, arch_cfg.d_model).astype(np.float32) * 0.02
+        return {"frames": frames, "labels": lm["labels"]}
+    if arch_cfg.input_mode != "vlm":
+        raise ValueError(f"unknown input_mode {arch_cfg.input_mode!r}")
+    st = seq_len - arch_cfg.prefix_len
+    lm = SyntheticLM(
+        DataConfig(arch_cfg.vocab, st, global_batch, n_hosts, host_id, seed)
+    ).batch(step)
+    patches = rng.randn(B, arch_cfg.prefix_len, arch_cfg.d_model).astype(np.float32) * 0.02
+    return {"patches": patches, "tokens": lm["tokens"], "labels": lm["labels"]}

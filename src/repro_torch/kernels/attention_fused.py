@@ -9,7 +9,7 @@ CUDA tensors the wrapper launches one of three kernels of
 ``attention_variant`` from dtype and shape:
 
 - ``decode_split`` (m <= 16: decode, one kv head's GQA group of rows;
-  both dtypes, any dh): split-KV.  The grid is (g, splits), with
+  both dtypes, any dh up to 256): split-KV.  The grid is (g, splits), with
   ``decode_split_plan`` choosing the splits from n and the SM count so that
   g x splits fills the card, never from ``lengths`` (the host reads no
   device tensor).  Each split writes f32 partials (max, sum, acc) to a
@@ -21,12 +21,17 @@ CUDA tensors the wrapper launches one of three kernels of
   per 64 query rows, 64-key K/V tiles through a ``cp.async`` ring in the
   128-byte swizzle, online softmax in registers, P fed to P V from
   registers).  Bound by bytes.
-- ``fma`` (everything else: f32 at m > 16, other dh): one block per
-  (slice, 16 query rows) over the 32-key tiles the mask leaves live, f32
-  staged in shared memory.
+- ``fma`` (everything else: f32 at m > 16, other dh up to 256): one
+  block per (slice, 16 query rows) over the 32-key tiles the mask leaves
+  live, f32 staged in shared memory.
+
+The split and FMA kernels are built twice, for head dims up to 128 and up
+to 256; a call takes the smaller instance that holds its dh.  Above 256
+the wrapper raises (the Pallas kernel pads any dh to the 128 edge).
 
 Each kernel keeps the live key range of the mask and never reads K or V
-beyond ``lengths``.  Each call counts one launch, split or not.  On CPU
+beyond ``lengths``.  Each call counts one launch, split or not, in
+``LAUNCHES`` and under its (route, dh) in ``ATTENTION_ROUTES``.  On CPU
 tensors the wrapper runs the dense plain version in ``ref.py``.
 
 Masking follows ``MaskParams`` plus the per-slice ``lengths``: query row
@@ -46,14 +51,22 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, cdiv, check_operand, route, sm_count, validate_config
+from .common import (
+    ATTENTION_ROUTES,
+    LAUNCHES,
+    cdiv,
+    check_operand,
+    route,
+    sm_count,
+    validate_config,
+)
 
 __all__ = ["MaskParams", "NEG_INF", "DH_MAX", "attention_fused", "attention_variant",
            "decode_split_plan"]
 
 NEG_INF = -1e30  # finite: exp(NEG_INF - finite_max) == 0.0 exactly, no nan
 
-DH_MAX = 128  # largest head dim the kernels take (csrc kDhMax)
+DH_MAX = 256  # largest head dim the kernels take (csrc kDhMax)
 _MAX_GRID_Y = 65535  # gridDim.y: the q-blocks of the flash and FMA kernels
 _FMA_ROWS = 16  # csrc kBQ: query rows per FMA block
 _FLASH_ROWS = 64  # csrc kFlashRows: query rows per flash block
@@ -170,4 +183,5 @@ def attention_fused(
         _build.launch("attention_fused", "repro_attention_fused_fma", *head, *geometry,
                       _build.dtype_code(q.dtype), _build.stream_of(q))
     LAUNCHES["attention_fused"] += 1
+    ATTENTION_ROUTES[(variant, dh)] = ATTENTION_ROUTES.get((variant, dh), 0) + 1
     return out

@@ -30,6 +30,7 @@ __all__ = [
     "check_operand",
     "route",
     "LAUNCHES",
+    "ATTENTION_ROUTES",
     "reset_launches",
 ]
 
@@ -53,9 +54,15 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# Launches of the attention kernel by route and head dim, e.g.
+# ("decode_split", 256): the wrapper adds one beside its LAUNCHES count.
+ATTENTION_ROUTES: Dict[Tuple[str, int], int] = {}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ATTENTION_ROUTES.clear()
 
 
 def cdiv(a: int, b: int) -> int:

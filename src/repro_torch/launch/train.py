@@ -14,8 +14,10 @@ Example (CPU, reduced config):
       --smoke --device cpu --steps 3 --batch 4 --seq 32 \\
       --policy fixed:nt=PALLAS_TNN_FUSED,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,bnn=PALLAS_BNN,attn=fused
 
-The JAX launcher's flags, except that ``--mesh`` takes ``1x1`` only and
-there is no ``--chaos``.  ``--device`` defaults to ``cuda`` and raises
+``--arch`` takes every architecture of the port, the ``frames``
+(musicgen-large) and ``vlm`` (paligemma-3b, whose ``--seq`` counts its
+patch prefix) ones included.  The JAX launcher's flags, except that
+``--mesh`` takes ``1x1`` only and there is no ``--chaos``.  ``--device`` defaults to ``cuda`` and raises
 when there is no card; ``--layers`` cuts the depth and ``--dtype`` sets
 the parameter dtype; weights are random from ``--seed``.  The default
 ``--policy model`` is the default learned selector; ``--policy autotune``
@@ -90,7 +92,13 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.long) for k, v in batch.items()}
+    """Integer entries (tokens, labels) as int64; float entries (frames,
+    patches) keep their f32, which the model casts to the param dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device=device, dtype=t.dtype if t.is_floating_point() else torch.long)
+    return out
 
 
 def main(argv=None) -> TrainRun:

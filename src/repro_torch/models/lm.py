@@ -1,6 +1,10 @@
-"""The decoder-only LM for token models.  The layer stack is a Python loop
-over each config segment's stacked block params (the JAX package scans
-them).  Entry points:
+"""The decoder-only LM of the attention-only architectures.  The layer
+stack is a Python loop over each config segment's stacked block params
+(the JAX package scans them).  Modalities, as in the JAX package:
+``tokens`` (LMs), ``frames`` (musicgen: stub EnCodec frame embeddings
+enter directly) and ``vlm`` (paligemma: stub SigLIP patch embeddings
+prepended to the text as a bidirectional prefix of ``cfg.prefix_len``).
+Entry points:
 
   init_lm        seeded random params, the JAX package's tree and
                  distributions (weights differ: torch.Generator is not
@@ -8,7 +12,8 @@ them).  Entry points:
   lm_forward     full-sequence logits; ``cfg.remat == "full"`` checkpoints
                  each layer unit, so its forward GEMMs run again in the
                  backward (``jax.checkpoint`` in the JAX package)
-  lm_loss        mean next-token cross-entropy of ``lm_forward``
+  lm_loss        mean next-token cross-entropy of ``lm_forward`` (text
+                 positions only under ``vlm``)
   lm_prefill     forward that also emits the decode cache
   lm_decode      one-token step against a cache, updated in place
   init_lm_cache  zero cache with the tree lm_prefill produces
@@ -58,10 +63,6 @@ def init_lm(gen, cfg, *, device="cuda") -> Param:
     dev = resolve_device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(gen))
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode {cfg.input_mode!r} is not ported (this slice serves token LMs)"
-        )
     dt = _dtype(cfg)
     params: Param = {
         "embed": init_embedding(gen, cfg.vocab_padded, cfg.d_model, dt, dev),
@@ -132,10 +133,18 @@ def _remat_wrap(fn, cfg):
     return wrapped
 
 
-def _embed_input(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"input_mode {cfg.input_mode!r} is not ported")
-    return embed(params["embed"], batch["tokens"], cfg.emb_scale)
+def _embed_input(params: Param, cfg, batch: Dict[str, torch.Tensor]):
+    """(x, prefix_len): the embedded input and the length of its
+    bidirectional prefix (the patches under ``vlm``, else 0)."""
+    if cfg.input_mode == "tokens":
+        return embed(params["embed"], batch["tokens"], cfg.emb_scale), 0
+    if cfg.input_mode == "frames":
+        return batch["frames"].to(_dtype(cfg)), 0
+    if cfg.input_mode == "vlm":
+        patches = batch["patches"].to(_dtype(cfg))
+        text = embed(params["embed"], batch["tokens"], cfg.emb_scale)
+        return torch.cat([patches, text], dim=1), patches.shape[1]
+    raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
 
 
 def _logits(params: Param, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -145,11 +154,11 @@ def _logits(params: Param, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    x = _embed_input(params, cfg, batch)
+    x, prefix_len = _embed_input(params, cfg, batch)
     for (count, blocks), slot_params in zip(cfg.segments, params["segments"]):
         def unit(h, unit_params, _blocks=blocks):
             for b, bp in zip(_blocks, unit_params):
-                h = apply_block(bp, h, b, cfg)
+                h = apply_block(bp, h, b, cfg, prefix_len=prefix_len)
             return h
 
         body = _remat_wrap(unit, cfg)
@@ -160,9 +169,13 @@ def lm_forward(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tens
 
 
 def lm_loss(params: Param, cfg, batch: Dict[str, torch.Tensor]):
-    """(mean next-token cross-entropy, {"loss": it}); ``batch`` holds
-    ``tokens`` and ``labels`` and may hold a ``loss_mask``."""
+    """(mean next-token cross-entropy, {"loss": it}); ``batch`` holds the
+    input (``tokens``, ``frames``, or ``patches`` and ``tokens``) and
+    ``labels``, and may hold a ``loss_mask``.  Under ``vlm`` only the text
+    positions are scored."""
     logits = lm_forward(params, cfg, batch)
+    if cfg.input_mode == "vlm":
+        logits = logits[:, cfg.prefix_len:]  # loss on text positions only
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
     return loss, {"loss": loss}
 
@@ -183,14 +196,14 @@ def lm_prefill(
     ``true_len`` (int or ``(B,)`` tensor) marks a right-padded prefill:
     logits come from each row's real last position and the cache's
     ``pos`` starts at ``true_len``."""
-    x = _embed_input(params, cfg, batch)
+    x, prefix_len = _embed_input(params, cfg, batch)
     caches = []
     for (count, blocks), slot_params in zip(cfg.segments, params["segments"]):
         per_slot = [[] for _ in blocks]
         for i in range(count):
             for j, (b, sp) in enumerate(zip(blocks, slot_params)):
                 x, c = prefill_block(
-                    _index(sp, i), x, b, cfg, max_seq,
+                    _index(sp, i), x, b, cfg, max_seq, prefix_len=prefix_len,
                     cache_dtype=cache_dtype, true_len=true_len,
                 )
                 per_slot[j].append(c)
@@ -230,14 +243,17 @@ def init_lm_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 
 def lm_decode(params: Param, cfg, cache, batch: Dict[str, torch.Tensor]):
-    """One-token step.  batch: {'tokens': (B, 1)}.
+    """One-token step.  batch: {'tokens': (B, 1)} or {'frames': (B, 1, d)}.
 
     Returns (logits (B, 1, V), cache with pos + 1).  ``cache['pos']`` may
     be a scalar (uniform batch) or a ``(B,)`` vector (each row decodes at
     its own position).  The cache tensors are updated in place: the
     returned cache holds the same tensors."""
     pos = cache["pos"]
-    x = _embed_input(params, cfg, batch)
+    if cfg.input_mode == "frames":
+        x = batch["frames"].to(_dtype(cfg))
+    else:
+        x = embed(params["embed"], batch["tokens"], cfg.emb_scale)
     for (count, blocks), slot_params, seg_cache in zip(
         cfg.segments, params["segments"], cache["segments"]
     ):

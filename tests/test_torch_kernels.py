@@ -31,7 +31,11 @@ from repro_torch.kernels.attention_fused import (  # noqa: E402
     attention_variant,
     decode_split_plan,
 )
-from repro_torch.kernels.common import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.common import (  # noqa: E402
+    ATTENTION_ROUTES,
+    LAUNCHES,
+    reset_launches,
+)
 from repro_torch.kernels.matmul_batched import batched_variant  # noqa: E402
 from repro_torch.kernels.matmul_nn import nn_variant  # noqa: E402
 from repro_torch.kernels.matmul_nt import nt_split, nt_workspace_shape  # noqa: E402
@@ -220,7 +224,8 @@ def test_cpu_route_launches_nothing():
     ops.matmul_bnt(torch.randn(2, 3, 8), torch.randn(2, 5, 8))
     ops.matmul_bnn(torch.randn(2, 3, 8), torch.randn(2, 8, 5))
     attention_fused(torch.randn(2, 3, 8), torch.randn(2, 5, 8), torch.randn(2, 5, 8))
-    assert not any(LAUNCHES.values())
+    attention_fused(torch.randn(2, 3, 256), torch.randn(2, 5, 256), torch.randn(2, 5, 256))
+    assert not any(LAUNCHES.values()) and not ATTENTION_ROUTES
 
 
 # -- the CUDA kernels' launch choices (pure functions, checked here) -----------------
@@ -408,6 +413,53 @@ def test_attention_bf16_plain_matches_pallas(J):
     np.testing.assert_allclose(_np(out), _np(want), rtol=2e-2, atol=2e-2)
 
 
+WIDE_DHS = (112, 120, 256)  # h2o-danube-3-4b's 120, zamba2-7b's 112, gemma3's 256
+WIDE_SHAPES = ((2, 40, 70), (3, 1, 96))  # (g, m, n): prefill-sized, decode
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("g,m,n", WIDE_SHAPES)
+@pytest.mark.parametrize("dh", WIDE_DHS)
+@pytest.mark.parametrize("mask_name", sorted(MASKS))
+def test_attention_plain_matches_pallas_at_wide_heads(J, mask_name, dh, g, m, n, dtype_name):
+    """The dense plain version at the head dims above 64 and 128 that the
+    Pallas kernel pads to its 128 edge (112, 120) or takes whole (256).
+    Tolerance: tests/test_kernels.py::_tol at k = dh (the logits' depth)."""
+    rng = np.random.RandomState(dh + g * 10 + m + n)
+    (jq, tq), (jk, tk), (jv, tv) = _attn_operands(J, rng, g, m, n, dh, dtype_name)
+    kw = MASKS[mask_name](m, n)
+    lengths = None
+    if mask_name == "ragged_lengths":
+        lengths = rng.randint(1, n + 1, size=g).astype(np.int32)
+    want = J.attention(jq, jk, jv, None if lengths is None else J.jnp.asarray(lengths),
+                       mask=J.Mask(**kw), interpret=True)
+    out = attention_fused(tq, tk, tv, None if lengths is None else torch.from_numpy(lengths),
+                          mask=MaskParams(**kw))
+    assert out.shape == (g, m, dh) and out.dtype == DTYPES[dtype_name]
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype_name, dh))
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("dh", WIDE_DHS)
+@pytest.mark.parametrize("geom", ["mqa_prefix", "gqa_fold", "decode_fold"])
+def test_attention_plain_matches_pallas_at_wide_head_geometries(J, geom, dh, dtype_name):
+    """The model's geometries at the wide heads: paligemma's MQA fold of 8
+    heads over a bidirectional prefix, gemma3's GQA fold of 2 under a
+    causal window, and a decode step's folded group (m <= 16) over ragged
+    lengths."""
+    g, m, n, kw, lens = {
+        "mqa_prefix": (1, 8 * 12, 12, dict(causal=True, prefix_len=4, q_seg=12), None),
+        "gqa_fold": (2, 2 * 20, 36, dict(causal=True, window=9, q_start=16, q_seg=20), None),
+        "decode_fold": (4, 8, 40, dict(), [40, 17, 1, 33]),
+    }[geom]
+    rng = np.random.RandomState(dh + m)
+    (jq, tq), (jk, tk), (jv, tv) = _attn_operands(J, rng, g, m, n, dh, dtype_name)
+    lengths = np.full(g, n, np.int32) if lens is None else np.asarray(lens, np.int32)
+    want = J.attention(jq, jk, jv, J.jnp.asarray(lengths), mask=J.Mask(**kw), interpret=True)
+    out = attention_fused(tq, tk, tv, torch.from_numpy(lengths), mask=MaskParams(**kw))
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype_name, dh))
+
+
 def test_attention_row_without_keys_is_zero():
     """The one stated difference from the Pallas kernel: a row that sees
     no key (only ever query padding) comes out 0, not a tiling-dependent
@@ -418,7 +470,7 @@ def test_attention_row_without_keys_is_zero():
 
 
 def test_attention_rejects_wide_heads_and_bad_tiles():
-    x = torch.zeros(1, 2, 129)
+    x = torch.zeros(1, 2, 257)  # DH_MAX is 256
     with pytest.raises(ValueError):
         attention_fused(x, x, x)
     y = torch.zeros(1, 2, 8)
@@ -439,6 +491,15 @@ def test_attention_rejects_wide_heads_and_bad_tiles():
     (torch.bfloat16, 768, 64, False, "fma"),
     (torch.float32, 17, 64, True, "fma"),
     (torch.float32, 768, 128, True, "fma"),
+    # the wide heads: split-KV at decode, the FMA kernel above 16 rows
+    (torch.bfloat16, 2, 256, True, "decode_split"),
+    (torch.float32, 16, 256, True, "decode_split"),
+    (torch.bfloat16, 8, 120, True, "decode_split"),
+    (torch.bfloat16, 17, 256, True, "fma"),
+    (torch.bfloat16, 2048, 256, True, "fma"),
+    (torch.float32, 2048, 256, True, "fma"),
+    (torch.bfloat16, 2048, 120, True, "fma"),
+    (torch.bfloat16, 2048, 112, True, "fma"),
 ])
 def test_attention_variant_routes_by_dtype_and_shape(dtype, m, dh, aligned, want):
     assert attention_variant(dtype, 24, m, 256, dh, aligned) == want
@@ -551,6 +612,33 @@ def test_gemm_kernels_match_plain_on_card(cuda, m, n, k, dtype):
     assert LAUNCHES["matmul_nt"] == 2
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,m,n,k", [
+    ("transpose", 0, 262144, 2560),  # gemma3's LM head, (262144, 2560): 6.7e8 elements
+    ("matmul_nt", 4, 262144, 2560),  # its decode logits
+    ("matmul_nn", 4, 262144, 2560),
+    ("matmul_tnn_fused", 4096, 262144, 2560),  # prefill-sized logits: 1.07e9 elements
+    ("matmul_nn", 256000, 4608, 2048),  # gemma2's LM-head weight gradient: 1.18e9
+    ("matmul_nn", 1024, 4608, 256000),  # its data gradient, k = 256000
+])
+def test_gemm_kernels_at_the_widest_products_on_card(cuda, op, m, n, k):
+    """The kernels' index arithmetic near 2^31 elements, bf16: the widest
+    operands and outputs of the ported architectures."""
+    dt = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    if op == "transpose":
+        b = torch.randn(n, k, device=cuda, generator=gen).to(dt)
+        assert torch.equal(ops.transpose(b), ref.transpose(b))
+        return
+    a = torch.randn(m, k, device=cuda, generator=gen).to(dt)
+    b = torch.randn(*((k, n) if op == "matmul_nn" else (n, k)), device=cuda, generator=gen).to(dt)
+    want = (ref.matmul_nn if op == "matmul_nn" else ref.matmul_nt)(a, b)
+    reset_launches()
+    out = getattr(ops, op)(a, b)
+    assert LAUNCHES[op] == 1
+    torch.testing.assert_close(out.float(), want.float(), **_tol("bfloat16", k))
+
+
 ROUTE_MS = (1, 3, 16, 17, 63, 64, 65, 129)  # around the split kernel's 16 and the 64-row block
 ROUTE_DHS = (64, 128, 16, 33)  # the flash kernel's two, and two it leaves to the others
 
@@ -564,9 +652,9 @@ def _check_attention_on_card(q, k, v, lengths, mask, dtype):
     full = torch.full((g,), n, device=q.device, dtype=torch.int32)
     reset_launches()
     out = attention_fused(q, k, v, lengths, mask=mask)
-    assert LAUNCHES["attention_fused"] == 1
-    want = ref.attention_fused(q, k, v, full if lengths is None else lengths, mask)
     variant = attention_variant(q.dtype, g, m, n, dh)
+    assert LAUNCHES["attention_fused"] == 1 and ATTENTION_ROUTES == {(variant, dh): 1}
+    want = ref.attention_fused(q, k, v, full if lengths is None else lengths, mask)
     torch.testing.assert_close(out.float(), want.float(), rtol=bound, atol=bound,
                                msg=lambda s: f"{variant}, m {m}, dh {dh}: {s}")
     assert torch.equal(attention_fused(q, k, v, lengths, mask=mask), out)
@@ -625,6 +713,71 @@ def test_attention_ignores_nan_beyond_lengths_on_card(cuda, m, dtype):
         v[i, length:] = float("nan")
     out = _check_attention_on_card(q, k, v, lengths, MaskParams(), dtype)
     assert torch.isfinite(out).all()
+
+
+WIDE_ROUTE_MS = (1, 2, 8, 16, 17, 65)  # decode_split up to 16 rows, fma above
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", WIDE_ROUTE_MS)
+@pytest.mark.parametrize("mask_name", sorted(MASKS))
+def test_attention_wide_heads_match_plain_on_card(cuda, mask_name, m, dtype):
+    """The 256-bound instances of the split and FMA kernels (dynamic shared
+    memory; a bf16 key row spans the whole warp) at dh 256, and the
+    128-bound ones at the ragged 112 and 120 (14 and 15 sixteen-byte
+    chunks of 16 lanes: the lanes past them must add 0), every mask."""
+    g, n = 3, 200
+    dt = getattr(torch, dtype)
+    lengths = (torch.tensor([200, 77, 1], device=cuda, dtype=torch.int32)
+               if mask_name == "ragged_lengths" else None)
+    mask = MaskParams(**MASKS[mask_name](m, n))
+    for dh in WIDE_DHS:
+        q, k, v = (torch.randn(g, s, dh, device=cuda).mul(0.3).to(dt) for s in (m, n, n))
+        _check_attention_on_card(q, k, v, lengths, mask, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,m,n,dh,kw", [
+    (16, 2, 2048, 256, dict()),  # gemma3 decode: batch 4 x 4 kv heads, fold 2, full cache
+    (16, 2, 1024, 256, dict()),  # ... over a local layer's ring
+    (4, 2048, 2048, 256, dict(causal=True, window=1024, q_start=1024, q_seg=1024)),  # local
+    (4, 2048, 1024, 256, dict(causal=True, q_seg=1024)),  # gemma3 prefill, first chunk
+    (2, 4096, 512, 256, dict(causal=True, prefix_len=256, q_seg=512)),  # paligemma, MQA 8
+    (1, 16, 4096, 256, dict(causal=True, q_start=4000)),  # most splits see no key
+    (8, 4, 1024, 120, dict()),  # h2o-danube-3-4b decode (fold 4)
+    (8, 512, 512, 120, dict(causal=True, q_seg=128)),  # ... prefill
+    (4, 4, 300, 112, dict()),
+])
+def test_attention_wide_head_shapes_match_plain_on_card(cuda, g, m, n, dh, kw, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(g, s, dh, device=cuda).mul(0.3).to(dt) for s in (m, n, n))
+    lengths = torch.randint(1, n + 1, (g,), device=cuda, dtype=torch.int32)
+    _check_attention_on_card(q, k, v, None, MaskParams(**kw), dtype)
+    _check_attention_on_card(q, k, v, lengths, MaskParams(**kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [2, 16, 65])
+@pytest.mark.parametrize("dh", WIDE_DHS)
+def test_attention_wide_heads_ignore_nan_and_zero_unseen_rows_on_card(cuda, dh, m, dtype):
+    """NaN in K and V beyond lengths is never read; a slice of length 0
+    and the rows that see no key (k_start past their position) come out
+    exactly 0."""
+    g, n = 4, 300
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(g, s, dh, device=cuda).mul(0.3).to(dt) for s in (m, n, n))
+    lengths = torch.tensor([300, 77, 1, 0], device=cuda, dtype=torch.int32)
+    for i, length in enumerate(lengths.tolist()):
+        k[i, length:] = float("nan")
+        v[i, length:] = float("nan")
+    out = _check_attention_on_card(q, k, v, lengths, MaskParams(), dtype)
+    assert torch.isfinite(out).all() and torch.all(out[3] == 0)
+    unseen = MaskParams(causal=True, q_start=0, k_start=1)  # row 0 sees no key
+    out = _check_attention_on_card(q, k, v, lengths, unseen, dtype)
+    assert torch.all(out[:, 0] == 0) and torch.isfinite(out).all()
 
 
 @pytest.mark.gpu

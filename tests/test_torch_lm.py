@@ -3,7 +3,9 @@
 then ``lm_prefill`` logits and caches and several ``lm_decode`` steps
 must agree under both kernel policies and the library policy (the JAX
 side runs its Pallas kernels in interpret mode; the port's kernel arms
-run their plain versions on the CPU).
+run their plain versions on the CPU).  The configs: tiny ones, and the
+smoke configs of every ported architecture that decodes (the token
+models, and musicgen-large decoding ``frames``).
 
 Tolerance: f32, ``rtol = atol = 1e-4``.  The two frameworks sum GEMMs of
 k <= 128 in another order and round RoPE's sin/cos and the softmax exp
@@ -22,12 +24,13 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import smoke_config as j_smoke_config  # noqa: E402
 from repro.configs.arch import ArchConfig as JArchConfig  # noqa: E402
 from repro.configs.arch import BlockCfg as JBlockCfg  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
-from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.configs.arch import ArchConfig, BlockCfg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
@@ -47,6 +50,12 @@ TINY_GLOBAL_CHUNKED = TINY_WINDOWED.replace(
     name="tiny-global", segments=((2, (JBlockCfg("attn", "mlp"),)),), attn_softcap=30.0,
     final_softcap=20.0, qk_norm=True, post_norm=True,
 )
+# every architecture of the port, and the ones that decode beside smollm:
+# gemma3's 5:1 local:global pattern with QK-norm and post-norms, gemma2's
+# soft-caps, h2o-danube's sliding window, musicgen's frames
+ARCHS = ["gemma2-27b", "gemma3-4b", "h2o-danube-3-4b", "musicgen-large", "paligemma-3b",
+         "smollm-135m"]
+DECODE_ARCHS = ["gemma3-4b", "gemma2-27b", "h2o-danube-3-4b", "musicgen-large"]
 
 
 def to_port_cfg(jcfg) -> ArchConfig:
@@ -69,6 +78,17 @@ def _np(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
+def model_input(cfg, rng, B, S):
+    """A numpy batch of S positions for ``cfg``'s input mode: tokens, f32
+    frames (musicgen), or f32 patches of the prefix and text tokens (vlm)."""
+    if cfg.input_mode == "frames":
+        return {"frames": (rng.randn(B, S, cfg.d_model) * 0.02).astype(np.float32)}
+    tokens = {"tokens": rng.randint(0, cfg.vocab, (B, S - cfg.prefix_len)).astype(np.int64)}
+    if cfg.input_mode == "vlm":
+        tokens["patches"] = (rng.randn(B, cfg.prefix_len, cfg.d_model) * 0.02).astype(np.float32)
+    return tokens
+
+
 def _cache_leaves_np(cache):
     if isinstance(cache, dict) and "segments" in cache:
         cache = cache["segments"]
@@ -76,13 +96,22 @@ def _cache_leaves_np(cache):
             (slot["k"], slot["v"])]
 
 
-def test_port_smoke_config_matches_the_jax_one():
-    assert to_port_cfg(j_smoke_config("smollm-135m")) == smoke_config("smollm-135m")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_smoke_config_matches_the_jax_one(arch):
+    assert to_port_cfg(j_smoke_config(arch)) == smoke_config(arch)
+    assert to_port_cfg(j_get_config(arch)) == get_config(arch)
 
 
-def test_converted_tree_keeps_the_jax_structure():
-    jparams, params = converted_params(j_smoke_config("smollm-135m"))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_converted_tree_keeps_the_jax_structure(arch):
+    """Every leaf of the JAX tree, ``qn``/``kn``/``ln1b``/``ln2b`` included,
+    lands where the port's own ``init_lm`` puts a leaf of that shape."""
+    jparams, params = converted_params(j_smoke_config(arch))
     jleaves = jax.tree.leaves(jparams)
+    own = lm.init_lm(0, smoke_config(arch), device="cpu")
+    assert jax.tree.structure(own) == jax.tree.structure(params)
+    assert [tuple(x.shape) for x in jax.tree.leaves(own)] == \
+        [tuple(x.shape) for x in jax.tree.leaves(params)]
     flat = []
 
     def walk(node):
@@ -115,46 +144,57 @@ def test_init_lm_draws_the_jax_distributions():
 
 @pytest.mark.parametrize("spec", POLICIES)
 @pytest.mark.parametrize("jcfg", [j_smoke_config("smollm-135m"), TINY_WINDOWED,
-                                  TINY_GLOBAL_CHUNKED], ids=lambda c: c.name)
+                                  TINY_GLOBAL_CHUNKED,
+                                  *(j_smoke_config(a) for a in DECODE_ARCHS)],
+                         ids=lambda c: c.name)
 def test_prefill_and_decode_match_jax(jcfg, spec):
+    """Prefill, then four decode steps fed the greedy token (or, for a
+    ``frames`` model, the next frame of a seeded stream)."""
     cfg = to_port_cfg(jcfg)
     jparams, params = converted_params(jcfg)
     rng = np.random.RandomState(0)
     B, S, max_seq, steps = 2, 13, 24, 4
-    tokens = rng.randint(0, cfg.vocab, (B, S)).astype(np.int64)
+    prompt = model_input(cfg, rng, B, S)
+    frames = [model_input(cfg, rng, B, 1) for _ in range(steps)]
+
+    def feed(i, logits, lib):
+        """The input of decode step ``i`` after ``logits``, as ``lib`` arrays."""
+        if cfg.input_mode == "frames":
+            return {"frames": lib.asarray(frames[i]["frames"])}
+        return {"tokens": lib.argmax(logits[:, -1, : cfg.vocab], -1)[:, None]}
+
     # jit traces each JAX step once under the scope (interpret-mode Pallas
     # inside); eager JAX would re-dispatch every kernel call
-    prefill = jax.jit(lambda p, t: jlm.lm_prefill(p, jcfg, {"tokens": t}, max_seq=max_seq,
+    prefill = jax.jit(lambda p, b: jlm.lm_prefill(p, jcfg, b, max_seq=max_seq,
                                                   cache_dtype=jnp.float32))
-    decode = jax.jit(lambda p, c, t: jlm.lm_decode(p, jcfg, c, {"tokens": t}))
+    decode = jax.jit(lambda p, c, b: jlm.lm_decode(p, jcfg, c, b))
     with jengine.use_policy(jengine.policy_from_spec(spec)):
-        jlogits, jcache = prefill(jparams, jnp.asarray(tokens))
-        jdec = []
-        jtok = jnp.argmax(jlogits[:, -1, : cfg.vocab], axis=-1)[:, None]
-        for _ in range(steps):
-            out, jcache = decode(jparams, jcache, jtok)
+        jlogits, jcache = prefill(jparams, jax.tree.map(jnp.asarray, prompt))
+        jdec, out = [], jlogits
+        for i in range(steps):
+            out, jcache = decode(jparams, jcache, feed(i, out, jnp))
             jdec.append(out)
-            jtok = jnp.argmax(out[:, -1, : cfg.vocab], axis=-1)[:, None]
     with engine.use_policy(engine.policy_from_spec(spec)):
-        logits, cache = lm.lm_prefill(params, cfg, {"tokens": torch.from_numpy(tokens)},
+        logits, cache = lm.lm_prefill(params, cfg, {k: torch.from_numpy(v) for k, v in
+                                                    prompt.items()},
                                       max_seq=max_seq, cache_dtype=torch.float32)
         np.testing.assert_allclose(_np(logits), _np(jlogits), **TOL)
-        tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
-        for want in jdec:
-            out, cache = lm.lm_decode(params, cfg, cache, {"tokens": tok})
+        out = logits
+        for i, want in enumerate(jdec):
+            out, cache = lm.lm_decode(params, cfg, cache, feed(i, out, torch))
             np.testing.assert_allclose(_np(out), _np(want), **TOL)
-            tok = torch.argmax(out[:, -1, : cfg.vocab], dim=-1)[:, None]
     assert int(cache["pos"]) == S + steps == int(jcache["pos"])
     for got, want in zip(_cache_leaves_np(cache), _cache_leaves_np(jcache)):
         np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("jcfg", [TINY_WINDOWED, j_smoke_config("smollm-135m")],
-                         ids=lambda c: c.name)
+@pytest.mark.parametrize("jcfg", [TINY_WINDOWED, j_smoke_config("smollm-135m"),
+                                  j_smoke_config("gemma3-4b")], ids=lambda c: c.name)
 def test_padded_prefill_with_true_len_matches_jax(jcfg):
     """Right-padded (bucketed) prefill: logits at each row's real last
     position and the cache over real positions only -- the windowed ring
-    included -- then ragged per-row decode positions."""
+    included, and gemma3's rings beside its global caches, block by
+    block -- then ragged per-row decode positions."""
     cfg = to_port_cfg(jcfg)
     jparams, params = converted_params(jcfg, seed=1)
     rng = np.random.RandomState(1)
@@ -180,21 +220,26 @@ def test_padded_prefill_with_true_len_matches_jax(jcfg):
         np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_lm_forward_matches_jax():
-    jcfg = TINY_GLOBAL_CHUNKED
+@pytest.mark.parametrize("jcfg", [TINY_GLOBAL_CHUNKED, j_smoke_config("musicgen-large"),
+                                  j_smoke_config("paligemma-3b")], ids=lambda c: c.name)
+def test_lm_forward_matches_jax(jcfg):
+    """Full-sequence logits: tokens, ``frames`` entering directly, and
+    ``vlm`` patches ahead of the text under the prefix mask."""
     cfg = to_port_cfg(jcfg)
     jparams, params = converted_params(jcfg, seed=2)
-    tokens = np.random.RandomState(2).randint(0, cfg.vocab, (2, 16)).astype(np.int64)
+    batch = model_input(cfg, np.random.RandomState(2), 2, 16)
     with jengine.use_policy(jengine.policy_from_spec("fixed:XLA_NT")):
-        want = jlm.lm_forward(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
+        want = jlm.lm_forward(jparams, jcfg, jax.tree.map(jnp.asarray, batch))
     with engine.use_policy(engine.policy_from_spec("fixed:nt=PALLAS_NT,attn=fused")):
-        got = lm.lm_forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
+        got = lm.lm_forward(params, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert got.shape == (2, 16, cfg.vocab_padded)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
-def test_unported_blocks_raise():
+@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-2.7b"])
+def test_unported_blocks_raise(arch):
     cfg = to_port_cfg(TINY_WINDOWED).replace(segments=((1, (BlockCfg("mamba", "none"),)),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init_lm(0, cfg, device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
-        smoke_config("gemma2-27b")
+        smoke_config(arch)

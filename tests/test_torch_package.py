@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.serving, repro_torch.launch.serve, repro_torch.convert, "
         "repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint, "
         "repro_torch.data, repro_torch.models.fcn, repro_torch.configs.fcn_paper, "
-        "repro_torch.examples.train_fcn, repro_torch.benchmarks.table10_fcn\n"
+        "repro_torch.examples.train_fcn, repro_torch.benchmarks.table10_fcn, "
+        "repro_torch.configs.gemma3_4b, repro_torch.configs.paligemma_3b\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"
@@ -108,6 +109,37 @@ def test_train_launcher_default_policy_names_the_roadmap_item():
                       "--batch", "4", "--seq", "32"])
     assert len(run.metrics) == 3 and all(math.isfinite(m["loss"]) for m in run.metrics)
     assert type(run.policy).__name__ == "ModelPolicy" and run.policy.stats.calls > 0
+
+
+@pytest.mark.parametrize("arch,keys", [("musicgen-large", {"frames", "labels"}),
+                                       ("paligemma-3b", {"patches", "tokens", "labels"}),
+                                       ("gemma3-4b", {"tokens", "labels"})])
+def test_train_launcher_takes_every_architecture(arch, keys, monkeypatch):
+    """``--arch`` trains the frames and vlm models too: their f32 frames
+    and patches reach the model as floats, token ids as int64."""
+    seen = []
+    to_device = train._to_device
+
+    def spy(batch, device):
+        out = to_device(batch, device)
+        seen.append({k: v.dtype for k, v in out.items()})
+        return out
+
+    monkeypatch.setattr(train, "_to_device", spy)
+    run = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                      "--batch", "2", "--seq", "16", "--policy", "fixed:XLA_NT"])
+    assert len(run.metrics) == 2 and all(math.isfinite(m["loss"]) for m in run.metrics)
+    assert set(seen[0]) == keys
+    for k, dtype in seen[0].items():
+        assert dtype == (torch.float32 if k in ("frames", "patches") else torch.int64)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma2-27b", "h2o-danube-3-4b"])
+def test_launcher_serves_the_token_architectures_on_cpu(arch):
+    engine = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+                         "--prompt-len", "20", "--gen", "4", "--slots", "2", "--max-seq", "32",
+                         "--policy", "fixed:nt=PALLAS_TNN,attn=fused"])
+    assert engine.health()["finished"] == 3 and engine.health()["crashed_steps"] == 0
 
 
 def test_launcher_serves_on_cpu_and_returns_the_engine(capsys):

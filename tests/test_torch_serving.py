@@ -1,9 +1,10 @@
 """The port's serving engine against the JAX package's, on the same
-weights (``tests/test_serving.py``'s TINY config, converted with
-``repro_torch.convert``): mixed prompt lengths across both request
-classes must give identical greedy tokens to the JAX ``ServeEngine`` and
-to unbatched greedy generation, with the same bucket, slot and admission
-bookkeeping and no crashed steps.  Both classes of the port run the
+weights (``tests/test_serving.py``'s TINY config and the smoke configs of
+the windowed architectures, converted with ``repro_torch.convert``):
+mixed prompt lengths across both request classes must give identical
+greedy tokens to the JAX ``ServeEngine`` and to unbatched greedy
+generation, with the same bucket, slot and admission bookkeeping and no
+crashed steps.  Both classes of the port run the
 kernel policies (plain versions on the CPU); the JAX engine runs the
 library policy, which computes the same function.
 """
@@ -17,11 +18,13 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import smoke_config as j_smoke_config  # noqa: E402
 from repro.configs.arch import ArchConfig as JArchConfig  # noqa: E402
 from repro.configs.arch import BlockCfg as JBlockCfg  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.serving import ServeEngine as JServeEngine  # noqa: E402
+from repro.serving.buckets import default_buckets as j_default_buckets  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.policy import FixedPolicy  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -31,6 +34,7 @@ from repro_torch.serving import (  # noqa: E402
     RequestState,
     ServeEngine,
 )
+from repro_torch.serving.buckets import default_buckets  # noqa: E402
 from test_torch_lm import converted_params, to_port_cfg  # noqa: E402
 
 TINY = JArchConfig(  # tests/test_serving.py::TINY
@@ -118,6 +122,66 @@ def test_mixed_classes_match_jax_engine_and_reference(weights):
     rows = eng.class_dispatch_rows()
     assert rows["interactive"]["NT"] == {"PALLAS_TNN": rows["interactive"]["NT"]["PALLAS_TNN"]}
     assert set(rows["bulk"]) == {"NT", "ATTN"} and "FUSED_ATTN" in rows["bulk"]["ATTN"]
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma2-27b", "h2o-danube-3-4b"])
+def test_windowed_architectures_match_jax_engine(arch):
+    """gemma3's 5:1 local:global pattern, gemma2's local/global alternation
+    with soft-caps and h2o-danube's sliding window, at their smoke sizes
+    (window 8): every local block holds a ring of ``window`` slots and
+    every global one ``max_seq``, block by block; prompts and generations
+    run past the window, so the rings wrap; greedy tokens equal the JAX
+    engine's."""
+    jcfg = j_smoke_config(arch)
+    cfg = to_port_cfg(jcfg)
+    jparams, params = converted_params(jcfg)
+    max_seq = 32
+    policies = {cls: engine.policy_from_spec(s) for cls, s in KERNEL_POLICIES.items()}
+    eng = ServeEngine(cfg, params, n_slots=4, max_seq=max_seq, policies=policies,
+                      cache_dtype=torch.float32, device="cpu")
+    for (count, blocks), seg in zip(cfg.segments, eng.kv.data):
+        for b, slot in zip(blocks, seg):
+            rows = b.window if b.window is not None else max_seq
+            assert slot["k"].shape == (count, 5, rows, cfg.n_kv, cfg.d_head)
+    jeng = JServeEngine(jcfg, jparams, n_slots=4, max_seq=max_seq, cache_dtype=jnp.float32,
+                        policies={c: jengine.policy_from_spec("fixed:XLA_NT")
+                                  for c in KERNEL_POLICIES})
+    rng = np.random.RandomState(11)
+    classes = sorted(KERNEL_POLICIES)
+    for i, n in enumerate([3, 17, 9, 12, 20, 5]):
+        prompt = rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+        jeng.submit(prompt, max_new=7, cls=classes[i % 2])
+        eng.submit(prompt, max_new=7, cls=classes[i % 2])
+    jeng.run()
+    eng.run()
+    assert dataclasses.astuple(eng.buckets) == dataclasses.astuple(jeng.buckets)
+    assert eng.health() == jeng.health() and eng.health()["crashed_steps"] == 0
+    for rid, req in eng.requests.items():
+        assert req.state is RequestState.FINISHED
+        assert req.generated == jeng.requests[rid].generated, f"rid={rid}"
+
+
+@pytest.mark.parametrize("n_slots,max_prompt_len,window", [(4, 2048, 1024), (4, 1100, 1024),
+                                                           (8, 4096, 4096), (2, 30, 8)])
+def test_bucket_grid_matches_jax_at_the_architectures_windows(n_slots, max_prompt_len, window):
+    """gemma3's window of 1024 raises the length step to 1024, so a
+    2048-slot cache holds the prefill buckets 1024 and 2048."""
+    mine = default_buckets(n_slots, max_prompt_len, window=window)
+    assert dataclasses.astuple(mine) == dataclasses.astuple(
+        j_default_buckets(n_slots, max_prompt_len, window=window))
+    assert mine.len_step == max(16, window)
+    if window == 1024:
+        assert mine.prefill_lens == (1024, 2048) and mine.bucket_len(1025) == 2048
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "paligemma-3b"])
+def test_engine_rejects_frames_and_vlm_as_the_jax_engine_does(arch):
+    jcfg = j_smoke_config(arch)
+    jparams, params = converted_params(jcfg)
+    with pytest.raises(ValueError, match="input_mode"):
+        JServeEngine(jcfg, jparams, n_slots=2, max_seq=16)
+    with pytest.raises(ValueError, match="input_mode"):
+        ServeEngine(to_port_cfg(jcfg), params, n_slots=2, max_seq=16, device="cpu")
 
 
 def test_budget_admission_matches_jax(weights):

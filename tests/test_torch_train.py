@@ -1,9 +1,11 @@
 """The port's training path against the JAX package's on the same weights
 and batches: ``lm_loss`` and every gradient leaf, and three optimizer
 steps, under each of the three training policies (the port's kernel arms
-run their plain versions on the CPU) against JAX under ``fixed:XLA_NT``;
-plus the port's own rules: remat, policy scope, accumulation, the
-checkpoint manager and a resumed launcher run.
+run their plain versions on the CPU) against JAX under ``fixed:XLA_NT``,
+for token models and for the ``frames`` (musicgen-large) and ``vlm``
+(paligemma-3b: patches ahead of the text, the loss on the text only)
+input modes; plus the port's own rules: remat, policy scope,
+accumulation, the checkpoint manager and a resumed launcher run.
 
 Tolerances, f32 throughout.  Loss: rtol 1e-5 (one mean over B*S
 log-softmaxes of sums in another order).  Gradient leaves:
@@ -58,7 +60,9 @@ KERNEL = ("fixed:nt=PALLAS_TNN_FUSED,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,"
 TNN = "fixed:nt=PALLAS_TNN,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,bnn=PALLAS_BNN,attn=unfused"
 CUBLAS = "fixed:XLA_NT"
 POLICIES = [KERNEL, TNN, CUBLAS]
-JCFGS = {"smollm-smoke": j_smoke_config("smollm-135m"), "tiny-windowed": TINY_WINDOWED}
+JCFGS = {"smollm-smoke": j_smoke_config("smollm-135m"), "tiny-windowed": TINY_WINDOWED,
+         "musicgen-smoke": j_smoke_config("musicgen-large"),
+         "paligemma-smoke": j_smoke_config("paligemma-3b")}
 B, S = 2, 16
 STEP_CFG = dict(lr=1e-3, warmup=1, total_steps=3)
 
@@ -78,7 +82,9 @@ def _batches(cfg, steps):
 
 
 def _t(batch):
-    return {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    """Tokens and labels as int64; frames and patches keep their f32."""
+    return {k: torch.from_numpy(v) if v.dtype.kind == "f" else torch.from_numpy(v).long()
+            for k, v in batch.items()}
 
 
 @pytest.fixture(scope="module", params=sorted(JCFGS))
@@ -106,13 +112,19 @@ def case(request):
                 jparams_final=_leaves(state["params"]))
 
 
-def test_batches_are_the_jax_packages():
-    cfg = to_port_cfg(TINY_WINDOWED)
+@pytest.mark.parametrize("jcfg,keys", [
+    (TINY_WINDOWED, ["labels", "tokens"]),
+    (j_smoke_config("musicgen-large"), ["frames", "labels"]),
+    (j_smoke_config("paligemma-3b"), ["labels", "patches", "tokens"]),
+], ids=lambda x: getattr(x, "name", None))
+def test_batches_are_the_jax_packages(jcfg, keys):
+    cfg = to_port_cfg(jcfg)
     for step in (0, 5):
         mine, theirs = make_train_batch(cfg, S, B, step, seed=1), \
-            j_make_train_batch(TINY_WINDOWED, S, B, step, seed=1)
-        assert sorted(mine) == sorted(theirs) == ["labels", "tokens"]
+            j_make_train_batch(jcfg, S, B, step, seed=1)
+        assert sorted(mine) == sorted(theirs) == keys
         for k in mine:
+            assert mine[k].dtype == theirs[k].dtype
             np.testing.assert_array_equal(mine[k], theirs[k])
 
 
