@@ -10,7 +10,11 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   3. kernels  each CUDA kernel against its plain PyTorch version at the
               serving shapes (attention also at d_head 256 and 120: gemma3's
               decode and windowed prefill, paligemma's MQA prefix prefill,
-              h2o-danube's decode and prefill), in f32 and bf16, with
+              h2o-danube's decode and prefill; phase 8b's shapes: the Mamba
+              blocks' skinny dt and B/C projections at decode and exact
+              prefill lengths and their training GEMMs in bf16, the MoE
+              routers in f32, zamba2's attention at d_head 112 on the split
+              and FMA routes, grok-1's and kimi-k2's at 128), in f32 and bf16, with
               CUDA-event times of the kernel, the plain version and one
               library call (a yardstick only), the profiler's device time
               of the kernel and the library call, the variant that ran,
@@ -63,6 +67,30 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               train steps under the fused train policy and fixed:XLA_NT
               from the same weights and batches: logits within relative
               L2 5e-2, step-0 loss within 1e-2 and grad norm within 5e-2
+ 8b. moe_ssm  the MoE, Mamba-2 and hybrid architectures, weights drawn on
+              a CUDA generator seeded 0.  ServeEngine serves mamba2-2.7b
+              (64 layers) and zamba2-7b (81 blocks) at full config, and
+              grok-1-314b (2 of 64 layers) and kimi-k2-1t-a32b (1 of 61
+              layers, 384 experts) at full width, bf16, 8 requests of 1, 3,
+              64, 200, 512, 777, 1000 and 1024 prompt tokens (the Mamba ones
+              prefilled at those exact lengths), 32 new each, 4 slots,
+              max_seq 2048, under phase 4's class policies and then
+              fixed:XLA_NT: every request finishes, no step crashes, the
+              attention routes zamba2 (decode_split and fma at d_head 112),
+              grok-1 and kimi-k2 (flash_mma and decode_split at 128) must
+              take; on the 1000-token prompt every block's increment under
+              each kernel policy within relative L2 5e-2 of cuBLAS's on the
+              same input (over the tokens an MoE block routes alike, at most
+              5 % routed otherwise), and the first-token logits within 5e-2
+              of cuBLAS's, or, for the random Mamba stacks, whose bf16 runs
+              decorrelate from f32 whatever runs their GEMMs, phase 4's
+              f32-distance gate; then f32 at one unit of each segment
+              (mamba2 2 layers, zamba2 5+1 and 3 blocks, grok-1 1 layer;
+              kimi-k2's f32 layer does not fit beside its buffers): greedy
+              tokens of both kernel policies identical to cuBLAS's.  mamba2
+              (2 layers, AdamW), zamba2 (one unit of each segment, AdamW)
+              and grok-1 (1 layer, Adafactor) at full width train as phase
+              8a's four do (grok's logits over the tokens routed alike)
   9. selector  the paper's loop on the card: measure_candidates times every
               NT, NN and TN candidate over {2^7..2^12}^3 (216 shapes per op;
               a cut of the paper's {2^7..2^16}^3, which
@@ -102,6 +130,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -173,9 +202,14 @@ TRAIN_ATTN_CASE = "train causal g=24 m=768 n=256 q_seg=256"
 # window 1024) and h2o-danube-3-4b's of 512 tokens (8 kv heads, 4 folded)
 GEMMA3_PREFILL_CASE = "gemma3 prefill causal window=1024 g=4 m=2048 n=1024 q_seg=1024"
 H2O_PREFILL_CASE = "h2o prefill causal g=16 m=2048 n=512 q_seg=512"
+# zamba2-7b's exact-length prefill of 1000 tokens (32 heads, MHA, d_head
+# 112) and grok-1's 1024-token prefill bucket (8 kv heads, 6 folded)
+ZAMBA2_PREFILL_CASE = "zamba2 prefill causal g=32 m=1000 n=1000 q_seg=1000"
+GROK_PREFILL_CASE = "grok prefill causal g=8 m=6144 n=1024 q_seg=1024"
 # Causal cases whose library yardstick is SDPA on the unfolded heads (is_causal,
 # the GQA group as heads over one kv head): the number of heads folded
-UNFOLDED_HEADS = {TRAIN_ATTN_CASE: 3, GEMMA3_PREFILL_CASE: 2, H2O_PREFILL_CASE: 4}
+UNFOLDED_HEADS = {TRAIN_ATTN_CASE: 3, GEMMA3_PREFILL_CASE: 2, H2O_PREFILL_CASE: 4,
+                  ZAMBA2_PREFILL_CASE: 1, GROK_PREFILL_CASE: 6}
 
 # Training: smollm-135m at full config, bf16, remat full, AdamW.
 DEVICE = "cuda"
@@ -217,6 +251,51 @@ ARCH_TRAIN = {  # arch: the depth it keeps of its full config
 }
 ARCH_BATCH, ARCH_SEQ, ARCH_STEPS = 2, 512, 2
 FORWARD_REL_L2 = 5e-2  # bf16 logits of a kernel policy against cuBLAS's
+
+# Phase 8b: the MoE, SSM and hybrid architectures.  Prompt lengths: the
+# conv cache's pad branch (1 < d_conv - 1 = 3), multiples of the SSD's
+# 64-position chunk (64, 512, 1024) and the one-chunk fallback of a ragged
+# length (200, 777, 1000); the bucketed MoE ones pad to multiples of 256.
+MOE_SSM_PROMPTS = (1, 3, 64, 200, 512, 777, 1000, 1024)
+MOE_SSM_GEN, MOE_SSM_SLOTS, MOE_SSM_MAX_SEQ, MOE_SSM_LEN_STEP = 32, 4, 2048, 256
+F32_MAX_SEQ = max(MOE_SSM_PROMPTS) + MOE_SSM_GEN
+LOGITS_PROMPT = 1000  # the prompt whose first-token logits are compared
+MOE_SSM_SERVE = {  # arch: (repeats kept per segment, 0 for all; the cut; f32 repeats)
+    "mamba2-2.7b": (0, None, 2),
+    "zamba2-7b": (0, None, 1),
+    "grok-1-314b": (2, "2 of 64 layers", 1),
+    # no f32 run: one layer's f32 weights take 72.3 GiB of the card's 79.2,
+    # and the interactive class's transposed f32 LM head (4.4 GiB) and a
+    # prefill's buffers do not fit beside them
+    "kimi-k2-1t-a32b": (1, "1 of 61 layers", 0),
+}
+# (route, d_head) that each served architecture's kernel-policy run must take
+MOE_SSM_ROUTES = {"zamba2-7b": (("decode_split", 112), ("fma", 112)),
+                  "grok-1-314b": (("flash_mma", 128), ("decode_split", 128)),
+                  "kimi-k2-1t-a32b": (("flash_mma", 128), ("decode_split", 128))}
+MOE_SSM_TRAIN = {  # arch: (repeats kept per segment, the cut); kimi-k2 needs more than one card
+    "mamba2-2.7b": (2, "2 of 64 layers"),
+    "zamba2-7b": (1, "9 of 81 blocks (one 5 Mamba + shared attention unit, 3 Mamba)"),
+    "grok-1-314b": (1, "1 of 64 layers"),
+}
+NO_ATTENTION_KERNELS = ("transpose", "matmul_nn", "matmul_tnn_fused")  # mamba2's fused path
+# Random Mamba stacks are chaotic in bf16: a kernel policy's run and
+# cuBLAS's drift apart block by block from rounding alone, and at full
+# depth cuBLAS's bf16 first-token logits lie as far from its own f32 run's
+# as from a kernel policy's (relative L2 near 1), and at zamba2's 9 trained
+# blocks its bf16 gradient norm more than GRAD_NORM_REL from f32's.  So
+# each block's increment is held to LOGITS_REL_L2 on a shared input, and
+# the logits and gradient norms of these two are held to phase 4's and 7's
+# f32-distance gates wherever cuBLAS's own distance from f32 exceeds the
+# plain bound (grok-1 and kimi-k2 have no f32 anchor: kimi's f32 weights
+# would not fit beside its bf16 ones).
+MOE_SSM_F32_ANCHOR = ("mamba2-2.7b", "zamba2-7b")
+# An MoE router's top-k is discontinuous: a token whose k-th and next
+# experts nearly tie goes elsewhere when bf16 rounding moves its router
+# input, and its row of the block's output moves by O(1).  The block gate
+# compares the tokens both runs route alike, and at most this share of a
+# block's tokens may be routed otherwise.
+MOE_REROUTED_SHARE = 0.05
 
 # Phase 9: the selector's grid {2^lo..2^hi}^3, a cut of the paper's 2^7..2^16
 # (the full grid: python -m repro_torch.benchmarks.table10_fcn --full).
@@ -408,14 +487,53 @@ def kernel_cases(torch):
             (H2O_PREFILL_CASE, 16, 2048, 512, 120, None, MaskParams(causal=True, q_seg=512)),
         ]
         for label, g, m, n, dh, lengths, mask in geoms:
-            q = randn(g, m, dh, dtype=dt) * dh ** -0.5
-            cases.append(("attention_fused", label, dt, {
-                "q": q, "k": randn(g, n, dh, dtype=dt), "v": randn(g, n, dh, dtype=dt),
-                "lengths": lengths if lengths is not None else
-                torch.full((g,), n, dtype=torch.int32, device="cuda"),
-                "mask": mask, "heads": UNFOLDED_HEADS.get(label.split(" dh=")[0]),
-            }))
+            cases.append(attention_case(torch, randn, label, g, m, n, dh, lengths, mask, dt))
+    # phase 8b's shapes: the Mamba blocks' dt (n 80 mamba2, 112 zamba2) and
+    # B/C (n 128, 64) projections at decode bucket 4 and exact prefill
+    # lengths in bf16, and the MoE routers (n 8 grok-1, 384 kimi-k2) in f32
+    bf, f32 = torch.bfloat16, torch.float32
+    for dt, shapes in ((bf, ((4, 80, 2560), (777, 80, 2560), (1000, 112, 3584),
+                             (1000, 64, 3584))),
+                       (f32, ((4, 8, 6144), (1024, 8, 6144), (4, 384, 7168), (1024, 384, 7168)))):
+        for m, n, k in shapes:
+            a, w = randn(m, k, dtype=dt), randn(n, k, dtype=dt)
+            cases.append(("matmul_nt", f"({m},{k})x({n},{k})^T", dt, {"a": a, "b": w}))
+            cases.append(("matmul_nn", f"({m},{k})x({k},{n})", dt,
+                          {"a": a, "b": w.t().contiguous()}))
+    # their training: fused-TNN forwards at 2 x 512 tokens, the data gradient
+    # with k = 80 and the TN weight gradient's NN with m = 80
+    for m, n, k, dt in ((1024, 80, 2560, bf), (1024, 8, 6144, f32)):
+        cases.append(("matmul_tnn_fused", f"({m},{k})x({n},{k})^T", dt,
+                      {"a": randn(m, k, dtype=dt), "b": randn(n, k, dtype=dt)}))
+    for m, n, k in ((1024, 2560, 80), (80, 2560, 1024)):
+        cases.append(("matmul_nn", f"({m},{k})x({k},{n})", bf,
+                      {"a": randn(m, k, dtype=bf), "b": randn(k, n, dtype=bf)}))
+    # attention: zamba2's exact 1000-token prefill (32 heads, no fold) and its
+    # decode (bucket 4 x 32 heads over 2048 slots) at d_head 112; grok-1's
+    # 1024-token prefill (8 kv heads, fold 6) and kimi-k2's decode (4 x 8 kv
+    # heads, fold 8) at 128
+    lens128 = torch.randint(1, 2049, (128,), generator=gen, device="cuda", dtype=torch.int32)
+    lens32 = torch.randint(1, 2049, (32,), generator=gen, device="cuda", dtype=torch.int32)
+    for dt in (bf, f32):
+        cases.append(attention_case(torch, randn, ZAMBA2_PREFILL_CASE + " dh=112", 32, 1000,
+                                    1000, 112, None, MaskParams(causal=True, q_seg=1000), dt))
+        cases.append(attention_case(torch, randn, "decode g=128 m=1 n=2048 ragged dh=112", 128,
+                                    1, 2048, 112, lens128, MaskParams(), dt))
+    cases.append(attention_case(torch, randn, GROK_PREFILL_CASE + " dh=128", 8, 6144, 1024, 128,
+                                None, MaskParams(causal=True, q_seg=1024), bf))
+    cases.append(attention_case(torch, randn, "decode g=32 m=8 n=2048 ragged dh=128", 32, 8,
+                                2048, 128, lens32, MaskParams(), bf))
     return cases
+
+
+def attention_case(torch, randn, label, g, m, n, dh, lengths, mask, dt):
+    q = randn(g, m, dh, dtype=dt) * dh ** -0.5
+    return ("attention_fused", label, dt, {
+        "q": q, "k": randn(g, n, dh, dtype=dt), "v": randn(g, n, dh, dtype=dt),
+        "lengths": lengths if lengths is not None else
+        torch.full((g,), n, dtype=torch.int32, device="cuda"),
+        "mask": mask, "heads": UNFOLDED_HEADS.get(label.split(" dh=")[0]),
+    })
 
 
 def run_case(torch, name, inp, dt):
@@ -684,8 +802,8 @@ def p50_ms(engine, cls=None):
 
 
 def first_token_logits(torch, engine, policy_spec, prompt, dtype=None):
-    """Last-position logits of ``prompt`` (bucket-padded, as the engine
-    prefills it) under one policy; ``dtype`` recasts the engine's
+    """Last-position logits of ``prompt`` (bucket-padded or at its exact
+    length, as the engine prefills it) under one policy; ``dtype`` recasts the engine's
     weights (the f32 anchor runs the same bf16-valued weights in f32)."""
     from repro_torch.core.engine import policy_from_spec
     from repro_torch.core.policy import use_policy
@@ -700,8 +818,9 @@ def first_token_logits(torch, engine, policy_spec, prompt, dtype=None):
 
     params = engine.params if dtype is None else cast(engine.params)
     P = len(prompt)
-    padded = torch.zeros((1, engine.buckets.bucket_len(P)), dtype=torch.long, device="cuda")
-    padded[0, :P] = torch.as_tensor(prompt, device="cuda")
+    Lb = P if engine.exact_prefill else engine.buckets.bucket_len(P)
+    padded = torch.zeros((1, Lb), dtype=torch.long, device=engine.device)
+    padded[0, :P] = torch.as_tensor(prompt, device=engine.device)
     with use_policy(policy_from_spec(policy_spec)):
         logits, _ = lm.lm_prefill(params, engine.cfg, {"tokens": padded},
                                   max_seq=engine.max_seq, true_len=P)
@@ -770,11 +889,10 @@ def serve_gates_and_metrics(torch, eng_k, eng_x):
     prompt = eng_k.requests[0].tokens
     ref_logits = first_token_logits(torch, eng_x, CUBLAS_POLICY, prompt)
     f32_logits = first_token_logits(torch, eng_x, CUBLAS_POLICY, prompt, torch.float32)
-    dist = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
-    to_ref, to_f32 = {}, {CUBLAS_POLICY: dist(ref_logits, f32_logits)}
+    to_ref, to_f32 = {}, {CUBLAS_POLICY: rel_l2(ref_logits, f32_logits)}
     for cls, spec in KERNEL_POLICIES.items():
         got = first_token_logits(torch, eng_k, spec, prompt)
-        to_ref[spec], to_f32[spec] = dist(got, ref_logits), dist(got, f32_logits)
+        to_ref[spec], to_f32[spec] = rel_l2(got, ref_logits), rel_l2(got, f32_logits)
         check(to_ref[spec] <= LOGITS_REL_L2,
               f"first-token logits under {spec}: rel L2 {to_ref[spec]} > {LOGITS_REL_L2}")
         limit = F32_DISTANCE_RATIO * to_f32[CUBLAS_POLICY] + F32_DISTANCE_FLOOR
@@ -967,23 +1085,35 @@ def device_batch(torch, batch):
             else torch.as_tensor(v, device=DEVICE).long() for k, v in batch.items()}
 
 
-def arch_train(torch, arch):
-    """One of the four trained architectures at full width and one unit of
-    each segment, bf16: one forward and ARCH_STEPS train steps under the
-    fused train policy and under cuBLAS, from the same weights and
-    batches.  Returns its row and the fused policy's launches."""
+def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32_anchor=False):
+    """An architecture at full width and ``layers`` repeats of each segment
+    (the cut ``reduced`` names), bf16: one forward and ARCH_STEPS train
+    steps under the fused train policy and under cuBLAS, from the same
+    weights (drawn by ``gen``, a generator or a CPU seed) and batches,
+    with the optimizer its config names; every kernel of ``kernels`` must
+    launch.  ``f32_anchor``: also the f32 step-0 gradient norm of the same
+    weights under cuBLAS, and where cuBLAS's bf16 norm lies further from
+    it than GRAD_NORM_REL, phase 7's f32-distance gate in place of the
+    grad-norm gate.  Returns its row and the fused policy's launches."""
     from repro_torch.configs import get_config
     from repro_torch.core.engine import policy_from_spec
     from repro_torch.core.policy import use_policy
     from repro_torch.data import make_train_batch
     from repro_torch.kernels.common import ATTENTION_ROUTES, LAUNCHES, reset_launches
-    from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step
+    from repro_torch.launch.steps import (
+        TrainStepConfig,
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+    )
     from repro_torch.models import lm
+    from repro_torch.optim import tree_map
 
     t0 = time.perf_counter()
     full = get_config(arch)
-    cfg = full.replace(segments=tuple((1, blocks) for _, blocks in full.segments))
-    params = lm.init_lm(0, cfg, device=DEVICE)
+    cfg = full.replace(segments=tuple((min(count, layers), blocks)
+                                      for count, blocks in full.segments))
+    params = lm.init_lm(gen, cfg, device=DEVICE)
     batches = [device_batch(torch, make_train_batch(cfg, ARCH_SEQ, ARCH_BATCH, step))
                for step in range(ARCH_STEPS)]
     init_s = time.perf_counter() - t0
@@ -996,8 +1126,12 @@ def arch_train(torch, arch):
         with torch.no_grad(), use_policy(policy_from_spec(spec)):
             logits[spec] = lm.lm_forward(params, cfg, batches[0]).float()
         fwd_launches[spec], fwd_routes[spec] = dict(LAUNCHES), dict(ATTENTION_ROUTES)
-    fwd_rel = float((logits[fused] - logits[CUBLAS_POLICY]).norm()
-                    / logits[CUBLAS_POLICY].norm())
+    # an MoE router sends a few near-tie tokens elsewhere under bf16
+    # rounding: compare the rows of the tokens both runs route alike
+    same = (~moe_rerouted(torch, cfg, params, batches[0]["tokens"], fused) if cfg.moe
+            else torch.ones(logits[fused].shape[:2], dtype=torch.bool, device=DEVICE))
+    rerouted = float(1 - same.float().mean())
+    fwd_rel = rel_l2(logits[fused][same], logits[CUBLAS_POLICY][same])
     del logits  # before the optimizer's f32 moments: gemma2-27b's take 37 GB at the update
     runs = {}
     for spec in specs:
@@ -1020,27 +1154,44 @@ def arch_train(torch, arch):
                       "launches": {k: fwd_launches[spec][k] + v for k, v in LAUNCHES.items()},
                       "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()}}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gn32, gn_to32 = None, None
+    if f32_anchor:
+        params32 = tree_map(lambda p: p.float(), params)
+        _, g32 = loss_and_grads(cfg.replace(param_dtype="float32"), params32, batches[0],
+                                policy_from_spec(CUBLAS_POLICY))
+        gn32 = global_norm(torch, g32)
+        gn_to32 = {spec: rel(run["metrics"][0]["grad_norm"], gn32) for spec, run in runs.items()}
+        del params32, g32
     del params, batches
     torch.cuda.empty_cache()
     for spec, run in runs.items():
         check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                   for m in run["metrics"]), f"{arch} {spec}: a non-finite loss or grad norm")
     check(fwd_rel <= FORWARD_REL_L2, f"{arch}: forward logits rel L2 {fwd_rel} > {FORWARD_REL_L2}")
+    check(rerouted <= MOE_REROUTED_SHARE, f"{arch}: {rerouted} of the tokens routed otherwise")
     x0, k0 = runs[CUBLAS_POLICY]["metrics"][0], runs[fused]["metrics"][0]
     loss_rel, gn_rel = rel(k0["loss"], x0["loss"]), rel(k0["grad_norm"], x0["grad_norm"])
     check(loss_rel <= LOSS_REL, f"{arch}: step-0 loss {k0['loss']} vs cuBLAS {x0['loss']}")
-    check(gn_rel <= GRAD_NORM_REL,
-          f"{arch}: step-0 grad norm {k0['grad_norm']} vs cuBLAS {x0['grad_norm']}")
+    if gn_to32 is None or gn_to32[CUBLAS_POLICY] <= GRAD_NORM_REL:
+        check(gn_rel <= GRAD_NORM_REL,
+              f"{arch}: step-0 grad norm {k0['grad_norm']} vs cuBLAS {x0['grad_norm']}")
+    else:  # a random Mamba stack's bf16 gradients leave f32 whatever runs its GEMMs
+        limit = F32_DISTANCE_RATIO * gn_to32[CUBLAS_POLICY] + F32_DISTANCE_FLOOR
+        check(gn_to32[fused] <= limit, f"{arch}: step-0 grad norm {k0['grad_norm']} is "
+                                       f"{gn_to32[fused]} from f32 ({gn32}), beyond {limit}")
     check(not any(runs[CUBLAS_POLICY]["launches"].values()),
           f"{arch}: cuBLAS training launched kernels: {runs[CUBLAS_POLICY]['launches']}")
-    unused = [k for k in TRAIN_KERNELS if not runs[fused]["launches"][k]]
+    unused = [k for k in kernels if not runs[fused]["launches"][k]]
     check(not unused, f"{arch}: kernels of the fused training path never launched: {unused}")
     row = {
-        "arch": arch, "reduced": {"depth": ARCH_TRAIN[arch], "layers": cfg.n_layers},
+        "arch": arch, "reduced": {"depth": reduced, "layers": cfg.n_layers},
+        "optimizer": cfg.optimizer,
         "d_model": cfg.d_model, "d_head": cfg.d_head, "vocab": cfg.vocab,
         "input_mode": cfg.input_mode, "prefix_len": cfg.prefix_len,
         "batch": ARCH_BATCH, "seq": ARCH_SEQ, "forward_rel_l2": fwd_rel,
+        "rerouted_share": rerouted,
         "step0_loss_rel_vs_cublas": loss_rel, "step0_grad_norm_rel_vs_cublas": gn_rel,
+        "f32_grad_norm": gn32, "step0_grad_norm_rel_vs_f32": gn_to32,
         "peak_memory_gb": peak_gb, "init_seconds": init_s,
         "seconds": time.perf_counter() - t0,
         **{spec: {**run, "launches": {k: v for k, v in run["launches"].items() if v}}
@@ -1101,14 +1252,302 @@ def phase_arch(torch, card):
     exact_s = time.perf_counter() - t0 - serve_s
 
     train_rows, train_launches = {}, {name: 0 for name in LAUNCHES}
-    for arch in ARCH_TRAIN:
-        train_rows[arch], launches = arch_train(torch, arch)
+    for arch, reduced in ARCH_TRAIN.items():
+        train_rows[arch], launches = arch_train(torch, arch, reduced)
         for name, count in launches.items():
             train_launches[name] += count
     row = {"phase": "arch", "card": card, "serve": serve_part, "exact": exact_part,
            "train": train_rows, "seconds": time.perf_counter() - t0,
            "seconds_by_part": {"serve": serve_s, "exact": exact_s,
                                "train": time.perf_counter() - t0 - serve_s - exact_s}}
+    return row, serve_launches, train_launches
+
+
+# -- phase 8b helpers ---------------------------------------------------------
+
+
+def moe_ssm_config(arch, repeats=0, dtype=None):
+    """``arch``'s full config, each segment cut to ``repeats`` (0: whole),
+    with params in ``dtype`` (None: the config's)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if repeats:
+        cfg = cfg.replace(segments=tuple((min(count, repeats), blocks)
+                                         for count, blocks in cfg.segments))
+    return cfg.replace(param_dtype=dtype) if dtype else cfg
+
+
+def serve_requests(torch, cfg, params, specs, max_seq=MOE_SSM_MAX_SEQ):
+    """ServeEngine on ``params``: class policies from ``specs``, a warmup,
+    then the MOE_SSM_PROMPTS requests (seed 0) across the classes in turn,
+    drained.  Returns the engine."""
+    import numpy as np
+
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.buckets import default_buckets
+
+    engine = ServeEngine(
+        cfg, params, n_slots=MOE_SSM_SLOTS, max_seq=max_seq,
+        policies={cls: policy_from_spec(spec) for cls, spec in specs.items()},
+        bucket_spec=default_buckets(MOE_SSM_SLOTS, max_seq, len_step=MOE_SSM_LEN_STEP),
+        cache_dtype=getattr(torch, cfg.param_dtype), device=DEVICE,
+    )
+    engine.warmup()
+    rng = np.random.RandomState(0)
+    classes = sorted(specs)
+    for i, n in enumerate(MOE_SSM_PROMPTS):
+        engine.submit(rng.randint(0, cfg.vocab, (n,)).astype(np.int32), max_new=MOE_SSM_GEN,
+                      cls=classes[i % len(classes)])
+    engine.run()
+    return engine
+
+
+def served_tokens(engine):
+    n_tok = sum(len(r.generated) for r in engine.requests.values())
+    return ({rid: list(r.generated) for rid, r in engine.requests.items()},
+            n_tok / engine.run_seconds)
+
+
+def moe_ssm_serve(torch, arch, gen):
+    """One architecture of phase 8b served: the kernel policies, then
+    cuBLAS on the same weights, then both in f32 at a cut depth.  Returns
+    its row and the kernel-policy run's launches."""
+    from repro_torch.kernels.common import ATTENTION_ROUTES, LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    repeats, reduced, f32_repeats = MOE_SSM_SERVE[arch]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_ssm_config(arch, repeats)
+    params = lm.init_lm(gen(), cfg, device=DEVICE)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cublas = {cls: CUBLAS_POLICY for cls in KERNEL_POLICIES}
+
+    reset_launches()
+    eng = serve_requests(torch, cfg, params, KERNEL_POLICIES)
+    launches, routes = dict(LAUNCHES), dict(ATTENTION_ROUTES)
+    check_engine(eng, MOE_SSM_GEN, f"{arch} kernel policies")
+    has_attn = cfg.n_heads > 0
+    for kname in SERVE_KERNELS if has_attn else SERVE_KERNELS[:3]:
+        check(launches[kname] > 0, f"{arch}: kernel {kname} was not launched")
+    for route in MOE_SSM_ROUTES.get(arch, ()):
+        check(routes.get(route, 0) > 0, f"{arch}: attention_fused never ran {route}: {routes}")
+    check(eng.exact_prefill == (arch in ("mamba2-2.7b", "zamba2-7b")),
+          f"{arch}: exact_prefill is {eng.exact_prefill}")
+    prompt = next(r.tokens for r in eng.requests.values() if r.prompt_len == LOGITS_PROMPT)
+    logits = {spec: first_token_logits(torch, eng, spec, prompt)
+              for spec in KERNEL_POLICIES.values()}
+    blocks, rerouted = block_increments(torch, cfg, params, prompt)
+    profiles = {spec: decode_profile(torch, eng, cls) for cls, spec in KERNEL_POLICIES.items()}
+    tokens_k, tps_k = served_tokens(eng)
+    p50 = {spec: p50_ms(eng, cls) for cls, spec in KERNEL_POLICIES.items()}
+    del eng
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    eng = serve_requests(torch, cfg, params, cublas)
+    check_engine(eng, MOE_SSM_GEN, f"{arch} cuBLAS policy")
+    check(not any(LAUNCHES.values()), f"{arch} cuBLAS policy launched kernels: {LAUNCHES}")
+    ref = first_token_logits(torch, eng, CUBLAS_POLICY, prompt)
+    ref32 = (first_token_logits(torch, eng, CUBLAS_POLICY, prompt, torch.float32)
+             if arch in MOE_SSM_F32_ANCHOR else None)
+    profiles[CUBLAS_POLICY] = decode_profile(torch, eng, "interactive")
+    tokens_x, tps_x = served_tokens(eng)
+    p50[CUBLAS_POLICY] = p50_ms(eng)
+    del eng, params
+    torch.cuda.empty_cache()
+    for spec, worst in blocks.items():
+        check(worst <= LOGITS_REL_L2, f"{arch}: a block's increment under {spec} is {worst} "
+                                      f"from cuBLAS's on the same input (rel L2)")
+        check(rerouted[spec] <= MOE_REROUTED_SHARE,
+              f"{arch}: {rerouted[spec]} of an MoE block's tokens routed otherwise under {spec}")
+    dist = {spec: rel_l2(got, ref) for spec, got in logits.items()}
+    to_f32 = ({spec: rel_l2(got, ref32) for spec, got in [*logits.items(), (CUBLAS_POLICY, ref)]}
+              if ref32 is not None else None)
+    for spec, d in dist.items():
+        if to_f32 is None or to_f32[CUBLAS_POLICY] <= LOGITS_REL_L2:
+            check(d <= LOGITS_REL_L2, f"{arch}: first-token logits under {spec}: rel L2 {d} > "
+                                      f"{LOGITS_REL_L2}")
+        else:  # the bf16 stack decorrelates from f32 whatever runs its GEMMs: phase 4's gate
+            limit = F32_DISTANCE_RATIO * to_f32[CUBLAS_POLICY] + F32_DISTANCE_FLOOR
+            check(to_f32[spec] <= limit, f"{arch}: first-token logits under {spec} are "
+                                         f"{to_f32[spec]} from f32, beyond {limit}")
+    pairs = [(a, b) for rid, toks in tokens_k.items() for a, b in zip(toks, tokens_x[rid])]
+    serve_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    row = {
+        "arch": arch, "layers": cfg.n_layers, "params": n_params, "d_model": cfg.d_model,
+        "d_head": cfg.d_head, "vocab": cfg.vocab, "reduced": reduced and {
+            "depth": reduced, "layers": cfg.n_layers},
+        "exact_prefill": arch in ("mamba2-2.7b", "zamba2-7b"),
+        "prompt_lens": list(MOE_SSM_PROMPTS), "gen": MOE_SSM_GEN,
+        "launches": {k: v for k, v in launches.items() if v},
+        "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()},
+        "first_token_rel_l2": dist, "rel_l2_bound": LOGITS_REL_L2,
+        "first_token_rel_l2_to_f32": to_f32, "worst_block_increment_rel_l2": blocks,
+        "worst_block_rerouted_share": rerouted,
+        "greedy_agreement_vs_cublas": sum(a == b for a, b in pairs) / len(pairs),
+        "tokens_per_s": {"kernel_policies": tps_k, CUBLAS_POLICY: tps_x},
+        "p50_decode_ms": p50, "decode_step_profile": profiles,
+        "peak_memory_gb": peak_gb, "init_seconds": init_s, "serve_seconds": serve_s,
+        "exact": None,
+    }
+    if f32_repeats:
+        row["exact"] = moe_ssm_exact(torch, arch, f32_repeats, gen)
+    row["seconds"] = time.perf_counter() - t0
+    return row, launches
+
+
+def moe_ssm_exact(torch, arch, repeats, gen):
+    """f32 at full width and ``repeats`` of each segment: greedy tokens of
+    both kernel policies identical to cuBLAS's.  The cache holds the
+    longest request (a 2048-token bucket's buffers are not needed)."""
+    from repro_torch.models import lm
+
+    cublas = {cls: CUBLAS_POLICY for cls in KERNEL_POLICIES}
+    cfg32 = moe_ssm_config(arch, repeats, "float32")
+    params = lm.init_lm(gen(), cfg32, device=DEVICE)
+    eng = serve_requests(torch, cfg32, params, KERNEL_POLICIES, F32_MAX_SEQ)
+    check_engine(eng, MOE_SSM_GEN, f"{arch} f32 kernel policies")
+    tokens32, _ = served_tokens(eng)
+    del eng
+    torch.cuda.empty_cache()
+    eng = serve_requests(torch, cfg32, params, cublas, F32_MAX_SEQ)
+    check_engine(eng, MOE_SSM_GEN, f"{arch} f32 cuBLAS policy")
+    for rid, r in eng.requests.items():
+        check(r.generated == tokens32[rid],
+              f"{arch} f32 request {rid} ({r.cls}): tokens differ from {CUBLAS_POLICY}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"layers": cfg32.n_layers, "dtype": "float32", "max_seq": F32_MAX_SEQ,
+            "identical": True}
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def cublas_block_inputs(torch, cfg, params, tokens):
+    """Every block of the model with its input in a cuBLAS run of
+    ``tokens`` (B, S): yields (block kind, its params, its input); the next
+    input is computed when the caller resumes."""
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.core.policy import use_policy
+    from repro_torch.models.blocks import apply_block
+    from repro_torch.models.layers import embed
+    from repro_torch.models.lm import _index
+
+    policy, shared = policy_from_spec(CUBLAS_POLICY), params.get("shared")
+    x = embed(params["embed"], tokens, cfg.emb_scale)
+    for (count, kinds), slot_params in zip(cfg.segments, params["segments"]):
+        for i in range(count):
+            for b, sp in zip(kinds, slot_params):
+                p = _index(sp, i)
+                yield b, p, x
+                with torch.no_grad(), use_policy(policy):
+                    x = apply_block(p, x, b, cfg, shared)
+
+
+def block_increments(torch, cfg, params, prompt):
+    """Every block of the served model run on cuBLAS's input to it (the
+    prompt's activations, block by block under fixed:XLA_NT): per kernel
+    policy, the largest relative L2 distance of a block's increment (its
+    output less its input) from cuBLAS's over the tokens both route alike,
+    and the largest share of an MoE block's tokens routed otherwise.
+    Unlike the logits, neither compounds over the depth."""
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.core.policy import use_policy
+    from repro_torch.models.blocks import apply_block
+
+    policies = {spec: policy_from_spec(spec) for spec in (*KERNEL_POLICIES.values(),
+                                                          CUBLAS_POLICY)}
+    worst = {spec: 0.0 for spec in KERNEL_POLICIES.values()}
+    rerouted = {spec: 0.0 for spec in KERNEL_POLICIES.values()}
+    tokens = torch.as_tensor(prompt, device=DEVICE).long()[None]
+    for b, p, x in cublas_block_inputs(torch, cfg, params, tokens):
+        out, kept = {}, {}
+        for spec, policy in policies.items():
+            with torch.no_grad(), use_policy(policy):
+                out[spec] = (apply_block(p, x, b, cfg, params.get("shared")) - x)[0]
+                if b.ffn == "moe":
+                    kept[spec] = moe_kept(torch, p, x, b, cfg)
+        for spec in worst:
+            same = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+            if kept:  # tokens whose kept experts differ: a routing flip
+                same = (kept[spec] == kept[CUBLAS_POLICY]).all(dim=-1)
+                rerouted[spec] = max(rerouted[spec], float(1 - same.float().mean()))
+            worst[spec] = max(worst[spec], rel_l2(out[spec][same], out[CUBLAS_POLICY][same]))
+    return worst, rerouted
+
+
+def moe_rerouted(torch, cfg, params, tokens, spec):
+    """(B, S) bool: the tokens some MoE block routes otherwise under
+    ``spec`` than under cuBLAS, each block on cuBLAS's input to it."""
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.core.policy import use_policy
+
+    pk, px = policy_from_spec(spec), policy_from_spec(CUBLAS_POLICY)
+    out = torch.zeros(tokens.shape, dtype=torch.bool, device=tokens.device)
+    for b, p, x in cublas_block_inputs(torch, cfg, params, tokens):
+        if b.ffn == "moe":
+            with torch.no_grad(), use_policy(pk):
+                kept = moe_kept(torch, p, x, b, cfg)
+            with torch.no_grad(), use_policy(px):
+                ref = moe_kept(torch, p, x, b, cfg)
+            out |= (kept != ref).any(dim=-1).reshape(tokens.shape)
+    return out
+
+
+def moe_kept(torch, p, x, b, cfg):
+    """(B * S, experts): which experts keep each token of an MoE block's
+    input ``x`` (B, S, d) under the current policy -- the block's attention
+    and router in the model's own functions, then its routing."""
+    from repro_torch.core.engine import dispatch
+    from repro_torch.models.attention import attention
+    from repro_torch.models.blocks import _attn_cfg
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.moe import _route
+
+    h = x + attention(p["attn"], rmsnorm(p["ln1"], x), _attn_cfg(b, cfg))
+    xn = rmsnorm(p["ln2"], h)
+    S, mc = x.shape[1], cfg.moe
+    group = min(mc.group, S) if S % min(mc.group, S) == 0 else S
+    logits = dispatch("NT", xn.reshape(-1, group, cfg.d_model).float(), p["moe"]["router"]["w"])
+    dispatch_mask, _ = _route(logits, mc, mc.capacity(group))
+    return dispatch_mask.sum(dim=-1).reshape(-1, mc.n_experts) > 0
+
+
+def phase_moe_ssm(torch, card):
+    """Phase 8b; returns its row and the launches of the kernel-policy serve
+    runs and of the fused-policy training runs."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    t0 = time.perf_counter()
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(0)  # noqa: E731
+    serve_rows, serve_launches = {}, {name: 0 for name in LAUNCHES}
+    for arch in MOE_SSM_SERVE:
+        serve_rows[arch], launches = moe_ssm_serve(torch, arch, gen)
+        for name, count in launches.items():
+            serve_launches[name] += count
+        emit({"phase": "moe_ssm_serve", "arch": arch, **{
+            k: serve_rows[arch][k] for k in ("first_token_rel_l2", "tokens_per_s", "seconds")}})
+    serve_s = time.perf_counter() - t0
+    train_rows, train_launches = {}, {name: 0 for name in LAUNCHES}
+    for arch, (repeats, reduced) in MOE_SSM_TRAIN.items():
+        kernels = NO_ATTENTION_KERNELS if arch == "mamba2-2.7b" else TRAIN_KERNELS
+        train_rows[arch], launches = arch_train(torch, arch, reduced, repeats, gen(), kernels,
+                                                f32_anchor=arch in MOE_SSM_F32_ANCHOR)
+        for name, count in launches.items():
+            train_launches[name] += count
+    row = {"phase": "moe_ssm", "card": card, "serve": serve_rows, "train": train_rows,
+           "seconds": time.perf_counter() - t0,
+           "seconds_by_part": {"serve": serve_s, "train": time.perf_counter() - t0 - serve_s}}
     return row, serve_launches, train_launches
 
 
@@ -1364,6 +1803,9 @@ def main() -> int:
               "from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # phase 8b holds kimi-k2's 72 GiB of f32 weights on an 80 GB card:
+    # segments that grow in place keep the allocator's fragments usable
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1454,6 +1896,12 @@ def main() -> int:
     emit(arch_row)
     results["arch"] = arch_row
 
+    # 8b. moe_ssm: mamba2 and zamba2 served at full config, grok-1 and kimi-k2
+    # at full width; three of them trained
+    moe_row, moe_serve_launches, moe_train_launches = phase_moe_ssm(torch, card)
+    emit(moe_row)
+    results["moe_ssm"] = moe_row
+
     # 9. selector: measure, train, save, load, select
     selector_row, artifacts, selector_launches = phase_selector(torch, card, out_dir)
     emit(selector_row)
@@ -1474,7 +1922,8 @@ def main() -> int:
     # the contract line: one row per kernel at a main-path shape; launches
     # are the sum over the paths: the serve path's kernel-policy run, the two
     # kernel-policy training runs, gemma3's kernel-policy serve run and the
-    # four architectures' fused-policy training runs, the selector's
+    # four architectures' fused-policy training runs, phase 8b's four
+    # kernel-policy serve runs and three fused-policy training runs, the selector's
     # measurements, the FCN runs and the runs under the learned policies
     # (each counted from 0)
     contract = {
@@ -1495,6 +1944,8 @@ def main() -> int:
                    "train": sum(train_launches[s][kname] for s in TRAIN_POLICIES.values()),
                    "arch_serve": arch_serve_launches[kname],
                    "arch_train": arch_train_launches[kname],
+                   "moe_ssm_serve": moe_serve_launches[kname],
+                   "moe_ssm_train": moe_train_launches[kname],
                    "selector_measure": selector_launches[kname],
                    "fcn": fcn_launches[kname],
                    "model_policy_serve": mp_serve_launches[kname],

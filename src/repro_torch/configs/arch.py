@@ -2,19 +2,21 @@
 
 ``segments`` is a tuple of ``(repeat, (BlockCfg, ...))``: the layer stack
 loops over each segment, one iteration applying the unit's blocks in
-order.  The fields are the JAX package's that the ported architectures
-set (MoE, SSM and sharding fields come with their subsystems).
+order.  The fields are the JAX package's that the architectures set
+(its sharding and accounting fields have no counterpart on one device).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 from repro_torch.models.blocks import BlockCfg
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.ssm import SSMConfig
 
-__all__ = ["ArchConfig", "BlockCfg"]
+__all__ = ["ArchConfig", "BlockCfg", "MoEConfig", "SSMConfig"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -43,6 +45,9 @@ class ArchConfig:
     tie_embeddings: bool = True
     emb_scale: bool = False
     vocab_pad: int = 256
+    # sub-layers
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     # modality
     input_mode: str = "tokens"  # tokens | frames (audio stub) | vlm (patch stub)
     prefix_len: int = 0  # vlm: bidirectional patch prefix
@@ -51,7 +56,7 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     # training: rematerialisation per layer unit and the optimizer
     remat: str = "full"  # none | full ('dots' is not ported)
-    optimizer: str = "adamw"  # adamw ('adafactor' is not ported)
+    optimizer: str = "adamw"  # adamw | adafactor (the MoE giants)
     # capability flags
     sub_quadratic: bool = False  # eligible for long_500k
 

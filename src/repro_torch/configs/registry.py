@@ -1,12 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution + smoke reductions.
 
-The port has the JAX package's six attention-only architectures:
+The port has the JAX package's ten architectures: the attention-only
 ``smollm-135m``, ``gemma3-4b``, ``gemma2-27b``, ``h2o-danube-3-4b``,
-``paligemma-3b`` (``vlm``) and ``musicgen-large`` (``frames``).  The four
-with MoE or Mamba blocks (``grok-1-314b``, ``kimi-k2-1t``, ``zamba2-7b``,
-``mamba2-2.7b``) raise ``KeyError`` naming the ROADMAP item.
-``smoke_config`` shrinks a full config to a CPU-runnable one of the same
-structure, with the JAX package's reductions.
+``paligemma-3b`` (``vlm``) and ``musicgen-large`` (``frames``); the MoE
+``grok-1-314b`` and ``kimi-k2-1t-a32b``; the Mamba-2 ``mamba2-2.7b``; and
+the hybrid ``zamba2-7b``.  ``smoke_config`` shrinks a full config to a
+CPU-runnable one of the same structure, with the JAX package's
+reductions.
 """
 
 from __future__ import annotations
@@ -17,27 +17,29 @@ from typing import Dict, List
 from . import (
     gemma2_27b,
     gemma3_4b,
+    grok_1_314b,
     h2o_danube3_4b,
+    kimi_k2_1t,
+    mamba2_2p7b,
     musicgen_large,
     paligemma_3b,
     smollm_135m,
+    zamba2_7b,
 )
-from .arch import ArchConfig
+from .arch import ArchConfig, MoEConfig, SSMConfig
 
 __all__ = ["ARCHS", "get_config", "list_archs", "smoke_config"]
 
 ARCHS: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (gemma2_27b, gemma3_4b, h2o_danube3_4b, smollm_135m, musicgen_large, paligemma_3b)
+    for m in (gemma2_27b, gemma3_4b, h2o_danube3_4b, smollm_135m, kimi_k2_1t, grok_1_314b,
+              zamba2_7b, musicgen_large, paligemma_3b, mamba2_2p7b)
 }
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
-        raise KeyError(
-            f"arch {name!r} is not ported; have {sorted(ARCHS)} (the MoE and "
-            "SSM architectures wait on ROADMAP.md queue A, 'MoE and SSM')"
-        )
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]
 
 
@@ -63,7 +65,7 @@ def smoke_config(name: str) -> ArchConfig:
     full = get_config(name)
     kw = dict(
         d_model=64,
-        d_ff=128,
+        d_ff=128 if full.d_ff else 0,
         vocab=97,  # deliberately ragged: exercises vocab padding
         vocab_pad=16,
         segments=_shrink_segments(full.segments),
@@ -72,12 +74,20 @@ def smoke_config(name: str) -> ArchConfig:
         remat="none",
         optimizer="adamw",
     )
-    if full.n_kv == 1:
-        kw.update(n_heads=4, n_kv=1, d_head=16)  # keep MQA
-    elif full.n_kv == full.n_heads:
-        kw.update(n_heads=4, n_kv=4, d_head=16)  # keep MHA
-    else:
-        kw.update(n_heads=4, n_kv=2, d_head=16)  # keep GQA
+    if full.n_heads:
+        if full.n_kv == 1:
+            kw.update(n_heads=4, n_kv=1, d_head=16)  # keep MQA
+        elif full.n_kv == full.n_heads:
+            kw.update(n_heads=4, n_kv=4, d_head=16)  # keep MHA
+        else:
+            kw.update(n_heads=4, n_kv=2, d_head=16)  # keep GQA
+    if full.moe is not None:
+        kw["moe"] = MoEConfig(
+            d_model=64, d_ff=32, n_experts=4, top_k=min(full.moe.top_k, 2), group=16,
+            capacity_factor=2.0, shard=full.moe.shard,
+        )
+    if full.ssm is not None:
+        kw["ssm"] = SSMConfig(d_model=64, d_state=16, d_conv=4, expand=2, head_dim=16, chunk=8)
     if full.input_mode == "vlm":
         kw["prefix_len"] = 4
     return full.replace(**kw)

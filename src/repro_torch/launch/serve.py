@@ -11,10 +11,12 @@ throughput, latency, health and per-class dispatch reports:
       --class-policy bulk=fixed:nt=PALLAS_NT,attn=fused
 
 ``--arch`` takes every token architecture of the port (``smollm-135m``,
-``gemma3-4b``, ``gemma2-27b``, ``h2o-danube-3-4b``); the engine rejects
+``gemma3-4b``, ``gemma2-27b``, ``h2o-danube-3-4b``, ``grok-1-314b``,
+``kimi-k2-1t-a32b``, ``mamba2-2.7b``, ``zamba2-7b``); the engine rejects
 the ``frames`` and ``vlm`` ones, as the JAX engine does.  A windowed
 architecture's prompts bucket to multiples of its window (1024 for
-gemma3-4b), so ``--max-seq`` must hold one such bucket plus ``--gen``.
+gemma3-4b), so ``--max-seq`` must hold one such bucket plus ``--gen``;
+the Mamba ones (mamba2, zamba2) prefill each prompt at its exact length.
 Only the JAX launcher's engine mode is ported: there is no ``--legacy``
 or ``--chaos``, and ``--mesh`` takes ``1x1`` only.  ``--device`` defaults
 to ``cuda`` and raises when there is no card.  ``--layers`` cuts the

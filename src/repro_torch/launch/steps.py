@@ -1,6 +1,6 @@
 """The train step: gradient accumulation over microbatches with f32
-accumulators, global-norm clipping, the LR schedule and AdamW, on one
-device.
+accumulators, global-norm clipping, the LR schedule and the config's
+optimizer (AdamW, or Adafactor for the MoE giants), on one device.
 
 ``make_train_step(cfg, step_cfg, policy)`` returns ``train_step(state,
 batch) -> (state, metrics)``.  The state is ``{"params", "opt", "step"}``

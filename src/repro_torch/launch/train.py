@@ -16,7 +16,8 @@ Example (CPU, reduced config):
 
 ``--arch`` takes every architecture of the port, the ``frames``
 (musicgen-large) and ``vlm`` (paligemma-3b, whose ``--seq`` counts its
-patch prefix) ones included.  The JAX launcher's flags, except that
+patch prefix) ones included; each trains with the optimizer its config
+names (Adafactor for grok-1-314b and kimi-k2-1t-a32b, else AdamW).  The JAX launcher's flags, except that
 ``--mesh`` takes ``1x1`` only and there is no ``--chaos``.  ``--device`` defaults to ``cuda`` and raises
 when there is no card; ``--layers`` cuts the depth and ``--dtype`` sets
 the parameter dtype; weights are random from ``--seed``.  The default

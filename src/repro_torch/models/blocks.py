@@ -1,9 +1,8 @@
-"""Residual blocks: a pre-normed mixer + a pre-normed FFN, with optional
-post-norms.  This slice ports the attention mixer with the gated MLP
-(``BlockCfg("attn", "mlp")``, windowed or not); the Mamba-2 and shared
-attention mixers and the MoE FFN raise ``NotImplementedError`` (ROADMAP
-queue A, "MoE and SSM").  Layer params stack along a leading axis (the
-JAX package's scan layout); ``lm.py`` loops over it.
+"""Residual blocks: a pre-normed mixer (attention, Mamba-2 SSD, or
+Zamba-style *shared* attention whose weights live in the model-level
+``shared`` slot) and an optional pre-normed FFN (gated MLP or MoE), with
+optional post-norms (Gemma-2/3).  Layer params stack along a leading
+axis (the JAX package's scan layout); ``lm.py`` loops over it.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ from .attention import (
     init_attn_cache,
 )
 from .layers import Param, gated_mlp, init_gated_mlp, init_rmsnorm, rmsnorm
+from .moe import init_moe, moe_layer
+from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_layer
 
 __all__ = [
     "BlockCfg",
@@ -34,17 +35,9 @@ __all__ = [
 
 @dataclass(frozen=True)
 class BlockCfg:
-    mixer: str  # 'attn' (this slice) | 'mamba' | 'shared_attn'
-    ffn: str = "mlp"  # 'mlp' (this slice) | 'moe' | 'none'
+    mixer: str  # 'attn' | 'mamba' | 'shared_attn'
+    ffn: str = "mlp"  # 'mlp' | 'moe' | 'none'
     window: Optional[int] = None  # sliding window for attn mixers
-
-
-def check_block(b: BlockCfg) -> None:
-    if b.mixer != "attn" or b.ffn != "mlp":
-        raise NotImplementedError(
-            f"block {b} is not ported: this slice runs BlockCfg('attn', 'mlp') "
-            "only (ROADMAP.md queue A, 'MoE and SSM')"
-        )
 
 
 def _attn_cfg(b: BlockCfg, mc) -> AttnConfig:
@@ -64,20 +57,33 @@ def _attn_cfg(b: BlockCfg, mc) -> AttnConfig:
 def init_block(gen: torch.Generator, b: BlockCfg, mc, dtype=torch.float32,
                device="cpu") -> Param:
     """mc: the ArchConfig."""
-    check_block(b)
     p: Param = {"ln1": init_rmsnorm(mc.d_model, dtype, device)}
-    p["attn"] = init_attention(gen, _attn_cfg(b, mc), dtype, device)
+    if b.mixer == "attn":
+        p["attn"] = init_attention(gen, _attn_cfg(b, mc), dtype, device)
+    elif b.mixer == "mamba":
+        p["ssm"] = init_ssm(gen, mc.ssm, dtype, device)
+    elif b.mixer != "shared_attn":  # shared attention's weights live in lm's 'shared'
+        raise ValueError(f"unknown mixer {b.mixer!r}")
     if mc.post_norm:
         p["ln1b"] = init_rmsnorm(mc.d_model, dtype, device)
-    p["ln2"] = init_rmsnorm(mc.d_model, dtype, device)
-    p["mlp"] = init_gated_mlp(gen, mc.d_model, mc.d_ff, dtype, device)
-    if mc.post_norm:
-        p["ln2b"] = init_rmsnorm(mc.d_model, dtype, device)
+    if b.ffn != "none":
+        p["ln2"] = init_rmsnorm(mc.d_model, dtype, device)
+        if b.ffn == "mlp":
+            p["mlp"] = init_gated_mlp(gen, mc.d_model, mc.d_ff, dtype, device)
+        elif b.ffn == "moe":
+            p["moe"] = init_moe(gen, mc.moe, dtype, device)
+        else:
+            raise ValueError(f"unknown ffn {b.ffn!r}")
+        if mc.post_norm:
+            p["ln2b"] = init_rmsnorm(mc.d_model, dtype, device)
     return p
 
 
-def _ffn(p: Param, x: torch.Tensor, mc) -> torch.Tensor:
-    h = gated_mlp(p["mlp"], rmsnorm(p["ln2"], x), mc.activation)
+def _ffn(p: Param, x: torch.Tensor, b: BlockCfg, mc) -> torch.Tensor:
+    if b.ffn == "none":
+        return x
+    h = rmsnorm(p["ln2"], x)
+    h = gated_mlp(p["mlp"], h, mc.activation) if b.ffn == "mlp" else moe_layer(p["moe"], h, mc.moe)
     if mc.post_norm:
         h = rmsnorm(p["ln2b"], h)
     return x + h
@@ -89,11 +95,18 @@ def _residual(p: Param, x: torch.Tensor, h: torch.Tensor, mc) -> torch.Tensor:
     return x + h
 
 
-def apply_block(p: Param, x: torch.Tensor, b: BlockCfg, mc, positions=None,
-                prefix_len: int = 0) -> torch.Tensor:
-    check_block(b)
-    h = attention(p["attn"], rmsnorm(p["ln1"], x), _attn_cfg(b, mc), positions, prefix_len)
-    return _ffn(p, _residual(p, x, h, mc), mc)
+def _attn_params(p: Param, b: BlockCfg, shared: Optional[Param]) -> Param:
+    return p["attn"] if b.mixer == "attn" else shared["attn"]
+
+
+def apply_block(p: Param, x: torch.Tensor, b: BlockCfg, mc, shared: Optional[Param] = None,
+                positions=None, prefix_len: int = 0) -> torch.Tensor:
+    h = rmsnorm(p["ln1"], x)
+    if b.mixer == "mamba":
+        h = ssm_layer(p["ssm"], h, mc.ssm)
+    else:
+        h = attention(_attn_params(p, b, shared), h, _attn_cfg(b, mc), positions, prefix_len)
+    return _ffn(p, _residual(p, x, h, mc), b, mc)
 
 
 def prefill_block(
@@ -102,19 +115,28 @@ def prefill_block(
     b: BlockCfg,
     mc,
     max_seq: int,
+    shared: Optional[Param] = None,
     positions=None,
     prefix_len: int = 0,
     cache_dtype=torch.bfloat16,
     true_len=None,
 ):
-    """apply_block + build this layer's decode cache (``true_len`` marks a
-    right-padded prefill, see ``attention``)."""
-    check_block(b)
-    h, cache = attention(
-        p["attn"], rmsnorm(p["ln1"], x), _attn_cfg(b, mc), positions, prefix_len,
-        return_kv=True, max_seq=max_seq, cache_dtype=cache_dtype, true_len=true_len,
-    )
-    return _ffn(p, _residual(p, x, h, mc), mc), cache
+    """apply_block + build this layer's decode cache.
+
+    ``true_len`` marks a right-padded prefill (see ``attention``): the
+    attention cache is built over the real positions only.  SSM state is
+    cumulative over the whole padded sequence, so padded prefill is an
+    attention-only feature: the serving engine prefills SSM archs at exact
+    lengths."""
+    h = rmsnorm(p["ln1"], x)
+    if b.mixer == "mamba":
+        h, cache = ssm_layer(p["ssm"], h, mc.ssm, return_state=True, cache_dtype=cache_dtype)
+    else:
+        h, cache = attention(
+            _attn_params(p, b, shared), h, _attn_cfg(b, mc), positions, prefix_len,
+            return_kv=True, max_seq=max_seq, cache_dtype=cache_dtype, true_len=true_len,
+        )
+    return _ffn(p, _residual(p, x, h, mc), b, mc), cache
 
 
 # -- decode -------------------------------------------------------------------
@@ -122,12 +144,19 @@ def prefill_block(
 
 def init_block_cache(b: BlockCfg, mc, batch: int, max_seq: int, dtype=torch.bfloat16,
                      device="cpu"):
-    check_block(b)
+    if b.mixer == "mamba":
+        return init_ssm_cache(batch, mc.ssm, dtype, device)
     return init_attn_cache(batch, _attn_cfg(b, mc), max_seq, dtype, device)
 
 
-def decode_block(p: Param, x: torch.Tensor, b: BlockCfg, mc, cache, pos):
-    """One decode step of one block; the cache is updated in place."""
-    check_block(b)
-    h, cache = attention_decode(p["attn"], rmsnorm(p["ln1"], x), _attn_cfg(b, mc), cache, pos)
-    return _ffn(p, _residual(p, x, h, mc), mc), cache
+def decode_block(p: Param, x: torch.Tensor, b: BlockCfg, mc, cache, pos,
+                 shared: Optional[Param] = None):
+    """One decode step of one block.  An attention cache is updated in
+    place and returned; a Mamba block returns a new ``{"conv", "ssm"}``
+    cache, which the caller writes back."""
+    h = rmsnorm(p["ln1"], x)
+    if b.mixer == "mamba":
+        h, cache = ssm_decode(p["ssm"], h, mc.ssm, cache)
+    else:
+        h, cache = attention_decode(_attn_params(p, b, shared), h, _attn_cfg(b, mc), cache, pos)
+    return _ffn(p, _residual(p, x, h, mc), b, mc), cache

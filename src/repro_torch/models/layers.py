@@ -5,9 +5,10 @@ Which candidate runs it is decided by the scoped policy
 (``core.policy.use_policy``); layers take no selector argument.
 
 Parameters are plain dicts of tensors, the same tree as the JAX
-package's; initialisers draw from an explicit ``torch.Generator`` (on the
-CPU, so a seed gives the same weights on every device) and place the
-result on ``device``.
+package's; initialisers draw from an explicit ``torch.Generator`` on
+its own device (a CPU one gives the same weights on every device; a CUDA
+one draws billions of normals in seconds) and place the result on
+``device``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,13 @@ Param = Dict[str, Any]
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen) * std).to(device=device, dtype=dtype)
+    """N(0, std^2) drawn in f32 on the generator's device, then cast and
+    moved; on the ``meta`` device nothing is drawn (a tree of shapes and
+    dtypes only)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, device=gen.device).mul_(std)
+    return x.to(device=device, dtype=dtype)
 
 
 def init_dense(

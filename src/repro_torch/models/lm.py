@@ -1,6 +1,8 @@
-"""The decoder-only LM of the attention-only architectures.  The layer
+"""The decoder-only LM of all ten architectures: attention, Mamba-2 and
+Zamba-style shared-attention mixers, gated-MLP and MoE FFNs.  The layer
 stack is a Python loop over each config segment's stacked block params
-(the JAX package scans them).  Modalities, as in the JAX package:
+(the JAX package scans them); shared-attention blocks read the one
+unstacked ``params["shared"]["attn"]``.  Modalities, as in the JAX package:
 ``tokens`` (LMs), ``frames`` (musicgen: stub EnCodec frame embeddings
 enter directly) and ``vlm`` (paligemma: stub SigLIP patch embeddings
 prepended to the text as a bidirectional prefix of ``cfg.prefix_len``).
@@ -16,6 +18,8 @@ Entry points:
                  positions only under ``vlm``)
   lm_prefill     forward that also emits the decode cache
   lm_decode      one-token step against a cache, updated in place
+                 (attention writes its K/V row, a Mamba block copies its
+                 new conv and SSM state over the old)
   init_lm_cache  zero cache with the tree lm_prefill produces
 """
 
@@ -30,7 +34,9 @@ import torch.utils.checkpoint
 from repro_torch import resolve_device
 from repro_torch.core.policy import current_scope, resume_scope
 
+from .attention import init_attention
 from .blocks import (
+    _attn_cfg,
     apply_block,
     decode_block,
     init_block,
@@ -55,11 +61,19 @@ def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def _shared_block(cfg):
+    """The first shared-attention block of ``cfg``, or None."""
+    return next((b for _, bl in cfg.segments for b in bl if b.mixer == "shared_attn"), None)
+
+
 def init_lm(gen, cfg, *, device="cuda") -> Param:
     """Random params for ``cfg`` on ``device``.  ``gen`` is a
-    ``torch.Generator`` or an int seed (for a CPU generator, so a seed
-    gives the same weights on every device).  Raises ``RuntimeError`` if
-    CUDA is asked for and there is no card."""
+    ``torch.Generator`` (drawing on its own device) or an int seed (for a
+    CPU generator, so a seed gives the same weights on every device).
+    The router weights and the Mamba blocks' ``A_log``, ``D`` and
+    ``dt_bias`` are f32 whatever ``cfg.param_dtype`` is.  On the ``meta``
+    device nothing is drawn.  Raises ``RuntimeError`` if CUDA is asked for
+    and there is no card."""
     dev = resolve_device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(gen))
@@ -70,6 +84,9 @@ def init_lm(gen, cfg, *, device="cuda") -> Param:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab_padded, cfg.d_model, dt, dev)
+    shared_b = _shared_block(cfg)
+    if shared_b is not None:
+        params["shared"] = {"attn": init_attention(gen, _attn_cfg(shared_b, cfg), dt, dev)}
     segs = []
     for count, blocks in cfg.segments:
         slot_params = []
@@ -82,10 +99,13 @@ def init_lm(gen, cfg, *, device="cuda") -> Param:
 
 
 def _stack(trees):
-    """Stack a list of same-structure dicts of tensors along a new axis 0."""
+    """Stack a list of same-structure dicts of tensors along a new axis 0,
+    emptying the dicts as it goes, so each leaf's layers are freed once
+    stacked (a single layer becomes a view, no copy): the peak stays near
+    one copy of the tree."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(trees[0])}
+    return trees[0].unsqueeze(0) if len(trees) == 1 else torch.stack(trees)
 
 
 def _index(tree, i: int):
@@ -155,16 +175,17 @@ def _logits(params: Param, cfg, x: torch.Tensor) -> torch.Tensor:
 
 def lm_forward(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     x, prefix_len = _embed_input(params, cfg, batch)
+    shared = params.get("shared")
     for (count, blocks), slot_params in zip(cfg.segments, params["segments"]):
-        def unit(h, unit_params, _blocks=blocks):
+        def unit(h, unit_params, shared, _blocks=blocks):
             for b, bp in zip(_blocks, unit_params):
-                h = apply_block(bp, h, b, cfg, prefix_len=prefix_len)
+                h = apply_block(bp, h, b, cfg, shared, prefix_len=prefix_len)
             return h
 
         body = _remat_wrap(unit, cfg)
         layers = [_unstack(sp, count) for sp in slot_params]
         for i in range(count):
-            x = body(x, tuple(per_slot[i] for per_slot in layers))
+            x = body(x, tuple(per_slot[i] for per_slot in layers), shared)
     return _logits(params, cfg, x)
 
 
@@ -197,13 +218,14 @@ def lm_prefill(
     logits come from each row's real last position and the cache's
     ``pos`` starts at ``true_len``."""
     x, prefix_len = _embed_input(params, cfg, batch)
+    shared = params.get("shared")
     caches = []
     for (count, blocks), slot_params in zip(cfg.segments, params["segments"]):
         per_slot = [[] for _ in blocks]
         for i in range(count):
             for j, (b, sp) in enumerate(zip(blocks, slot_params)):
                 x, c = prefill_block(
-                    _index(sp, i), x, b, cfg, max_seq, prefix_len=prefix_len,
+                    _index(sp, i), x, b, cfg, max_seq, shared, prefix_len=prefix_len,
                     cache_dtype=cache_dtype, true_len=true_len,
                 )
                 per_slot[j].append(c)
@@ -226,9 +248,11 @@ def lm_prefill(
 def init_lm_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                   per_seq_pos: bool = False, device="cuda"):
     """Zero cache on ``device`` with the tree lm_prefill produces: per
-    segment, one ``{"k", "v"}`` dict per block slot with leaves (layers,
-    batch, slots, kv, dh).  ``per_seq_pos`` makes ``pos`` a ``(batch,)``
-    vector."""
+    segment, one dict per block slot, ``{"k", "v"}`` with leaves (layers,
+    batch, slots, kv, dh) for attention or ``{"conv", "ssm"}`` with leaves
+    (layers, batch, d_conv - 1, d_inner) and (layers, batch, heads,
+    head_dim, d_state) for Mamba.  ``per_seq_pos`` makes ``pos`` a
+    ``(batch,)`` vector."""
     device = resolve_device(device)
     caches = []
     for count, blocks in cfg.segments:
@@ -247,18 +271,24 @@ def lm_decode(params: Param, cfg, cache, batch: Dict[str, torch.Tensor]):
 
     Returns (logits (B, 1, V), cache with pos + 1).  ``cache['pos']`` may
     be a scalar (uniform batch) or a ``(B,)`` vector (each row decodes at
-    its own position).  The cache tensors are updated in place: the
-    returned cache holds the same tensors."""
+    its own position).  The cache tensors are updated in place, a Mamba
+    block's new state copied over its old: the returned cache holds the
+    same tensors."""
     pos = cache["pos"]
     if cfg.input_mode == "frames":
         x = batch["frames"].to(_dtype(cfg))
     else:
         x = embed(params["embed"], batch["tokens"], cfg.emb_scale)
+    shared = params.get("shared")
     for (count, blocks), slot_params, seg_cache in zip(
         cfg.segments, params["segments"], cache["segments"]
     ):
         for i in range(count):
             for b, sp, sc in zip(blocks, slot_params, seg_cache):
-                x, _ = decode_block(_index(sp, i), x, b, cfg, _index(sc, i), pos)
+                old = _index(sc, i)
+                x, new = decode_block(_index(sp, i), x, b, cfg, old, pos, shared)
+                if new is not old:  # a Mamba block's new state
+                    for k, leaf in new.items():
+                        old[k].copy_(leaf)
     logits = _logits(params, cfg, x)
     return logits, {"segments": cache["segments"], "pos": pos + 1}

@@ -3,8 +3,8 @@
 Functional, as in the JAX package: an update takes the gradients, the
 state and the params and returns new params and a new state; nothing is
 updated in place.  Param trees are the model's dicts, lists and tuples of
-tensors.  Adafactor is not ported (ROADMAP.md queue A): smollm trains
-with AdamW.
+tensors.  AdamW, and Adafactor for the configs that name it (grok-1,
+kimi-k2).
 """
 
 from __future__ import annotations
@@ -13,12 +13,15 @@ from typing import Callable, Tuple
 
 import torch
 
+from .adafactor import adafactor_init, adafactor_update
 from .adamw import adamw_init, adamw_update, tree_leaves, tree_map
 from .schedule import constant, warmup_cosine, warmup_linear
 
 __all__ = [
     "adamw_init",
     "adamw_update",
+    "adafactor_init",
+    "adafactor_update",
     "warmup_cosine",
     "warmup_linear",
     "constant",
@@ -42,8 +45,5 @@ def make_optimizer(name: str, **kw) -> Tuple[Callable, Callable]:
     if name == "adamw":
         return adamw_init, lambda g, s, p, lr: adamw_update(g, s, p, lr, **kw)
     if name == "adafactor":
-        raise NotImplementedError(
-            "the adafactor optimizer is not ported (ROADMAP.md queue A); "
-            "smollm-135m trains with adamw"
-        )
+        return adafactor_init, lambda g, s, p, lr: adafactor_update(g, s, p, lr, **kw)
     raise ValueError(f"unknown optimizer {name!r}")

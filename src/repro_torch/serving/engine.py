@@ -22,7 +22,10 @@ raises evicts the requests of that batch, counts a ``crashed_steps`` and
 the engine keeps serving.  A caller that must not tolerate a crash (a
 smoke test, a benchmark) checks ``health()["crashed_steps"] == 0``.
 Decode batches are bucketed (``buckets.BucketSpec``): padding rows point
-at the cache's null slot with length 0.
+at the cache's null slot with length 0.  Prompts bucket too, except for
+architectures with Mamba blocks (``exact_prefill``): an SSM state sums
+over every position of a right-padded prompt, so they prefill at each
+prompt's exact length.
 """
 
 from __future__ import annotations
@@ -154,6 +157,10 @@ class ServeEngine:
                 f"largest batch bucket {self.buckets.batch_buckets[-1]} "
                 f"exceeds slot count {n_slots}"
             )
+        # SSM state is cumulative over the padded tail, so padded prefill is
+        # attention-only; SSM archs prefill at exact lengths
+        self.exact_prefill = any(b.mixer == "mamba" for _, blocks in cfg.segments
+                                 for b in blocks)
         self.budget_tokens = int(budget_tokens) if budget_tokens else n_slots * self.max_seq
         self.max_queue = int(max_queue) if max_queue else 8 * n_slots
         # graceful-degradation counters (health())
@@ -225,7 +232,8 @@ class ServeEngine:
                 f"request needs {tokens.size} + {max_new} tokens; cache "
                 f"slots hold max_seq={self.max_seq}"
             )
-        self.buckets.bucket_len(tokens.size)  # fail fast on oversize
+        if not self.exact_prefill:
+            self.buckets.bucket_len(tokens.size)  # fail fast on oversize
         if deadline_s is not None and deadline_s < 0:
             raise ValueError(f"deadline_s must be >= 0, got {deadline_s}")
         req = Request(
@@ -295,7 +303,8 @@ class ServeEngine:
             req.state = RequestState.ACTIVE
             req.admit_step = self.clock
             P = req.prompt_len
-            padded = np.zeros((1, self.buckets.bucket_len(P)), np.int64)
+            Lb = P if self.exact_prefill else self.buckets.bucket_len(P)
+            padded = np.zeros((1, Lb), np.int64)
             padded[0, :P] = req.tokens
             t0 = time.perf_counter()
             try:
@@ -404,8 +413,9 @@ class ServeEngine:
     def warmup(self) -> Dict[str, int]:
         """Run every bucketed shape once under every class policy before
         traffic: every decode-batch bucket (all rows on the null slot) and
-        every prefill-length bucket.  This builds the kernels and warms
-        the libraries, so no request pays for it."""
+        every prefill-length bucket (none under ``exact_prefill``, whose
+        prompt lengths are not known ahead).  This builds the kernels and
+        warms the libraries, so no request pays for it."""
         n_shapes = 0
         for cls in sorted(self.policies):
             for Bb in self.buckets.decode_batches:
@@ -414,7 +424,7 @@ class ServeEngine:
                 zeros = torch.zeros((Bb,), dtype=torch.long, device=self.device)
                 self._decode_step(cls, zeros[:, None], null, zeros)
                 n_shapes += 1
-            for Lb in self.buckets.prefill_lens:
+            for Lb in () if self.exact_prefill else self.buckets.prefill_lens:
                 tokens = torch.zeros((1, Lb), dtype=torch.long, device=self.device)
                 self._prefill_step(cls, tokens, Lb)
                 n_shapes += 1

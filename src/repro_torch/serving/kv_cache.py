@@ -2,8 +2,10 @@
 
 One device-resident cache tree (the ``segments`` half of
 ``models/lm.py::init_lm_cache``) holds ``n_slots + 1`` sequences: every
-leaf is ``(layers, n_slots + 1, slots, kv, dh)`` with the sequence axis at
-position 1.  A request is admitted by allocating a slot and copying its
+leaf has the sequence axis at position 1 -- ``(layers, n_slots + 1,
+slots, kv, dh)`` for attention K/V, and for a Mamba block's state, which
+has no position axis, ``(layers, n_slots + 1, d_conv - 1, d_inner)`` and
+``(layers, n_slots + 1, heads, head_dim, d_state)``.  A request is admitted by allocating a slot and copying its
 (batch=1) prefill cache into that row; it is evicted by freeing the slot.
 Every slot carries its own write position (``lengths``).
 
@@ -80,9 +82,10 @@ class PagedKVCache:
         return slot
 
     def free(self, slot: int) -> None:
-        """Release a slot back to the pool.  The KV rows stay in place --
-        the next occupant's prefill overwrites them, and until then its
-        zero length masks every stale position."""
+        """Release a slot back to the pool.  The rows stay in place: the
+        next occupant's ``insert`` overwrites every leaf of its row, the
+        SSM state whole, and until then a zero length masks every stale
+        K/V position."""
         with self._lock:
             if slot not in self.owner:
                 raise KeyError(f"slot {slot} is not allocated")

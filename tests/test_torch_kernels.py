@@ -936,3 +936,85 @@ def test_training_gradients_on_card_match_the_cpu(cuda, spec):
     torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
     for a, b in zip(tree_leaves(g_g), tree_leaves(g_c)):
         assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm()) + 1e-12
+
+
+# -- on the card: the MoE, Mamba-2 and Zamba2 shapes ----------------------------
+
+def _poisoned(shape, dtype, device, gen):
+    """A seeded operand whose allocation runs on past its last element
+    into NaN: a kernel that reads beyond the operand's extent and lets what
+    it read reach a valid output (a k-tail zeroed by multiplying, say)
+    gives NaN there."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 4096,), float("nan"), device=device, dtype=dtype)
+    buf[:n] = torch.randn(n, device=device, generator=gen).to(dtype)
+    return buf[:n].view(shape)
+
+
+# (m, n, k): the Mamba blocks' skinny projections -- dt (n 80 for mamba2,
+# 112 for zamba2) and B/C (n 128, 64) -- at decode bucket 4 and at exact
+# ragged prefill lengths (777, 1000), and the training backward's GEMMs
+# with those widths as k (data gradients) or m (the TN weight gradients'
+# NN); in f32 the MoE routers (n 8 for grok-1, 384 for kimi-k2) and their
+# gradients
+MOE_SSM_GEMMS = {
+    "bfloat16": ((4, 80, 2560), (777, 80, 2560), (1024, 80, 2560), (4, 128, 2560),
+                 (777, 128, 2560), (4, 112, 3584), (1000, 112, 3584), (4, 64, 3584),
+                 (1000, 64, 3584), (1024, 2560, 80), (80, 2560, 1024), (1024, 3584, 112),
+                 (112, 3584, 1024), (64, 3584, 1000)),
+    "float32": ((4, 8, 6144), (777, 8, 6144), (1024, 8, 6144), (4, 384, 7168),
+                (1000, 384, 7168), (1024, 6144, 8), (8, 6144, 1024), (384, 7168, 1000)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,m,n,k", [(d, *s) for d, shapes in MOE_SSM_GEMMS.items()
+                                          for s in shapes])
+def test_gemm_kernels_at_the_moe_and_ssm_shapes_on_card(cuda, dtype, m, n, k):
+    """Direct NT, TNN (transpose + NN), NN and fused TNN, one launch each,
+    on NaN-poisoned operands, against the plain versions."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + n * 3 + k)
+    a, w = _poisoned((m, k), dt, cuda, gen), _poisoned((n, k), dt, cuda, gen)
+    wt = _poisoned((k, n), dt, cuda, gen)
+    wt.copy_(w.t())
+    tol = _tol(dtype, k)
+    want_nt, want_nn = ref.matmul_nt(a, w).float(), ref.matmul_nn(a, wt).float()
+    reset_launches()
+    for name, out, want in (("nt", ops.matmul_nt(a, w), want_nt),
+                            ("tnn", ops.matmul_tnn(a, w), want_nt),
+                            ("nn", ops.matmul_nn(a, wt), want_nn),
+                            ("tnn_fused", ops.matmul_tnn_fused(a, w), want_nt)):
+        assert torch.isfinite(out).all(), name
+        torch.testing.assert_close(out.float(), want, **tol, msg=lambda s: f"{name}: {s}")
+    assert (LAUNCHES["matmul_nt"], LAUNCHES["transpose"], LAUNCHES["matmul_nn"],
+            LAUNCHES["matmul_tnn_fused"]) == (1, 1, 2, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,m,n,dh,kw", [
+    (32, 777, 777, 112, dict(causal=True, q_seg=777)),  # zamba2's exact prefills (fma)
+    (32, 1000, 1000, 112, dict(causal=True, q_seg=1000)),
+    (128, 1, 2048, 112, dict()),  # its decode: bucket 4 x 32 heads (decode_split)
+    (8, 6144, 1024, 128, dict(causal=True, q_seg=1024)),  # grok-1: 8 kv, fold 6 (flash)
+    (8, 6 * 777, 777, 128, dict(causal=True, q_seg=777)),
+    (32, 8, 2048, 128, dict()),  # kimi-k2's decode: 4 x 8 kv, fold 8
+])
+def test_attention_at_the_moe_and_hybrid_shapes_on_card(cuda, g, m, n, dh, kw, dtype):
+    """Every route of the new shapes, with NaN in K and V beyond ragged
+    lengths (exact ones for the causal prefills, whose rows see every
+    earlier key)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(g + m + n)
+    q, k, v = (torch.randn(g, s, dh, device=cuda, generator=gen).mul(0.3).to(dt)
+               for s in (m, n, n))
+    if kw:
+        lengths = torch.full((g,), n, device=cuda, dtype=torch.int32)
+    else:
+        lengths = torch.randint(1, n + 1, (g,), device=cuda, dtype=torch.int32, generator=gen)
+        for i, length in enumerate(lengths.tolist()):
+            k[i, length:] = float("nan")
+            v[i, length:] = float("nan")
+    out = _check_attention_on_card(q, k, v, lengths, MaskParams(**kw), dtype)
+    assert torch.isfinite(out).all()

@@ -4,8 +4,9 @@ then ``lm_prefill`` logits and caches and several ``lm_decode`` steps
 must agree under both kernel policies and the library policy (the JAX
 side runs its Pallas kernels in interpret mode; the port's kernel arms
 run their plain versions on the CPU).  The configs: tiny ones, and the
-smoke configs of every ported architecture that decodes (the token
-models, and musicgen-large decoding ``frames``).
+smoke configs of every architecture that decodes (the token models, the
+MoE, Mamba-2 and Zamba2 hybrid ones among them, and musicgen-large
+decoding ``frames``).
 
 Tolerance: f32, ``rtol = atol = 1e-4``.  The two frameworks sum GEMMs of
 k <= 128 in another order and round RoPE's sin/cos and the softmax exp
@@ -31,7 +32,7 @@ from repro.configs.arch import BlockCfg as JBlockCfg  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.configs.arch import ArchConfig, BlockCfg  # noqa: E402
+from repro_torch.configs.arch import ArchConfig, BlockCfg, MoEConfig, SSMConfig  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -52,10 +53,14 @@ TINY_GLOBAL_CHUNKED = TINY_WINDOWED.replace(
 )
 # every architecture of the port, and the ones that decode beside smollm:
 # gemma3's 5:1 local:global pattern with QK-norm and post-norms, gemma2's
-# soft-caps, h2o-danube's sliding window, musicgen's frames
+# soft-caps, h2o-danube's sliding window, musicgen's frames, the MoE FFNs
+# of grok-1 (top-2 of 4 at smoke size) and kimi-k2, mamba2's SSD blocks
+# and zamba2's Mamba blocks around one shared attention block
+MOE_SSM_ARCHS = ["grok-1-314b", "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-7b"]
 ARCHS = ["gemma2-27b", "gemma3-4b", "h2o-danube-3-4b", "musicgen-large", "paligemma-3b",
-         "smollm-135m"]
-DECODE_ARCHS = ["gemma3-4b", "gemma2-27b", "h2o-danube-3-4b", "musicgen-large"]
+         "smollm-135m", *MOE_SSM_ARCHS]
+DECODE_ARCHS = ["gemma3-4b", "gemma2-27b", "h2o-danube-3-4b", "musicgen-large",
+                *MOE_SSM_ARCHS]
 
 
 def to_port_cfg(jcfg) -> ArchConfig:
@@ -65,6 +70,9 @@ def to_port_cfg(jcfg) -> ArchConfig:
         (count, tuple(BlockCfg(b.mixer, b.ffn, b.window) for b in blocks))
         for count, blocks in jcfg.segments
     )
+    for name, port_cls in (("moe", MoEConfig), ("ssm", SSMConfig)):
+        if kw[name] is not None:
+            kw[name] = port_cls(**dataclasses.asdict(kw[name]))
     return ArchConfig(**kw)
 
 
@@ -90,10 +98,10 @@ def model_input(cfg, rng, B, S):
 
 
 def _cache_leaves_np(cache):
+    """K/V or conv/SSM leaves of every block slot, in one order for both."""
     if isinstance(cache, dict) and "segments" in cache:
         cache = cache["segments"]
-    return [_np(leaf) for seg in cache for slot in seg for leaf in
-            (slot["k"], slot["v"])]
+    return [_np(slot[k]) for seg in cache for slot in seg for k in sorted(slot)]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -221,10 +229,13 @@ def test_padded_prefill_with_true_len_matches_jax(jcfg):
 
 
 @pytest.mark.parametrize("jcfg", [TINY_GLOBAL_CHUNKED, j_smoke_config("musicgen-large"),
-                                  j_smoke_config("paligemma-3b")], ids=lambda c: c.name)
+                                  j_smoke_config("paligemma-3b"),
+                                  *(j_smoke_config(a) for a in MOE_SSM_ARCHS)],
+                         ids=lambda c: c.name)
 def test_lm_forward_matches_jax(jcfg):
-    """Full-sequence logits: tokens, ``frames`` entering directly, and
-    ``vlm`` patches ahead of the text under the prefix mask."""
+    """Full-sequence logits: tokens, ``frames`` entering directly, ``vlm``
+    patches ahead of the text under the prefix mask, and the MoE and
+    Mamba blocks (16 positions: two SSD chunks of 8, one MoE group)."""
     cfg = to_port_cfg(jcfg)
     jparams, params = converted_params(jcfg, seed=2)
     batch = model_input(cfg, np.random.RandomState(2), 2, 16)
@@ -234,12 +245,3 @@ def test_lm_forward_matches_jax(jcfg):
         got = lm.lm_forward(params, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert got.shape == (2, 16, cfg.vocab_padded)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
-
-
-@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-2.7b"])
-def test_unported_blocks_raise(arch):
-    cfg = to_port_cfg(TINY_WINDOWED).replace(segments=((1, (BlockCfg("mamba", "none"),)),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_lm(0, cfg, device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        smoke_config(arch)

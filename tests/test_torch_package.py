@@ -113,7 +113,9 @@ def test_train_launcher_default_policy_names_the_roadmap_item():
 
 @pytest.mark.parametrize("arch,keys", [("musicgen-large", {"frames", "labels"}),
                                        ("paligemma-3b", {"patches", "tokens", "labels"}),
-                                       ("gemma3-4b", {"tokens", "labels"})])
+                                       ("gemma3-4b", {"tokens", "labels"}),
+                                       ("grok-1-314b", {"tokens", "labels"}),
+                                       ("zamba2-7b", {"tokens", "labels"})])
 def test_train_launcher_takes_every_architecture(arch, keys, monkeypatch):
     """``--arch`` trains the frames and vlm models too: their f32 frames
     and patches reach the model as floats, token ids as int64."""
@@ -134,7 +136,8 @@ def test_train_launcher_takes_every_architecture(arch, keys, monkeypatch):
         assert dtype == (torch.float32 if k in ("frames", "patches") else torch.int64)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma2-27b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma2-27b", "h2o-danube-3-4b", "grok-1-314b",
+                                  "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-7b"])
 def test_launcher_serves_the_token_architectures_on_cpu(arch):
     engine = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
                          "--prompt-len", "20", "--gen", "4", "--slots", "2", "--max-seq", "32",

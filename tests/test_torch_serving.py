@@ -285,3 +285,45 @@ def test_kv_cache_insert_requires_allocation():
         kv.insert({"segments": []}, 0, 3)
     with pytest.raises(ValueError):
         PagedKVCache(to_port_cfg(TINY), n_slots=0, max_seq=16, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_mamba_architectures_prefill_at_exact_lengths_and_match_jax_engine(arch):
+    """mamba2's SSD blocks and zamba2's Mamba blocks around a shared
+    attention block, at their smoke sizes (chunk 8): an SSM state sums
+    over every position, so both engines prefill each prompt (1-13
+    tokens: the conv cache's pad branch, one chunk, the ragged fallback)
+    at its exact length, warm up no prefill bucket, and admit a prompt
+    longer than any bucket; greedy tokens equal the JAX engine's."""
+    jcfg = j_smoke_config(arch)
+    cfg = to_port_cfg(jcfg)
+    jparams, params = converted_params(jcfg)
+    max_seq = 32
+    policies = {cls: engine.policy_from_spec(s) for cls, s in KERNEL_POLICIES.items()}
+    eng = ServeEngine(cfg, params, n_slots=4, max_seq=max_seq, policies=policies,
+                      cache_dtype=torch.float32, device="cpu",
+                      bucket_spec=default_buckets(4, 8))
+    jeng = JServeEngine(jcfg, jparams, n_slots=4, max_seq=max_seq, cache_dtype=jnp.float32,
+                        bucket_spec=j_default_buckets(4, 8),
+                        policies={c: jengine.policy_from_spec("fixed:XLA_NT")
+                                  for c in KERNEL_POLICIES})
+    assert eng.exact_prefill and jeng.exact_prefill
+    assert eng.warmup() == {"shapes_run": 2 * len(eng.buckets.decode_batches)}
+    lens = []
+    step = eng._prefill_step
+    eng._prefill_step = lambda cls, tokens, true_len: (lens.append(
+        (tokens.shape[1], true_len)) or step(cls, tokens, true_len))
+    rng = np.random.RandomState(13)
+    prompt_lens = [1, 13, 3, 8, 2, 11]
+    classes = sorted(KERNEL_POLICIES)
+    for i, n in enumerate(prompt_lens):
+        prompt = rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+        jeng.submit(prompt, max_new=6, cls=classes[i % 2])
+        eng.submit(prompt, max_new=6, cls=classes[i % 2])
+    jeng.run()
+    eng.run()
+    assert lens == [(n, n) for n in prompt_lens]
+    assert eng.health() == jeng.health() and eng.health()["crashed_steps"] == 0
+    for rid, req in eng.requests.items():
+        assert req.state is RequestState.FINISHED
+        assert req.generated == jeng.requests[rid].generated, f"rid={rid}"

@@ -4,7 +4,8 @@ steps, under each of the three training policies (the port's kernel arms
 run their plain versions on the CPU) against JAX under ``fixed:XLA_NT``,
 for token models and for the ``frames`` (musicgen-large) and ``vlm``
 (paligemma-3b: patches ahead of the text, the loss on the text only)
-input modes; plus the port's own rules: remat, policy scope,
+input modes (``test_torch_train_moe_ssm.py`` runs these tests on the MoE,
+Mamba-2 and Zamba2 smoke configs); plus the port's own rules: remat, policy scope,
 accumulation, the checkpoint manager and a resumed launcher run.
 
 Tolerances, f32 throughout.  Loss: rtol 1e-5 (one mean over B*S
@@ -19,6 +20,14 @@ frameworks' sums into its leading digits: with torch.matmul on one side
 and XLA on the other, 2-3 entries of ~10^4 end 2-3 % of a step apart
 and every other entry within 0.1 %.  The optimizer alone, on identical
 gradients, is held to 1e-7.
+
+zamba2's smoke stack is the exception, held to wider bounds of its own
+(``WIDE``): its 8 Mamba blocks chain exponentials, its gradients reach
+O(1) (the embedding's largest entry is 7.9), and f32 runs of either
+package land 3e-5 of a leaf's largest entry from an f64 run of the port,
+so its leaves are held to 1e-4 of their largest entry; after three AdamW
+steps 6 of its 7168 embedding entries end 0.45 of a step apart, so its
+params are held to one step (lr).
 """
 
 import numpy as np
@@ -36,7 +45,6 @@ from repro.launch.steps import TrainStepConfig as JTrainStepConfig  # noqa: E402
 from repro.launch.steps import make_train_step as j_make_train_step  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
-from repro.optim import adamw_init as j_adamw_init  # noqa: E402
 from repro.optim import make_optimizer as j_make_optimizer  # noqa: E402
 from repro.optim import warmup_cosine as j_warmup_cosine  # noqa: E402
 from repro.optim import warmup_linear as j_warmup_linear  # noqa: E402
@@ -65,6 +73,7 @@ JCFGS = {"smollm-smoke": j_smoke_config("smollm-135m"), "tiny-windowed": TINY_WI
          "paligemma-smoke": j_smoke_config("paligemma-3b")}
 B, S = 2, 16
 STEP_CFG = dict(lr=1e-3, warmup=1, total_steps=3)
+WIDE = {"zamba2-smoke"}  # see the module docstring
 
 
 def _leaves(tree):
@@ -87,11 +96,22 @@ def _t(batch):
             for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module", params=sorted(JCFGS))
-def case(request):
+def _noise_rows(g):
+    """The rows of a factored leaf (ndim >= 2) whose step-0 gradient is
+    rounding noise: the router row of an expert no token chose (grok's
+    smoke batch leaves expert 0 unchosen; its row norm is 3e-10 against
+    4e-2).  Adafactor divides such a row by the root of its own mean
+    square, so both packages step it by O(1) in directions their rounding
+    picks; the three-step comparison leaves those rows out."""
+    if g.ndim < 2:
+        return np.zeros(g.shape, bool)
+    norms = np.linalg.norm(g, axis=-1, keepdims=True)
+    return np.broadcast_to(norms <= 1e-6 * norms.max(), g.shape)
+
+
+def make_case(name, jcfg):
     """One config: converted params, batches, and the JAX side's loss,
     gradients and three train steps under fixed:XLA_NT, each traced once."""
-    jcfg = JCFGS[request.param]
     cfg = to_port_cfg(jcfg)
     jparams, params = converted_params(jcfg, seed=3)
     batches = _batches(cfg, 3)
@@ -101,15 +121,20 @@ def case(request):
         jloss, jgrads = grad_fn(jparams, jax.tree.map(jnp.asarray, batches[0]))
     step = jax.jit(j_make_train_step(jcfg, JTrainStepConfig(**STEP_CFG), mesh=None,
                                      policy=jpol))
-    state = {"params": jparams, "opt": j_adamw_init(jparams),
+    state = {"params": jparams, "opt": j_make_optimizer(jcfg.optimizer)[0](jparams),
              "step": jnp.zeros((), jnp.int32)}
     jlosses = []
     for b in batches:
         state, metrics = step(state, jax.tree.map(jnp.asarray, b))
         jlosses.append(float(metrics["loss"]))
-    return dict(name=request.param, cfg=cfg, params=params, batches=batches,
+    return dict(name=name, cfg=cfg, params=params, batches=batches,
                 jloss=float(jloss), jgrads=_leaves(jgrads), jlosses=jlosses,
                 jparams_final=_leaves(state["params"]))
+
+
+@pytest.fixture(scope="module", params=sorted(JCFGS))
+def case(request):
+    return make_case(request.param, JCFGS[request.param])
 
 
 @pytest.mark.parametrize("jcfg,keys", [
@@ -136,12 +161,16 @@ def test_loss_and_grads_match_jax(case, spec):
     got = _leaves(grads)
     assert [g.shape for g in got] == [g.shape for g in case["jgrads"]]
     for g, want in zip(got, case["jgrads"]):
-        np.testing.assert_allclose(g, want, rtol=1e-5, atol=1e-5 * (B * S) ** 0.5)
+        atol = 1e-4 * np.abs(want).max() if case["name"] in WIDE else 1e-5 * (B * S) ** 0.5
+        np.testing.assert_allclose(g, want, rtol=1e-5, atol=atol)
     if spec != CUBLAS:  # every gradient GEMM went through the policy's arms
         ops = {op: (set(row), sum(row.values())) for op, row in pol.stats.by_op.items()}
         n_nt = ops["NT"][1]
         assert ops["NN"] == ({"PALLAS_NN"}, n_nt) and ops["TN"] == ({"PALLAS_TN"}, n_nt)
-        assert ops["BNT"][0] == {"PALLAS_BNT"} and ops["BNN"][0] == {"PALLAS_BNN"}
+        if case["cfg"].n_heads:  # the attention backward's batched GEMMs
+            assert ops["BNT"][0] == {"PALLAS_BNT"} and ops["BNN"][0] == {"PALLAS_BNN"}
+        else:
+            assert "BNT" not in ops and "BNN" not in ops
 
 
 @pytest.mark.parametrize("spec", POLICIES)
@@ -155,8 +184,10 @@ def test_three_train_steps_match_jax(case, spec):
         losses.append(float(metrics["loss"]))
     np.testing.assert_allclose(losses, case["jlosses"], rtol=1e-5)
     assert int(state["step"]) == 3
-    for p, want in zip(_leaves(state["params"]), case["jparams_final"]):
-        np.testing.assert_allclose(p, want, rtol=0, atol=0.1 * STEP_CFG["lr"])
+    for p, want, g in zip(_leaves(state["params"]), case["jparams_final"], case["jgrads"]):
+        keep = ~_noise_rows(g) if cfg.optimizer == "adafactor" else np.ones(g.shape, bool)
+        atol = STEP_CFG["lr"] * (1.0 if case["name"] in WIDE else 0.1)
+        np.testing.assert_allclose(p[keep], want[keep], rtol=0, atol=atol)
 
 
 def test_adamw_matches_jax_on_the_same_gradients():
@@ -264,8 +295,6 @@ def test_schedules_match_jax():
 
 
 def test_unported_training_options_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer("adafactor")
     cfg = to_port_cfg(TINY_WINDOWED).replace(remat="dots")
     _, params = converted_params(TINY_WINDOWED)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
