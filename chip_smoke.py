@@ -92,7 +92,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               and grok-1 (1 layer, Adafactor) at full width train as phase
               8a's four do (grok's logits over the tokens routed alike)
   9. selector  the paper's loop on the card: measure_candidates times every
-              NT, NN and TN candidate over {2^7..2^12}^3 (216 shapes per op;
+              NT, NN and TN candidate in device time (calls queued back to
+              back behind a sleep kernel) over {2^7..2^12}^3 (216 shapes per op;
               a cut of the paper's {2^7..2^16}^3, which
               `python -m repro_torch.benchmarks.table10_fcn --full` measures)
               in bf16 and in f32; per dtype the class balance, the 5-fold CV
@@ -118,6 +119,30 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               6 steps under model:build/selector_bf16.json with phase 7's
               gates against cuBLAS, ms/step and the dispatch report.  No
               check names a kernel here: the selector decides.
+ 12. tiles    the selector's tile dimension.  Every transpose instance
+              ((b_rows, b_cols) in {32, 64}^2) bit-exact, and every config of
+              each tunable kernel's space (kernels/tiling.py) within phase
+              3's tolerances, at phase 3's main-path shape and one ragged
+              shape per kernel, on operands whose storage runs on into NaN
+              (attention: NaN beyond ragged lengths), one launch per call
+              counted under the config; each config's event us, profiler
+              device us and queued device us (calls back to back behind a
+              sleep kernel) beside the default plan's.  measure_candidates(tune=True) in
+              device time over NT/NN/TN on {2^7..2^10}^3 in bf16, the tile
+              tables folded from it (which tile won against the default, and
+              its gain), the transpose instances tuned at the LM head, and a
+              k-way artifact over the three NT kernels with those tables:
+              its ModelPolicy must launch the table's tuned config (counted
+              per (kernel, config)).  smollm-135m at full config served under
+              autotune: every request finishes and cold_misses() is 0 for
+              every class after warmup
+ 13. bench    python -m repro_torch.benchmarks.run --only fig1,fig2,fig3,
+              table4,table6,fig4,table8,kway,policy_overhead,blocksweep on
+              phase 9's f32 grid (build/measured_f32.json, not measured
+              again), the dataset benchmarks again on its bf16 grid, and
+              kernel_sweep --quick in f32 and bf16: every benchmark
+              returns, no sweep cell disagrees with f64; each headline
+              printed beside the paper's (GTX 1080 / Titan X)
 
 The full results, every case included, go to ``build/chip_smoke.json``.
 
@@ -302,6 +327,26 @@ MOE_REROUTED_SHARE = 0.05
 SELECTOR_GRID = (7, 12)
 SELECTOR_DTYPES = {"bfloat16": "bf16", "float32": "f32"}
 CLOSE_PAIRS = 8  # NT shapes whose two arms are closest, timed on the device too
+# Phase 12: the tuned measurement's grid {2^7..2^10}^3 in bf16, and the
+# kernels whose tile spaces it holds against their plain versions: phase
+# 3's main-path case (the contract row's) and one ragged shape each.
+TUNED_GRID = (7, 10)
+TILE_SHAPES = {  # kernel: ((g, m, n, k), ...) main path first; attention: (g, m, n, dh)
+    "matmul_nt": ((1, 8, 49152, 576), (1, 5, 1531, 600)),
+    "matmul_nn": ((1, 8, 49152, 576), (1, 130, 1032, 600)),
+    "matmul_tnn_fused": ((1, 2048, 49152, 576), (1, 2047, 1000, 584)),
+    "matmul_bnt": ((24, 768, 256, 64), (24, 700, 250, 68)),
+    "matmul_bnn": ((24, 256, 64, 768), (24, 250, 68, 700)),
+    "attention_fused": ((12, 3, 512, 64), (32, 8, 2000, 128)),
+}
+TILE_DTYPES = {"matmul_bnt": "float32", "matmul_bnn": "float32"}  # the contract rows' dtypes
+TRANSPOSE_TILE_SHAPES = ((49152, 576), (1531, 577))
+NT_KERNEL_CANDIDATES = ("PALLAS_NT", "PALLAS_TNN", "PALLAS_TNN_FUSED")
+# Phase 13: the benchmarks it runs on phase 9's f32 grid, and the paper's
+# numbers (GTX 1080 / Titan X, f32, Caffe) printed beside the card's.
+BENCH_ONLY = "fig1,fig2,fig3,table4,table6,fig4,table8,kway,policy_overhead,blocksweep"
+BENCH_BF16 = "fig1,fig2,fig3,table4,table6,fig4,table8,kway"
+
 # Phase 10: the paper's Table X networks at their published widths, f32.
 FCN_NETS = ("mnist-3h", "synthetic-3h")
 FCN_BATCH, FCN_STEPS = 1024, 5
@@ -745,11 +790,11 @@ def nt_variant(torch, a, b):
 
 def nn_label(torch, a, b):
     """The NN kernel a call with these operands launches."""
-    from repro_torch.kernels.matmul_nn import nn_variant
+    from repro_torch.kernels.matmul_nn import nn_plan
 
     (m, k), n = a.shape, b.shape[1]
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    variant, bn, splits, _ = nn_variant(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms)
+    variant, bn, splits, _ = nn_plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms)
     label = {"wgmma": f"wgmma 128x{bn}", "skinny": "swap-AB mma.sync",
              "fma": "fma (matmul.cu)"}[variant]
     return f"{label}, split-k {splits}" if splits > 1 else label
@@ -757,12 +802,12 @@ def nn_label(torch, a, b):
 
 def batched_label(torch, a, b, nt):
     """The batched kernel a call with these operands launches."""
-    from repro_torch.kernels.matmul_batched import batched_variant
+    from repro_torch.kernels.matmul_batched import batched_plan
 
     g, m, k = a.shape
     n = b.shape[1] if nt else b.shape[2]
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    variant, splits, _ = batched_variant(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(),
+    variant, _, splits, _ = batched_plan(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(),
                                          sms)
     label = {"tiled": "tiled f32 64x64", "mma": "mma.sync 64x64", "fma": "fma"}[variant]
     return f"{label}, split-k {splits}" if splits > 1 else label
@@ -1577,8 +1622,9 @@ def pick_metrics(ds, pred, pair_times):
 
 
 def close_pairs(torch, ds, dtype_name, pair):
-    """For the NT shapes where ``pair``'s two arms are closest by event
-    time: both arms' profiler device time, and whether the label flips."""
+    """For the NT shapes where ``pair``'s two arms are closest in the grid's
+    (queued device) time: both arms' profiler device time, and whether the
+    label flips."""
     import numpy as np
 
     from repro_torch.core import get_candidate
@@ -1595,9 +1641,9 @@ def close_pairs(torch, ds, dtype_name, pair):
         b = torch.randn((n, k), generator=gen, device=DEVICE, dtype=dt)
         device = tuple(device_ms(lambda c=get_candidate(name): c.run(a, b))[0]
                        for name in pair)
-        event = (float(ds.times["NT"][i]) * 1e3, float(ds.times["TNN"][i]) * 1e3)
-        rows.append({"mnk": [m, n, k], "event_ms": event, "device_ms": device,
-                     "label_event": 1 if event[0] <= event[1] else -1,
+        grid = (float(ds.times["NT"][i]) * 1e3, float(ds.times["TNN"][i]) * 1e3)
+        rows.append({"mnk": [m, n, k], "grid_ms": grid, "device_ms": device,
+                     "label_grid": 1 if grid[0] <= grid[1] else -1,
                      "label_device": 1 if device[0] <= device[1] else -1})
     return rows
 
@@ -1629,8 +1675,10 @@ def phase_selector(torch, card, out_dir):
     for dtype, short in SELECTOR_DTYPES.items():
         t0 = time.perf_counter()
         reset_launches()
+        # device time: below about 2^11 per side an event pair around one
+        # call times the host's launch, not the kernels
         cache = measure_grid(MeasurementCache(str(out_dir / f"measured_{short}.json")), dtype,
-                             lo, hi, device=DEVICE)
+                             lo, hi, device=DEVICE, queued=True)
         for name, count in LAUNCHES.items():
             launches[name] += count
         cache.save()
@@ -1797,6 +1845,274 @@ def phase_model_policy(torch, card, selector_bf16, train_row):
     return row, serve_launches, train_launches
 
 
+def nan_tailed(torch, shape, dt, gen):
+    """A contiguous operand whose storage runs on into NaN."""
+    size = math.prod(shape)
+    buf = torch.randn(size + 4096, generator=gen, device=DEVICE).to(dt)
+    buf[size:] = float("nan")
+    return buf[:size].view(shape)
+
+
+def tile_cases(torch):
+    """(kernel, label, dtype, call(block), plain, tolerance, space) for
+    every case whose tile space phase 12 sweeps."""
+    from repro_torch.kernels import ref, tiling
+    from repro_torch.kernels.attention_fused import MaskParams, attention_fused
+    from repro_torch.kernels.ops import (
+        matmul_bnn,
+        matmul_bnt,
+        matmul_nn,
+        matmul_nt,
+        matmul_tnn_fused,
+        transpose,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    cases = []
+    for n, k in TRANSPOSE_TILE_SHAPES:
+        b = nan_tailed(torch, (n, k), torch.bfloat16, gen)
+        b[0, 1] = float("nan")
+        cases.append(("transpose", f"({n},{k})", "bfloat16",
+                      lambda block, b=b: transpose(b, block=block), lambda b=b: ref.transpose(b),
+                      (0.0, 0.0), tiling.TRANSPOSE_INSTANCES))
+    fns = {"matmul_nt": (matmul_nt, ref.matmul_nt), "matmul_nn": (matmul_nn, ref.matmul_nn),
+           "matmul_tnn_fused": (matmul_tnn_fused, ref.matmul_tnn_fused),
+           "matmul_bnt": (matmul_bnt, ref.matmul_bnt), "matmul_bnn": (matmul_bnn, ref.matmul_bnn)}
+    for kname, (fn, plain) in fns.items():
+        dname = TILE_DTYPES.get(kname, "bfloat16")
+        dt = getattr(torch, dname)
+        for g, m, n, k in TILE_SHAPES[kname]:
+            batched = kname in ("matmul_bnt", "matmul_bnn")
+            a = nan_tailed(torch, (g, m, k) if batched else (m, k), dt, gen)
+            b = nan_tailed(torch, {"matmul_nn": (k, n), "matmul_bnt": (g, n, k),
+                                   "matmul_bnn": (g, k, n)}.get(kname, (n, k)), dt, gen)
+            cases.append((kname, f"g={g} ({m},{n},{k})", dname,
+                          lambda block, a=a, b=b, fn=fn: fn(a, b, block=block),
+                          lambda a=a, b=b, plain=plain: plain(a, b), tol(dname, k),
+                          tiling.enumerate_tile_configs(kname, m, n, k, a.element_size(), g)))
+    for g, m, n, dh in TILE_SHAPES["attention_fused"]:
+        q = torch.randn((g, m, dh), generator=gen, device=DEVICE).mul(dh ** -0.5).bfloat16()
+        kv = [torch.randn((g, n, dh), generator=gen, device=DEVICE).bfloat16() for _ in range(2)]
+        lengths = torch.randint(1, n + 1, (g,), generator=gen, device=DEVICE, dtype=torch.int32)
+        for i, length in enumerate(lengths.tolist()):
+            kv[0][i, length:] = float("nan")
+            kv[1][i, length:] = float("nan")
+        want = ref.attention_fused(q, kv[0], kv[1], lengths, MaskParams())
+        cases.append(("attention_fused", f"decode g={g} m={m} n={n} dh={dh} ragged", "bfloat16",
+                      lambda block, q=q, kv=kv, ln=lengths: attention_fused(
+                          q, kv[0], kv[1], ln, block=block),
+                      lambda want=want: want,
+                      (2e-2, 2e-2 * float(want.float().pow(2).mean().sqrt())),
+                      tiling.enumerate_tile_configs("attention_fused", m, n, dh, 2, g)))
+    return cases
+
+
+def tuned_gains(cache):
+    """Per (op, candidate): the shapes whose fastest config is a tuned tile,
+    which tiles won, and the device-time gain over the default plan."""
+    import numpy as np
+
+    out = {}
+    for (_p, _hw, _dt, op, _g, m, n, k), times in cache.records():
+        for name, cfgs in times.items():
+            if "default" not in cfgs or len(cfgs) < 2:
+                continue
+            row = out.setdefault(f"{op} {name}", {"shapes": 0, "tile_wins": 0, "gains": [],
+                                                  "tiles": {}})
+            row["shapes"] += 1
+            best = min(cfgs, key=cfgs.get)
+            if best != "default":
+                row["tile_wins"] += 1
+                row["gains"].append(cfgs["default"] / cfgs[best])
+                row["tiles"][best] = row["tiles"].get(best, 0) + 1
+    for row in out.values():
+        gains = row.pop("gains")
+        row["median_gain"] = float(np.median(gains)) if gains else None
+        row["max_gain"] = float(max(gains)) if gains else None
+        row["top_tiles"] = dict(sorted(row["tiles"].items(), key=lambda kv: -kv[1])[:3])
+        del row["tiles"]
+    return out
+
+
+def phase_tiles(torch, card, out_dir):
+    """Phase 12; returns its row and the launches of its measurement and
+    autotune serving run."""
+    from repro_torch.benchmarks.common import measure_grid, op_dataset
+    from repro_torch.core import (
+        MeasurementCache,
+        ModelPolicy,
+        MTNNSelector,
+        device_spec,
+        get_candidate,
+        train_kway_model,
+    )
+    from repro_torch.core.engine import dispatch, use_policy
+    from repro_torch.core.measure import (
+        bench_fn,
+        measure_transpose_configs,
+        tile_tables_from_cache,
+    )
+    from repro_torch.core.opkey import OpKey, shape_key
+    from repro_torch.kernels.common import CONFIG_LAUNCHES, LAUNCHES, config_key, reset_launches
+
+    row = {"phase": "tiles", "card": card, "cases": []}
+    t0 = time.perf_counter()
+    for kname, label, dname, call, plain, (rtol, atol), space in tile_cases(torch):
+        want = plain()
+        torch.cuda.synchronize()
+        for block in [None, *space]:
+            reset_launches()
+            out = call(block)
+            torch.cuda.synchronize()
+            key = config_key(block)
+            check(dict(CONFIG_LAUNCHES) == {(kname, key): 1},
+                  f"{kname} {label} @ {key}: launches {dict(CONFIG_LAUNCHES)}")
+            if kname == "transpose":
+                bits = torch.int16 if out.element_size() == 2 else torch.int32
+                ok, err = bool(torch.equal(out.view(bits), want.view(bits))), 0.0
+            else:
+                err, ok = compare(out, want, rtol, atol)
+            check(ok, f"{kname} {label} @ {key}: max_abs_err {err} beyond {atol} / {rtol}")
+            row["cases"].append({
+                "kernel": kname, "case": label, "dtype": dname, "config": key, "err": err,
+                "ms": time_ms(lambda b=block: call(b)),
+                "device_ms": device_ms(lambda b=block: call(b))[0],
+                # device time of 20 calls queued back to back behind a sleep
+                # kernel (events between them; no profiler)
+                "queued_ms": 1e3 * bench_fn(lambda _, b=block: call(b), want, reps=20,
+                                            queued=True)})
+    row["sweep_seconds"] = time.perf_counter() - t0
+
+    hw = device_spec(DEVICE)
+    lo, hi = TUNED_GRID
+    t0 = time.perf_counter()
+    reset_launches()
+    cache = measure_grid(MeasurementCache(str(out_dir / "measured_bf16_tuned.json")), "bfloat16",
+                         lo, hi, device=DEVICE, tune=True, queued=True)
+    measure_launches = dict(LAUNCHES)
+    cache.save()
+    row["tuned_measure_seconds"] = time.perf_counter() - t0
+    tables = tile_tables_from_cache(cache, dtype="bfloat16")
+    row["tuned_gains"] = tuned_gains(cache)
+    row["tile_table_sizes"] = {f"{op} {name}": len(e["by_shape"])
+                               for op, t in tables.items() for name, e in t.items()}
+    row["transpose_tuned"] = {
+        "shape": [49152, 576],
+        "us": {ck: t * 1e6 for ck, t in measure_transpose_configs(
+            49152, 576, "bfloat16", reps=10, device=DEVICE, queued=True).items()}}
+
+    # a k-way artifact over the NT kernels, with the tables: its ModelPolicy
+    # dispatches the tuned tile of the shape's table entry
+    ds = op_dataset(cache, "NT", "bfloat16")
+    kway, _ = train_kway_model(ds, candidates=list(NT_KERNEL_CANDIDATES))
+    path = out_dir / "selector_bf16_tuned_kway.json"
+    MTNNSelector(kway, hardware=hw, mode="kway", tile_tables=tables).save(str(path))
+    policy = ModelPolicy.from_artifact(str(path))
+    tuned = []
+    for m, n, k in ((2 ** a, 2 ** b, 2 ** c) for a in range(lo, hi + 1)
+                    for b in range(lo, hi + 1) for c in range(lo, hi + 1)):
+        d = policy.select(OpKey("NT", m, n, k, 2))
+        entry = tables.get("NT", {}).get(d.name, {}).get("by_shape", {}).get(shape_key((m, n, k)))
+        if d.config is not None and entry == config_key(d.config):
+            tuned.append(((m, n, k), d))
+    check(tuned, "the tuned artifact's policy dispatches no shape at its table's tile")
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    for (m, n, k), d in tuned[:3]:
+        a = torch.randn((m, k), generator=gen, device=DEVICE).bfloat16()
+        b = torch.randn((n, k), generator=gen, device=DEVICE).bfloat16()
+        reset_launches()
+        with use_policy(policy):
+            out = dispatch("NT", a, b)
+        torch.cuda.synchronize()
+        kernel = get_candidate(d.name).kernel
+        check(CONFIG_LAUNCHES.get((kernel, config_key(d.config))) == 1,
+              f"{d.label()} at {(m, n, k)}: launches {dict(CONFIG_LAUNCHES)}")
+        err, ok = compare(out, a.float() @ b.float().t(), *tol("bfloat16", k))
+        check(ok, f"{d.label()} at {(m, n, k)}: max_abs_err {err}")
+    row["model_policy_tuned"] = {"shapes_at_tuned_tile": len(tuned),
+                                 "grid_shapes": (hi - lo + 1) ** 3,
+                                 "checked": [[list(s), d.label()] for s, d in tuned[:3]]}
+
+    # smollm-135m served under autotune: warm after warmup
+    at_path = out_dir / "autotune_smollm.json"
+    if at_path.exists():
+        at_path.unlink()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng = serve(["--policy", f"autotune:{at_path}"])
+    serve_launches = dict(LAUNCHES)
+    check_engine(eng, 16, "autotune policy")
+    misses = eng.cold_misses()
+    check(set(misses.values()) == {0}, f"autotune serving measured after warmup: {misses}")
+    row["autotune_serve"] = {"cold_misses": misses, "seconds": time.perf_counter() - t0,
+                             "measured_keys": {c: p.n_measured for c, p in eng.policies.items()},
+                             "decisions": eng.class_dispatch_rows()}
+    launches = {name: measure_launches[name] + serve_launches[name] for name in LAUNCHES}
+    return row, launches
+
+
+def phase_bench(torch, card, out_dir):
+    """Phase 13; returns its row and the launches of its benchmarks."""
+    from repro_torch.benchmarks import kernel_sweep
+    from repro_torch.benchmarks.run import run_benches
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    results, failures = run_benches(BENCH_ONLY.split(","), full=False, device=DEVICE,
+                                    dtype="float32", cache=str(out_dir / "measured_f32.json"),
+                                    hi=None)
+    check(not failures, f"benchmarks failed: {failures}")
+    # the same dataset benchmarks on phase 9's bf16 grid, the dtype the LMs run
+    results_bf16, failures = run_benches(BENCH_BF16.split(","), full=False, device=DEVICE,
+                                         dtype="bfloat16",
+                                         cache=str(out_dir / "measured_bf16.json"), hi=None)
+    check(not failures, f"bf16 benchmarks failed: {failures}")
+    bench_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep_json = out_dir / "bench" / "kernel_sweep.json"
+    check(kernel_sweep.main(["--quick", "--json", str(sweep_json)]) == 0, "kernel_sweep failed")
+    sweep = json.loads(sweep_json.read_text())
+    launches = dict(LAUNCHES)
+    r = results
+    fig3 = next(v for v in r["fig3"].values() if v["source"] == "measured")
+    head = {
+        "fig1 P_NN>P_NT share (cuBLAS)": (r["fig1"]["measured"]["frac_nn_wins"], "0.71 / 0.62"),
+        "fig1 P_NN/P_NT >= 2 share": (r["fig1"]["measured"]["frac_ge2"], "~0.20"),
+        "fig2 max speedup TNN over NT": (r["fig2"]["max_speedup_tnn_over_nt"], "4.7"),
+        "fig2 max speedup NT over TNN": (r["fig2"]["max_speedup_nt_over_tnn"], "15.39"),
+        "fig3 P_TNN/P_NT < 1 share": (fig3["frac_tnn_loses"], "0.415 / 0.43"),
+        "table4 CV total avg": (r["table4"]["total"]["avg"], "0.9051"),
+        **{f"table6 {kind} accuracy": (r["table6"][kind]["accuracy"], f"{p / 100:.4f}")
+           for kind, p in (("gbdt", 90.51), ("dt", 87.84), ("svm-rbf", 81.66),
+                           ("svm-poly", 77.68))},
+        "fig4 full-data accuracy": (r["fig4"]["full_data_accuracy"], "0.9639"),
+        **{f"table8 {k}": (r["table8"]["total"][k], str(v)) for k, v in
+           (("mtnn_vs_nt", 54.03), ("mtnn_vs_tnn", 21.92), ("gow_avg", 76.23),
+            ("lub_avg", -0.28))},
+        "kway mean slowdown vs oracle": (r["kway"]["rows"]["kway_regressor"], "n/a"),
+        "ModelPolicy warm select ms/call": (r["policy_overhead"]["ModelPolicy(binary)"]["warm_ms"],
+                                            "0.005"),
+    }
+    rb = results_bf16
+    fig3_bf16 = next(v for v in rb["fig3"].values() if v["source"] == "measured")
+    head.update({
+        "bf16 fig1 P_NN>P_NT share (cuBLAS)": (rb["fig1"]["measured"]["frac_nn_wins"],
+                                               "0.71 / 0.62"),
+        "bf16 fig3 P_TNN/P_NT < 1 share": (fig3_bf16["frac_tnn_loses"], "0.415 / 0.43"),
+        "bf16 table4 CV total avg": (rb["table4"]["total"]["avg"], "0.9051"),
+        "bf16 table8 mtnn_vs_nt": (rb["table8"]["total"]["mtnn_vs_nt"], "54.03"),
+        "bf16 table8 mtnn_vs_tnn": (rb["table8"]["total"]["mtnn_vs_tnn"], "21.92"),
+    })
+    for name, (mine, paper) in head.items():
+        print(f"[bench] {name}: {mine:.4f} on the card; paper {paper}", flush=True)
+    row = {"phase": "bench", "card": card, "benchmarks": sorted(results),
+           "bench_seconds": bench_s, "sweep_seconds": time.perf_counter() - t0,
+           "sweep_cells": len(sweep["rows"]), "headlines": head,
+           "results": results, "results_bf16": results_bf16}
+    return row, launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
@@ -1917,6 +2233,16 @@ def main() -> int:
         torch, card, artifacts["bfloat16"], train_row)
     emit(mp_row)
     results["model_policy"] = mp_row
+
+    # 12. tiles: every config reaches its kernel; tuned tables; autotune warm
+    tiles_row, tiles_launches = phase_tiles(torch, card, out_dir)
+    emit(tiles_row)
+    results["tiles"] = tiles_row
+
+    # 13. bench: the paper's figures and tables on the card, the kernel sweep
+    bench_row, bench_launches = phase_bench(torch, card, out_dir)
+    emit({k: v for k, v in bench_row.items() if not k.startswith("results")})
+    results["bench"] = bench_row
     check("jax" not in sys.modules, "jax was imported")
 
     # the contract line: one row per kernel at a main-path shape; launches
@@ -1924,8 +2250,9 @@ def main() -> int:
     # kernel-policy training runs, gemma3's kernel-policy serve run and the
     # four architectures' fused-policy training runs, phase 8b's four
     # kernel-policy serve runs and three fused-policy training runs, the selector's
-    # measurements, the FCN runs and the runs under the learned policies
-    # (each counted from 0)
+    # measurements, the FCN runs, the runs under the learned policies, phase
+    # 12's tuned measurement and autotune serving run, and phase 13's
+    # benchmarks (each counted from 0)
     contract = {
         "matmul_nt": ("(8,576)x(49152,576)^T", "bfloat16"),
         "matmul_nn": ("(8,576)x(576,49152)", "bfloat16"),
@@ -1949,7 +2276,9 @@ def main() -> int:
                    "selector_measure": selector_launches[kname],
                    "fcn": fcn_launches[kname],
                    "model_policy_serve": mp_serve_launches[kname],
-                   "model_policy_train": mp_train_launches[kname]}
+                   "model_policy_train": mp_train_launches[kname],
+                   "tiles": tiles_launches[kname],
+                   "bench": bench_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -27,7 +27,14 @@ from .dataset import (
     paper_grid,
 )
 from .hardware import H100, SIMULATED_CHIPS, HardwareSpec, device_spec, host_spec
-from .measure import MeasurementCache, bench_fn, measure_candidates
+from .measure import (
+    MeasurementCache,
+    bench_fn,
+    measure_candidates,
+    measure_transpose_configs,
+    tile_tables_from_cache,
+    top_configs_by_candidate,
+)
 from .opkey import OPS, OpKey
 from .policy import (
     AnalyticPolicy,
@@ -69,6 +76,9 @@ __all__ = [
     "MeasurementCache",
     "bench_fn",
     "measure_candidates",
+    "measure_transpose_configs",
+    "tile_tables_from_cache",
+    "top_configs_by_candidate",
     "OPS",
     "OpKey",
     "AnalyticPolicy",

@@ -42,12 +42,17 @@ its plain version for a CPU operand, and raises on anything else.
 Every candidate here runs on both platforms (``ALL_PLATFORMS``), so the
 selectors' per-key memos need no platform in their key.
 
-Tile space: the CUDA wrappers accept a ``block=`` config and check it, but
-pick their variant and tiles from their own cost models
-(``tnn_fused_variant``, ``nt_split``, ``nn_variant``, ``batched_variant``,
-``attention_variant``).  So each tunable candidate has one config in the
-port: measurement times it once, under ``"default"``, and the learned and
-analytic policies attach ``config=None``.
+Tile space: each tunable candidate names the kernel whose tile configs
+its ``block=`` reaches (``kernel``; the two-kernel TNN/TN schedules pass
+it to their NN kernel).  ``config=None`` runs the plan of that wrapper's
+cost model, the first of its route's plans (``nt_plans``, ``nn_plans``,
+``tnn_fused_plans``, ``batched_plans``, ``attention_plans``); a config
+names another plan of the same route (``kernels/tiling.py``) and any
+other raises.
+``Candidate.config_space`` is the autotune sweep list at one (op, g, m,
+n, k, dsize): the route's other plans, ranked by the roofline; measurement
+times it beside ``"default"``, and the learned and autotune policies
+attach the tuned config.
 """
 
 from __future__ import annotations
@@ -88,12 +93,52 @@ class Candidate:
     ops: Tuple[str, ...] = ("NT",)  # op kinds the fn implements (opkey.OPS)
     arity: int = 2  # operand count (2 for the GEMMs, 3 for attention q/k/v)
     config_arity: int = 3  # tile-tuple length ((bm,bn,bk) GEMM, (bq,bk) attn)
+    kernel: Optional[str] = None  # the kernel a tile config reaches (tunable only)
 
-    def supports(self, platform: Optional[str] = None, op: Optional[str] = None) -> bool:
-        """Platform and op bounds."""
+    def supports(self, platform: Optional[str] = None, op: Optional[str] = None,
+                 config=None, shape: Optional[Tuple[int, ...]] = None,
+                 aligned: bool = True) -> bool:
+        """Platform and op bounds, and -- config-aware -- whether this
+        candidate can run ``config`` at all (None, its own plan, always
+        can): a tunable candidate, a well-formed tuple, and with ``shape``
+        = (g, m, n, k, dsize) a plan of the route that shape takes for
+        16-byte aligned operands (``aligned=False``: for operands that are
+        not)."""
         if op is not None and op not in self.ops:
             return False
-        return platform is None or platform in self.platforms
+        if platform is not None and platform not in self.platforms:
+            return False
+        if config is None:
+            return True
+        if not self.tunable:
+            return False
+        from repro_torch.kernels import tiling
+
+        try:
+            tiling.validate_config(config, arity=self.config_arity)
+        except ValueError:
+            return False
+        if shape is None or self.kernel is None:
+            return True
+        g, m, n, k, dsize = shape
+        return tiling.config_feasible(self.kernel, config, m, n, k, dsize, g, aligned)
+
+    def config_space(self, m: int, n: int, k: int, dsize: int = 4, max_configs: int = 4,
+                     hardware=None, g: int = 1) -> Tuple[Tuple[int, ...], ...]:
+        """The autotune sweep list of this candidate at one shape (empty
+        for non-tunable candidates): its kernel route's plans other than
+        the default one, ranked by the roofline of ``hardware`` (the
+        measuring device's) and cut to ``max_configs``.  Attention
+        candidates read (m, n, k) as (queries, keys, head dim)."""
+        if not self.tunable or self.kernel is None:
+            return ()
+        from repro_torch.kernels import tiling
+
+        if self.config_arity == 2:
+            return tiling.attn_config_space(m, n, k, dsize, max_configs=max_configs,
+                                            hardware=hardware, g=g)
+        return tiling.shortlist_tile_configs(self.kernel, m, n, k, dsize, g=g,
+                                             max_configs=max_configs, hardware=hardware)
 
     def run(self, *args, config=None) -> torch.Tensor:
         """Execute the candidate, at an explicit tile config when one is
@@ -122,11 +167,13 @@ def register_candidate(
     ops: Tuple[str, ...] = ("NT",),
     arity: int = 2,
     config_arity: int = 3,
+    kernel: Optional[str] = None,
 ):
     """Decorator registering ``fn(*operands) -> out`` as a dispatch
     candidate for the op kinds in ``ops``.  ``tunable=True`` declares a
-    ``block=`` tile-config keyword.  A duplicate name raises: candidates
-    are identified by name in specs and reports."""
+    ``block=`` tile-config keyword reaching ``kernel``'s plans.  A
+    duplicate name raises: candidates are identified by name in specs and
+    reports."""
 
     def deco(fn: Callable[..., torch.Tensor]):
         if name in _REGISTRY:
@@ -145,6 +192,7 @@ def register_candidate(
             ops=tuple(check_op(o) for o in ops),
             arity=int(arity),
             config_arity=int(config_arity),
+            kernel=kernel,
         )
         return fn
 
@@ -184,8 +232,8 @@ def candidate_fits_memory(
     must fit A, B, C *and* their materialised transpose inside the memory
     budget -- B^T (n*k elements) for the forward NT/TNN schedules, A^T
     (m*k elements) for the TN weight-gradient schedule -- with every term
-    multiplied by the batch extent ``g``.  (No tile config enters: the
-    CUDA wrappers pick their own tiles.)"""
+    multiplied by the batch extent ``g``.  (No tile config enters: a
+    plan's workspace is not the transpose this guard is about.)"""
     if not cand.extra_memory:
         return True
     budget = mem_gib * (1024**3) * budget_frac
@@ -257,28 +305,32 @@ def unfused_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
 # -- kernel arms: the ported CUDA kernels (plain versions on the CPU) ---------
 
 
-@register_candidate("PALLAS_NT", sim_algo="NT_DIRECT", tunable=True)
+@register_candidate("PALLAS_NT", sim_algo="NT_DIRECT", tunable=True,
+                    kernel="matmul_nt")
 def _pallas_nt(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_nt(a, b, block=block)
 
 
-@register_candidate("PALLAS_TNN", sim_algo="TNN", extra_memory=True, tunable=True)
+@register_candidate("PALLAS_TNN", sim_algo="TNN", extra_memory=True, tunable=True,
+                    kernel="matmul_nn")
 def _pallas_tnn(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_tnn(a, b, block=block)
 
 
-@register_candidate("PALLAS_TNN_FUSED", sim_algo="TNN_FUSED", tunable=True)
+@register_candidate("PALLAS_TNN_FUSED", sim_algo="TNN_FUSED", tunable=True,
+                    kernel="matmul_tnn_fused")
 def _pallas_tnn_fused(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_tnn_fused(a, b, block=block)
 
 
-@register_candidate("PALLAS_NN", sim_algo="NN_DIRECT", tunable=True, ops=("NN",))
+@register_candidate("PALLAS_NN", sim_algo="NN_DIRECT", tunable=True, ops=("NN",),
+                    kernel="matmul_nn")
 def _pallas_nn(a, b, block=None):
     from repro_torch.kernels import ops
 
@@ -286,21 +338,23 @@ def _pallas_nn(a, b, block=None):
 
 
 @register_candidate("PALLAS_TN", sim_algo="TN_VIA_NN", extra_memory=True, tunable=True,
-                    ops=("TN",))
+                    ops=("TN",), kernel="matmul_nn")
 def _pallas_tn(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_tn(a, b, block=block)
 
 
-@register_candidate("PALLAS_BNT", sim_algo="BNT_DIRECT", tunable=True, ops=("BNT",))
+@register_candidate("PALLAS_BNT", sim_algo="BNT_DIRECT", tunable=True, ops=("BNT",),
+                    kernel="matmul_bnt")
 def _pallas_bnt(a, b, block=None):
     from repro_torch.kernels import ops
 
     return ops.matmul_bnt(a, b, block=block)
 
 
-@register_candidate("PALLAS_BNN", sim_algo="BNN_DIRECT", tunable=True, ops=("BNN",))
+@register_candidate("PALLAS_BNN", sim_algo="BNN_DIRECT", tunable=True, ops=("BNN",),
+                    kernel="matmul_bnn")
 def _pallas_bnn(a, b, block=None):
     from repro_torch.kernels import ops
 
@@ -309,7 +363,7 @@ def _pallas_bnn(a, b, block=None):
 
 @register_candidate(
     "FUSED_ATTN", sim_algo="ATTN_FUSED", tunable=True, ops=("ATTN",), arity=3,
-    config_arity=2,
+    config_arity=2, kernel="attention_fused",
 )
 def _fused_attn(q, k, v, block=None):
     from repro_torch.kernels.attention_fused import attention_fused

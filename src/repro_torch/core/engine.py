@@ -87,7 +87,7 @@ POLICY_SPEC_HELP = (
     "dispatch policy: model[:artifact.json] | fixed:<NAME>[@BMxBNxBK] | "
     "fixed:nt=<NAME>[@cfg],nn=...,tn=...,bnt=...,bnn=...,"
     "attn=<fused|unfused>[@BQxBK] | analytic | "
-    "cascade:<A,B,...> | autotune[:cache.json]"
+    "cascade:<A[@cfg],B,...> | autotune[:cache.json]"
 )
 
 # ``fixed:attn=...`` accepts the plan-member aliases alongside literal
@@ -107,10 +107,19 @@ def _spec_error(msg: str) -> ValueError:
     return ValueError(f"{msg} ({POLICY_SPEC_HELP})")
 
 
-def policy_select(policy: SelectionPolicy, key: OpKey) -> Decision:
+def policy_select(policy: SelectionPolicy, key: OpKey, operands=()) -> Decision:
     """Run ``policy.select`` on an ``OpKey`` and validate the decision.  A
     decision naming a candidate that does not implement ``key.op`` runs
-    the op's reference instead (warned once: that is a policy bug)."""
+    the op's reference instead (warned once: that is a policy bug).
+
+    A tuned tile (the learned, autotune and cascade policies) names a plan
+    of the route that 16-byte aligned ``operands`` take, as a fresh
+    allocation is; the policies memoise per ``OpKey``, which carries no
+    alignment.  Operands that are not aligned (a view at an offset into a
+    larger buffer) take another route on some kernels, and where that
+    route has no plan at the tile the policy runs the candidate's own plan
+    (config None).  A fixed policy's tile is the caller's own and reaches
+    the wrapper, which raises where it has no plan."""
     decision = policy.select(key)
     if isinstance(decision, str):
         raise TypeError(
@@ -124,6 +133,12 @@ def policy_select(policy: SelectionPolicy, key: OpKey) -> Decision:
             "op it does not implement; dispatching the op's reference instead",
         )
         decision = Decision(DEFAULT_BY_OP[key.op], None)
+    if (decision.config is not None and not isinstance(policy, FixedPolicy)
+            and any(x.data_ptr() % 16 for x in operands)
+            and not get_candidate(decision.name).supports(
+                config=decision.config, shape=(key.g, key.m, key.n, key.k, key.dsize),
+                aligned=False)):
+        decision = Decision(decision.name, None)
     return decision
 
 
@@ -152,7 +167,7 @@ def _run(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         k, m = a.shape
         n = b.shape[1]
     key = OpKey(op, int(m), int(n), int(k), a.element_size())
-    return run_decision(key, policy_select(current_policy(), key), a, b)
+    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
 
 
 def _run3(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -160,7 +175,7 @@ def _run3(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     g, m, k = a.shape
     n = b.shape[1] if op == "BNT" else b.shape[2]
     key = OpKey(op, int(m), int(n), int(k), a.element_size(), int(g))
-    return run_decision(key, policy_select(current_policy(), key), a, b)
+    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
 
 
 def _swap(x: torch.Tensor) -> torch.Tensor:
@@ -257,7 +272,7 @@ def _run_attn(mask: MaskParams, q, k, v, lengths):
     g, m, dh = q.shape
     n = k.shape[1]
     key = OpKey("ATTN", int(m), int(n), int(dh), q.element_size(), int(g))
-    decision = policy_select(current_policy(), key)
+    decision = policy_select(current_policy(), key, (q, k, v))
     if decision.name == "FUSED_ATTN":
         from repro_torch.kernels.attention_fused import attention_fused
 
@@ -510,12 +525,17 @@ def policy_from_spec(spec: str, distributed: bool = False, device="cuda") -> Sel
                                          selector, or an artifact)
       fixed:XLA_TNN                      FixedPolicy (other ops run each
                                          op's reference)
-      fixed:PALLAS_NT@64x64x32           FixedPolicy with a forced tile
+      fixed:PALLAS_NT@8x128x192          FixedPolicy with a forced tile: a
+                                         plan of the candidate's kernel
+                                         (kernels/tiling.py); a shape whose
+                                         route has no such plan raises
       fixed:nt=PALLAS_TNN,attn=fused     op-qualified FixedPolicy
-      fixed:attn=fused@16x32             attention plan entry; fused tiles
+      fixed:attn=fused@4x64              attention plan entry; fused tiles
                                          are (bq, bk)
       analytic                           AnalyticPolicy (H100 roofline)
-      cascade:A,B,C                      CascadePolicy over the names
+      cascade:A,B@BMxBNxBK,C             CascadePolicy over the names; an
+                                         entry with a tile is taken only
+                                         where its kernel has that plan
       autotune[:cache.json]              AutotunePolicy measuring on
                                          ``device`` (default cache:
                                          ``measure.default_cache_path()``)

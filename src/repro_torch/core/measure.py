@@ -10,15 +10,24 @@ file-compatible with the JAX package's v5 caches; platform ``gpu`` or
 cache into a ``SelectionDataset`` for the GBDT, and ``AutotunePolicy``
 (core/policy.py) answers ``select()`` from it, measuring cold keys.
 
-The port's candidates have one config each (``core/candidates.py``), so
-each is timed once, under ``"default"``.  A candidate that raises while
-it is measured raises out of the measurement: nothing retries it, and
-nothing drops it from the result behind the caller's back.  The OOM guard
-skips a pair before it is launched.
+A tunable candidate is timed under ``"default"`` (its wrapper's own
+plan) and, with ``tune=True``, at each config of its roofline-ranked
+shortlist (``Candidate.config_space``); the rest once, under
+``"default"``.  ``top_configs_by_candidate`` and ``tile_tables_from_cache``
+fold a filled cache into the per-shape tile tables of a selector
+artifact; ``measure_transpose_configs`` tunes the transpose kernel's
+instances on their own.  A candidate that raises while it is measured
+raises out of the measurement: nothing retries it, and nothing drops it
+from the result behind the caller's back.  The OOM guard skips a pair
+before it is launched.
 
 ``bench_fn`` times with CUDA events after a synchronize on the card and
 with ``time.perf_counter`` on the CPU.  Event time includes the host's
-launch cost wherever the host is slower than the card.
+launch cost wherever the host is slower than the card, which below about
+2^11 per side is most shapes.  ``queued=True`` measures device time
+instead: a sleep kernel holds the stream while every timed call and its
+events are enqueued, so the events time the calls back to back on the
+device, and host noise does not pick a tile.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import threading
 import time
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
-from repro_torch.kernels.common import DEFAULT_CONFIG_KEY
+from repro_torch.kernels.tiling import DEFAULT_CONFIG_KEY, config_key
 
 from .candidates import (
     CANDIDATES,
@@ -42,7 +51,7 @@ from .candidates import (
     get_candidate,
 )
 from .hardware import HardwareSpec, device_spec
-from .opkey import check_op
+from .opkey import check_op, shape_key
 
 __all__ = [
     "MEASURE_SCHEMA_VERSION",
@@ -53,6 +62,10 @@ __all__ = [
     "measure_candidates",
     "default_cache_path",
     "best_times",
+    "top_configs_by_candidate",
+    "tile_tables_from_cache",
+    "measure_transpose_configs",
+    "best_transpose_config",
     "DTYPE_BY_DSIZE",
 ]
 
@@ -395,19 +408,63 @@ def _sync(operands) -> None:
         torch.cuda.synchronize(operands[0].device)
 
 
+# The rate the hold's length is reckoned at: at least an H100's top clock,
+# so that the sleep kernel's cycles last at least the time asked for.
+_HOLD_CLOCK_HZ = 2.0e9
+
+
+def _queued(fn, operands, reps: int, tries: int = 4):
+    """Device seconds of ``reps`` calls of ``fn`` run back to back: a sleep
+    kernel holds the stream while the calls and the events between them
+    are enqueued, so that none starts before the host is done.  The hold
+    is sized at twice one call's host time per call; where the host took
+    longer than the hold lasted on the device (a collection, a cold path)
+    the gaps could hold host time, so it is measured again with a hold
+    four times as long, and after ``tries`` holds that all ran out it
+    raises."""
+    import torch
+
+    dev = operands[0].device
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn(*operands)
+    hold = 2.0 * (time.perf_counter() - t0) * reps + 50e-6
+    torch.cuda.synchronize(dev)
+    for _ in range(tries):
+        held = torch.cuda.Event(enable_timing=True)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        t0 = time.perf_counter()
+        held.record()
+        torch.cuda._sleep(int(hold * _HOLD_CLOCK_HZ))
+        events[0].record()
+        for ev in events[1:]:
+            fn(*operands)
+            ev.record()
+        enqueue = time.perf_counter() - t0
+        events[-1].synchronize()
+        if held.elapsed_time(events[0]) / 1e3 > enqueue:
+            return [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+        hold = 4.0 * max(hold, enqueue)
+    raise RuntimeError(f"queued timing: the host took longer to enqueue {reps} calls than "
+                       f"a {hold / 4.0 * 1e3:.3f} ms hold lasted, {tries} times")
+
+
 def bench_fn(
-    fn, *operands, reps: int = 3, warmup: int = 1, stat: str = "median"
+    fn, *operands, reps: int = 3, warmup: int = 1, stat: str = "median",
+    queued: bool = False,
 ) -> float:
     """Warmup then ``stat`` (``"median"`` or ``"min"``) of ``reps`` timed
-    runs of ``fn(*operands)``, in seconds — two operands for the GEMM ops,
+    runs of ``fn(*operands)``, in seconds -- two operands for the GEMM ops,
     three (q, k, v) for the attention subgraph op.
 
     On CUDA operands each run is bracketed by CUDA events after a
     synchronize, so it times the work ``fn`` enqueues from an idle device
     (including the host's launch cost where the host is the slower one);
-    on CPU operands by ``time.perf_counter``.  ``measure_candidates`` uses
-    the median, ``dataset.collect_measured`` the min (paper-style
-    best-case)."""
+    with ``queued`` the runs are timed back to back on the device with
+    the host's cost left out (``_queued``).  On CPU operands
+    ``time.perf_counter`` times each run (``queued`` changes nothing).
+    ``measure_candidates`` uses the median, ``dataset.collect_measured``
+    the min (paper-style best-case)."""
     import torch
 
     for _ in range(max(1, warmup)):
@@ -415,7 +472,9 @@ def bench_fn(
     _sync(operands)
     on_card = bool(operands) and operands[0].device.type == "cuda"
     ts = []
-    for _ in range(reps):
+    if on_card and queued:
+        ts = _queued(fn, operands, reps)
+    for _ in range(0 if ts else reps):
         if on_card:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -465,19 +524,26 @@ def measure_candidates(
     reps: int = 3,
     seed: int = 0,
     device="cuda",
+    tune: bool = True,
+    max_tile_configs: int = 4,
+    queued: bool = False,
 ) -> Dict[str, Dict[str, float]]:
-    """Time every admissible candidate for one (op, g, shape) on
-    ``device``; returns ``{name: {"default": seconds}}``.
+    """Time every admissible (candidate, tile config) for one (op, g,
+    shape) on ``device``; returns ``{name: {config_key: seconds}}``.
 
     Operands are built on the device in ``op``'s storage layout from a
     seeded generator, and only candidates implementing the op are
-    considered.  Admissibility is
-    the shared guard set of ``candidates.py`` -- the paper's OOM check
-    (extra-memory candidates must fit ``hardware``'s memory budget,
-    default the device's own) and the distributed/platform filter -- so a
-    measurement never launches a pair the policies would refuse; such a
-    pair is skipped before it runs.  A candidate that raises propagates
-    its exception: a kernel fault on the card fails the measurement."""
+    considered.  Every candidate is timed under ``"default"``; with
+    ``tune`` a tunable one also at each config of its shortlist
+    (``Candidate.config_space``, at most ``max_tile_configs``, ranked on
+    ``hardware``).  ``queued`` times device time (``bench_fn``).
+    Admissibility is the shared guard set of ``candidates.py`` -- the
+    paper's OOM check (extra-memory candidates must fit ``hardware``'s
+    memory budget, default the device's own) and the distributed/platform
+    filter -- so a measurement never launches a pair the policies would
+    refuse; such a pair is skipped before it runs.  A candidate that
+    raises propagates its exception: a kernel fault on the card fails the
+    measurement."""
     import torch
 
     from repro_torch import resolve_device
@@ -503,7 +569,126 @@ def measure_candidates(
                 continue  # OOM guard: never materialise an over-budget transpose
             if not candidate_allowed(cand, distributed, op=op, platform=platform):
                 continue
+            sweep = [None]
+            if tune:
+                sweep += list(cand.config_space(m, n, k, dsize, max_configs=max_tile_configs,
+                                                hardware=hw, g=g))
             times[name] = {
-                DEFAULT_CONFIG_KEY: bench_fn(cand.run, *operands, reps=reps, warmup=warmup)
+                config_key(cfg): bench_fn(lambda *x, _c=cfg: cand.run(*x, config=_c),
+                                          *operands, reps=reps, warmup=warmup, queued=queued)
+                for cfg in sweep
             }
     return times
+
+
+def top_configs_by_candidate(
+    cache: MeasurementCache,
+    dtype: Optional[str] = None,
+    platform: Optional[str] = None,
+    op: Optional[str] = None,
+) -> Dict[str, str]:
+    """Per candidate, the *modal* winning config key across all matching
+    cache records -- the shape-independent tile summary (the ``"modal"``
+    fallback of an artifact's per-shape tables).  Only explicit tiles
+    count: candidates whose wins are all at ``"default"`` carry no entry,
+    so an artifact lists learned tiles, not the default plan."""
+    wins: Dict[str, Dict[str, int]] = {}
+    for (rec_platform, _hw, rec_dtype, rec_op, *_mnk), times in cache.records():
+        if platform is not None and rec_platform != platform:
+            continue
+        if dtype is not None and rec_dtype != dtype:
+            continue
+        if op is not None and rec_op != op:
+            continue
+        for name, (ck, _t) in best_times(times).items():
+            if ck == DEFAULT_CONFIG_KEY:
+                continue
+            wins.setdefault(name, {})
+            wins[name][ck] = wins[name].get(ck, 0) + 1
+    # deterministic tie-break: highest count, then lexicographic key
+    return {
+        name: min(counts, key=lambda ck: (-counts[ck], ck))
+        for name, counts in wins.items()
+    }
+
+
+def tile_tables_from_cache(
+    cache: MeasurementCache,
+    dtype: Optional[str] = None,
+    platform: Optional[str] = None,
+) -> Dict[str, Dict[str, Dict]]:
+    """Per-op, per-candidate tile tables for a selector artifact:
+    ``{op: {name: {"modal": key, "by_shape": {"MxNxK": key}}}}``.
+
+    ``by_shape`` holds each measured shape's winning explicit tile (a
+    ``ModelPolicy`` dispatches it on that shape, and the nearest recorded
+    shape's elsewhere); ``"modal"`` is the shape-independent summary
+    (``top_configs_by_candidate``), the terminal fallback.  Shapes whose
+    winner is ``"default"`` are left out, as in the modal summary."""
+    tables: Dict[str, Dict[str, Dict]] = {}
+    wins: Dict[Tuple[str, str], Dict[str, int]] = {}
+    for (rec_platform, _hw, rec_dtype, rec_op, _g, m, n, k), times in cache.records():
+        if platform is not None and rec_platform != platform:
+            continue
+        if dtype is not None and rec_dtype != dtype:
+            continue
+        for name, (ck, _t) in best_times(times).items():
+            if ck == DEFAULT_CONFIG_KEY:
+                continue
+            entry = tables.setdefault(rec_op, {}).setdefault(
+                name, {"modal": None, "by_shape": {}}
+            )
+            entry["by_shape"][shape_key((m, n, k))] = ck
+            counts = wins.setdefault((rec_op, name), {})
+            counts[ck] = counts.get(ck, 0) + 1
+    for (op, name), counts in wins.items():
+        tables[op][name]["modal"] = min(counts, key=lambda ck: (-counts[ck], ck))
+    return tables
+
+
+def measure_transpose_configs(
+    rows: int,
+    cols: int,
+    dtype: str = "float32",
+    reps: int = 3,
+    warmup: int = 1,
+    max_configs: int = 4,
+    hardware: Optional[HardwareSpec] = None,
+    seed: int = 0,
+    device="cuda",
+    queued: bool = False,
+) -> Dict[str, float]:
+    """Tune the transpose kernel's (b_rows, b_cols) instances for one
+    (rows, cols) operand on ``device``: the default 32x32 kernel under
+    ``"default"`` and each instance of ``transpose_config_space`` (at
+    most ``max_configs``); returns ``{config_key: seconds}``.  A tuned
+    instance feeds ``ops.matmul_tnn`` / ``ops.matmul_tn`` as ``tblock``.
+    An instance that raises fails the measurement."""
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiling import transpose_config_space
+
+    dev = resolve_device(device)
+    hw = hardware or device_spec(dev)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randn((rows, cols), generator=gen, device=dev, dtype=dt)
+    sweep = [None] + list(transpose_config_space(rows, cols, b.element_size(),
+                                                 max_configs=max_configs, hardware=hw))
+    return {
+        config_key(cfg): bench_fn(lambda x, _c=cfg: ops.transpose(x, block=_c), b,
+                                  reps=reps, warmup=warmup, queued=queued)
+        for cfg in sweep
+    }
+
+
+def best_transpose_config(rows: int, cols: int, **kw) -> Optional[Tuple[int, int]]:
+    """The measured-fastest transpose instance for this operand, or None
+    when the default kernel wins."""
+    from repro_torch.kernels.tiling import parse_config_key
+
+    times = measure_transpose_configs(rows, cols, **kw)
+    ck = min(times, key=times.get)
+    return parse_config_key(ck, arity=2)

@@ -25,9 +25,12 @@ selected under the scope in which the backward runs: wrap the forward and
 autograd engine's device threads find it).  A backward whose forward's
 block has closed raises; the default policy never stands in for it.
 
-The port's candidates pick their own tiles (``core/candidates.py``), so
-the learned, analytic and autotune policies decide a candidate with
-``config=None``.
+A decision's config reaches the kernel (``kernels/tiling.py``): the
+learned policy attaches its artifact's tuned tile for the shape
+(``MTNNSelector.tile_config_for``), the autotune policy the measured
+fastest config, a fixed or cascade entry its ``@tile``.  The analytic
+policy attaches ``config=None``: the wrappers' own cost models are the
+port's analytic tile choice.
 
 PyTorch runs eagerly, so a policy selects on every call (JAX selects
 once per key at trace time).  The learned, analytic and autotune policies
@@ -240,8 +243,9 @@ class ModelPolicy:
     Thin adapter over ``MTNNSelector`` (which implements the GBDT / k-way
     decision, its per-key memo, the OOM guard and the distributed
     filter); stats are the selector's own, so a report covers dispatches
-    made through either API.  Decisions carry ``config=None``: the port's
-    candidates pick their own tiles."""
+    made through either API.  A decision carries the artifact's tuned tile
+    for its shape (``tile_config_for``), memoised per (candidate,
+    ``OpKey``)."""
 
     def __init__(self, selector=None):
         if selector is None:
@@ -249,6 +253,7 @@ class ModelPolicy:
 
             selector = default_selector()
         self.selector = selector
+        self._configs: Dict[Tuple[str, OpKey], Optional[Tuple[int, ...]]] = {}
 
     @classmethod
     def from_artifact(cls, path: str, **kw) -> "ModelPolicy":
@@ -261,7 +266,13 @@ class ModelPolicy:
         return self.selector.stats
 
     def select(self, key: OpKey) -> Decision:
-        return Decision(self.selector.select(key), None)
+        key = coerce_key(key)
+        name = self.selector.select(key)
+        memo = (name, key)
+        if memo not in self._configs:
+            self._configs[memo] = self.selector.tile_config_for(
+                name, key.dsize, op=key.op, mnk=key.mnk(), g=key.g)
+        return Decision(name, self._configs[memo])
 
     def __repr__(self):
         return f"ModelPolicy(mode={self.selector.mode!r}, hw={self.selector.hardware.name!r})"
@@ -319,39 +330,53 @@ class CascadePolicy(PolicyBase):
     """Ordered preference list: first admissible candidate wins.
 
     Admissibility honours the paper's OOM guard (extra-memory candidates
-    must fit the budget) and the distributed-safety filter.  The *last*
-    entry is the unconditional fallback -- it is returned even when its own
-    guards fail, so the cascade always produces a runnable candidate
-    (mirror of the paper's "if B^T does not fit, use NT").
+    must fit the budget) and the distributed-safety filter.  An entry may
+    carry a tile, ``NAME@BMxBNxBK``: it is admissible only at shapes where
+    its kernel has that plan, and its decision carries the tile.  The
+    *last* entry is the unconditional fallback -- it is returned even when
+    its own guards fail, so the cascade always produces a runnable
+    candidate (mirror of the paper's "if B^T does not fit, use NT").
     """
 
     def __init__(self, names: Sequence[str], **kw):
         super().__init__(**kw)
-        names = tuple(names)
-        if not names:
+        from repro_torch.kernels.tiling import parse_config_key
+
+        entries = []
+        for entry in names:
+            name, _, cfg = str(entry).partition("@")
+            cand = get_candidate(name)
+            config = parse_config_key(cfg, arity=cand.config_arity) if cfg else None
+            if config is not None and not cand.tunable:
+                raise ValueError(f"candidate {name!r} is not tunable; it cannot take {cfg!r}")
+            entries.append((name, config))
+        if not entries:
             raise ValueError("CascadePolicy needs at least one candidate name")
-        for name in names:
-            get_candidate(name)
-        self.names = names
+        self.entries = tuple(entries)
+        self.names = tuple(name for name, _ in entries)
 
     def select(self, key: OpKey) -> Decision:
         key = coerce_key(key)
+        shape = (key.g, key.m, key.n, key.k, key.dsize)
         chosen = None
-        for name in self.names:
-            if self._admissible(get_candidate(name), key):
-                chosen = name
+        for name, config in self.entries:
+            cand = get_candidate(name)
+            if self._admissible(cand, key) and (
+                    config is None or cand.supports(op=key.op, config=config, shape=shape)):
+                chosen = Decision(name, config)
                 break
         if chosen is None:
             # unconditional fallback: the last entry when it can run this op
             # at all, else the op's reference (a cascade written for the
             # forward op must not mis-dispatch a backward GEMM)
-            last = self.names[-1]
-            chosen = last if key.op in get_candidate(last).ops else DEFAULT_BY_OP[key.op]
-        self.stats.record(chosen, op=key.op)
-        return Decision(chosen, None)
+            last = self.entries[-1]
+            chosen = (Decision(*last) if key.op in get_candidate(last[0]).ops
+                      else Decision(DEFAULT_BY_OP[key.op], None))
+        self.stats.record(chosen.name, chosen.config, op=key.op)
+        return chosen
 
     def __repr__(self):
-        return f"CascadePolicy({list(self.names)!r})"
+        return f"CascadePolicy({[Decision(*e).label() for e in self.entries]!r})"
 
 
 class AutotunePolicy(PolicyBase):
@@ -359,8 +384,11 @@ class AutotunePolicy(PolicyBase):
 
     ``select`` answers from a persistent ``MeasurementCache`` (warm hit);
     on a cold key it measures every admissible candidate right there
-    (``measure.measure_candidates``, each candidate once: the port's have
-    one config each), stores the result and persists the cache.  When
+    (``measure.measure_candidates``: each under ``"default"`` and a
+    tunable one at up to ``max_tile_configs`` configs of its shortlist,
+    in device time on the card, so that host noise picks no tile), stores
+    the result and persists the cache, and dispatches the fastest
+    (candidate, config) pair; ``n_measured`` counts the cold keys.  When
     measurement is disabled -- ``measure=False``, ``distributed=True``, a
     dtype width with no measurable dtype, or a key over
     ``max_measure_flops`` -- it answers with ``AnalyticPolicy``.  A
@@ -383,6 +411,7 @@ class AutotunePolicy(PolicyBase):
         reps: int = 3,
         max_measure_flops: float = 1e11,
         device="cuda",
+        max_tile_configs: int = 4,
         **kw,
     ):
         import torch
@@ -413,6 +442,7 @@ class AutotunePolicy(PolicyBase):
         self.warmup = warmup
         self.reps = reps
         self.max_measure_flops = max_measure_flops
+        self.max_tile_configs = max_tile_configs
         # the fallback honours the same candidate restriction, so a policy
         # scoped to a subset can never dispatch outside it via the fallback
         self.fallback = AnalyticPolicy(
@@ -471,6 +501,8 @@ class AutotunePolicy(PolicyBase):
                 warmup=self.warmup,
                 reps=self.reps,
                 device=self.device,
+                max_tile_configs=self.max_tile_configs,
+                queued=True,
             )
             self.n_measured += 1
             if times:
@@ -480,18 +512,28 @@ class AutotunePolicy(PolicyBase):
         decision = None
         if times:
             # re-filter at use time: cached entries may predate a registry /
-            # distributed-mode / candidate-restriction change; each
-            # candidate enters at its best config's time
-            from .measure import best_times
+            # distributed-mode / candidate-restriction change, and a config
+            # the candidate's kernel has no plan for at this shape (a
+            # foreign or corrupt key) never dispatches
+            from repro_torch.kernels.tiling import parse_config_key
 
             best = None
-            for cand_name, (_ck, t) in best_times(times).items():
+            shape = (key.g, key.m, key.n, key.k, key.dsize)
+            for cand_name, cfgs in times.items():
                 if cand_name not in self.candidates or cand_name not in CANDIDATES:
                     continue
-                if not self._admissible(get_candidate(cand_name), key):
+                cand = get_candidate(cand_name)
+                if not self._admissible(cand, key):
                     continue
-                if best is None or t < best:
-                    best, decision = t, Decision(cand_name, None)
+                for cfg_key, t in cfgs.items():
+                    try:
+                        cfg = parse_config_key(cfg_key, arity=cand.config_arity)
+                    except ValueError:
+                        continue
+                    if cfg is not None and not cand.supports(config=cfg, shape=shape):
+                        continue
+                    if best is None or t < best:
+                        best, decision = t, Decision(cand_name, cfg)
         if decision is None:
             self.n_fallbacks += 1
             decision = self.fallback.select(key)

@@ -14,9 +14,11 @@ Differences from the paper's runtime flow (and why):
     attention ops, each with its own binary pair.
 
 Artifacts are the JAX package's (schema 5, older files migrate on load),
-so one artifact loads in both packages and gives the same decisions.  The
-port's candidates pick their own tiles, so an artifact's tile tables
-round-trip and choose nothing (``tile_config_for`` is None).
+so one artifact loads in both packages and gives the same decisions.  An
+artifact's per-op, per-shape tile tables (``measure.tile_tables_from_cache``)
+choose the tile a tunable candidate runs at (``tile_config_for``: the exact
+shape, else the nearest recorded one in log space, else the modal entry),
+where the port's wrapper has that plan at the dispatched shape.
 
 No artifact ships with the port: the default selector is trained at first
 use on the analytic dataset of the port's chips (``collect_analytic``,
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 from typing import Dict, Optional, Tuple
 
@@ -43,7 +46,7 @@ from .candidates import (
 from .features import make_features
 from .gbdt import GBDTClassifier
 from .hardware import H100, HardwareSpec, known_specs
-from .opkey import OpKey, check_op, coerce_key
+from .opkey import OpKey, check_op, coerce_key, parse_shape_key, shape_key
 from .policy import SelectorStats
 from .train_model import KWayModel
 
@@ -81,6 +84,22 @@ __all__ = [
 SCHEMA_VERSION = 5
 
 
+def _nearest_shape_key(by_shape: Dict[str, str], mnk) -> Optional[str]:
+    """The tile-table entry of the recorded shape nearest to ``mnk`` in log
+    space (GEMM cost scales multiplicatively).  Returns the config key, or
+    None on an empty or corrupt table."""
+    best_d, best_ck = None, None
+    for sk, ck in by_shape.items():
+        try:
+            m2, n2, k2 = parse_shape_key(sk)
+        except ValueError:
+            continue
+        d = sum(abs(math.log(max(a, 1) / max(b, 1))) for a, b in zip(mnk, (m2, n2, k2)))
+        if best_d is None or d < best_d:
+            best_d, best_ck = d, ck
+    return best_ck
+
+
 class MTNNSelector:
     """Selects one candidate implementation per ``OpKey`` — forward NT and
     backward NN/TN GEMMs alike."""
@@ -107,9 +126,9 @@ class MTNNSelector:
             self.binary_pairs[check_op(op)] = tuple(pair)
         self.distributed = distributed
         self.mem_budget_frac = mem_budget_frac
-        # per-op, per-candidate tile tables of the artifact: {"modal":
-        # "BMxBNxBK", "by_shape": {"MxNxK": "BMxBNxBK"}}; kept so an
-        # artifact round-trips, and choosing nothing (tile_config_for)
+        # per-op, per-candidate learned tile tables: {"modal": "BMxBNxBK",
+        # "by_shape": {"MxNxK": "BMxBNxBK"}} -- per-shape entries win (with
+        # nearest-shape fallback), the modal key is the summary
         self.tile_tables: Dict[str, Dict[str, Dict]] = {}
         for op, table in (tile_tables or {}).items():
             check_op(op)
@@ -131,11 +150,39 @@ class MTNNSelector:
         dsize: int = 4,
         op: str = "NT",
         mnk: Optional[Tuple[int, int, int]] = None,
+        g: int = 1,
     ) -> Optional[Tuple[int, ...]]:
-        """Always None in the port: its candidates pick their own tiles
-        (``core/candidates.py``), so an artifact's tile tables load and
-        round-trip but choose nothing."""
-        return None
+        """The learned tile for a candidate at one dispatch: the per-shape
+        entry for ``mnk`` (exact, else the nearest recorded shape in log
+        space), else the modal summary, parsed and checked against the
+        port's plans.  None -- the wrapper's own plan -- when the artifact
+        carries nothing usable, the entry is malformed, the candidate is
+        not tunable, or its kernel has no such plan at this (g, mnk,
+        dsize): a split measured at another k, say."""
+        entry = self.tile_tables.get(op, {}).get(name)
+        if not entry:
+            return None
+        cand = CANDIDATES.get(name)
+        if cand is None or not cand.tunable:
+            return None
+        from repro_torch.kernels.tiling import parse_config_key
+
+        key = None
+        by_shape = entry.get("by_shape") or {}
+        if mnk is not None and by_shape:
+            key = by_shape.get(shape_key(mnk)) or _nearest_shape_key(by_shape, mnk)
+        if key is None:
+            key = entry.get("modal")
+        if not key:
+            return None
+        try:
+            config = parse_config_key(key, arity=cand.config_arity)
+        except ValueError:
+            return None
+        if config is None:
+            return None
+        shape = None if mnk is None else (g, *mnk, dsize)
+        return config if cand.supports(config=config, shape=shape) else None
 
     # -- decision ----------------------------------------------------------
     def _fits(self, cand, key: OpKey) -> bool:

@@ -47,6 +47,9 @@ __all__ = [
     "fits_memory",
     "SIM_ALGOS",
     "OP_SIM_ALGOS",
+    "gemm_plan_time",
+    "transpose_tile_time",
+    "attn_plan_time",
 ]
 
 SIM_ALGOS = ("NT_DIRECT", "TNN", "TNN_FUSED", "XLA_DOT")
@@ -247,3 +250,75 @@ def fits_memory(hw: HardwareSpec, m: int, n: int, k: int, dsize: int, tnn: bool)
     if tnn:
         total += n * k * dsize
     return total <= hw.mem_gib * (1024**3) * 0.9
+
+
+# -- plan models of the port's CUDA kernels (kernels/tiling.py) ---------------
+#
+# Rank the plans of one kernel at one shape; nothing trains on them.  A plan
+# runs its tiles (times splits of k) in waves over the card's SMs, each
+# tile at the SM's share of the peak, and moves at least its operands' bytes
+# (A re-read per column tile, B per row tile, split partials written and
+# read back in f32).
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_plan_time(
+    hw: HardwareSpec,
+    m: int,
+    n: int,
+    k: int,
+    dsize: int,
+    tile: Tuple[int, int],
+    splits: int = 1,
+    g: int = 1,
+) -> float:
+    """Modelled seconds of a GEMM plan with ``tile`` = (bm, bn) output
+    tiles and k split ``splits`` ways, over ``g`` slices."""
+    bm, bn = tile
+    peak = (hw.peak_tflops_bf16 if dsize <= 2 else hw.peak_tflops_f32) * 1e12
+    sms = max(1, hw.num_cores)
+    units = g * _cdiv(m, bm) * _cdiv(n, bn) * splits
+    t_compute = _cdiv(units, sms) * 2.0 * bm * bn * _cdiv(k, splits) / (peak / sms)
+    nbytes = dsize * g * (m * k * _cdiv(n, bn) + n * k * _cdiv(m, bm) + m * n)
+    if splits > 1:
+        nbytes += 8 * splits * g * m * n
+    launches = 2 if splits > 1 else 1
+    return max(t_compute, nbytes / (hw.mem_bw_gbps * 1e9)) + launches * hw.launch_overhead_us * 1e-6
+
+
+def transpose_tile_time(
+    hw: HardwareSpec, rows: int, cols: int, dsize: int, block: Tuple[int, int]
+) -> float:
+    """Modelled seconds of an out-of-place transpose with (b_rows, b_cols)
+    tiles: the padded tiles' bytes at ``transpose_bw_frac`` of the memory
+    rate, plus a wave term for the blocks (about 8 resident per SM)."""
+    br, bc = block
+    padded = _cdiv(rows, br) * br * _cdiv(cols, bc) * bc
+    blocks = _cdiv(rows, br) * _cdiv(cols, bc)
+    waves = _cdiv(blocks, 8 * max(1, hw.num_cores))
+    t = 2.0 * padded * dsize / (hw.mem_bw_gbps * 1e9 * hw.transpose_bw_frac)
+    return t + waves * 0.5e-6 + hw.launch_overhead_us * 1e-6
+
+
+def attn_plan_time(
+    hw: HardwareSpec, g: int, m: int, n: int, dh: int, dsize: int, block: Tuple[int, int]
+) -> float:
+    """Modelled seconds of a fused-attention plan: for the split-KV
+    route's (rows, keys per split), K and V read once by g x splits blocks
+    in waves, plus the f32 partials and the combine; a route with one tile
+    is one plan, priced by its bytes."""
+    bw = hw.mem_bw_gbps * 1e9
+    sms = max(1, hw.num_cores)
+    rows, per = block
+    kv = 2.0 * g * n * dh * dsize
+    if rows > 16:  # the flash and FMA routes: one plan each
+        return (kv + 2.0 * g * m * dh * dsize) / bw + hw.launch_overhead_us * 1e-6
+    splits = _cdiv(n, per)
+    t_block = 2.0 * per * dh * dsize / (bw / sms)
+    t = max(kv / bw, _cdiv(g * splits, 2 * sms) * t_block)
+    if splits > 1:
+        t += 2.0 * g * splits * m * (dh + 2) * 4 / bw + hw.launch_overhead_us * 1e-6
+    return t + hw.launch_overhead_us * 1e-6

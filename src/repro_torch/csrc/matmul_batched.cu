@@ -12,7 +12,7 @@
 // The Pallas kernel grows one leading parallel batch axis over the unbatched
 // (i, j, k) grid, k sequential; here blockIdx.z is the batch slice (and the
 // split of k) and the loop over k runs inside the block.  Three kernels,
-// picked by the wrapper (kernels/matmul_batched.py::batched_variant) before
+// picked by the wrapper (kernels/matmul_batched.py::batched_plans) before
 // the launch:
 //
 //   tiled (f32; k % 4 == 0, BNN's n % 4 == 0, 16-byte aligned operands).

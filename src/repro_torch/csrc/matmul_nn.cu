@@ -8,7 +8,7 @@
 // the MXU as it is stored.  NN is stage 2 of the paper's TNN, every data
 // gradient (G . W) and stage 2 of every weight gradient (transpose(G) . X).
 //
-// Two variants, picked by the wrapper (kernels/matmul_nn.py::nn_variant)
+// Two variants, picked by the wrapper (kernels/matmul_nn.py::nn_plans)
 // before the launch; both need k % 8 == 0, n % 8 == 0 and 16-byte aligned
 // operands (TMA's and cp.async's 16-byte rule):
 //

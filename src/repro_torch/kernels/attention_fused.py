@@ -29,6 +29,15 @@ The split and FMA kernels are built twice, for head dims up to 128 and up
 to 256; a call takes the smaller instance that holds its dh.  Above 256
 the wrapper raises (the Pallas kernel pads any dh to the 128 edge).
 
+Tile configs (``kernels/tiling.py``): ``attention_plans`` lists the
+plans of a shape's route as (config, plan) pairs, the route's own first,
+and ``block=None`` launches that one.  On the ``decode_split`` route a
+config (bq, bk) names a split of the keys: bq the kernel's row instance
+(4 for m <= 4, else 16), bk the keys of one split (``decode_split_plan``'s,
+and those of 1, 2, 4, ... 64 splits: a multiple of 16, at least 32).  The
+``flash_mma`` route runs one tile, (64, 64), and the ``fma`` route (16,
+32).  Any other config raises, on both routes.
+
 Each kernel keeps the live key range of the mask and never reads K or V
 beyond ``lengths``.  Each call counts one launch, split or not, in
 ``LAUNCHES`` and under its (route, dh) in ``ATTENTION_ROUTES``.  On CPU
@@ -53,16 +62,18 @@ import torch
 from . import _build, ref
 from .common import (
     ATTENTION_ROUTES,
-    LAUNCHES,
+    H100_SMS,
     cdiv,
     check_operand,
+    count_launch,
+    pick_plan,
     route,
     sm_count,
     validate_config,
 )
 
 __all__ = ["MaskParams", "NEG_INF", "DH_MAX", "attention_fused", "attention_variant",
-           "decode_split_plan"]
+           "decode_split_plan", "attention_plans"]
 
 NEG_INF = -1e30  # finite: exp(NEG_INF - finite_max) == 0.0 exactly, no nan
 
@@ -76,6 +87,10 @@ _DECODE_MIN_KEYS = 32  # a split walks at least this many keys
 _DECODE_KEY_STEP = 16  # splits hold a multiple of 16 keys (one step of 4 warps)
 _DECODE_BLOCKS_PER_SM = 2  # the split count aims for this many blocks per SM
 _DECODE_MAX_SPLITS = 64  # csrc kCombineMaxSplits: the combine's scales per row
+_DECODE_WARPS = 4  # csrc kDecodeWarps
+_FMA_KEYS = 32  # csrc kBKV: keys per FMA tile
+_FLASH_KEYS = 64  # csrc kFlashKeys
+_DH_SMALL = 128  # csrc kDhSmall: the smaller instance of the split and FMA kernels
 
 
 def attention_variant(dtype: torch.dtype, g: int, m: int, n: int, dh: int,
@@ -99,10 +114,33 @@ def decode_split_plan(g: int, n: int, sms: int) -> Tuple[int, int]:
     until g x splits gives every SM about two blocks, into at most 64
     splits of at least 32 keys, a multiple of 16; splits x per covers n
     and no split is empty."""
-    want = min(cdiv(_DECODE_BLOCKS_PER_SM * sms, g), _DECODE_MAX_SPLITS)
+    want = min(cdiv(_DECODE_BLOCKS_PER_SM * sms, max(1, g)), _DECODE_MAX_SPLITS)
     per = cdiv(cdiv(n, want), _DECODE_KEY_STEP) * _DECODE_KEY_STEP
     per = max(_DECODE_MIN_KEYS, per)
     return cdiv(n, per), per
+
+
+def _decode_rows(m: int) -> int:
+    """The split kernel's row instance for m (csrc launch_decode)."""
+    return 4 if m <= 4 else _DECODE_MAX_M
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plans(dtype: torch.dtype, g: int, m: int, n: int, dh: int, aligned: bool = True,
+                    sms: int = H100_SMS):
+    """The (config, plan) pairs of this shape's route (``aligned``: q, k
+    and v 16-byte aligned), the route's own first.  A plan is
+    ``(variant, splits, keys per split)``."""
+    variant = attention_variant(dtype, g, m, n, dh, aligned)
+    if variant != "decode_split":
+        tile = (_FLASH_ROWS, _FLASH_KEYS) if variant == "flash_mma" else (_FMA_ROWS, _FMA_KEYS)
+        return ((tile, (variant, 1, 1)),)
+    pers = [decode_split_plan(g, n, sms)[1]]
+    for s in (1, 2, 4, 8, 16, 32, _DECODE_MAX_SPLITS):
+        pers.append(max(_DECODE_MIN_KEYS,
+                        cdiv(cdiv(n, s), _DECODE_KEY_STEP) * _DECODE_KEY_STEP))
+    plans = {(_decode_rows(m), per): (variant, cdiv(n, per), per) for per in pers}
+    return tuple(plans.items())
 
 
 @dataclass(frozen=True)
@@ -134,10 +172,11 @@ def attention_fused(
     """softmax(mask(Q K^T)) V per batch slice, in q's dtype.
 
     ``lengths`` (g,) marks each slice's valid key count (None => all n).
-    Queries come pre-scaled by ``d_head**-0.5``.  ``block`` is validated
-    as a (bq, bk) tile config; the CUDA kernels' tiles are fixed."""
+    Queries come pre-scaled by ``d_head**-0.5``.  ``block`` is a (bq, bk)
+    tile config of ``attention_plans`` (None: the route's own); any other
+    raises on both routes."""
     if block is not None:
-        validate_config(block, arity=2)
+        block = validate_config(block, arity=2)
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, 3)
     g, m, dh = q.shape
@@ -155,10 +194,13 @@ def attention_fused(
         lengths = torch.full((g,), n, dtype=torch.int32, device=q.device)
     else:
         lengths = lengths.reshape(g).to(device=q.device, dtype=torch.int32).contiguous()
-    if route(q, k, v, lengths) == "plain":
-        return ref.attention_fused(q, k, v, lengths, mask)
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    variant = attention_variant(q.dtype, g, m, n, dh, aligned)
+    plain = route(q, k, v, lengths) == "plain"
+    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
+    variant, splits, per = pick_plan(attention_plans(q.dtype, g, m, n, dh, aligned, sms), block,
+                                     f"attention kernel at g={g} m={m} n={n} dh={dh} {q.dtype}")
+    if plain:
+        return ref.attention_fused(q, k, v, lengths, mask)
     if variant != "decode_split":
         rows = _FLASH_ROWS if variant == "flash_mma" else _FMA_ROWS
         if cdiv(m, rows) > _MAX_GRID_Y:
@@ -170,7 +212,6 @@ def attention_fused(
     geometry = (g, m, n, dh, int(mask.causal), int(mask.window), int(mask.q_start),
                 int(mask.k_start), int(mask.prefix_len), int(mask.q_seg), float(mask.softcap))
     if variant == "decode_split":
-        splits, per = decode_split_plan(g, n, sm_count(torch.cuda.current_device()))
         ws = (torch.empty((g, splits, m * (dh + 2)), dtype=torch.float32, device=q.device)
               if splits > 1 else None)
         _build.launch("attention_fused", "repro_attention_fused_decode", *head,
@@ -182,6 +223,6 @@ def attention_fused(
     else:
         _build.launch("attention_fused", "repro_attention_fused_fma", *head, *geometry,
                       _build.dtype_code(q.dtype), _build.stream_of(q))
-    LAUNCHES["attention_fused"] += 1
+    count_launch("attention_fused", block)
     ATTENTION_ROUTES[(variant, dh)] = ATTENTION_ROUTES.get((variant, dh), 0) + 1
     return out

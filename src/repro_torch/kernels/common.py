@@ -1,6 +1,7 @@
-"""Shared helpers of the port's kernel wrappers: tile-config validation,
-operand checks, routing by device, the launch counters, the card's SM
-count and the launcher of the FMA GEMM that the NN and NT wrappers share.
+"""Shared helpers of the port's kernel wrappers: tile-config keys and
+plan lookup, operand checks, routing by device, the launch counters, the
+card's SM count and the launcher of the FMA GEMM that the NN and NT
+wrappers share.
 
 Routing rule of every wrapper: an operand on the CPU runs the kernel's
 plain PyTorch version (``ref.py``); an operand on a CUDA device launches
@@ -22,21 +23,32 @@ __all__ = [
     "cdiv",
     "sm_count",
     "launch_matmul",
+    "fma_tile",
+    "H100_SMS",
     "DEFAULT_CONFIG_KEY",
     "config_key",
     "parse_config_key",
     "validate_config",
+    "split_choices",
+    "pick_plan",
     "KERNEL_DTYPES",
     "check_operand",
     "route",
     "LAUNCHES",
     "ATTENTION_ROUTES",
+    "CONFIG_LAUNCHES",
+    "count_launch",
     "reset_launches",
 ]
 
 TileConfig = Tuple[int, ...]
 
+# Cache/report key for "the candidate ran its own plan" -- every non-tunable
+# candidate, and a tunable one given no config (its wrapper's cost model).
 DEFAULT_CONFIG_KEY = "default"
+
+# An H100 SXM's SM count: the cost models' default where no card is asked.
+H100_SMS = 132
 
 # The dtypes the CUDA kernels take.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -59,10 +71,25 @@ LAUNCHES: Dict[str, int] = {
 ATTENTION_ROUTES: Dict[Tuple[str, int], int] = {}
 
 
+# Launches of each CUDA kernel by the tile config its wrapper was given,
+# e.g. ("matmul_nn", "128x192x512") or ("transpose", "default"): a run can
+# show that a tuned config reached its kernel.
+CONFIG_LAUNCHES: Dict[Tuple[str, str], int] = {}
+
+
+def count_launch(name: str, block=None) -> None:
+    """Count one launch of kernel ``name`` at config ``block`` (None: the
+    wrapper's own plan); wrappers call it where they launch, nowhere else."""
+    LAUNCHES[name] += 1
+    key = (name, config_key(block))
+    CONFIG_LAUNCHES[key] = CONFIG_LAUNCHES.get(key, 0) + 1
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     ATTENTION_ROUTES.clear()
+    CONFIG_LAUNCHES.clear()
 
 
 def cdiv(a: int, b: int) -> int:
@@ -76,6 +103,13 @@ def sm_count(index: int) -> int:
 
 
 _FMA_MAX_M = 65535 * 16  # csrc/matmul.cu: gridDim.y of the smallest row tile
+
+
+def fma_tile(m: int) -> Tuple[int, int, int]:
+    """The one tile of the FMA kernels (``csrc/matmul.cu``, and the batched
+    FMA kernel of ``csrc/matmul_batched.cu``): 16 or 64 rows as m asks, 64
+    columns, 32 of k per stage."""
+    return (16 if m <= 16 else 64, 64, 32)
 
 
 def launch_matmul(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
@@ -95,14 +129,16 @@ def launch_matmul(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
 
 
 def config_key(config: Optional[TileConfig]) -> str:
-    """Stable string form used in dispatch reports."""
+    """Stable string form used in measurement-cache entries and reports."""
     if config is None:
         return DEFAULT_CONFIG_KEY
     return "x".join(str(int(b)) for b in config)
 
 
 def parse_config_key(key: str, arity: int = 3):
-    """Inverse of ``config_key``; ``'default'`` maps to None."""
+    """Inverse of ``config_key``; ``'default'`` maps to None.  ``arity`` is
+    the expected tuple length -- 3 for the GEMM tiles, 2 for the transpose
+    kernel's (b_rows, b_cols) and the attention kernel's (bq, bk)."""
     if key == DEFAULT_CONFIG_KEY:
         return None
     try:
@@ -120,12 +156,39 @@ def validate_config(config: Sequence[int], arity: int = 3) -> TileConfig:
     transpose (b_rows, b_cols)."""
     config = tuple(config)
     if len(config) != arity:
-        kinds = {2: "(bq, bk)", 3: "(bm, bn, bk)"}.get(arity, f"{arity} ints")
+        kinds = "(bq, bk)" if arity == 2 else "(bm, bn, bk)"
         raise ValueError(f"tile config {config} must be {kinds}")
     for b in config:
         if not isinstance(b, int) or isinstance(b, bool) or b <= 0:
             raise ValueError(f"tile config {config} must be positive ints")
     return config
+
+
+def split_choices(steps: int, max_splits: Optional[int] = None) -> Tuple[int, ...]:
+    """Units per split for 1, 2, 4, 8, ... splits of ``steps`` units (at
+    most ``max_splits``), deepest first and without repeats."""
+    pers, s = [], 1
+    while s <= max(1, steps) and (max_splits is None or s <= max_splits):
+        per = cdiv(max(1, steps), s)
+        if per not in pers:
+            pers.append(per)
+        s *= 2
+    return tuple(pers)
+
+
+def pick_plan(plans: Tuple[Tuple[TileConfig, tuple], ...], block: Optional[TileConfig],
+              what: str) -> tuple:
+    """The plan of ``block`` in a route's ``(config, plan)`` pairs, the
+    cost model's first (a plan's first item names the route): None picks
+    that one; a config the route has no plan for raises ``ValueError``
+    naming the route and its configs."""
+    if block is None:
+        return plans[0][1]
+    for config, plan in plans:
+        if config == block:
+            return plan
+    raise ValueError(f"{what}, {plans[0][1][0]} route, has no plan for tile {tuple(block)}; "
+                     f"its configs: {[c for c, _ in plans]}")
 
 
 def check_operand(name: str, x, ndim: int) -> None:

@@ -7,7 +7,7 @@ Replace the Pallas kernel ``repro/kernels/matmul_batched.py:124``
 (``_matmul_batched``, behind ``matmul_bnt`` and ``matmul_bnn``).  On CUDA
 tensors the wrappers launch one of three kernels of
 ``csrc/matmul_batched.cu``, picked before the launch by
-``batched_variant`` from dtype, shape and the operands' addresses:
+``batched_plans`` from dtype, shape and the operands' alignment:
 
 - ``tiled`` (f32, k a multiple of 4, BNN's n too, 16-byte aligned
   operands): the attention backward's contractions, bound by operations
@@ -23,6 +23,14 @@ tensors the wrappers launch one of three kernels of
 - ``fma`` (any other operands): FMA over f32-staged shared tiles, one
   block per (slice, 64-column tile), a 16-row tile for m <= 16.
 
+Tile configs (``kernels/tiling.py``): ``batched_plans`` lists the plans
+of a shape's route as (config, plan) pairs, the cost model's first, and
+``block=None`` launches that one.  On the ``tiled`` route a config (64,
+64, bk) sets the k of one split (the cost model's split, and 1, 2, 4, ...
+splits with g x splits within gridDim.z); the ``mma`` route runs one
+tile, (64, 64, 64), and the ``fma`` route ``fma_tile(m)``.  Any other
+config raises, on both routes.
+
 Each call counts one launch, split or not.  On CPU tensors the wrappers
 run the plain versions in ``ref.py``.
 """
@@ -36,9 +44,20 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, cdiv, check_operand, route, sm_count, validate_config
+from .common import (
+    H100_SMS,
+    cdiv,
+    check_operand,
+    count_launch,
+    fma_tile,
+    pick_plan,
+    route,
+    sm_count,
+    split_choices,
+    validate_config,
+)
 
-__all__ = ["matmul_bnt", "matmul_bnn", "batched_variant"]
+__all__ = ["matmul_bnt", "matmul_bnn", "batched_plans", "batched_plan"]
 
 _MAX_Z = 65535  # gridDim.z: slices (times splits for the tiled kernel)
 _MAX_M = 65535 * 16  # gridDim.y of the smallest row tile
@@ -46,24 +65,47 @@ _TILE = 64  # the tiled and mma kernels' output tile, 64 x 64
 _TILED_BK = 16  # the tiled kernel's k step, the unit of a split
 _MIN_STEPS_PER_SPLIT = 4  # a split walks at least 64 of k
 _BLOCKS_PER_SM = 3  # the most blocks per SM the tiled kernel's split aims for
+_MMA_TILE = (_TILE, _TILE, 64)  # the mma kernel's tile: kMBM x kMBN, kMBK per stage
 
 
-def batched_variant(dtype: torch.dtype, g: int, m: int, n: int, k: int, nt: bool,
-                    a_ptr: int, b_ptr: int, sms: int) -> Tuple[str, int, int]:
-    """The kernel a CUDA call launches and its split of k: ``("tiled",
-    splits, k-steps per split)`` (f32), ``("mma", 1, 1)`` (bf16) or
-    ``("fma", 1, 1)``.  A pure function of dtype, shape, layout (``nt``:
-    B is (g, n, k)), the operands' addresses and the card's SM count,
-    decided before the launch.  The tiled kernel's vector loads need k (and
-    BNN's n, B's row length) to be a multiple of 4 floats, the mma kernel's
-    of 8 bf16, and both operands 16-byte aligned."""
+def _route(dtype: torch.dtype, k: int, n: int, nt: bool, aligned: bool) -> str:
     vec = 4 if dtype == torch.float32 else 8
-    if not (k > 0 and k % vec == 0 and (nt or n % vec == 0)
-            and a_ptr % 16 == 0 and b_ptr % 16 == 0):
-        return "fma", 1, 1
-    if dtype == torch.bfloat16:
-        return "mma", 1, 1
-    return ("tiled",) + _tiled_split(g, m, n, k, sms)
+    if not (aligned and k > 0 and k % vec == 0 and (nt or n % vec == 0)):
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "tiled"
+
+
+@functools.lru_cache(maxsize=None)
+def batched_plans(dtype: torch.dtype, g: int, m: int, n: int, k: int, nt: bool,
+                  aligned: bool = True, sms: int = H100_SMS):
+    """The (config, plan) pairs of this shape's route, the cost model's
+    first: ``nt`` says B is (g, n, k), ``aligned`` that A and B are
+    16-byte aligned.  A plan is ``(variant, None, splits, k-steps per
+    split)``: ``("tiled", None, s, per)`` (f32), ``("mma", None, 1, 1)``
+    (bf16) or ``("fma", None, 1, 1)``.  The tiled kernel's vector loads
+    need k (and BNN's n, B's row length) to be a multiple of 4 floats, the
+    mma kernel's of 8 bf16."""
+    variant = _route(dtype, k, n, nt, aligned)
+    if variant != "tiled":
+        tile = _MMA_TILE if variant == "mma" else fma_tile(m)
+        return ((tile, (variant, None, 1, 1)),)
+    steps = cdiv(k, _TILED_BK)
+    pers = (_tiled_split(g, m, n, k, sms)[1],) + split_choices(steps, max(1, _MAX_Z // g))
+    plans = {(_TILE, _TILE, per * _TILED_BK): ("tiled", None, cdiv(steps, per), per)
+             for per in pers}
+    return tuple(plans.items())
+
+
+def batched_plan(dtype: torch.dtype, g: int, m: int, n: int, k: int, nt: bool, a_ptr: int,
+                 b_ptr: int, sms: int, block: Optional[Tuple[int, int, int]] = None
+                 ) -> Tuple[str, None, int, int]:
+    """The plan a call with operands at ``a_ptr`` and ``b_ptr`` launches
+    for ``block`` (None: the cost model's); raises ``ValueError`` on a
+    config its route has no plan for.  Decided before the launch."""
+    aligned = a_ptr % 16 == 0 and b_ptr % 16 == 0
+    return pick_plan(batched_plans(dtype, g, m, n, k, nt, aligned, sms), block,
+                     f"batched kernel ({'BNT' if nt else 'BNN'}) at g={g} ({m}, {n}, {k}) "
+                     f"{dtype}")
 
 
 @functools.lru_cache(maxsize=None)  # the attention backward repeats its shapes
@@ -73,7 +115,7 @@ def _tiled_split(g: int, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     split at least ``_MIN_STEPS_PER_SPLIT`` steps deep, and g x splits
     within gridDim.z.  No split is empty."""
     steps = cdiv(k, _TILED_BK)
-    blocks = g * cdiv(m, _TILE) * cdiv(n, _TILE)
+    blocks = max(1, g * cdiv(m, _TILE) * cdiv(n, _TILE))
     want = min(max(1, _BLOCKS_PER_SM * sms // blocks),
                max(1, steps // _MIN_STEPS_PER_SPLIT), max(1, _MAX_Z // g))
     per = cdiv(steps, want)
@@ -82,7 +124,7 @@ def _tiled_split(g: int, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
 
 def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
     if block is not None:
-        validate_config(block)
+        block = validate_config(block)
     check_operand("a", a, 3)
     check_operand("b", b, 3)
     g, m, k = a.shape
@@ -91,6 +133,8 @@ def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
         raise ValueError(f"batched operands mismatch: {tuple(a.shape)} {a.dtype} vs "
                          f"{tuple(b.shape)} {b.dtype} ({'BNT' if nt else 'BNN'})")
     if route(a, b) == "plain":
+        if block is not None:
+            batched_plan(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(), H100_SMS, block)
         return ref.matmul_bnt(a, b) if nt else ref.matmul_bnn(a, b)
     if g > _MAX_Z:
         raise ValueError(f"batched kernel takes at most {_MAX_Z} slices, got {g}")
@@ -99,8 +143,8 @@ def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
     c = torch.empty((g, m, n), dtype=a.dtype, device=a.device)
     if not c.numel():
         return c
-    variant, splits, per = batched_variant(a.dtype, g, m, n, k, nt, a.data_ptr(),
-                                           b.data_ptr(), sm_count(torch.cuda.current_device()))
+    variant, _, splits, per = batched_plan(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(),
+                                           sm_count(torch.cuda.current_device()), block)
     args = (_build.ptr(a), _build.ptr(b), _build.ptr(c))
     if variant == "tiled":
         ws = (torch.empty((splits, g, m, n), dtype=torch.float32, device=a.device)
@@ -114,21 +158,23 @@ def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
     else:
         _build.launch("matmul_batched", "repro_matmul_batched_fma", *args, g, m, n, k,
                       int(nt), _build.dtype_code(a.dtype), _build.stream_of(a))
-    LAUNCHES["matmul_bnt" if nt else "matmul_bnn"] += 1
+    count_launch("matmul_bnt" if nt else "matmul_bnn", block)
     return c
 
 
 def matmul_bnt(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
-    """Batched NT in A's dtype, f32 accumulation.  ``block`` is validated as
-    a (bm, bn, bk) tile config; the CUDA kernels pick their own tiles."""
+    """Batched NT in A's dtype, f32 accumulation.  ``block`` is a (bm, bn,
+    bk) tile config of ``batched_plans`` (None: the cost model's); any
+    other raises on both routes."""
     return _batched(a, b, True, block)
 
 
 def matmul_bnn(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
-    """Batched NN in A's dtype, f32 accumulation.  ``block`` is validated as
-    a (bm, bn, bk) tile config; the CUDA kernels pick their own tiles."""
+    """Batched NN in A's dtype, f32 accumulation.  ``block`` is a (bm, bn,
+    bk) tile config of ``batched_plans`` (None: the cost model's); any
+    other raises on both routes."""
     return _batched(a, b, False, block)

@@ -3,7 +3,7 @@ every data gradient and stage 2 of every weight gradient.
 
 Replaces the Pallas kernel ``repro/kernels/matmul_nn.py:77``.  On CUDA
 tensors the wrapper launches one of three kernels, picked before the
-launch by ``nn_variant`` from dtype, shape and the operands' addresses:
+launch by ``nn_plans`` from dtype, shape and the operands' alignment:
 
 - ``wgmma`` (bf16, m > 64, k and n multiples of 8, A and B 16-byte
   aligned): ``csrc/matmul_nn.cu``, built for the training backward (bound
@@ -21,6 +21,16 @@ launch by ``nn_variant`` from dtype, shape and the operands' addresses:
 - ``fma`` (f32, or bf16 operands the two above do not take): the NN
   instance of ``csrc/matmul.cu`` (FMA, f32 accumulation, no TF32).
 
+Tile configs (``kernels/tiling.py``): ``nn_plans`` lists the plans of a
+shape's route as (config, plan) pairs, the cost model's first, and
+``block=None`` launches that one.  A config ``(bm, bn, bk)`` is, on
+``wgmma``, (128, BN, bk) with BN one of the instances above and bk the k of
+one split (the cost model's split, and 1, 2, 4, ... up to 32 splits); on
+``skinny``, (MA, 128, bk) as the direct NT kernel's (``matmul_nt.py``);
+on ``fma``, its one tile, ``fma_tile(m)``.  Any other config -- a wgmma
+tile at an m the skinny kernel owns, a BN with no instance, a split the
+route does not list -- raises, on both routes.
+
 Each call counts one launch, split or not.  A launch that fails raises; no
 variant stands in for another.  On CPU tensors the wrapper runs the plain
 version in ``ref.py``.
@@ -36,19 +46,24 @@ import torch
 
 from . import _build, ref
 from .common import (
-    LAUNCHES,
+    H100_SMS,
     cdiv,
     check_operand,
+    count_launch,
+    fma_tile,
     launch_matmul,
+    pick_plan,
     route,
     sm_count,
+    split_choices,
     validate_config,
 )
-from .matmul_nt import nt_split
+from .matmul_nt import nt_split, skinny_rows
 
-__all__ = ["matmul_nn", "nn_variant"]
+__all__ = ["matmul_nn", "nn_plans", "nn_plan"]
 
 _SKINNY_M = 64  # csrc kMTile: the swap-AB kernel's A rows per block
+_SKINNY_COLS = 128  # kCols: B columns per block
 _SKINNY_MAX_M = 65535 * _SKINNY_M  # its gridDim.y walks further 64-row tiles
 _WG_BM = 128  # csrc kWgBM: the wgmma variant's tile rows
 _WG_BK = 64  # kWgBK: k per stage, the unit of a split
@@ -67,22 +82,46 @@ _US_REDUCE = 3.0
 _PARTIAL_BYTES_PER_US = 3.0e6
 
 
-def _aligned(n: int, k: int, a_ptr: int, b_ptr: int) -> bool:
-    return k > 0 and k % 8 == 0 and n % 8 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0
+def _route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> str:
+    if dtype != torch.bfloat16 or not (aligned and k > 0 and k % 8 == 0 and n % 8 == 0):
+        return "fma"
+    return "skinny" if m <= _SKINNY_M else "wgmma"
 
 
-def nn_variant(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
-               sms: int) -> Tuple[str, Optional[int], int, int]:
-    """The kernel a CUDA call launches: ``(variant, BN, splits, k-blocks
-    per split)`` -- ``("wgmma", BN, s, per)``, ``("skinny", None, s, per)``
-    or ``("fma", None, 1, 1)``.  A pure function of the shape, dtype, the
-    operands' addresses and the card's SM count, decided before the
-    launch.  A split is a run of 64-deep k-blocks; none is empty."""
-    if dtype != torch.bfloat16 or not _aligned(n, k, a_ptr, b_ptr):
-        return "fma", None, 1, 1
-    if m <= _SKINNY_M:
-        return ("skinny", None) + nt_split(m, n, k, sms)
-    return ("wgmma",) + _wgmma_plan(m, n, k, sms)
+@functools.lru_cache(maxsize=None)
+def nn_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
+             sms: int = H100_SMS):
+    """The (config, plan) pairs of this shape's route (``aligned``: A and
+    B 16-byte aligned), the cost model's first.  A plan is ``(variant, BN,
+    splits, k-blocks per split)``: ``("wgmma", BN, s, per)``, ``("skinny",
+    None, s, per)`` or ``("fma", None, 1, 1)``.  A split is a run of
+    64-deep k-blocks; none is empty."""
+    variant = _route(m, n, k, dtype, aligned)
+    if variant == "fma":
+        return ((fma_tile(m), ("fma", None, 1, 1)),)
+    nkb = max(1, cdiv(k, _WG_BK))
+    if variant == "skinny":
+        pers = (nt_split(m, n, k, sms)[1],) + split_choices(nkb)
+        plans = {(skinny_rows(m), _SKINNY_COLS, per * _WG_BK):
+                 ("skinny", None, cdiv(nkb, per), per) for per in pers}
+        return tuple(plans.items())
+    bn0, _, per0 = _wgmma_plan(m, n, k, sms)
+    plans = {(_WG_BM, bn0, per0 * _WG_BK): ("wgmma", bn0, cdiv(nkb, per0), per0)}
+    for bn in sorted(_WG_BN_COST):
+        for per in split_choices(nkb, _MAX_SPLITS):
+            if cdiv(m, _WG_BM) * cdiv(n, bn) * cdiv(nkb, per) <= _MAX_UNITS:
+                plans.setdefault((_WG_BM, bn, per * _WG_BK), ("wgmma", bn, cdiv(nkb, per), per))
+    return tuple(plans.items())
+
+
+def nn_plan(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int, b_ptr: int, sms: int,
+            block: Optional[Tuple[int, int, int]] = None) -> Tuple[str, Optional[int], int, int]:
+    """The plan a call with operands at ``a_ptr`` and ``b_ptr`` launches
+    for ``block`` (None: the cost model's); raises ``ValueError`` on a
+    config its route has no plan for.  Decided before the launch."""
+    aligned = a_ptr % 16 == 0 and b_ptr % 16 == 0
+    return pick_plan(nn_plans(m, n, k, dtype, aligned, sms), block,
+                     f"NN kernel at ({m}, {n}, {k}) {dtype}")
 
 
 @functools.lru_cache(maxsize=None)  # a model repeats a few shapes on every step
@@ -113,10 +152,11 @@ def _wgmma_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
 def matmul_nn(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
-    """C = A @ B in A's dtype, f32 accumulation.  ``block`` is validated as
-    a (bm, bn, bk) tile config; the CUDA kernels pick their own tiles."""
+    """C = A @ B in A's dtype, f32 accumulation.  ``block`` is a (bm, bn,
+    bk) tile config of ``nn_plans`` (None: the cost model's); any other
+    raises on both routes."""
     if block is not None:
-        validate_config(block)
+        block = validate_config(block)
     check_operand("a", a, 2)
     check_operand("b", b, 2)
     m, k = a.shape
@@ -124,12 +164,14 @@ def matmul_nn(
     if k != k2 or a.dtype != b.dtype:
         raise ValueError(f"NN operands mismatch: {tuple(a.shape)} {a.dtype} @ "
                          f"{tuple(b.shape)} {b.dtype}")
-    if route(a, b) == "plain":
+    plain = route(a, b) == "plain"
+    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
+    variant, bn, splits, per = nn_plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms,
+                                       block)
+    if plain:
         return ref.matmul_nn(a, b)
     if m * n == 0:
         return torch.empty((m, n), dtype=a.dtype, device=a.device)
-    variant, bn, splits, per = nn_variant(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(),
-                                          sm_count(torch.cuda.current_device()))
     if variant == "fma":
         c = launch_matmul(a, b, m, n, k, b_stored_nk=False)
     else:
@@ -146,5 +188,5 @@ def matmul_nn(
         else:
             _build.launch("matmul_nn", "repro_matmul_nn_skinny", _build.ptr(a), _build.ptr(b),
                           _build.ptr(c), ws_ptr, m, n, k, splits, per, _build.stream_of(a))
-    LAUNCHES["matmul_nn"] += 1
+    count_launch("matmul_nn", block)
     return c

@@ -19,6 +19,15 @@ tensors the wrapper launches:
 The NN wrapper's skinny kernel (``csrc/matmul_nn.cu``) has the same block
 geometry and takes its split from ``nt_split`` too.
 
+Tile configs (``kernels/tiling.py``): ``nt_plans`` lists the plans of a
+shape's route as (config, plan) pairs, the cost model's first, and
+``block=None`` launches that one.  A config ``(bm, bn, bk)`` of the bf16
+kernel is bm the A-row instance that m takes (``skinny_rows``: 8, 16, 32
+or 64), bn its 128 B rows per block and bk the k of one split: the cost
+model's split (``nt_split``) and 1, 2, 4, ... splits of k.  The f32 FMA
+kernel runs one tile, ``fma_tile(m)``.  Any other config raises, on both
+routes.
+
 The wide arm, for training, is the fused TNN kernel.  On CPU tensors the
 wrapper runs the plain version in ``ref.py``.
 """
@@ -33,16 +42,20 @@ import torch
 
 from . import _build, ref
 from .common import (
-    LAUNCHES,
+    H100_SMS,
     cdiv,
     check_operand,
+    count_launch,
+    fma_tile,
     launch_matmul,
+    pick_plan,
     route,
     sm_count,
+    split_choices,
     validate_config,
 )
 
-__all__ = ["matmul_nt", "nt_split", "nt_workspace_shape"]
+__all__ = ["matmul_nt", "nt_split", "nt_workspace_shape", "nt_plans", "skinny_rows"]
 
 _ROWS = 128  # csrc/matmul_nt.cu kRows: B rows per block
 _M_TILE = 64  # kMTile: A rows per block; gridDim.y walks further tiles
@@ -60,7 +73,7 @@ def nt_split(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     nkb = cdiv(k, _BK)
     if nkb <= 1:
         return 1, 1
-    blocks = cdiv(n, _ROWS) * cdiv(m, _M_TILE)
+    blocks = max(1, cdiv(n, _ROWS) * cdiv(m, _M_TILE))
     want = cdiv(2 * sms, blocks)
     cap = max(1, k // (2 * min(m, _M_TILE)))
     per = cdiv(nkb, max(1, min(nkb, want, cap)))
@@ -73,13 +86,35 @@ def nt_workspace_shape(m: int, n: int, k: int, sms: int) -> Optional[Tuple[int, 
     return (splits, m, n) if splits > 1 else None
 
 
+def skinny_rows(m: int) -> int:
+    """The A-row instance the swap-AB kernels (this one and the NN skinny
+    kernel) launch for m: min(m, 64) rounded up to 8, 16, 32 or 64."""
+    r = min(m, _M_TILE)
+    return 8 if r <= 8 else 16 if r <= 16 else 32 if r <= 32 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def nt_plans(m: int, n: int, k: int, dtype: torch.dtype, sms: int = H100_SMS):
+    """The (config, plan) pairs of this shape's route, the cost model's
+    first.  A plan is ``(route, None, splits, k-blocks per split)``:
+    ``("mma", None, s, per)`` (bf16) or ``("fma", None, 1, 1)`` (f32)."""
+    if dtype == torch.float32:
+        return ((fma_tile(m), ("fma", None, 1, 1)),)
+    nkb = max(1, cdiv(k, _BK))
+    pers = (nt_split(m, n, k, sms)[1],) + split_choices(nkb)
+    plans = {(skinny_rows(m), _ROWS, per * _BK): ("mma", None, cdiv(nkb, per), per)
+             for per in pers}
+    return tuple(plans.items())
+
+
 def matmul_nt(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
-    """C = A @ B^T in A's dtype, f32 accumulation.  ``block`` is validated
-    as a (bm, bn, bk) tile config; the CUDA kernels pick their own tiles."""
+    """C = A @ B^T in A's dtype, f32 accumulation.  ``block`` is a (bm, bn,
+    bk) tile config of ``nt_plans`` (None: the cost model's); any other
+    raises on both routes."""
     if block is not None:
-        validate_config(block)
+        block = validate_config(block)
     check_operand("a", a, 2)
     check_operand("b", b, 2)
     m, k = a.shape
@@ -87,25 +122,26 @@ def matmul_nt(
     if k != k2 or a.dtype != b.dtype:
         raise ValueError(f"NT operands mismatch: {tuple(a.shape)} {a.dtype} @ "
                          f"{tuple(b.shape)}^T {b.dtype}")
-    if route(a, b) == "plain":
+    plain = route(a, b) == "plain"
+    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
+    route_, _, splits, per = pick_plan(nt_plans(m, n, k, a.dtype, sms), block,
+                                       f"NT kernel at ({m}, {n}, {k}) {a.dtype}")
+    if plain:
         return ref.matmul_nt(a, b)
-    if a.dtype == torch.float32:
+    if route_ == "fma":
         c = launch_matmul(a, b, m, n, k, b_stored_nk=True)
     else:
         if m > _MAX_M:
             raise ValueError(f"NT kernel takes at most {_MAX_M} rows, got {m}")
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
         if c.numel():
-            sms = sm_count(torch.cuda.current_device())
-            splits, per = nt_split(m, n, k, sms)
-            shape = nt_workspace_shape(m, n, k, sms)
-            ws = None if shape is None else torch.empty(shape, dtype=torch.float32,
-                                                        device=a.device)
+            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+                  if splits > 1 else None)
             _build.launch(
                 "matmul_nt", "repro_matmul_nt", _build.ptr(a), _build.ptr(b), _build.ptr(c),
                 _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
                 m, n, k, splits, per, _build.stream_of(a),
             )
     if c.numel():
-        LAUNCHES["matmul_nt"] += 1
+        count_launch("matmul_nt", block)
     return c

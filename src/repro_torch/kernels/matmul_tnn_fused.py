@@ -19,8 +19,15 @@ variant it picks before the launch from dtype, shape and alignment
 - ``fma`` (f32): FMA over the same K-major tiles, no TF32.
 
 The skinny arm, for serving, is the direct NT kernel (``matmul_nt``).  A
-launch that fails raises; no variant stands in for another.  On CPU tensors
-the wrapper runs the plain version in ``ref.py``.
+launch that fails raises; no variant stands in for another.
+
+Tile configs (``kernels/tiling.py``): ``tnn_fused_plans`` lists the
+plans of a shape's route as (config, plan) pairs, the cost model's first,
+and ``block=None`` launches that one.  On the ``wgmma`` route a config
+(128, BN, 64) launches the BN instance (64, 96, 192 or 256; 64 is the k of
+a stage); the ``mma_sync`` and ``fma`` routes run one tile each, (64, 64,
+32).  Any other config raises, on both routes.  On CPU tensors the wrapper
+runs the plain version in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -31,11 +38,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, cdiv, check_operand, route, validate_config
+from .common import cdiv, check_operand, count_launch, pick_plan, route, validate_config
 
-__all__ = ["matmul_tnn_fused", "tnn_fused_variant"]
+__all__ = ["matmul_tnn_fused", "tnn_fused_variant", "tnn_fused_plans"]
 
 _TILE = 64  # csrc kBM = kBN of the mma.sync and FMA variants
+_TILE_BK = 32  # their kBK
+_WG_BK = 64  # kWgBK: k per stage of the wgmma variant
 _MAX_N = 65535 * _TILE  # their gridDim.y walks the n-tiles
 _WG_BM = 128  # csrc kWgBM: the wgmma variant's tile rows
 _SMS = 132  # an H100's SMs: the persistent grid's width
@@ -70,13 +79,28 @@ def _wgmma_block_n(m: int, n: int) -> int:
                key=lambda bn: cdiv(m_tiles * cdiv(n, bn), _SMS) * bn * _WG_BN_COST[bn])
 
 
+@functools.lru_cache(maxsize=None)
+def tnn_fused_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True):
+    """The (config, plan) pairs of this shape's route (``aligned``: A and
+    B 16-byte aligned), the cost model's first.  A plan is ``(variant, BN,
+    1, 1)``, as ``tnn_fused_variant`` names them."""
+    ptr = 0 if aligned else 1
+    variant, bn0 = tnn_fused_variant(dtype, m, n, k, ptr, ptr)
+    if variant != "wgmma":
+        return (((_TILE, _TILE, _TILE_BK), (variant, None, 1, 1)),)
+    widths = [bn0] + [bn for bn in sorted(_WG_BN_COST)
+                      if bn != bn0 and cdiv(m, _WG_BM) * cdiv(n, bn) <= _MAX_TILES]
+    return tuple(((_WG_BM, bn, _WG_BK), ("wgmma", bn, 1, 1)) for bn in widths)
+
+
 def matmul_tnn_fused(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
-    """C = A @ B^T in A's dtype, f32 accumulation.  ``block`` is validated as
-    a (bm, bn, bk) tile config; the CUDA kernel picks its own tiles."""
+    """C = A @ B^T in A's dtype, f32 accumulation.  ``block`` is a (bm, bn,
+    bk) tile config of ``tnn_fused_plans`` (None: the cost model's); any
+    other raises on both routes."""
     if block is not None:
-        validate_config(block)
+        block = validate_config(block)
     check_operand("a", a, 2)
     check_operand("b", b, 2)
     m, k = a.shape
@@ -84,9 +108,11 @@ def matmul_tnn_fused(
     if k != k2 or a.dtype != b.dtype:
         raise ValueError(f"fused TNN operands mismatch: {tuple(a.shape)} {a.dtype} @ "
                          f"{tuple(b.shape)}^T {b.dtype}")
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    variant, bn, _, _ = pick_plan(tnn_fused_plans(m, n, k, a.dtype, aligned), block,
+                                  f"fused TNN kernel at ({m}, {n}, {k}) {a.dtype}")
     if route(a, b) == "plain":
         return ref.matmul_tnn_fused(a, b)
-    variant, bn = tnn_fused_variant(a.dtype, m, n, k, a.data_ptr(), b.data_ptr())
     if variant == "wgmma":
         if cdiv(m, _WG_BM) * cdiv(n, bn) > _MAX_TILES:
             raise ValueError(f"fused TNN kernel takes at most {_MAX_TILES} tiles, "
@@ -105,5 +131,5 @@ def matmul_tnn_fused(
                 "matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a), _build.ptr(b),
                 _build.ptr(c), m, n, k, _build.dtype_code(a.dtype), _build.stream_of(a),
             )
-        LAUNCHES["matmul_tnn_fused"] += 1
+        count_launch("matmul_tnn_fused", block)
     return c

@@ -10,9 +10,12 @@ kernel arms call these).
   matmul_bnn   C_i = A_i @ B_i    batched NN (probs @ V, dQ, dK, dV)
   transpose    B^T            out-of-place, bandwidth-bound
 
-The two-kernel schedules take an optional ``tblock=(b_rows, b_cols)`` for
-their transpose stage, as in the JAX package; by default it derives from
-the matmul ``block``.  Both are validated as tile configs.
+Tile configs (``kernels/tiling.py``): the two-kernel schedules pass
+``block`` to their NN kernel and ``tblock=(b_rows, b_cols)``, one of the
+transpose kernel's instances, to their transpose stage.  A GEMM tile names
+no transpose instance, so ``tblock`` does not derive from ``block`` (the
+JAX package derives it); None runs each kernel's own plan.  Each wrapper
+raises on a config it has no plan for.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import validate_config
 from .matmul_batched import matmul_bnn, matmul_bnt
 from .matmul_nn import matmul_nn
 from .matmul_nt import matmul_nt
@@ -41,12 +43,7 @@ def matmul_tnn(
 ) -> torch.Tensor:
     """The paper's TNN (Algorithm 1): out-of-place transpose of B, then NN.
     Two launches; B^T round-trips through device memory."""
-    tb = tblock
-    if block is not None:
-        block = validate_config(block)
-        if tb is None:
-            tb = (block[1], block[2])
-    return matmul_nn(a, transpose(b, block=tb), block=block)
+    return matmul_nn(a, transpose(b, block=tblock), block=block)
 
 
 def matmul_tn(
@@ -58,9 +55,4 @@ def matmul_tn(
 ) -> torch.Tensor:
     """TN (weight gradient): C = A^T @ B, A:(k,m), B:(k,n) -> (m,n), as an
     out-of-place transpose of A followed by NN."""
-    tb = tblock
-    if block is not None:
-        block = validate_config(block)
-        if tb is None:  # A:(k,m) tiles as (contraction, output-m)
-            tb = (block[2], block[0])
-    return matmul_nn(transpose(a, block=tb), b, block=block)
+    return matmul_nn(transpose(a, block=tblock), b, block=block)

@@ -142,6 +142,7 @@ def _engine_main(args, parser):
     if lats:
         print(f"[serve] per-token decode latency: p50 {statistics.median(lats) * 1e3:.2f} ms, "
               f"max {max(lats) * 1e3:.2f} ms")
+    print(f"[serve] post-warmup cold-miss measurements: {engine.cold_misses()}")
     health = engine.health()
     print(f"[serve] health: finished={health['finished']} "
           f"deadline_exceeded={health['deadline_exceeded']} evicted={health['evicted']} "

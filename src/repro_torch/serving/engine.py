@@ -168,6 +168,8 @@ class ServeEngine:
         self.deadline_evictions = 0
         self.rejected_submits = 0
         self.run_seconds = 0.0  # wall time spent in run()
+        # each class policy's n_measured when warmup ended (cold_misses)
+        self._measured_at_warmup: Dict[str, int] = {}
         # admission state is the submit/step contention surface
         self._lock = threading.Lock()
         self.queue: deque = deque()  # guarded-by: _lock
@@ -415,7 +417,9 @@ class ServeEngine:
         traffic: every decode-batch bucket (all rows on the null slot) and
         every prefill-length bucket (none under ``exact_prefill``, whose
         prompt lengths are not known ahead).  This builds the kernels and
-        warms the libraries, so no request pays for it."""
+        warms the libraries, so no request pays for it, and an autotune
+        class measures its keys here: each class's ``n_measured`` is
+        recorded for ``cold_misses``."""
         n_shapes = 0
         for cls in sorted(self.policies):
             for Bb in self.buckets.decode_batches:
@@ -431,7 +435,15 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.kv.lengths[:] = 0  # warmup scribbled on the null row only
+        for cls, policy in self.policies.items():
+            self._measured_at_warmup[cls] = getattr(policy, "n_measured", 0)
         return {"shapes_run": n_shapes}
+
+    def cold_misses(self) -> Dict[str, int]:
+        """Per-class autotune measurements made *after* warmup -- the
+        bucketed serve loop must keep these at zero."""
+        return {cls: getattr(policy, "n_measured", 0) - self._measured_at_warmup.get(cls, 0)
+                for cls, policy in self.policies.items()}
 
     def health(self) -> Dict[str, int]:
         """Graceful-degradation counters + terminal-state tallies."""

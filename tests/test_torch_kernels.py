@@ -36,8 +36,8 @@ from repro_torch.kernels.common import (  # noqa: E402
     LAUNCHES,
     reset_launches,
 )
-from repro_torch.kernels.matmul_batched import batched_variant  # noqa: E402
-from repro_torch.kernels.matmul_nn import nn_variant  # noqa: E402
+from repro_torch.kernels.matmul_batched import batched_plan  # noqa: E402
+from repro_torch.kernels.matmul_nn import nn_plan  # noqa: E402
 from repro_torch.kernels.matmul_nt import nt_split, nt_workspace_shape  # noqa: E402
 from repro_torch.kernels.matmul_tnn_fused import tnn_fused_variant  # noqa: E402
 
@@ -302,7 +302,7 @@ NN_TRAIN_SHAPES = (
     (2048, 576, 576, 0, 0, torch.float32, "fma"),
 ])
 def test_nn_variant_follows_shape_and_alignment(m, n, k, a_ptr, b_ptr, dtype, want):
-    variant, bn, splits, per = nn_variant(m, n, k, dtype, a_ptr, b_ptr, 132)
+    variant, bn, splits, per = nn_plan(m, n, k, dtype, a_ptr, b_ptr, 132)
     assert variant == want
     assert (bn in (64, 128, 192, 256)) == (variant == "wgmma")
     assert splits >= 1 and per >= 1
@@ -319,14 +319,14 @@ def test_nn_variant_follows_shape_and_alignment(m, n, k, a_ptr, b_ptr, dtype, wa
     (49152, 576, 2048, (192, 1, 32)),  # 1152 tiles: no split
 ])
 def test_nn_wgmma_plan_splits_where_tiles_cannot_fill_the_card(m, n, k, want):
-    assert nn_variant(m, n, k, torch.bfloat16, 0, 0, 132)[1:] == want
+    assert nn_plan(m, n, k, torch.bfloat16, 0, 0, 132)[1:] == want
 
 
 def test_nn_split_covers_every_k_block_once():
     for m, n, k, sms in itertools.product((1, 8, 64, 65, 129, 192, 576, 2048, 49152),
                                           (8, 96, 200, 576, 1536, 49152),
                                           (8, 136, 192, 576, 2048, 49152), (78, 132)):
-        variant, _, splits, per = nn_variant(m, n, k, torch.bfloat16, 0, 0, sms)
+        variant, _, splits, per = nn_plan(m, n, k, torch.bfloat16, 0, 0, sms)
         assert variant in ("wgmma", "skinny")
         nkb = -(-k // 64)
         covered = [kb for s in range(splits) for kb in range(s * per, min(nkb, (s + 1) * per))]
@@ -351,14 +351,15 @@ def test_nn_split_covers_every_k_block_once():
     (torch.bfloat16, 2, 4, 8, 0, True, 0, 0, ("fma", 1, 1)),  # k = 0
 ])
 def test_batched_variant_follows_shape_and_alignment(dtype, g, m, n, k, nt, a_ptr, b_ptr, want):
-    assert batched_variant(dtype, g, m, n, k, nt, a_ptr, b_ptr, 132) == want
+    variant, _, splits, per = batched_plan(dtype, g, m, n, k, nt, a_ptr, b_ptr, 132)
+    assert (variant, splits, per) == want
 
 
 def test_batched_split_covers_every_k_step_once():
     for g, m, n, k, sms in itertools.product((1, 12, 24, 40000), (1, 3, 256, 768),
                                              (64, 256, 512), (4, 64, 256, 768, 4096),
                                              (78, 132)):
-        variant, splits, per = batched_variant(torch.float32, g, m, n, k, False, 0, 0, sms)
+        variant, _, splits, per = batched_plan(torch.float32, g, m, n, k, False, 0, 0, sms)
         assert variant == "tiled"
         steps = -(-k // 16)
         assert splits * per >= steps and (splits - 1) * per < steps, (g, m, n, k, sms)
@@ -832,7 +833,7 @@ def test_nn_kernel_matches_plain_at_training_shapes_on_card(cuda, m, n, k):
     a = torch.randn(m, k, device=cuda).to(torch.bfloat16)
     b = torch.randn(k, n, device=cuda).to(torch.bfloat16)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert nn_variant(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms)[0] == "wgmma"
+    assert nn_plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms)[0] == "wgmma"
     reset_launches()
     out = ops.matmul_nn(a, b)
     assert LAUNCHES["matmul_nn"] == 1
@@ -866,7 +867,7 @@ def test_nn_kernel_variants_match_plain_on_card(cuda, m, n, k, dtype):
     # FMA kernel, chosen before the launch
     a_odd = torch.randn(m * k + 1, device=cuda).to(dt)[1:].view(m, k)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert nn_variant(m, n, k, dt, a_odd.data_ptr(), b.data_ptr(), sms)[0] == "fma"
+    assert nn_plan(m, n, k, dt, a_odd.data_ptr(), b.data_ptr(), sms)[0] == "fma"
     torch.testing.assert_close(ops.matmul_nn(a_odd, b).float(), ref.matmul_nn(a_odd, b).float(),
                                **tol)
     assert LAUNCHES["matmul_nn"] == 2
@@ -890,7 +891,7 @@ def test_batched_kernel_variants_match_plain_on_card(cuda, g, m, n, k, dtype):
         name = "matmul_bnt" if nt else "matmul_bnn"
         fn, want_fn = getattr(ops, name), getattr(ref, name)
         b = torch.randn(*((g, n, k) if nt else (g, k, n)), device=cuda).to(dt)
-        variant = batched_variant(dt, g, m, n, k, nt, a.data_ptr(), b.data_ptr(), sms)[0]
+        variant = batched_plan(dt, g, m, n, k, nt, a.data_ptr(), b.data_ptr(), sms)[0]
         vec = 4 if dtype == "float32" else 8
         assert (variant == "fma") == (k % vec != 0 or (not nt and n % vec != 0))
         reset_launches()
@@ -898,8 +899,8 @@ def test_batched_kernel_variants_match_plain_on_card(cuda, g, m, n, k, dtype):
         torch.testing.assert_close(out.float(), want_fn(a, b).float(), **tol)
         assert torch.equal(fn(a, b), out)  # split k sums in a fixed order
         # one element off alignment: the FMA kernel
-        assert batched_variant(dt, g, m, n, k, nt, a_odd.data_ptr(), b.data_ptr(),
-                               sms)[0] == "fma"
+        assert batched_plan(dt, g, m, n, k, nt, a_odd.data_ptr(), b.data_ptr(),
+                            sms)[0] == "fma"
         torch.testing.assert_close(fn(a_odd, b).float(), want_fn(a_odd, b).float(), **tol)
         assert LAUNCHES[name] == 3
 
@@ -1018,3 +1019,149 @@ def test_attention_at_the_moe_and_hybrid_shapes_on_card(cuda, g, m, n, dh, kw, d
             v[i, length:] = float("nan")
     out = _check_attention_on_card(q, k, v, lengths, MaskParams(**kw), dtype)
     assert torch.isfinite(out).all()
+
+
+# -- on the card: every tile config reaches its kernel ---------------------------
+
+
+def _tailed(shape, dt, gen, device):
+    """A contiguous operand whose storage runs on into NaN: a kernel that
+    reads past its operand's last element poisons its output."""
+    size = int(np.prod(shape))
+    buf = torch.randn(size + 4096, device=device, generator=gen).to(dt)
+    buf[size:] = float("nan")
+    return buf[:size].view(shape)
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,k", [(1, 1), (31, 33), (63, 65), (127, 129), (65, 4097),
+                                 (1536, 576)])
+def test_transpose_instances_are_bit_exact_on_card(cuda, n, k, dtype):
+    """Every (b_rows, b_cols) instance, on ragged shapes whose storage runs
+    on into NaN and with NaN inside: the same bits as ``.t().contiguous()``,
+    one launch counted under the instance's key."""
+    from repro_torch.kernels.common import CONFIG_LAUNCHES
+    from repro_torch.kernels.tiling import TRANSPOSE_INSTANCES
+
+    gen = torch.Generator(device=cuda).manual_seed(n * 7 + k)
+    b = _tailed((n, k), getattr(torch, dtype), gen, cuda)
+    b[0, k // 2] = float("nan")
+    want = b.t().contiguous()
+    for block in TRANSPOSE_INSTANCES:
+        reset_launches()
+        out = ops.transpose(b, block=block)
+        assert torch.equal(_bits(out), _bits(want)), block
+        assert CONFIG_LAUNCHES == {("transpose", f"{block[0]}x{block[1]}"): 1}
+
+
+GEMM_CONFIG_SHAPES = {  # kernel: (g, m, n, k) cells on each route
+    "matmul_nt": ((1, 4, 576, 576), (1, 8, 1536, 576), (1, 65, 197, 136), (1, 3, 77, 1000)),
+    "matmul_nn": ((1, 4, 576, 1536), (1, 130, 576, 136), (1, 2048, 1536, 576),
+                  (1, 65, 197, 136), (1, 300, 264, 1000)),
+    "matmul_tnn_fused": ((1, 130, 576, 136), (1, 2048, 1536, 576), (1, 65, 197, 130)),
+    "matmul_bnt": ((24, 768, 256, 64), (12, 3, 512, 64), (3, 65, 97, 40), (2, 70, 50, 1000)),
+    "matmul_bnn": ((24, 256, 64, 768), (12, 3, 64, 512), (3, 65, 96, 40), (2, 70, 56, 1000)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", sorted(GEMM_CONFIG_SHAPES))
+def test_gemm_configs_match_plain_on_card(cuda, kernel, dtype):
+    """Every config of each route's space (``kernels/tiling.py``), on
+    operands whose storage runs on into NaN, against the plain version:
+    one launch per call, counted under the config."""
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.common import CONFIG_LAUNCHES, config_key
+
+    dt = getattr(torch, dtype)
+    fn = {"matmul_nt": ops.matmul_nt, "matmul_nn": ops.matmul_nn,
+          "matmul_tnn_fused": ops.matmul_tnn_fused, "matmul_bnt": ops.matmul_bnt,
+          "matmul_bnn": ops.matmul_bnn}[kernel]
+    plain = {"matmul_nt": ref.matmul_nt, "matmul_nn": ref.matmul_nn,
+             "matmul_tnn_fused": ref.matmul_tnn_fused, "matmul_bnt": ref.matmul_bnt,
+             "matmul_bnn": ref.matmul_bnn}[kernel]
+    for g, m, n, k in GEMM_CONFIG_SHAPES[kernel]:
+        gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+        batched = kernel in ("matmul_bnt", "matmul_bnn")
+        a_shape = (g, m, k) if batched else (m, k)
+        b_shape = {"matmul_nn": (k, n), "matmul_bnt": (g, n, k), "matmul_bnn": (g, k, n)}.get(
+            kernel, (n, k))
+        a, b = _tailed(a_shape, dt, gen, cuda), _tailed(b_shape, dt, gen, cuda)
+        want = plain(a, b).float()
+        configs = tiling.enumerate_tile_configs(kernel, m, n, k, a.element_size(), g)
+        assert configs, (kernel, g, m, n, k)
+        for cfg in configs:
+            reset_launches()
+            out = fn(a, b, block=cfg)
+            torch.testing.assert_close(out.float(), want, **_tol(dtype, k),
+                                       msg=lambda s: f"{kernel} {(g, m, n, k)} @ {cfg}: {s}")
+            assert CONFIG_LAUNCHES == {(kernel, config_key(cfg)): 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,m,n,dh,kw", [
+    (12, 3, 512, 64, dict()),  # decode: every split of the keys
+    (32, 8, 2048, 128, dict()),
+    (16, 2, 2048, 256, dict()),
+    (5, 16, 100, 40, dict()),
+    (3, 192, 256, 64, dict(causal=True, q_seg=64)),  # flash (bf16) / fma: their one tile
+    (4, 33, 70, 120, dict(causal=True, q_seg=33)),
+])
+def test_attention_configs_match_plain_on_card(cuda, g, m, n, dh, kw, dtype):
+    """Every (bq, bk) of the route, with NaN in K and V beyond ragged
+    lengths: the plain version's output, one launch per call."""
+    from repro_torch.kernels.common import CONFIG_LAUNCHES, config_key
+    from repro_torch.kernels.tiling import enumerate_tile_configs
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(g * m + n)
+    q, k, v = (torch.randn(g, s, dh, device=cuda, generator=gen).mul(0.3).to(dt)
+               for s in (m, n, n))
+    if kw:
+        lengths = torch.full((g,), n, device=cuda, dtype=torch.int32)
+    else:
+        lengths = torch.randint(1, n + 1, (g,), device=cuda, dtype=torch.int32, generator=gen)
+        for i, length in enumerate(lengths.tolist()):
+            k[i, length:] = float("nan")
+            v[i, length:] = float("nan")
+    mask = MaskParams(**kw)
+    want = ref.attention_fused(q, k, v, lengths, mask).float()
+    rtol = 1e-4 if dtype == "float32" else 2e-2
+    atol = rtol * float(want.pow(2).mean().sqrt())
+    for cfg in enumerate_tile_configs("attention_fused", m, n, dh, q.element_size(), g):
+        reset_launches()
+        out = attention_fused(q, k, v, lengths, mask=mask, block=cfg)
+        torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol,
+                                   msg=lambda s: f"{cfg}: {s}")
+        assert CONFIG_LAUNCHES == {("attention_fused", config_key(cfg)): 1}
+
+
+@pytest.mark.gpu
+def test_infeasible_configs_raise_before_launching_on_card(cuda):
+    """A tile with no instance or plan raises ValueError and launches
+    nothing: it never falls back to the default."""
+    a16 = torch.randn(128, 576, device=cuda).to(torch.bfloat16)
+    w16 = torch.randn(1536, 576, device=cuda).to(torch.bfloat16)
+    q = torch.randn(4, 3, 64, device=cuda)
+    reset_launches()
+    cases = [
+        lambda: ops.transpose(w16, block=(16, 16)),
+        lambda: ops.matmul_nn(a16, w16.t().contiguous(), block=(64, 128, 64)),  # skinny tile, m 128
+        lambda: ops.matmul_nn(a16, w16.t().contiguous(), block=(128, 96, 64)),  # no BN 96 instance
+        lambda: ops.matmul_nt(a16[:4], w16, block=(8, 128, 100)),  # bk no multiple of 64
+        lambda: ops.matmul_nt(a16[:4].contiguous(), w16, block=(8, 128, 1024)),  # empty split
+        lambda: ops.matmul_tnn_fused(a16, w16, block=(128, 128, 64)),
+        lambda: attention_fused(q, q, q, block=(4, 48)),  # 48 keys of 3: more than n
+        lambda: attention_fused(q, q, q, block=(16, 32)),  # 3 rows take the 4-row instance
+    ]
+    for case in cases:
+        with pytest.raises(ValueError):
+            case()
+    assert not any(LAUNCHES.values())

@@ -54,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint, "
         "repro_torch.data, repro_torch.models.fcn, repro_torch.configs.fcn_paper, "
         "repro_torch.examples.train_fcn, repro_torch.benchmarks.table10_fcn, "
-        "repro_torch.configs.gemma3_4b, repro_torch.configs.paligemma_3b\n"
+        "repro_torch.configs.gemma3_4b, repro_torch.configs.paligemma_3b, "
+        "repro_torch.kernels.tiling, repro_torch.benchmarks.run, "
+        "repro_torch.benchmarks.kernel_sweep, repro_torch.examples.quickstart, "
+        "repro_torch.examples.collect_and_train_selector\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"

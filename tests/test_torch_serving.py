@@ -327,3 +327,52 @@ def test_mamba_architectures_prefill_at_exact_lengths_and_match_jax_engine(arch)
     for rid, req in eng.requests.items():
         assert req.state is RequestState.FINISHED
         assert req.generated == jeng.requests[rid].generated, f"rid={rid}"
+
+
+def test_cold_misses_after_warmup_under_autotune_match_the_reference(weights, tmp_path):
+    """tests/test_serving.py::test_warmup_covers_every_bucket_no_cold_misses:
+    after warmup the bucketed loop only hits measured keys, so each class's
+    autotune policy measures nothing more -- the reference's
+    {"interactive": 0, "bulk": 0}."""
+    from repro_torch.core.policy import AutotunePolicy
+
+    _, params = weights
+    policies = {cls: AutotunePolicy(cache_path=str(tmp_path / f"{cls}.json"), device="cpu",
+                                    reps=1)
+                for cls in ("interactive", "bulk")}
+    eng = ServeEngine(to_port_cfg(TINY), params, policies=policies, n_slots=4, max_seq=32,
+                      cache_dtype=torch.float32, device="cpu")
+    assert eng.cold_misses() == {"interactive": 0, "bulk": 0}  # nothing measured yet
+    eng.warmup()
+    measured = {cls: p.n_measured for cls, p in policies.items()}
+    assert all(n > 0 for n in measured.values())
+    for i, p in enumerate(mixed_prompts([3, 9, 14, 6, 11])):
+        eng.submit(p, max_new=4, cls=("interactive", "bulk")[i % 2])
+    eng.run()
+    assert eng.cold_misses() == {"interactive": 0, "bulk": 0}
+    assert {cls: p.n_measured for cls, p in policies.items()} == measured
+    assert eng.health()["crashed_steps"] == 0
+
+
+def test_cold_misses_count_measurements_after_warmup(weights, tmp_path):
+    """A key first seen after warmup is a cold miss of its class."""
+    from repro_torch.core.opkey import OpKey
+    from repro_torch.core.policy import AutotunePolicy
+
+    _, params = weights
+    policy = AutotunePolicy(cache_path=str(tmp_path / "c.json"), device="cpu", reps=1)
+    eng = ServeEngine(to_port_cfg(TINY), params, policies={"interactive": policy},
+                      n_slots=2, max_seq=32, cache_dtype=torch.float32, device="cpu")
+    eng.warmup()
+    policy.select(OpKey("NT", 3, 5, 7, 4))
+    assert eng.cold_misses() == {"interactive": 1}
+
+
+def test_serve_launcher_reports_cold_misses(tmp_path, capsys):
+    from repro_torch.launch import serve as serve_mod
+
+    eng = serve_mod.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+                          "--requests", "2", "--prompt-len", "6", "--gen", "2",
+                          "--policy", f"autotune:{tmp_path / 'cache.json'}"])
+    assert set(eng.cold_misses().values()) == {0}
+    assert "post-warmup cold-miss measurements" in capsys.readouterr().out
