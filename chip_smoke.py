@@ -14,14 +14,18 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               blocks' skinny dt and B/C projections at decode and exact
               prefill lengths and their training GEMMs in bf16, the MoE
               routers in f32, zamba2's attention at d_head 112 on the split
-              and FMA routes, grok-1's and kimi-k2's at 128), in f32 and bf16, with
+              and flash routes, grok-1's and kimi-k2's at 128; f32 NN and NT
+              at the selector grid's 2^10..2^12 cubes), in f32 and bf16, with
               CUDA-event times of the kernel, the plain version and one
               library call (a yardstick only), the profiler's device time
-              of the kernel and the library call, the variant that ran,
-              and the datasheet bound of the same work; the kernels redesigned for Hopper (bf16
-              NT, fused TNN and NN; batched in both dtypes; attention's
-              split-KV and flash routes) are timed beside the kernels they
-              replaced, which must agree too
+              and the queued device time (calls back to back behind a sleep
+              kernel, which the two-launch split plans need) of the kernel
+              and the library call, the variant that ran, and the
+              datasheet bound of the same work; every f32 GEMM also within
+              tests/test_kernels.py::_tol of f64; the kernels redesigned
+              for Hopper (bf16 NT, fused TNN and NN; f32 NN and NT; batched
+              in both dtypes; attention's split-KV and flash routes) are
+              timed beside the kernels they replaced, which must agree too
   4. serve    repro_torch.launch.serve.main on smollm-135m at full config
               in bf16: class interactive under fixed:nt=PALLAS_TNN,attn=fused,
               class bulk under fixed:nt=PALLAS_NT,attn=fused, then the same
@@ -57,10 +61,11 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               fixed:XLA_NT, 8 requests over 4 slots, --max-seq 2048, one
               request decoding past the local layers' 1024-slot ring: phase
               4's gates, and attention_fused launched on its decode_split
-              and fma routes at d_head 256; tokens/s, p50 decode ms and a
-              profiled decode step's busy share per policy.  gemma3-4b in
-              f32 at full width and one unit of each segment (10 layers):
-              greedy tokens of both kernel policies identical to cuBLAS's.
+              and flash_mma routes at d_head 256; tokens/s, p50 decode ms
+              and a profiled decode step's busy share per policy.  gemma3-4b
+              in f32 at full width and one unit of each segment (10 layers):
+              greedy tokens of both kernel policies identical to cuBLAS's,
+              attention on the fma route at d_head 256.
               gemma2-27b, h2o-danube-3-4b, paligemma-3b (vlm, prefix 256)
               and musicgen-large (frames) at full width and one segment
               unit of depth, bf16, batch 2 x seq 512: one forward and two
@@ -76,12 +81,14 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               prefilled at those exact lengths), 32 new each, 4 slots,
               max_seq 2048, under phase 4's class policies and then
               fixed:XLA_NT: every request finishes, no step crashes, the
-              attention routes zamba2 (decode_split and fma at d_head 112),
-              grok-1 and kimi-k2 (flash_mma and decode_split at 128) must
-              take; on the 1000-token prompt every block's increment under
-              each kernel policy within relative L2 5e-2 of cuBLAS's on the
-              same input (over the tokens an MoE block routes alike, at most
-              5 % routed otherwise), and the first-token logits within 5e-2
+              attention routes zamba2 (decode_split and flash_mma at d_head
+              112), grok-1 and kimi-k2 (flash_mma and decode_split at 128)
+              must take, and grok-1's and kimi-k2's f32 routers gemm_f32's
+              skinny route at decode; on the 1000-token prompt every
+              block's increment under each kernel policy within relative L2
+              5e-2 of cuBLAS's on the same input (over the tokens an MoE
+              block routes alike, at most 5 % routed otherwise), and the
+              first-token logits within 5e-2
               of cuBLAS's, or, for the random Mamba stacks, whose bf16 runs
               decorrelate from f32 whatever runs their GEMMs, phase 4's
               f32-distance gate; then f32 at one unit of each segment
@@ -144,7 +151,11 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               returns, no sweep cell disagrees with f64; each headline
               printed beside the paper's (GTX 1080 / Titan X)
 
-The full results, every case included, go to ``build/chip_smoke.json``.
+The ``kernels`` line holds one row per kernel at a main-path shape, and one
+per route of the flash kernel's wide-head instances (d_head 112, 120 and
+256: gemma3's, zamba2's and h2o-danube's) and of gemm_f32 (skinny and
+tiled), each with its launches by path.  The full results, every case included,
+go to ``build/chip_smoke.json``.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi gives them.  Without a card, or
@@ -236,6 +247,9 @@ GROK_PREFILL_CASE = "grok prefill causal g=8 m=6144 n=1024 q_seg=1024"
 UNFOLDED_HEADS = {TRAIN_ATTN_CASE: 3, GEMMA3_PREFILL_CASE: 2, H2O_PREFILL_CASE: 4,
                   ZAMBA2_PREFILL_CASE: 1, GROK_PREFILL_CASE: 6}
 
+# f32 GEMM cases of phase 3 at the selector grid's cubes (2^10..2^12)
+F32_GRID_SIDES = (1024, 2048, 4096)
+
 # Training: smollm-135m at full config, bf16, remat full, AdamW.
 DEVICE = "cuda"
 TRAIN_BATCH, TRAIN_SEQ = 8, 256
@@ -295,7 +309,7 @@ MOE_SSM_SERVE = {  # arch: (repeats kept per segment, 0 for all; the cut; f32 re
     "kimi-k2-1t-a32b": (1, "1 of 61 layers", 0),
 }
 # (route, d_head) that each served architecture's kernel-policy run must take
-MOE_SSM_ROUTES = {"zamba2-7b": (("decode_split", 112), ("fma", 112)),
+MOE_SSM_ROUTES = {"zamba2-7b": (("decode_split", 112), ("flash_mma", 112)),
                   "grok-1-314b": (("flash_mma", 128), ("decode_split", 128)),
                   "kimi-k2-1t-a32b": (("flash_mma", 128), ("decode_split", 128))}
 MOE_SSM_TRAIN = {  # arch: (repeats kept per segment, the cut); kimi-k2 needs more than one card
@@ -373,6 +387,27 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
+# Routes counted beside LAUNCHES under keys of their own: the flash kernel
+# at the wide heads, and gemm_f32's two routes (NN and NT).
+WIDE_FLASH_DHS = (112, 120, 256)
+F32_ROUTES = ("skinny", "tiled")
+
+
+def launch_counts():
+    """LAUNCHES, and the launches of these routes: the flash kernel
+    at d_head 112, 120 and 256 (``attention_flash_dh<dh>``) and gemm_f32's
+    skinny and tiled routes, NN and NT together (``matmul_f32_<route>``)."""
+    from repro_torch.kernels.common import ATTENTION_ROUTES, GEMM_ROUTES, LAUNCHES
+
+    out = dict(LAUNCHES)
+    for dh in WIDE_FLASH_DHS:
+        out[f"attention_flash_dh{dh}"] = ATTENTION_ROUTES.get(("flash_mma", dh), 0)
+    for route in F32_ROUTES:
+        out[f"matmul_f32_{route}"] = sum(GEMM_ROUTES.get((name, route, "float32"), 0)
+                                         for name in ("matmul_nt", "matmul_nn"))
+    return out
+
+
 # -- phase 3 helpers ----------------------------------------------------------
 
 
@@ -390,6 +425,18 @@ def time_ms(fn, iters=30, warmup=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, reps=20) -> float:
+    """Median device ms of ``fn``'s calls queued back to back behind a sleep
+    kernel (core/measure.py::bench_fn(queued=True)): the time of a plan of
+    two launches, which the profiler may not see."""
+    import torch
+
+    from repro_torch.core.measure import bench_fn
+
+    on_card = torch.empty(1, device=DEVICE)  # bench_fn finds the device from an operand
+    return bench_fn(lambda _: fn(), on_card, reps=reps, queued=True) * 1e3
 
 
 def dev_us(event) -> float:
@@ -553,6 +600,13 @@ def kernel_cases(torch):
     for m, n, k in ((1024, 2560, 80), (80, 2560, 1024)):
         cases.append(("matmul_nn", f"({m},{k})x({k},{n})", bf,
                       {"a": randn(m, k, dtype=bf), "b": randn(k, n, dtype=bf)}))
+    # f32 NN and NT at the selector grid's cubes: gemm_f32's tiled route, the
+    # NN one stage 2 of the f32 TNN arm (phase 9)
+    for side in F32_GRID_SIDES:
+        a, w = randn(side, side, dtype=f32), randn(side, side, dtype=f32)
+        cases.append(("matmul_nt", f"({side},{side})x({side},{side})^T", f32, {"a": a, "b": w}))
+        cases.append(("matmul_nn", f"({side},{side})x({side},{side})", f32,
+                      {"a": a, "b": w.t().contiguous()}))
     # attention: zamba2's exact 1000-token prefill (32 heads, no fold) and its
     # decode (bucket 4 x 32 heads over 2048 slots) at d_head 112; grok-1's
     # 1024-token prefill (8 kv heads, fold 6) and kimi-k2's decode (4 x 8 kv
@@ -669,6 +723,12 @@ def run_case(torch, name, inp, dt):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err, ok = compare(out, want, rtol, atol)
+    f64_err = None
+    if dt == torch.float32 and name in ("matmul_nn", "matmul_nt"):  # _tol of f64, as in the tests
+        a64, b64 = inp["a"].double(), inp["b"].double()
+        f64_err, f64_ok = compare(out, a64 @ (b64.t() if name == "matmul_nt" else b64),
+                                  rtol, atol)
+        ok = ok and f64_ok
     prev = replaced_kernel(torch, name, inp, variant)
     prev_err = None
     if prev is not None:  # the replaced kernel must still agree, or its times mean nothing
@@ -682,7 +742,9 @@ def run_case(torch, name, inp, dt):
         lib_device_ms, lib_kernels, lib_err = None, None, None
     dev, kernels = device_ms(kern)
     return {
-        "variant": variant, "err": err, "ok": ok, "rtol": rtol, "atol": atol,
+        "variant": variant, "err": err, "f64_err": f64_err, "ok": ok, "rtol": rtol,
+        "atol": atol, "queued_ms": queued_ms(kern),
+        "library_queued_ms": queued_ms(lib) if lib is not None else None,
         "ms": time_ms(kern), "plain_ms": time_ms(plain),
         "library_ms": time_ms(lib) if lib is not None else None,
         "device_ms": dev, "device_kernels": kernels,
@@ -692,12 +754,14 @@ def run_case(torch, name, inp, dt):
         "replaced_device_ms": device_ms(prev)[0] if prev is not None else None,
         "replaced_err": prev_err,
         "bound_ms": b_ms, "bound_by": by,
+        "dh": inp["q"].shape[2] if name == "attention_fused" else None,
     }
 
 
 def replaced_kernel(torch, name, inp, variant):
     """For the kernels redesigned for Hopper -- bf16 NT, fused TNN and NN,
-    batched in both dtypes, attention's split-KV and flash routes -- a call
+    f32 NN and NT, batched in both dtypes, attention's split-KV and flash
+    routes -- a call
     of the kernel each replaced (still built: the FMA kernels of
     csrc/matmul.cu, csrc/matmul_batched.cu and csrc/attention_fused.cu and
     the mma.sync variant of csrc/matmul_tnn_fused.cu), launched directly
@@ -722,8 +786,10 @@ def replaced_kernel(torch, name, inp, variant):
             return c
 
         return fma_batched
-    if a.dtype != torch.bfloat16 or name not in ("matmul_nt", "matmul_tnn_fused", "matmul_nn"):
+    if name not in ("matmul_nt", "matmul_tnn_fused", "matmul_nn"):
         return None
+    if a.dtype == torch.float32 and (name == "matmul_tnn_fused" or variant.startswith("fma")):
+        return None  # f32's fused TNN and FMA routes run the kernels they always ran
     m, k = a.shape
     if name == "matmul_nn":
         return lambda: launch_matmul(a, b, m, b.shape[1], k, b_stored_nk=False)
@@ -776,12 +842,26 @@ def attention_label(torch, q, k, v):
     return variant
 
 
+def f32_label(torch, a, b, nt):
+    """The f32 GEMM route a call with these operands launches."""
+    from repro_torch.kernels.common import f32_plans
+
+    (m, k), n = a.shape, (b.shape[0] if nt else b.shape[1])
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    variant, tile, splits, _ = f32_plans(m, n, k, nt, aligned, sms)[0][1]
+    if variant == "fma":
+        return "fma (matmul.cu)"
+    label = f"{variant} f32 {tile[0]}x{tile[1]}"
+    return f"{label}, split-k {splits}" if splits > 1 else label
+
+
 def nt_variant(torch, a, b):
     """The direct NT kernel a call with these operands launches."""
     from repro_torch.kernels.matmul_nt import nt_split
 
     if a.dtype == torch.float32:
-        return "fma (matmul.cu)"
+        return f32_label(torch, a, b, True)
     m, k = a.shape
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     splits, _ = nt_split(m, b.shape[0], k, sms)
@@ -792,6 +872,8 @@ def nn_label(torch, a, b):
     """The NN kernel a call with these operands launches."""
     from repro_torch.kernels.matmul_nn import nn_plan
 
+    if a.dtype == torch.float32:
+        return f32_label(torch, a, b, False)
     (m, k), n = a.shape, b.shape[1]
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     variant, bn, splits, _ = nn_plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms)
@@ -1018,7 +1100,7 @@ def train_step_profile(torch, run):
 def phase_train(torch, card):
     """Phase 7; returns its row and each policy's kernel launches."""
     from repro_torch.core.engine import policy_from_spec
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.common import reset_launches
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import lm
     from repro_torch.optim import tree_map
@@ -1027,7 +1109,7 @@ def phase_train(torch, card):
     for spec in [*TRAIN_POLICIES.values(), CUBLAS_POLICY]:
         reset_launches()
         runs[spec] = train(["--policy", spec])
-        train_launches[spec] = dict(LAUNCHES)
+        train_launches[spec] = launch_counts()
     for spec, run in runs.items():
         check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                   for m in run.metrics), f"{spec}: a non-finite loss or grad norm")
@@ -1144,7 +1226,7 @@ def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32
     from repro_torch.core.engine import policy_from_spec
     from repro_torch.core.policy import use_policy
     from repro_torch.data import make_train_batch
-    from repro_torch.kernels.common import ATTENTION_ROUTES, LAUNCHES, reset_launches
+    from repro_torch.kernels.common import ATTENTION_ROUTES, reset_launches
     from repro_torch.launch.steps import (
         TrainStepConfig,
         init_train_state,
@@ -1170,7 +1252,7 @@ def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32
         reset_launches()
         with torch.no_grad(), use_policy(policy_from_spec(spec)):
             logits[spec] = lm.lm_forward(params, cfg, batches[0]).float()
-        fwd_launches[spec], fwd_routes[spec] = dict(LAUNCHES), dict(ATTENTION_ROUTES)
+        fwd_launches[spec], fwd_routes[spec] = launch_counts(), dict(ATTENTION_ROUTES)
     # an MoE router sends a few near-tie tokens elsewhere under bf16
     # rounding: compare the rows of the tokens both runs route alike
     same = (~moe_rerouted(torch, cfg, params, batches[0]["tokens"], fused) if cfg.moe
@@ -1196,7 +1278,8 @@ def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32
         for key, count in ATTENTION_ROUTES.items():
             routes[key] = routes.get(key, 0) + count
         runs[spec] = {"metrics": metrics, "step_ms": [t * 1e3 for t in times],
-                      "launches": {k: fwd_launches[spec][k] + v for k, v in LAUNCHES.items()},
+                      "launches": {k: fwd_launches[spec][k] + v
+                                   for k, v in launch_counts().items()},
                       "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()}}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gn32, gn_to32 = None, None
@@ -1253,14 +1336,14 @@ def phase_arch(torch, card):
     t0 = time.perf_counter()
     reset_launches()
     eng_k = serve(kernel_policy_args(), GEMMA3_ARGS)
-    serve_launches, routes = dict(LAUNCHES), dict(ATTENTION_ROUTES)
+    serve_launches, routes = launch_counts(), dict(ATTENTION_ROUTES)
     cfg = eng_k.cfg
     check((cfg.n_layers, cfg.d_model, cfg.d_head, cfg.vocab) == (34, 2560, 256, 262144),
           f"gemma3-4b served at {cfg.n_layers} layers, d {cfg.d_model}, d_head {cfg.d_head}")
     check_engine(eng_k, GEMMA3_GEN, "gemma3-4b kernel policies")
     for kname in SERVE_KERNELS:
         check(serve_launches[kname] > 0, f"gemma3-4b: kernel {kname} was not launched")
-    for variant in ("decode_split", "fma"):
+    for variant in ("decode_split", "flash_mma"):
         check(routes.get((variant, WIDE_DH), 0) > 0,
               f"gemma3-4b: attention_fused never ran {variant} at d_head {WIDE_DH}: {routes}")
     wraps = [r.rid for r in eng_k.requests.values()
@@ -1285,18 +1368,23 @@ def phase_arch(torch, card):
 
     # f32, full width, one unit of each segment: identical greedy tokens
     f32 = ["--layers", "1", "--dtype", "float32"]
+    reset_launches()
     e_k = serve(f32 + kernel_policy_args(), GEMMA3_ARGS)
+    f32_routes = dict(ATTENTION_ROUTES)
+    check(f32_routes.get(("fma", WIDE_DH), 0) > 0,
+          f"gemma3-4b f32: attention_fused never ran fma at d_head {WIDE_DH}: {f32_routes}")
     e_x = serve(f32 + ["--policy", CUBLAS_POLICY], GEMMA3_ARGS)
     check_engine(e_k, GEMMA3_GEN, "gemma3-4b f32 kernel policies")
     check_engine(e_x, GEMMA3_GEN, "gemma3-4b f32 cuBLAS policy")
     check_identical_tokens(e_k, e_x, "gemma3-4b f32")
     exact_part = {"layers": e_k.cfg.n_layers, "dtype": "float32",
-                  "requests": len(e_k.requests), "identical": True}
+                  "requests": len(e_k.requests), "identical": True,
+                  "attention_routes": {f"{v} dh{d}": c for (v, d), c in f32_routes.items()}}
     del e_k, e_x
     torch.cuda.empty_cache()
     exact_s = time.perf_counter() - t0 - serve_s
 
-    train_rows, train_launches = {}, {name: 0 for name in LAUNCHES}
+    train_rows, train_launches = {}, {name: 0 for name in launch_counts()}
     for arch, reduced in ARCH_TRAIN.items():
         train_rows[arch], launches = arch_train(torch, arch, reduced)
         for name, count in launches.items():
@@ -1359,7 +1447,7 @@ def moe_ssm_serve(torch, arch, gen):
     """One architecture of phase 8b served: the kernel policies, then
     cuBLAS on the same weights, then both in f32 at a cut depth.  Returns
     its row and the kernel-policy run's launches."""
-    from repro_torch.kernels.common import ATTENTION_ROUTES, LAUNCHES, reset_launches
+    from repro_torch.kernels.common import ATTENTION_ROUTES, GEMM_ROUTES, LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.optim import tree_leaves
 
@@ -1375,13 +1463,17 @@ def moe_ssm_serve(torch, arch, gen):
 
     reset_launches()
     eng = serve_requests(torch, cfg, params, KERNEL_POLICIES)
-    launches, routes = dict(LAUNCHES), dict(ATTENTION_ROUTES)
+    launches, routes, gemm_routes = launch_counts(), dict(ATTENTION_ROUTES), dict(GEMM_ROUTES)
     check_engine(eng, MOE_SSM_GEN, f"{arch} kernel policies")
     has_attn = cfg.n_heads > 0
     for kname in SERVE_KERNELS if has_attn else SERVE_KERNELS[:3]:
         check(launches[kname] > 0, f"{arch}: kernel {kname} was not launched")
     for route in MOE_SSM_ROUTES.get(arch, ()):
         check(routes.get(route, 0) > 0, f"{arch}: attention_fused never ran {route}: {routes}")
+    if cfg.moe:  # the f32 router under both classes: direct NT, and TNN's NN
+        for name in ("matmul_nt", "matmul_nn"):
+            check(gemm_routes.get((name, "skinny", "float32"), 0) > 0,
+                  f"{arch}: the f32 router never ran {name}'s skinny route: {gemm_routes}")
     check(eng.exact_prefill == (arch in ("mamba2-2.7b", "zamba2-7b")),
           f"{arch}: exact_prefill is {eng.exact_prefill}")
     prompt = next(r.tokens for r in eng.requests.values() if r.prompt_len == LOGITS_PROMPT)
@@ -1434,6 +1526,7 @@ def moe_ssm_serve(torch, arch, gen):
         "prompt_lens": list(MOE_SSM_PROMPTS), "gen": MOE_SSM_GEN,
         "launches": {k: v for k, v in launches.items() if v},
         "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()},
+        "gemm_routes": {" ".join(key): c for key, c in gemm_routes.items()},
         "first_token_rel_l2": dist, "rel_l2_bound": LOGITS_REL_L2,
         "first_token_rel_l2_to_f32": to_f32, "worst_block_increment_rel_l2": blocks,
         "worst_block_rerouted_share": rerouted,
@@ -1571,11 +1664,9 @@ def moe_kept(torch, p, x, b, cfg):
 def phase_moe_ssm(torch, card):
     """Phase 8b; returns its row and the launches of the kernel-policy serve
     runs and of the fused-policy training runs."""
-    from repro_torch.kernels.common import LAUNCHES
-
     t0 = time.perf_counter()
     gen = lambda: torch.Generator(device=DEVICE).manual_seed(0)  # noqa: E731
-    serve_rows, serve_launches = {}, {name: 0 for name in LAUNCHES}
+    serve_rows, serve_launches = {}, {name: 0 for name in launch_counts()}
     for arch in MOE_SSM_SERVE:
         serve_rows[arch], launches = moe_ssm_serve(torch, arch, gen)
         for name, count in launches.items():
@@ -1583,7 +1674,7 @@ def phase_moe_ssm(torch, card):
         emit({"phase": "moe_ssm_serve", "arch": arch, **{
             k: serve_rows[arch][k] for k in ("first_token_rel_l2", "tokens_per_s", "seconds")}})
     serve_s = time.perf_counter() - t0
-    train_rows, train_launches = {}, {name: 0 for name in LAUNCHES}
+    train_rows, train_launches = {}, {name: 0 for name in launch_counts()}
     for arch, (repeats, reduced) in MOE_SSM_TRAIN.items():
         kernels = NO_ATTENTION_KERNELS if arch == "mamba2-2.7b" else TRAIN_KERNELS
         train_rows[arch], launches = arch_train(torch, arch, reduced, repeats, gen(), kernels,
@@ -1665,13 +1756,13 @@ def phase_selector(torch, card, out_dir):
         train_paper_model,
     )
     from repro_torch.core.opkey import OpKey
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.common import reset_launches
 
     hw = device_spec(DEVICE)
     lo, hi = SELECTOR_GRID
     row = {"phase": "selector", "card": card, "hardware": hw.name, "grid": [lo, hi],
            "pair": list(CARD_PAIR), "dtypes": {}}
-    paths, launches = {}, {name: 0 for name in LAUNCHES}
+    paths, launches = {}, {name: 0 for name in launch_counts()}
     for dtype, short in SELECTOR_DTYPES.items():
         t0 = time.perf_counter()
         reset_launches()
@@ -1679,7 +1770,7 @@ def phase_selector(torch, card, out_dir):
         # call times the host's launch, not the kernels
         cache = measure_grid(MeasurementCache(str(out_dir / f"measured_{short}.json")), dtype,
                              lo, hi, device=DEVICE, queued=True)
-        for name, count in LAUNCHES.items():
+        for name, count in launch_counts().items():
             launches[name] += count
         cache.save()
         measure_s = time.perf_counter() - t0
@@ -1739,7 +1830,7 @@ def phase_fcn(torch, card, selector_f32):
     from repro_torch.configs.fcn_paper import MNIST_FCNS, SYNTHETIC_FCNS
     from repro_torch.core.engine import dispatch_report, policy_from_spec
     from repro_torch.examples.train_fcn import make_fcn_step, synthetic_batch
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.common import reset_launches
     from repro_torch.models.fcn import fcn_loss_and_grads, init_fcn
     from repro_torch.optim import adamw_init, tree_leaves, warmup_cosine
 
@@ -1747,7 +1838,7 @@ def phase_fcn(torch, card, selector_f32):
     specs = {"CaffeNT": CUBLAS_POLICY, "CaffeMTNN": f"model:{selector_f32}"}
     row = {"phase": "fcn", "card": card, "dtype": "float32", "batch": FCN_BATCH,
            "steps": FCN_STEPS, "nets": {}}
-    launches = {name: 0 for name in LAUNCHES}
+    launches = {name: 0 for name in launch_counts()}
     for net in FCN_NETS:
         cfg = nets[net]
         params0 = init_fcn(0, cfg, device=DEVICE)
@@ -1769,7 +1860,7 @@ def phase_fcn(torch, card, selector_f32):
                 params, opt, loss, _ = step_fn(params, opt, step, batch)
                 losses.append(float(loss))  # waits for the device
                 times.append(time.perf_counter() - t0)
-            run_launches = dict(LAUNCHES)
+            run_launches = launch_counts()
             for name, count in run_launches.items():
                 launches[name] += count
             check(all(math.isfinite(x) for x in losses), f"{net} {arm}: losses {losses}")
@@ -1799,11 +1890,11 @@ def phase_fcn(torch, card, selector_f32):
 def phase_model_policy(torch, card, selector_bf16, train_row):
     """Phase 11; returns its row and the launches of each run."""
     from repro_torch.core.engine import dispatch_report
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.common import reset_launches
 
     reset_launches()
     eng = serve([])  # no --policy: the default learned selector
-    serve_launches = dict(LAUNCHES)
+    serve_launches = launch_counts()
     check_engine(eng, 16, "default policy")
     n_tok = sum(len(r.generated) for r in eng.requests.values())
     serve_part = {
@@ -1816,7 +1907,7 @@ def phase_model_policy(torch, card, selector_bf16, train_row):
     spec = f"model:{selector_bf16}"
     reset_launches()
     run = train(["--policy", spec])
-    train_launches = dict(LAUNCHES)
+    train_launches = launch_counts()
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in run.metrics),
           f"{spec}: a non-finite loss or grad norm")
     x0 = train_row["step0"][CUBLAS_POLICY]
@@ -1953,7 +2044,7 @@ def phase_tiles(torch, card, out_dir):
         tile_tables_from_cache,
     )
     from repro_torch.core.opkey import OpKey, shape_key
-    from repro_torch.kernels.common import CONFIG_LAUNCHES, LAUNCHES, config_key, reset_launches
+    from repro_torch.kernels.common import CONFIG_LAUNCHES, config_key, reset_launches
 
     row = {"phase": "tiles", "card": card, "cases": []}
     t0 = time.perf_counter()
@@ -1989,7 +2080,7 @@ def phase_tiles(torch, card, out_dir):
     reset_launches()
     cache = measure_grid(MeasurementCache(str(out_dir / "measured_bf16_tuned.json")), "bfloat16",
                          lo, hi, device=DEVICE, tune=True, queued=True)
-    measure_launches = dict(LAUNCHES)
+    measure_launches = launch_counts()
     cache.save()
     row["tuned_measure_seconds"] = time.perf_counter() - t0
     tables = tile_tables_from_cache(cache, dtype="bfloat16")
@@ -2040,14 +2131,14 @@ def phase_tiles(torch, card, out_dir):
     reset_launches()
     t0 = time.perf_counter()
     eng = serve(["--policy", f"autotune:{at_path}"])
-    serve_launches = dict(LAUNCHES)
+    serve_launches = launch_counts()
     check_engine(eng, 16, "autotune policy")
     misses = eng.cold_misses()
     check(set(misses.values()) == {0}, f"autotune serving measured after warmup: {misses}")
     row["autotune_serve"] = {"cold_misses": misses, "seconds": time.perf_counter() - t0,
                              "measured_keys": {c: p.n_measured for c, p in eng.policies.items()},
                              "decisions": eng.class_dispatch_rows()}
-    launches = {name: measure_launches[name] + serve_launches[name] for name in LAUNCHES}
+    launches = {name: measure_launches[name] + serve_launches[name] for name in launch_counts()}
     return row, launches
 
 
@@ -2055,7 +2146,7 @@ def phase_bench(torch, card, out_dir):
     """Phase 13; returns its row and the launches of its benchmarks."""
     from repro_torch.benchmarks import kernel_sweep
     from repro_torch.benchmarks.run import run_benches
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.common import reset_launches
 
     reset_launches()
     t0 = time.perf_counter()
@@ -2073,7 +2164,7 @@ def phase_bench(torch, card, out_dir):
     sweep_json = out_dir / "bench" / "kernel_sweep.json"
     check(kernel_sweep.main(["--quick", "--json", str(sweep_json)]) == 0, "kernel_sweep failed")
     sweep = json.loads(sweep_json.read_text())
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     r = results
     fig3 = next(v for v in r["fig3"].values() if v["source"] == "measured")
     head = {
@@ -2169,7 +2260,7 @@ def main() -> int:
     # 4. serve smollm-135m, full config, bf16
     reset_launches()
     eng_k = serve(kernel_policy_args())
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     check_engine(eng_k, 16, "kernel policies")
     for kname in SERVE_KERNELS:
         check(launches[kname] > 0, f"kernel {kname} was not launched on the serve path")
@@ -2252,40 +2343,63 @@ def main() -> int:
     # kernel-policy serve runs and three fused-policy training runs, the selector's
     # measurements, the FCN runs, the runs under the learned policies, phase
     # 12's tuned measurement and autotune serving run, and phase 13's
-    # benchmarks (each counted from 0)
-    contract = {
-        "matmul_nt": ("(8,576)x(49152,576)^T", "bfloat16"),
-        "matmul_nn": ("(8,576)x(576,49152)", "bfloat16"),
-        "transpose": ("(49152,576)", "bfloat16"),
-        "attention_fused": ("decode g=12 m=3 n=512 ragged", "bfloat16"),
-        "matmul_tnn_fused": ("(2048,576)x(49152,576)^T", "bfloat16"),
-        "matmul_bnt": ("(24,768,64)x(24,256,64)^T", "float32"),
-        "matmul_bnn": ("(24,256,768)x(24,768,64)", "float32"),
+    # benchmarks (each counted from 0).  The wide-head flash instances and
+    # gemm_f32's routes have rows of their own: the flash kernel at each
+    # wide head (gemma3's, zamba2's and h2o-danube's prefill) and gemm_f32's
+    # two routes (grok-1's router at decode; stage 2 of the f32 TNN arm at a
+    # grid cube), their launches counted apart (launch_counts) and their
+    # error the largest of their route's cases.
+    contract = {  # row: (kernel, case, dtype)
+        "matmul_nt": ("matmul_nt", "(8,576)x(49152,576)^T", "bfloat16"),
+        "matmul_nn": ("matmul_nn", "(8,576)x(576,49152)", "bfloat16"),
+        "transpose": ("transpose", "(49152,576)", "bfloat16"),
+        "attention_fused": ("attention_fused", "decode g=12 m=3 n=512 ragged", "bfloat16"),
+        "matmul_tnn_fused": ("matmul_tnn_fused", "(2048,576)x(49152,576)^T", "bfloat16"),
+        "matmul_bnt": ("matmul_bnt", "(24,768,64)x(24,256,64)^T", "float32"),
+        "matmul_bnn": ("matmul_bnn", "(24,256,768)x(24,768,64)", "float32"),
+        "attention_flash_dh256": ("attention_fused", GEMMA3_PREFILL_CASE, "bfloat16"),
+        "attention_flash_dh112": ("attention_fused", ZAMBA2_PREFILL_CASE + " dh=112", "bfloat16"),
+        "attention_flash_dh120": ("attention_fused", H2O_PREFILL_CASE, "bfloat16"),
+        "matmul_f32_skinny": ("matmul_nt", "(4,6144)x(8,6144)^T", "float32"),
+        "matmul_f32_tiled": ("matmul_nn", "(2048,2048)x(2048,2048)", "float32"),
+    }
+    routes = {  # row: whether a case ran its route
+        **{f"attention_flash_dh{dh}": (lambda r, dh=dh: r["variant"] == "flash_mma"
+                                       and r["dh"] == dh) for dh in WIDE_FLASH_DHS},
+        **{f"matmul_f32_{route}": (lambda r, route=route: r["variant"].startswith(
+            f"{route} f32")) for route in F32_ROUTES},
     }
     kernels = []
-    for kname, (case, dtype) in contract.items():
+    for cname, (kname, case, dtype) in contract.items():
         row = next(r for r in rows if r["kernel"] == kname and r["case"] == case
                    and r["dtype"] == dtype)
         source, replaces = KERNEL_SOURCES[kname]
-        by_path = {"serve": launches.get(kname, 0),
-                   "train": sum(train_launches[s][kname] for s in TRAIN_POLICIES.values()),
-                   "arch_serve": arch_serve_launches[kname],
-                   "arch_train": arch_train_launches[kname],
-                   "moe_ssm_serve": moe_serve_launches[kname],
-                   "moe_ssm_train": moe_train_launches[kname],
-                   "selector_measure": selector_launches[kname],
-                   "fcn": fcn_launches[kname],
-                   "model_policy_serve": mp_serve_launches[kname],
-                   "model_policy_train": mp_train_launches[kname],
-                   "tiles": tiles_launches[kname],
-                   "bench": bench_launches[kname]}
+        if cname.startswith("matmul_f32"):
+            source = "src/repro_torch/csrc/matmul.cu"
+        on_route = routes.get(cname, lambda r: True)
+        check(on_route(row), f"{cname}: its case {case} ran {row['variant']}")
+        by_path = {"serve": launches.get(cname, 0),
+                   "train": sum(train_launches[s][cname] for s in TRAIN_POLICIES.values()),
+                   "arch_serve": arch_serve_launches[cname],
+                   "arch_train": arch_train_launches[cname],
+                   "moe_ssm_serve": moe_serve_launches[cname],
+                   "moe_ssm_train": moe_train_launches[cname],
+                   "selector_measure": selector_launches[cname],
+                   "fcn": fcn_launches[cname],
+                   "model_policy_serve": mp_serve_launches[cname],
+                   "model_policy_train": mp_train_launches[cname],
+                   "tiles": tiles_launches[cname],
+                   "bench": bench_launches[cname]}
+        if cname in routes:
+            check(sum(by_path.values()) > 0, f"{cname}: no main path launched it")
         kernels.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "name": cname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(r["err"] for r in rows if r["kernel"] == kname),
+            "max_abs_err": max(r["err"] for r in rows if r["kernel"] == kname and on_route(r)),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "device_ms": row["device_ms"], "shape": case,
+            "device_ms": row["device_ms"], "queued_ms": row["queued_ms"],
+            "library_queued_ms": row["library_queued_ms"], "shape": case,
             "dtype": dtype, "variant": row["variant"],
         })
     results["kernels"] = kernels

@@ -17,7 +17,8 @@
 // Three kernels; the wrapper picks one per call from dtype and shape
 // (kernels/attention_fused.py::attention_variant):
 //
-// attention_flash -- bf16, dh 64 or 128, m > 16: prefill and training.
+// attention_flash -- bf16, dh 64, 112, 120, 128 or 256, m > 16: prefill
+//   and training.
 //   Bound on the H100: bytes.  At the training shape (g 24, m 768 = 3 heads
 //   x 256 queries folded, n 256, causal, dh 64) Q, K, V and the output are
 //   6.3 MB, 1.9 us at 3.35 TB/s, against 0.6 us of tensor-core work.
@@ -37,7 +38,18 @@
 //   tiles) each warp's chain of dependent instructions per tile sets the
 //   time, and an mma.sync version (64 mma and 32 ldmatrix a warp per tile)
 //   measured slower on the card than the 8 wgmma that replace them.
-//
+//   Instances by the tile width DH: 64, 128 and 256.  dh 112 and 120 run
+//   the 128 instance over rows of their true stride: the 16-byte pieces
+//   from dh to 127 of Q, K and V land as zeros through the same cp.async
+//   zero-fill, add nothing to S, give output columns that are never
+//   stored (the Pallas kernel pads every dh to the 128 edge too; 14 and 7 %
+//   more tensor-core work).  The 256 instance holds o[128] accumulator
+//   floats a thread, issues P V as one m64n256k16 over V's four 64-column
+//   chunks, and keeps the 2-stage ring: Q and two (K, V) stages of 32 KiB
+//   tiles, 161 KiB of dynamic shared memory, one block an SM.  nvcc
+//   -Xptxas -v (CUDA 12.8, sm_90a): 248 registers a thread for the 256
+//   instance, 170 for 128, 110 for 64, none spilling.
+
 // attention_decode_split + attention_combine -- m <= 16 (decode: one kv
 //   head's GQA group of rows), both dtypes, any dh up to 256.  Bound on the
 //   H100: bytes (K and V of the live prefix, read once) and, at decode's
@@ -71,8 +83,7 @@
 // as it always was; dh 129..256 runs the 256-bound ones, whose f32 staging
 // doubles to 82 KiB (FMA) and 81 KiB (split kernel at 16 rows), past the
 // 48 KiB static limit, so it comes from dynamic shared memory (block_smem).
-// The FMA kernel's accumulator doubles to 32 registers a thread.  The
-// flash kernel stays at dh 64 and 128.
+// The FMA kernel's accumulator doubles to 32 registers a thread.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -378,7 +389,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// D(64 x N) += A(64 x 16) . B(16 x N), N = 64 or 128: A from registers
+// D(64 x N) += A(64 x 16) . B(16 x N), N = 64, 128 or 256: A from registers
 // (each warp's 16 rows in the layout of the mma.sync A fragment, which is
 // the layout of an m64nNk16 accumulator pair), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -417,6 +428,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int DH>
 struct FlashCfg {
   static constexpr int kTileBytes = 64 * DH * 2;  // a Q, K or V tile of 64 rows
@@ -428,7 +472,9 @@ template <int DH>
 __global__ void __launch_bounds__(kFlashThreads)
     attention_flash(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out, int m, int n, Mask mask) {
+                    __nv_bfloat16* __restrict__ out, int m, int n, int dh, Mask mask) {
+  // dh <= DH is the row stride of q, k, v and out; pieces from dh to DH
+  // land as zeros and are never stored.
   constexpr int kRows = kFlashRows, kKeys = kFlashKeys, kThreads = kFlashThreads;
   constexpr int kStages = kFlashStages;
   constexpr int kChunks = DH / 8;  // 16-byte pieces of a row
@@ -447,10 +493,10 @@ __global__ void __launch_bounds__(kFlashThreads)
   const int q0 = flash_block_row(blockIdx.y, gridDim.y, kRows, m, seg, mask.causal != 0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int len = min(max(lengths[slice], 0), n);
-  q += static_cast<size_t>(slice) * m * DH;
-  out += static_cast<size_t>(slice) * m * DH;
-  k += static_cast<size_t>(slice) * n * DH;
-  v += static_cast<size_t>(slice) * n * DH;
+  q += static_cast<size_t>(slice) * m * dh;
+  out += static_cast<size_t>(slice) * m * dh;
+  k += static_cast<size_t>(slice) * n * dh;
+  v += static_cast<size_t>(slice) * n * dh;
 
   const KeyRange keys = live_keys(residues(q0, min(q0 + kRows, m) - 1, seg), len, mask);
   const int tile_lo = keys.lo / kKeys;
@@ -458,12 +504,13 @@ __global__ void __launch_bounds__(kFlashThreads)
 
   // 16-byte copies: the thread takes piece c_of of rows r_of, r_of + kStep, ...
   const int r_of = threadIdx.x / kChunks, c_of = threadIdx.x % kChunks;
+  const bool piece_in = c_of * 8 < dh;  // dh % 8 == 0: a piece is all in or all out
 #pragma unroll
   for (int i = 0; i < kRows / kStep; ++i) {
     const int r = r_of + i * kStep;
-    const bool in = q0 + r < m;
+    const bool in = piece_in && q0 + r < m;
     repro::cp_async16(qs + sw_piece(r, c_of, kRows),
-                      in ? q + static_cast<size_t>(q0 + r) * DH + c_of * 8 : q, in);
+                      in ? q + static_cast<size_t>(q0 + r) * dh + c_of * 8 : q, in);
   }
   // Tile t into its ring slot; K and V rows at or beyond lengths are not
   // read: they land as 0.  One commit group per tile, empty past the last.
@@ -473,8 +520,8 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
       for (int i = 0; i < kKeys / kStep; ++i) {
         const int r = r_of + i * kStep;
-        const bool in = t0 + r < len;
-        const size_t off = static_cast<size_t>(t0 + r) * DH + c_of * 8;
+        const bool in = piece_in && t0 + r < len;
+        const size_t off = static_cast<size_t>(t0 + r) * dh + c_of * 8;
         repro::cp_async16(k_tile(t % kStages) + sw_piece(r, c_of, kKeys), in ? k + off : k, in);
         repro::cp_async16(v_tile(t % kStages) + sw_piece(r, c_of, kKeys), in ? v + off : v, in);
       }
@@ -602,8 +649,8 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
   for (int i = 0; i < kRows / kStep; ++i) {
     const int r = r_of + i * kStep;
-    if (q0 + r < m) {
-      *reinterpret_cast<int4*>(out + static_cast<size_t>(q0 + r) * DH + c_of * 8) =
+    if (piece_in && q0 + r < m) {
+      *reinterpret_cast<int4*>(out + static_cast<size_t>(q0 + r) * dh + c_of * 8) =
           *reinterpret_cast<const int4*>(gbase + sw_piece(r, c_of, kRows));
     }
   }
@@ -611,13 +658,13 @@ __global__ void __launch_bounds__(kFlashThreads)
 
 template <int DH>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, const int* lengths,
-                         void* out, int g, int m, int n, Mask mask, cudaStream_t s) {
+                         void* out, int g, int m, int n, int dh, Mask mask, cudaStream_t s) {
   const cudaError_t e = repro::allow_dynamic_smem<attention_flash<DH>>(FlashCfg<DH>::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid(g, repro::cdiv(m, kFlashRows));
   attention_flash<DH><<<grid, kFlashThreads, FlashCfg<DH>::kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), m, n,
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), m, n, dh,
       mask);
   return cudaGetLastError();
 }
@@ -1002,7 +1049,8 @@ REPRO_EXPORT int repro_attention_fused_fma(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16, dh 64 or 128, q, k, v and out 16-byte aligned (the wrapper checks).
+// bf16, dh 64, 112, 120, 128 or 256, q, k, v and out 16-byte aligned (the
+// wrapper checks).
 REPRO_EXPORT int repro_attention_fused_flash(
     const void* q, const void* k, const void* v, const void* lengths, void* out, int g, int m,
     int n, int dh, int causal, int window, int q_start, int k_start, int prefix_len, int q_seg,
@@ -1015,10 +1063,13 @@ REPRO_EXPORT int repro_attention_fused_flash(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   if (dh == 64) {
-    return static_cast<int>(launch_flash<64>(q, k, v, len, out, g, m, n, mask, s));
+    return static_cast<int>(launch_flash<64>(q, k, v, len, out, g, m, n, dh, mask, s));
   }
-  if (dh == 128) {
-    return static_cast<int>(launch_flash<128>(q, k, v, len, out, g, m, n, mask, s));
+  if (dh == 112 || dh == 120 || dh == 128) {
+    return static_cast<int>(launch_flash<128>(q, k, v, len, out, g, m, n, dh, mask, s));
+  }
+  if (dh == 256) {
+    return static_cast<int>(launch_flash<256>(q, k, v, len, out, g, m, n, dh, mask, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

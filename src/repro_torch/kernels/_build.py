@@ -45,7 +45,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "transpose": {"repro_transpose": [_P, _P, _I, _I, _I, _I, _I, _P]},
-    "matmul": {"repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "matmul": {"repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+               "repro_matmul_f32": [_P] * 4 + [_I] * 8 + [_P]},
     "attention_fused": {
         "repro_attention_fused_fma": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
         "repro_attention_fused_flash": [_P] * 5 + [_I] * 10 + [_F, _P],

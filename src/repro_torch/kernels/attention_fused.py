@@ -16,11 +16,15 @@ CUDA tensors the wrapper launches one of three kernels of
   workspace this wrapper allocates, and a second kernel combines them in
   split order.  Bound by the bytes of the live K and V, and at decode's
   size by launch latency.
-- ``flash_mma`` (bf16, dh 64 or 128, m > 16: prefill and training): a
-  flash-attention forward on the tensor cores (``wgmma``, one warpgroup
-  per 64 query rows, 64-key K/V tiles through a ``cp.async`` ring in the
-  128-byte swizzle, online softmax in registers, P fed to P V from
-  registers).  Bound by bytes.
+- ``flash_mma`` (bf16, dh 64, 112, 120, 128 or 256, m > 16: prefill and
+  training): a flash-attention forward on the tensor cores (``wgmma``, one
+  warpgroup per 64 query rows, 64-key K/V tiles through a ``cp.async`` ring
+  in the 128-byte swizzle, online softmax in registers, P fed to P V from
+  registers).  dh 112 and 120 run the 128-wide instance with the true row
+  stride, the pieces from dh to 127 landing as zeros and never stored (the
+  Pallas kernel pads every dh to the 128 edge); dh 256 has an instance of
+  its own (161 KiB of shared memory, P V as one ``m64n256k16``).  Bound by
+  bytes.
 - ``fma`` (everything else: f32 at m > 16, other dh up to 256): one
   block per (slice, 16 query rows) over the 32-key tiles the mask leaves
   live, f32 staged in shared memory.
@@ -81,7 +85,7 @@ DH_MAX = 256  # largest head dim the kernels take (csrc kDhMax)
 _MAX_GRID_Y = 65535  # gridDim.y: the q-blocks of the flash and FMA kernels
 _FMA_ROWS = 16  # csrc kBQ: query rows per FMA block
 _FLASH_ROWS = 64  # csrc kFlashRows: query rows per flash block
-_FLASH_DH = (64, 128)  # the head dims the flash kernel is built for
+_FLASH_DH = (64, 112, 120, 128, 256)  # the head dims the flash kernel takes
 _DECODE_MAX_M = 16  # csrc kDecodeMaxRows: the split kernel's rows
 _DECODE_MIN_KEYS = 32  # a split walks at least this many keys
 _DECODE_KEY_STEP = 16  # splits hold a multiple of 16 keys (one step of 4 warps)
@@ -96,10 +100,10 @@ _DH_SMALL = 128  # csrc kDhSmall: the smaller instance of the split and FMA kern
 def attention_variant(dtype: torch.dtype, g: int, m: int, n: int, dh: int,
                       aligned: bool = True) -> str:
     """The kernel a CUDA call launches: ``"decode_split"`` (m <= 16),
-    ``"flash_mma"`` (bf16, dh 64 or 128, q, k and v 16-byte aligned) or
-    ``"fma"``.  A pure function of dtype and shape (and of the operands'
-    alignment, which the flash kernel's 16-byte copies need), decided
-    before the launch."""
+    ``"flash_mma"`` (bf16, dh 64, 112, 120, 128 or 256, q, k and v 16-byte
+    aligned) or ``"fma"``.  A pure function of dtype and shape (and of the
+    operands' alignment, which the flash kernel's 16-byte copies need),
+    decided before the launch."""
     if m <= _DECODE_MAX_M:
         return "decode_split"
     if dtype == torch.bfloat16 and dh in _FLASH_DH and aligned:

@@ -1,7 +1,8 @@
 """Shared helpers of the port's kernel wrappers: tile-config keys and
 plan lookup, operand checks, routing by device, the launch counters, the
-card's SM count and the launcher of the FMA GEMM that the NN and NT
-wrappers share.
+card's SM count, and the f32 and FMA GEMMs of ``csrc/matmul.cu`` that the
+NN and NT wrappers share (``f32_plans``, ``launch_matmul_f32``,
+``launch_matmul``).
 
 Routing rule of every wrapper: an operand on the CPU runs the kernel's
 plain PyTorch version (``ref.py``); an operand on a CUDA device launches
@@ -12,6 +13,7 @@ same rejections as the card.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -23,7 +25,10 @@ __all__ = [
     "cdiv",
     "sm_count",
     "launch_matmul",
+    "launch_matmul_f32",
     "fma_tile",
+    "f32_plans",
+    "f32_split",
     "H100_SMS",
     "DEFAULT_CONFIG_KEY",
     "config_key",
@@ -36,6 +41,7 @@ __all__ = [
     "route",
     "LAUNCHES",
     "ATTENTION_ROUTES",
+    "GEMM_ROUTES",
     "CONFIG_LAUNCHES",
     "count_launch",
     "reset_launches",
@@ -71,24 +77,36 @@ LAUNCHES: Dict[str, int] = {
 ATTENTION_ROUTES: Dict[Tuple[str, int], int] = {}
 
 
+# Launches of the NN and NT wrappers by route and dtype, e.g.
+# ("matmul_nn", "tiled", "float32"): the wrapper adds one beside its
+# LAUNCHES count.
+GEMM_ROUTES: Dict[Tuple[str, str, str], int] = {}
+
+
 # Launches of each CUDA kernel by the tile config its wrapper was given,
 # e.g. ("matmul_nn", "128x192x512") or ("transpose", "default"): a run can
 # show that a tuned config reached its kernel.
 CONFIG_LAUNCHES: Dict[Tuple[str, str], int] = {}
 
 
-def count_launch(name: str, block=None) -> None:
+def count_launch(name: str, block=None,
+                 gemm_route: Optional[Tuple[str, torch.dtype]] = None) -> None:
     """Count one launch of kernel ``name`` at config ``block`` (None: the
-    wrapper's own plan); wrappers call it where they launch, nowhere else."""
+    wrapper's own plan), and for the NN and NT wrappers under ``gemm_route``
+    (route, dtype); wrappers call it where they launch, nowhere else."""
     LAUNCHES[name] += 1
     key = (name, config_key(block))
     CONFIG_LAUNCHES[key] = CONFIG_LAUNCHES.get(key, 0) + 1
+    if gemm_route is not None:
+        rkey = (name, gemm_route[0], str(gemm_route[1]).split(".")[-1])
+        GEMM_ROUTES[rkey] = GEMM_ROUTES.get(rkey, 0) + 1
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     ATTENTION_ROUTES.clear()
+    GEMM_ROUTES.clear()
     CONFIG_LAUNCHES.clear()
 
 
@@ -124,6 +142,100 @@ def launch_matmul(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
         _build.launch(
             "matmul", "repro_matmul", _build.ptr(a), _build.ptr(b), _build.ptr(c),
             m, n, k, int(b_stored_nk), _build.dtype_code(a.dtype), _build.stream_of(a),
+        )
+    return c
+
+
+# The f32 kernel of csrc/matmul.cu (gemm_f32): its tiles (bm, bn) by route,
+# its k-step (the unit of a split), and the most splits its reduce sums.
+_F32_TILED = (128, 128)
+_F32_SKINNY_ROWS = (16, 128)  # m <= 16: B, the long operand, streamed once
+_F32_SKINNY_COLS = (128, 16)  # n <= 64: A streamed once
+_F32_BK = 16
+_F32_MAX_SPLITS = 32
+_F32_MAX_M_TILES = 65535  # gridDim.y
+# The split's cost model, in us on an H100: a 16-deep k-step of one block
+# alone on its SM, at 60 % of its share of the f32 FMA rate or at its share
+# of ~3 TB/s, whichever is slower; a split's reduce launch and the partials'
+# bytes (written, read back) at ~3 TB/s.
+_F32_FLOPS_PER_US = 0.6 * 67e6
+_BYTES_PER_US = 3.0e6
+_US_REDUCE = 3.0
+
+
+def f32_route(m: int, n: int, k: int, nt: bool, aligned: bool) -> str:
+    """``"tiled"``, ``"skinny"`` or ``"fma"`` for f32 operands: the first
+    two need k (and NN's n, B's row length) a multiple of 4 floats and A
+    and B 16-byte aligned (``aligned``)."""
+    if not (aligned and k > 0 and k % 4 == 0 and (nt or n % 4 == 0)):
+        return "fma"
+    return "skinny" if m <= 16 or n <= 64 else "tiled"
+
+
+def _f32_tile(m: int, n: int, variant: str) -> Tuple[int, int]:
+    if variant == "tiled":
+        return _F32_TILED
+    return _F32_SKINNY_ROWS if m <= 16 else _F32_SKINNY_COLS
+
+
+@functools.lru_cache(maxsize=None)  # a model repeats a few shapes on every step
+def f32_split(m: int, n: int, k: int, bm: int, bn: int, sms: int) -> Tuple[int, int]:
+    """(splits, 16-deep k-steps per split) of the f32 kernel at tile (bm,
+    bn): the pair whose waves of (tile, split) blocks over ``sms`` SMs,
+    plus the split's reduce and partials, cost least; at most 32 splits,
+    none empty.  A pure function of the shape (k > 0) and the SM count."""
+    steps = cdiv(k, _F32_BK)
+    tiles = cdiv(m, bm) * cdiv(n, bn)
+    step_us = max(2.0 * bm * bn * _F32_BK / (_F32_FLOPS_PER_US / sms),
+                  4.0 * (bm + bn) * _F32_BK / (_BYTES_PER_US / sms))
+    best = None
+    for want in range(1, min(steps, _F32_MAX_SPLITS) + 1):
+        per = cdiv(steps, want)
+        splits = cdiv(steps, per)
+        us = cdiv(tiles * splits, sms) * per * step_us
+        if splits > 1:
+            us += _US_REDUCE + (8 * splits + 4) * m * n / _BYTES_PER_US
+        if best is None or us < best[0]:
+            best = (us, splits, per)
+    return best[1:]
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plans(m: int, n: int, k: int, nt: bool, aligned: bool = True, sms: int = H100_SMS):
+    """The (config, plan) pairs of an f32 NT (``nt``) or NN shape's route,
+    the cost model's first.  A plan is ``(variant, (bm, bn), splits,
+    k-steps per split)`` -- ``"tiled"`` or ``"skinny"`` (``gemm_f32``) --
+    or ``("fma", None, 1, 1)``.  A config is (bm, bn, bk): the route's one
+    tile and the k of a split (the cost model's, and that of 1, 2, 4, ...
+    up to 32 splits)."""
+    variant = f32_route(m, n, k, nt, aligned)
+    if variant == "fma":
+        return ((fma_tile(m), ("fma", None, 1, 1)),)
+    bm, bn = _f32_tile(m, n, variant)
+    steps = cdiv(k, _F32_BK)
+    pers = (f32_split(m, n, k, bm, bn, sms)[1],) + split_choices(steps, _F32_MAX_SPLITS)
+    plans = {(bm, bn, per * _F32_BK): (variant, (bm, bn), cdiv(steps, per), per)
+             for per in pers}
+    return tuple(plans.items())
+
+
+def launch_matmul_f32(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
+                      b_stored_nk: bool, plan: tuple) -> torch.Tensor:
+    """Allocate C (and the split's f32 partials) and launch ``gemm_f32``
+    of ``csrc/matmul.cu`` (``repro_matmul_f32``) at an f32 plan of
+    ``f32_plans``.  The NN and NT wrappers route to it; it counts no launch
+    itself."""
+    _, (bm, bn), splits, per = plan
+    if cdiv(m, bm) > _F32_MAX_M_TILES:
+        raise ValueError(f"f32 matmul kernel takes at most {_F32_MAX_M_TILES * bm} rows, got {m}")
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if c.numel():
+        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+              if splits > 1 else None)
+        _build.launch(
+            "matmul", "repro_matmul_f32", _build.ptr(a), _build.ptr(b), _build.ptr(c),
+            _build.ptr(ws) if ws is not None else ctypes.c_void_p(None), m, n, k,
+            int(b_stored_nk), bm, bn, splits, per, _build.stream_of(a),
         )
     return c
 

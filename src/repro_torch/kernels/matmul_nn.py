@@ -18,8 +18,13 @@ launch by ``nn_plans`` from dtype, shape and the operands' alignment:
   C^T = B^T . A^T on ``mma.sync``, B's (k, n) tiles read with
   ``ldmatrix.trans``, a ``cp.async`` ring, k split as the direct NT
   kernel splits it (``nt_split``).
-- ``fma`` (f32, or bf16 operands the two above do not take): the NN
-  instance of ``csrc/matmul.cu`` (FMA, f32 accumulation, no TF32).
+- f32 (no TF32): ``csrc/matmul.cu``'s ``gemm_f32`` for aligned operands
+  (k and n multiples of 4, A and B 16-byte aligned; ``f32_plans`` in
+  ``common.py``), ``skinny`` where m <= 16 or n <= 64 and ``tiled`` above
+  (the direct NT kernel's f32 routes, with B's (k, n) rows stored as they
+  are): the f32 stage 2 of ``PALLAS_TNN`` and ``PALLAS_TN``.
+- ``fma`` (f32 or bf16 operands the kernels above do not take): the NN
+  instance of ``csrc/matmul.cu``'s FMA kernel.
 
 Tile configs (``kernels/tiling.py``): ``nn_plans`` lists the plans of a
 shape's route as (config, plan) pairs, the cost model's first, and
@@ -27,9 +32,10 @@ shape's route as (config, plan) pairs, the cost model's first, and
 ``wgmma``, (128, BN, bk) with BN one of the instances above and bk the k of
 one split (the cost model's split, and 1, 2, 4, ... up to 32 splits); on
 ``skinny``, (MA, 128, bk) as the direct NT kernel's (``matmul_nt.py``);
-on ``fma``, its one tile, ``fma_tile(m)``.  Any other config -- a wgmma
-tile at an m the skinny kernel owns, a BN with no instance, a split the
-route does not list -- raises, on both routes.
+on f32's ``tiled`` and ``skinny``, the route's tile and the k of a split
+(``f32_plans``); on ``fma``, its one tile, ``fma_tile(m)``.  Any other
+config -- a wgmma tile at an m the skinny kernel owns, a BN with no
+instance, a split the route does not list -- raises, on both routes.
 
 Each call counts one launch, split or not.  A launch that fails raises; no
 variant stands in for another.  On CPU tensors the wrapper runs the plain
@@ -50,8 +56,10 @@ from .common import (
     cdiv,
     check_operand,
     count_launch,
+    f32_plans,
     fma_tile,
     launch_matmul,
+    launch_matmul_f32,
     pick_plan,
     route,
     sm_count,
@@ -82,8 +90,8 @@ _US_REDUCE = 3.0
 _PARTIAL_BYTES_PER_US = 3.0e6
 
 
-def _route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> str:
-    if dtype != torch.bfloat16 or not (aligned and k > 0 and k % 8 == 0 and n % 8 == 0):
+def _bf16_route(m: int, n: int, k: int, aligned: bool) -> str:
+    if not (aligned and k > 0 and k % 8 == 0 and n % 8 == 0):
         return "fma"
     return "skinny" if m <= _SKINNY_M else "wgmma"
 
@@ -94,9 +102,11 @@ def nn_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
     """The (config, plan) pairs of this shape's route (``aligned``: A and
     B 16-byte aligned), the cost model's first.  A plan is ``(variant, BN,
     splits, k-blocks per split)``: ``("wgmma", BN, s, per)``, ``("skinny",
-    None, s, per)`` or ``("fma", None, 1, 1)``.  A split is a run of
-    64-deep k-blocks; none is empty."""
-    variant = _route(m, n, k, dtype, aligned)
+    None, s, per)`` or ``("fma", None, 1, 1)`` in bf16, a split a run of
+    64-deep k-blocks, none empty; in f32 those of ``f32_plans``."""
+    if dtype == torch.float32:
+        return f32_plans(m, n, k, False, aligned, sms)
+    variant = _bf16_route(m, n, k, aligned)
     if variant == "fma":
         return ((fma_tile(m), ("fma", None, 1, 1)),)
     nkb = max(1, cdiv(k, _WG_BK))
@@ -115,7 +125,7 @@ def nn_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
 
 
 def nn_plan(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int, b_ptr: int, sms: int,
-            block: Optional[Tuple[int, int, int]] = None) -> Tuple[str, Optional[int], int, int]:
+            block: Optional[Tuple[int, int, int]] = None) -> tuple:
     """The plan a call with operands at ``a_ptr`` and ``b_ptr`` launches
     for ``block`` (None: the cost model's); raises ``ValueError`` on a
     config its route has no plan for.  Decided before the launch."""
@@ -166,14 +176,16 @@ def matmul_nn(
                          f"{tuple(b.shape)} {b.dtype}")
     plain = route(a, b) == "plain"
     sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
-    variant, bn, splits, per = nn_plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms,
-                                       block)
+    plan = nn_plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms, block)
+    variant, bn, splits, per = plan
     if plain:
         return ref.matmul_nn(a, b)
     if m * n == 0:
         return torch.empty((m, n), dtype=a.dtype, device=a.device)
     if variant == "fma":
         c = launch_matmul(a, b, m, n, k, b_stored_nk=False)
+    elif a.dtype == torch.float32:
+        c = launch_matmul_f32(a, b, m, n, k, False, plan)
     else:
         if variant == "skinny" and m > _SKINNY_MAX_M:
             raise ValueError(f"NN kernel takes at most {_SKINNY_MAX_M} rows, got {m}")
@@ -188,5 +200,5 @@ def matmul_nn(
         else:
             _build.launch("matmul_nn", "repro_matmul_nn_skinny", _build.ptr(a), _build.ptr(b),
                           _build.ptr(c), ws_ptr, m, n, k, splits, per, _build.stream_of(a))
-    count_launch("matmul_nn", block)
+    count_launch("matmul_nn", block, (variant, a.dtype))
     return c

@@ -13,8 +13,14 @@ tensors the wrapper launches:
   card (``nt_split``): a second kernel then sums the f32 partials in a
   fixed order.  Unaligned operands take a scalar load path inside the
   kernel.
-- f32: the NT instance of ``csrc/matmul.cu`` (FMA, no TF32), which reads
-  B along k and turns each tile around in shared memory.
+- f32 (no TF32): ``csrc/matmul.cu``'s ``gemm_f32`` for aligned operands
+  (k % 4 == 0, A and B 16-byte aligned; ``f32_plans`` in ``common.py``):
+  ``skinny`` where m <= 16 or n <= 64 (decode, the MoE routers: the long
+  operand streamed once, k split until the grid fills the card, the f32
+  partials summed in split order) and ``tiled`` above (128 x 128 tiles, 8
+  x 8 register micro-tiles, split k where the tiles cannot fill the card);
+  ``fma``, the FMA kernel, for the rest.  Both read B along k and turn
+  each tile around in shared memory.
 
 The NN wrapper's skinny kernel (``csrc/matmul_nn.cu``) has the same block
 geometry and takes its split from ``nt_split`` too.
@@ -24,9 +30,10 @@ shape's route as (config, plan) pairs, the cost model's first, and
 ``block=None`` launches that one.  A config ``(bm, bn, bk)`` of the bf16
 kernel is bm the A-row instance that m takes (``skinny_rows``: 8, 16, 32
 or 64), bn its 128 B rows per block and bk the k of one split: the cost
-model's split (``nt_split``) and 1, 2, 4, ... splits of k.  The f32 FMA
-kernel runs one tile, ``fma_tile(m)``.  Any other config raises, on both
-routes.
+model's split (``nt_split``) and 1, 2, 4, ... splits of k.  A config of
+the f32 kernel is its route's tile and the k of one split (``f32_plans``);
+the FMA kernel runs one tile, ``fma_tile(m)``.  Any other config raises,
+on both routes.
 
 The wide arm, for training, is the fused TNN kernel.  On CPU tensors the
 wrapper runs the plain version in ``ref.py``.
@@ -46,8 +53,9 @@ from .common import (
     cdiv,
     check_operand,
     count_launch,
-    fma_tile,
+    f32_plans,
     launch_matmul,
+    launch_matmul_f32,
     pick_plan,
     route,
     sm_count,
@@ -94,12 +102,14 @@ def skinny_rows(m: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def nt_plans(m: int, n: int, k: int, dtype: torch.dtype, sms: int = H100_SMS):
-    """The (config, plan) pairs of this shape's route, the cost model's
-    first.  A plan is ``(route, None, splits, k-blocks per split)``:
-    ``("mma", None, s, per)`` (bf16) or ``("fma", None, 1, 1)`` (f32)."""
+def nt_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
+             sms: int = H100_SMS):
+    """The (config, plan) pairs of this shape's route (``aligned``: A and
+    B 16-byte aligned), the cost model's first.  A plan is ``(route, tile,
+    splits, k-steps per split)``: ``("mma", None, s, per)`` (bf16, which
+    takes any alignment), or f32's ``f32_plans``."""
     if dtype == torch.float32:
-        return ((fma_tile(m), ("fma", None, 1, 1)),)
+        return f32_plans(m, n, k, True, aligned, sms)
     nkb = max(1, cdiv(k, _BK))
     pers = (nt_split(m, n, k, sms)[1],) + split_choices(nkb)
     plans = {(skinny_rows(m), _ROWS, per * _BK): ("mma", None, cdiv(nkb, per), per)
@@ -124,12 +134,16 @@ def matmul_nt(
                          f"{tuple(b.shape)}^T {b.dtype}")
     plain = route(a, b) == "plain"
     sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
-    route_, _, splits, per = pick_plan(nt_plans(m, n, k, a.dtype, sms), block,
-                                       f"NT kernel at ({m}, {n}, {k}) {a.dtype}")
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    plan = pick_plan(nt_plans(m, n, k, a.dtype, aligned, sms), block,
+                     f"NT kernel at ({m}, {n}, {k}) {a.dtype}")
+    route_, _, splits, per = plan
     if plain:
         return ref.matmul_nt(a, b)
     if route_ == "fma":
         c = launch_matmul(a, b, m, n, k, b_stored_nk=True)
+    elif a.dtype == torch.float32:
+        c = launch_matmul_f32(a, b, m, n, k, True, plan)
     else:
         if m > _MAX_M:
             raise ValueError(f"NT kernel takes at most {_MAX_M} rows, got {m}")
@@ -143,5 +157,5 @@ def matmul_nt(
                 m, n, k, splits, per, _build.stream_of(a),
             )
     if c.numel():
-        count_launch("matmul_nt", block)
+        count_launch("matmul_nt", block, (route_, a.dtype))
     return c

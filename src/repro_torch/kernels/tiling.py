@@ -12,10 +12,13 @@ that the route of that shape can launch:
   kernel            route (dtype, shape)      config            knob
   transpose         any                       (b_rows, b_cols)  instance: {32, 64}^2
   matmul_nt         bf16 (swap-AB mma.sync)   (MA, 128, bk)     bk: k per split, 64 | bk
-                    f32 (FMA, matmul.cu)      (16|64, 64, 32)   none
+  matmul_nt, _nn    f32 aligned, m <= 16 or   (16, 128, bk) or  bk: k per split, 16 | bk
+                    n <= 64 (skinny)          (128, 16, bk)
+                    f32 aligned (tiled)       (128, 128, bk)    bk: k per split, 16 | bk
+                    f32 other (FMA)           (16|64, 64, 32)   none
   matmul_nn         bf16, m > 64 (wgmma)      (128, BN, bk)     BN: 64/128/192/256; bk: k per split
                     bf16, m <= 64 (skinny)    (MA, 128, bk)     bk: k per split, 64 | bk
-                    f32, unaligned (FMA)      (16|64, 64, 32)   none
+                    bf16 unaligned (FMA)      (16|64, 64, 32)   none
   matmul_tnn_fused  bf16, k % 8 == 0 (wgmma)  (128, BN, 64)     BN: 64/96/192/256
                     bf16 other (mma.sync)     (64, 64, 32)      none
                     f32 (FMA)                 (64, 64, 32)      none
@@ -107,7 +110,7 @@ def tile_plans(kernel: str, m: int, n: int, k: int, dsize: int = 4, g: int = 1,
     kernel (m, n, k) are (queries, keys, head dim)."""
     dt = _DTYPES[int(dsize)]
     if kernel == "matmul_nt":
-        return matmul_nt.nt_plans(m, n, k, dt, sms)
+        return matmul_nt.nt_plans(m, n, k, dt, aligned, sms)
     if kernel == "matmul_nn":
         return matmul_nn.nn_plans(m, n, k, dt, aligned, sms)
     if kernel == "matmul_tnn_fused":

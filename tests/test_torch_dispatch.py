@@ -342,9 +342,9 @@ def _report_rows(text):
 
 
 # The tiles are plans of the port's kernels at the shapes below (an f32 NN
-# on the FMA kernel, a 4-row attention on the split-KV kernel); the JAX
-# package takes any tile.
-@pytest.mark.parametrize("spec", ["fixed:nt=PALLAS_TNN@16x64x32,attn=fused",
+# on gemm_f32's skinny route, a 4-row attention on the split-KV kernel);
+# the JAX package takes any tile.
+@pytest.mark.parametrize("spec", ["fixed:nt=PALLAS_TNN@16x128x32,attn=fused",
                                   "fixed:XLA_NT", "fixed:nt=PALLAS_NT,attn=fused@4x32"])
 def test_dispatch_report_rows_match_jax(spec):
     rng = np.random.RandomState(4)

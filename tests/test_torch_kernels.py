@@ -33,12 +33,16 @@ from repro_torch.kernels.attention_fused import (  # noqa: E402
 )
 from repro_torch.kernels.common import (  # noqa: E402
     ATTENTION_ROUTES,
+    GEMM_ROUTES,
     LAUNCHES,
+    f32_plans,
+    f32_route,
+    f32_split,
     reset_launches,
 )
 from repro_torch.kernels.matmul_batched import batched_plan  # noqa: E402
 from repro_torch.kernels.matmul_nn import nn_plan  # noqa: E402
-from repro_torch.kernels.matmul_nt import nt_split, nt_workspace_shape  # noqa: E402
+from repro_torch.kernels.matmul_nt import nt_plans, nt_split, nt_workspace_shape  # noqa: E402
 from repro_torch.kernels.matmul_tnn_fused import tnn_fused_variant  # noqa: E402
 
 
@@ -225,7 +229,9 @@ def test_cpu_route_launches_nothing():
     ops.matmul_bnn(torch.randn(2, 3, 8), torch.randn(2, 8, 5))
     attention_fused(torch.randn(2, 3, 8), torch.randn(2, 5, 8), torch.randn(2, 5, 8))
     attention_fused(torch.randn(2, 3, 256), torch.randn(2, 5, 256), torch.randn(2, 5, 256))
-    assert not any(LAUNCHES.values()) and not ATTENTION_ROUTES
+    ops.matmul_nt(torch.randn(4, 8), torch.randn(6, 8))
+    ops.matmul_nn(torch.randn(40, 8), torch.randn(8, 96))
+    assert not any(LAUNCHES.values()) and not ATTENTION_ROUTES and not GEMM_ROUTES
 
 
 # -- the CUDA kernels' launch choices (pure functions, checked here) -----------------
@@ -299,7 +305,7 @@ NN_TRAIN_SHAPES = (
     (8, 576, 576, 2, 0, torch.bfloat16, "fma"),  # A 2 bytes off
     (2048, 576, 576, 0, 8, torch.bfloat16, "fma"),  # B 8 bytes off
     (4, 8, 0, 0, 0, torch.bfloat16, "fma"),  # k = 0: no tensor map
-    (2048, 576, 576, 0, 0, torch.float32, "fma"),
+    (2048, 576, 576, 0, 0, torch.float32, "tiled"),  # f32 aligned: gemm_f32
 ])
 def test_nn_variant_follows_shape_and_alignment(m, n, k, a_ptr, b_ptr, dtype, want):
     variant, bn, splits, per = nn_plan(m, n, k, dtype, a_ptr, b_ptr, 132)
@@ -310,6 +316,78 @@ def test_nn_variant_follows_shape_and_alignment(m, n, k, a_ptr, b_ptr, dtype, wa
         assert (splits, per) == (1, 1)
     if variant == "skinny":
         assert (splits, per) == nt_split(m, n, k, 132)
+    if dtype == torch.float32 and variant != "fma":
+        assert (splits, per) == f32_split(m, n, k, *bn, 132)
+
+
+SKINNY_ROWS, SKINNY_COLS, TILED, FMA = (("skinny", (16, 128)), ("skinny", (128, 16)),
+                                       ("tiled", (128, 128)), ("fma", None))
+
+
+@pytest.mark.parametrize("nt", [True, False])
+@pytest.mark.parametrize("m,n,k,a_ptr,b_ptr,want_nt,want_nn", [
+    (4, 8, 6144, 0, 0, SKINNY_ROWS, SKINNY_ROWS),  # grok-1's router at decode
+    (1024, 8, 6144, 0, 0, SKINNY_COLS, SKINNY_COLS),  # ... at prefill: A streamed once
+    (4, 384, 7168, 0, 0, SKINNY_ROWS, SKINNY_ROWS),  # kimi-k2's router at decode
+    (1024, 384, 7168, 0, 0, TILED, TILED),
+    (16, 576, 1536, 0, 0, SKINNY_ROWS, SKINNY_ROWS),
+    (17, 576, 1536, 0, 0, TILED, TILED),
+    (1000, 64, 1000, 0, 0, SKINNY_COLS, SKINNY_COLS),
+    (1000, 68, 1000, 0, 0, TILED, TILED),
+    (4096, 4096, 4096, 256, 512, TILED, TILED),
+    (64, 130, 256, 0, 0, TILED, FMA),  # NN reads B's (k, n) rows as float4: n % 4
+    (4, 130, 256, 0, 0, SKINNY_ROWS, FMA),
+    (2048, 576, 576, 4, 0, FMA, FMA),  # A 4 bytes off
+    (2048, 576, 576, 0, 8, FMA, FMA),  # B 8 bytes off
+    (4, 576, 129, 0, 0, FMA, FMA),  # k % 4 != 0
+    (4, 8, 0, 0, 0, FMA, FMA),  # k = 0
+])
+def test_f32_routes_follow_shape_and_alignment(nt, m, n, k, a_ptr, b_ptr, want_nt, want_nn):
+    """The f32 NT and NN plans: gemm_f32's skinny tiles where m <= 16 or n
+    <= 64, its 128 x 128 tile above, the FMA kernel for unaligned operands
+    or a k (NN: or n) off a multiple of 4; the NT and NN wrappers list the
+    same plans."""
+    aligned = a_ptr % 16 == 0 and b_ptr % 16 == 0
+    plans = f32_plans(m, n, k, nt, aligned, 132)
+    variant, tile, splits, per = plans[0][1]
+    assert (variant, tile) == (want_nt if nt else want_nn)
+    assert f32_route(m, n, k, nt, aligned) == variant
+    if nt:
+        assert nt_plans(m, n, k, torch.float32, aligned, 132) == plans
+    else:
+        assert nn_plan(m, n, k, torch.float32, a_ptr, b_ptr, 132) == plans[0][1]
+    if variant == "fma":
+        assert (splits, per) == (1, 1) and len(plans) == 1
+    else:
+        assert (splits, per) == f32_split(m, n, k, *tile, 132)
+        for config, (v, t, s, p) in plans:  # (bm, bn, k of a split)
+            assert (v, t) == (variant, tile) and config == (*tile, 16 * p)
+            assert s <= 32 and (s - 1) * p < -(-k // 16) <= s * p
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (4, 8, 6144, (32, 12)),  # one tile: 32 splits, the most the reduce sums
+    (1024, 8, 6144, (16, 24)),
+    (1024, 384, 7168, (11, 41)),  # 24 tiles: two blocks per SM
+    (4096, 4096, 4096, (1, 256)),  # 1024 tiles: no split
+    (2048, 2048, 2048, (1, 128)),  # 256 tiles, about two waves: no split
+    (128, 128, 128, (8, 1)),
+    (4, 49152, 576, (1, 36)),  # 384 tiles of the LM head: no split
+])
+def test_f32_split_fills_the_card_where_tiles_cannot(m, n, k, want):
+    variant, tile, _, _ = f32_plans(m, n, k, True, True, 132)[0][1]
+    assert f32_split(m, n, k, *tile, 132) == want
+
+
+def test_f32_split_covers_every_k_step_once():
+    for m, n, k, sms in itertools.product((1, 4, 16, 17, 129, 1024, 4096),
+                                          (1, 8, 64, 65, 384, 4096),
+                                          (4, 16, 20, 576, 1000, 6144), (78, 132)):
+        for bm, bn in ((16, 128), (128, 16), (128, 128)):
+            splits, per = f32_split(m, n, k, bm, bn, sms)
+            steps = -(-k // 16)
+            assert 1 <= splits <= 32 and per >= 1
+            assert (splits - 1) * per < steps <= splits * per, (m, n, k, sms, bm, bn)
 
 
 @pytest.mark.parametrize("m,n,k,want", [
@@ -492,15 +570,23 @@ def test_attention_rejects_wide_heads_and_bad_tiles():
     (torch.bfloat16, 768, 64, False, "fma"),
     (torch.float32, 17, 64, True, "fma"),
     (torch.float32, 768, 128, True, "fma"),
-    # the wide heads: split-KV at decode, the FMA kernel above 16 rows
+    # the wide heads: split-KV at decode, the flash kernel above 16 rows in
+    # bf16 (112 and 120 on its 128-wide instance), the FMA kernel in f32
     (torch.bfloat16, 2, 256, True, "decode_split"),
     (torch.float32, 16, 256, True, "decode_split"),
     (torch.bfloat16, 8, 120, True, "decode_split"),
-    (torch.bfloat16, 17, 256, True, "fma"),
-    (torch.bfloat16, 2048, 256, True, "fma"),
+    (torch.bfloat16, 17, 256, True, "flash_mma"),
+    (torch.bfloat16, 2048, 256, True, "flash_mma"),
     (torch.float32, 2048, 256, True, "fma"),
-    (torch.bfloat16, 2048, 120, True, "fma"),
-    (torch.bfloat16, 2048, 112, True, "fma"),
+    (torch.bfloat16, 2048, 120, True, "flash_mma"),
+    (torch.bfloat16, 2048, 112, True, "flash_mma"),
+    (torch.float32, 2048, 112, True, "fma"),
+    (torch.float32, 17, 120, True, "fma"),
+    (torch.bfloat16, 2048, 256, False, "fma"),  # unaligned: the FMA kernel
+    (torch.bfloat16, 2048, 112, False, "fma"),
+    (torch.bfloat16, 65, 120, False, "fma"),
+    (torch.bfloat16, 2048, 96, True, "fma"),  # a head dim with no flash instance
+    (torch.bfloat16, 2048, 200, True, "fma"),
 ])
 def test_attention_variant_routes_by_dtype_and_shape(dtype, m, dh, aligned, want):
     assert attention_variant(dtype, 24, m, 256, dh, aligned) == want
@@ -716,7 +802,7 @@ def test_attention_ignores_nan_beyond_lengths_on_card(cuda, m, dtype):
     assert torch.isfinite(out).all()
 
 
-WIDE_ROUTE_MS = (1, 2, 8, 16, 17, 65)  # decode_split up to 16 rows, fma above
+WIDE_ROUTE_MS = (1, 2, 8, 16, 17, 65)  # decode_split up to 16 rows; flash_mma (bf16), fma above
 
 
 @pytest.mark.gpu
@@ -727,7 +813,8 @@ def test_attention_wide_heads_match_plain_on_card(cuda, mask_name, m, dtype):
     """The 256-bound instances of the split and FMA kernels (dynamic shared
     memory; a bf16 key row spans the whole warp) at dh 256, and the
     128-bound ones at the ragged 112 and 120 (14 and 15 sixteen-byte
-    chunks of 16 lanes: the lanes past them must add 0), every mask."""
+    chunks of 16 lanes: the lanes past them must add 0), every mask; above
+    16 rows bf16 takes the flash kernel's 128- and 256-wide instances."""
     g, n = 3, 200
     dt = getattr(torch, dtype)
     lengths = (torch.tensor([200, 77, 1], device=cuda, dtype=torch.int32)
@@ -1019,6 +1106,98 @@ def test_attention_at_the_moe_and_hybrid_shapes_on_card(cuda, g, m, n, dh, kw, d
             v[i, length:] = float("nan")
     out = _check_attention_on_card(q, k, v, lengths, MaskParams(**kw), dtype)
     assert torch.isfinite(out).all()
+
+
+# -- on the card: the wide-head flash instances and the f32 GEMM ---------------------
+
+FLASH_WIDE_MS = (17, 100, 200)  # no multiple of the 64-row block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", WIDE_DHS)
+@pytest.mark.parametrize("mask_name", sorted(MASKS))
+def test_flash_at_wide_heads_matches_plain_on_card(cuda, mask_name, dh):
+    """The flash kernel at d_head 112 and 120 (the 128-wide instance over
+    rows of the true stride) and 256 (an instance of its own), every mask,
+    m no multiple of 64, ragged lengths with NaN in K and V beyond them:
+    the plain version's output, one launch on flash_mma, the same bits
+    twice."""
+    g, n = 3, 300
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    lengths = torch.tensor([300, 77, 1], device=cuda, dtype=torch.int32)
+    for m in FLASH_WIDE_MS:
+        q, k, v = (torch.randn(g, s, dh, device=cuda, generator=gen).mul(0.3).to(torch.bfloat16)
+                   for s in (m, n, n))
+        for i, length in enumerate(lengths.tolist()):
+            k[i, length:] = float("nan")
+            v[i, length:] = float("nan")
+        assert attention_variant(q.dtype, g, m, n, dh) == "flash_mma"
+        out = _check_attention_on_card(q, k, v, lengths, MaskParams(**MASKS[mask_name](m, n)),
+                                       "bfloat16")
+        assert torch.isfinite(out).all()
+
+
+F32_SIDES = (1, 3, 17, 127, 129, 1000)
+
+
+def _f32_gemm_on_card(a, b, nt, sms):
+    """One f32 NT (``nt``) or NN call: one launch under the route its plan
+    names, within tests/test_kernels.py::_tol of f64, and a split plan's
+    second call the same bits.  Returns the route."""
+    (m, k), n = a.shape, (b.shape[0] if nt else b.shape[1])
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    variant, _, splits, _ = f32_plans(m, n, k, nt, aligned, sms)[0][1]
+    name = "matmul_nt" if nt else "matmul_nn"
+    reset_launches()
+    out = getattr(ops, name)(a, b)
+    assert GEMM_ROUTES == {(name, variant, "float32"): 1} and LAUNCHES[name] == 1
+    want = torch.matmul(a.double(), b.double().t() if nt else b.double())
+    torch.testing.assert_close(out.double(), want, **_tol("float32", k),
+                               msg=lambda msg: f"{name} {variant} {(m, n, k)}: {msg}")
+    if splits > 1:
+        assert torch.equal(getattr(ops, name)(a, b), out)
+    return variant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", F32_SIDES)
+@pytest.mark.parametrize("m", F32_SIDES)
+def test_f32_gemm_matches_f64_on_card(cuda, m, n):
+    """NT and NN in f32 at every pair of ragged sides and k 4, 129, 1000,
+    on operands whose storage runs on into NaN: gemm_f32's skinny and tiled
+    tiles, and the FMA kernel where k (NN: or n) is no multiple of 4."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k in (4, 129, 1000):
+        gen = torch.Generator(device=cuda).manual_seed(m * 31 + n * 7 + k)
+        a = _poisoned((m, k), torch.float32, cuda, gen)
+        w = _poisoned((n, k), torch.float32, cuda, gen)
+        wt = _poisoned((k, n), torch.float32, cuda, gen)
+        wt.copy_(w.t())
+        for nt, b in ((True, w), (False, wt)):
+            variant = _f32_gemm_on_card(a, b, nt, sms)
+            assert (variant == "fma") == (k % 4 != 0 or (not nt and n % 4 != 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [
+    (4, 8, 6144), (1024, 8, 6144), (4, 384, 7168), (1024, 384, 7168),  # the MoE routers
+    (4, 576, 1536), (64, 1536, 576),  # smollm in f32: decode, a 64-token prefill
+    (1024, 1024, 4096), (2048, 2048, 2048),  # the selector's grid
+])
+def test_f32_gemm_at_the_router_and_grid_shapes_on_card(cuda, m, n, k):
+    """The main-path f32 shapes against f64 (split plans the same bits
+    twice); the same operands one float past an aligned address take the
+    FMA kernel, chosen before the launch."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = _poisoned((m, k), torch.float32, cuda, gen)
+    w = _poisoned((n, k), torch.float32, cuda, gen)
+    wt = w.t().contiguous()
+    for nt, b in ((True, w), (False, wt)):
+        assert _f32_gemm_on_card(a, b, nt, sms) != "fma"
+        a_odd = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
+        a_odd.copy_(a)
+        assert _f32_gemm_on_card(a_odd, b, nt, sms) == "fma"
 
 
 # -- on the card: every tile config reaches its kernel ---------------------------

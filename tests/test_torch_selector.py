@@ -202,9 +202,17 @@ def test_measurement_cache_files_load_in_both_and_give_one_dataset(J, tmp_path, 
 
 
 def test_measure_candidates_times_each_candidate_once_under_default():
+    """Each candidate once under "default", then each config of its
+    shortlist once (f32 NT at (96, 80, 64): the split plans of gemm_f32's
+    tiled route for the direct and TNN arms; none for the others)."""
     times = pmeasure.measure_candidates(96, 80, 64, op="NT", device="cpu", reps=1)
     assert set(times) == {n for n, c in pcand.CANDIDATES.items() if "NT" in c.ops}
-    assert all(list(cfgs) == ["default"] and cfgs["default"] > 0 for cfgs in times.values())
+    hw = phw.device_spec(torch.device("cpu"))
+    for name, cfgs in times.items():
+        shortlist = pcand.get_candidate(name).config_space(96, 80, 64, 4, hardware=hw)
+        assert list(cfgs) == ["default", *map(pmeasure.config_key, shortlist)], name
+        assert all(t > 0 for t in cfgs.values())
+    assert len(times["PALLAS_NT"]) > 1 and list(times["XLA_NT"]) == ["default"]
     attn = pmeasure.measure_candidates(8, 16, 32, op="ATTN", g=3, device="cpu", reps=1,
                                        dtype="bfloat16")
     assert set(attn) == {"UNFUSED_ATTN", "FUSED_ATTN"}

@@ -300,7 +300,8 @@ def test_configs_outside_a_space_raise_on_the_cpu_route(kernel, dsize):
 
 def test_configs_name_one_route_only():
     """A wgmma tile at an m the skinny kernel owns, a split of a k that
-    leaves a split empty, a width with no instance: rejected."""
+    leaves a split empty, a width with no instance, an f32 tile of another
+    route or a split off the route's list: rejected."""
     a = torch.zeros(8, 576, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=r"skinny route, has no plan for tile \(128, 64, 576\)"):
         ops.matmul_nn(a, torch.zeros(576, 96, dtype=torch.bfloat16), block=(128, 64, 576))
@@ -310,7 +311,16 @@ def test_configs_name_one_route_only():
     with pytest.raises(ValueError, match=r"wgmma route, has no plan for tile \(128, 96, 576\)"):
         ops.matmul_nn(big, torch.zeros(576, 96, dtype=torch.bfloat16), block=(128, 96, 576))
     with pytest.raises(ValueError, match=r"fma route, has no plan for tile \(128, 64, 576\)"):
+        ops.matmul_nn(torch.zeros(256, 575), torch.zeros(575, 96), block=(128, 64, 576))
+    # f32: gemm_f32's tiled and skinny tiles name their own route
+    with pytest.raises(ValueError, match=r"tiled route, has no plan for tile \(128, 64, 576\)"):
         ops.matmul_nn(big.float(), torch.zeros(576, 96), block=(128, 64, 576))
+    with pytest.raises(ValueError, match=r"tiled route, has no plan for tile \(16, 128, 576\)"):
+        ops.matmul_nt(big.float(), torch.zeros(96, 576), block=(16, 128, 576))
+    with pytest.raises(ValueError, match=r"skinny route, has no plan for tile \(128, 128, 576\)"):
+        ops.matmul_nt(a.float(), torch.zeros(96, 576), block=(128, 128, 576))
+    with pytest.raises(ValueError, match=r"skinny route, has no plan for tile \(16, 128, 64\)"):
+        ops.matmul_nn(a.float(), torch.zeros(576, 96), block=(16, 128, 64))  # 9 splits: not listed
     # the tiled batched kernel's splits stay within gridDim.z
     with pytest.raises(ValueError, match=r"tiled route, has no plan for tile \(64, 64, 16\)"):
         ops.matmul_bnt(torch.zeros(40000, 2, 32), torch.zeros(40000, 2, 32), block=(64, 64, 16))
