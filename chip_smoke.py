@@ -21,11 +21,13 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               and the queued device time (calls back to back behind a sleep
               kernel, which the two-launch split plans need) of the kernel
               and the library call, the variant that ran, and the
-              datasheet bound of the same work; every f32 GEMM also within
-              tests/test_kernels.py::_tol of f64; the kernels redesigned
-              for Hopper (bf16 NT, fused TNN and NN; f32 NN and NT; batched
-              in both dtypes; attention's split-KV and flash routes) are
-              timed beside the kernels they replaced, which must agree too
+              datasheet bound of the same work; every f32 GEMM (fused TNN
+              included) also within tests/test_kernels.py::_tol of f64,
+              and every f32 attention within its bound of an f64 version;
+              the kernels redesigned for Hopper (bf16 NT and NN; fused TNN,
+              batched and attention's flash routes in both dtypes; f32 NN
+              and NT; attention's split-KV route) are timed beside the
+              kernels they replaced, which must agree too
   4. serve    repro_torch.launch.serve.main on smollm-135m at full config
               in bf16: class interactive under fixed:nt=PALLAS_TNN,attn=fused,
               class bulk under fixed:nt=PALLAS_NT,attn=fused, then the same
@@ -38,7 +40,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               again at max_seq - 1 (a full cache), gives the device's busy
               share
   5. exact    f32 at full width and 2 layers: greedy tokens of both kernel
-              policies identical to fixed:XLA_NT
+              policies identical to fixed:XLA_NT, prefill attention on
+              flash_f32
   6. imports  no jax in the process
   7. train    repro_torch.launch.train.main on smollm-135m at full config
               in bf16 (remat full, AdamW), batch 8 x seq 256, 6 steps, under
@@ -54,7 +57,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               fused policy's must run the flash attention kernel
   8. train_exact  f32 at full width and 2 layers: every gradient leaf of
               step 0 under both kernel policies within relative L2 1e-4 of
-              fixed:XLA_NT's, and the losses of 3 steps within 1e-5
+              fixed:XLA_NT's, and the losses of 3 steps within 1e-5; the
+              fused TNN's f32_tiled route and flash_f32 launched
  8a. arch     the attention-only architectures.  gemma3-4b at full config
               (34 layers, d 2560, d_head 256, vocab 262144), bf16, through
               launch.serve.main under phase 4's class policies and then
@@ -65,7 +69,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               and a profiled decode step's busy share per policy.  gemma3-4b
               in f32 at full width and one unit of each segment (10 layers):
               greedy tokens of both kernel policies identical to cuBLAS's,
-              attention on the fma route at d_head 256.
+              attention on the flash_f32 route at d_head 256 and never on
+              the FMA kernel.
               gemma2-27b, h2o-danube-3-4b, paligemma-3b (vlm, prefix 256)
               and musicgen-large (frames) at full width and one segment
               unit of depth, bf16, batch 2 x seq 512: one forward and two
@@ -94,10 +99,14 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               f32-distance gate; then f32 at one unit of each segment
               (mamba2 2 layers, zamba2 5+1 and 3 blocks, grok-1 1 layer;
               kimi-k2's f32 layer does not fit beside its buffers): greedy
-              tokens of both kernel policies identical to cuBLAS's.  mamba2
-              (2 layers, AdamW), zamba2 (one unit of each segment, AdamW)
-              and grok-1 (1 layer, Adafactor) at full width train as phase
-              8a's four do (grok's logits over the tokens routed alike)
+              tokens of both kernel policies identical to cuBLAS's, f32
+              attention on flash_f32 (zamba2 at d_head 112, grok-1 at 128)
+              and never on the FMA kernel.  mamba2 (2 layers, AdamW),
+              zamba2 (one unit of each segment, AdamW) and grok-1 (1 layer,
+              Adafactor) at full width train as phase 8a's four do (grok's
+              logits over the tokens routed alike; its f32 router's
+              forward on the fused TNN's f32_skinny route, never its FMA
+              kernel)
   9. selector  the paper's loop on the card: measure_candidates times every
               NT, NN and TN candidate in device time (calls queued back to
               back behind a sleep kernel) over {2^7..2^12}^3 (216 shapes per op;
@@ -153,8 +162,10 @@ Phases (each prints one JSON line; any failed check exits non-zero):
 
 The ``kernels`` line holds one row per kernel at a main-path shape, and one
 per route of the flash kernel's wide-head instances (d_head 112, 120 and
-256: gemma3's, zamba2's and h2o-danube's) and of gemm_f32 (skinny and
-tiled), each with its launches by path.  The full results, every case included,
+256: gemma3's, zamba2's and h2o-danube's), of gemm_f32 and of the fused
+TNN's f32 kernel (skinny and tiled), and of the f32 flash kernel's
+instances (d_head 64, 128 and 256: a train step's forward, zamba2's and
+gemma3's prefill), each with its launches by path.  The full results, every case included,
 go to ``build/chip_smoke.json``.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -312,6 +323,9 @@ MOE_SSM_SERVE = {  # arch: (repeats kept per segment, 0 for all; the cut; f32 re
 MOE_SSM_ROUTES = {"zamba2-7b": (("decode_split", 112), ("flash_mma", 112)),
                   "grok-1-314b": (("flash_mma", 128), ("decode_split", 128)),
                   "kimi-k2-1t-a32b": (("flash_mma", 128), ("decode_split", 128))}
+# ... and each one's f32 run at cut depth (no run takes the FMA kernel)
+MOE_SSM_F32_ROUTES = {"zamba2-7b": (("flash_f32", 112),),
+                      "grok-1-314b": (("flash_f32", 128),)}
 MOE_SSM_TRAIN = {  # arch: (repeats kept per segment, the cut); kimi-k2 needs more than one card
     "mamba2-2.7b": (2, "2 of 64 layers"),
     "zamba2-7b": (1, "9 of 81 blocks (one 5 Mamba + shared attention unit, 3 Mamba)"),
@@ -388,15 +402,21 @@ def nvidia_smi_line() -> str:
 
 
 # Routes counted beside LAUNCHES under keys of their own: the flash kernel
-# at the wide heads, and gemm_f32's two routes (NN and NT).
+# at the wide heads, gemm_f32's two routes (NN and NT), the fused TNN's two
+# f32 routes, and the f32 flash kernel's instances by the head dims each
+# takes.
 WIDE_FLASH_DHS = (112, 120, 256)
 F32_ROUTES = ("skinny", "tiled")
+FLASH_F32_INSTANCES = {64: (64,), 128: (112, 120, 128), 256: (256,)}
 
 
 def launch_counts():
     """LAUNCHES, and the launches of these routes: the flash kernel
-    at d_head 112, 120 and 256 (``attention_flash_dh<dh>``) and gemm_f32's
-    skinny and tiled routes, NN and NT together (``matmul_f32_<route>``)."""
+    at d_head 112, 120 and 256 (``attention_flash_dh<dh>``), gemm_f32's
+    skinny and tiled routes, NN and NT together (``matmul_f32_<route>``),
+    the fused TNN's f32 routes (``tnn_fused_f32_<route>``) and the f32
+    flash kernel's 64-, 128- and 256-wide instances
+    (``attention_flash_f32_dh<width>``)."""
     from repro_torch.kernels.common import ATTENTION_ROUTES, GEMM_ROUTES, LAUNCHES
 
     out = dict(LAUNCHES)
@@ -405,6 +425,11 @@ def launch_counts():
     for route in F32_ROUTES:
         out[f"matmul_f32_{route}"] = sum(GEMM_ROUTES.get((name, route, "float32"), 0)
                                          for name in ("matmul_nt", "matmul_nn"))
+        out[f"tnn_fused_f32_{route}"] = GEMM_ROUTES.get(
+            ("matmul_tnn_fused", f"f32_{route}", "float32"), 0)
+    for width, dhs in FLASH_F32_INSTANCES.items():
+        out[f"attention_flash_f32_dh{width}"] = sum(ATTENTION_ROUTES.get(("flash_f32", dh), 0)
+                                                    for dh in dhs)
     return out
 
 
@@ -640,7 +665,6 @@ def run_case(torch, name, inp, dt):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.attention_fused import attention_fused
-    from repro_torch.kernels.matmul_tnn_fused import tnn_fused_variant
     from repro_torch.kernels.ops import (
         matmul_bnn,
         matmul_bnt,
@@ -670,9 +694,7 @@ def run_case(torch, name, inp, dt):
             kern, plain, lib = (lambda: matmul_tnn_fused(a, b)), \
                 (lambda: ref.matmul_tnn_fused(a, b)), (lambda: torch.matmul(a, b.t()))
             n = b.shape[0]
-            v, bn = tnn_fused_variant(dt, a.shape[0], n, a.shape[1], a.data_ptr(),
-                                      b.data_ptr())
-            variant = f"wgmma 128x{bn}" if v == "wgmma" else f"{v} 64x64"
+            variant = tnn_label(torch, a, b)
         else:
             kern, plain, lib = (lambda: matmul_nn(a, b)), (lambda: ref.matmul_nn(a, b)), \
                 (lambda: torch.matmul(a, b))
@@ -724,10 +746,15 @@ def run_case(torch, name, inp, dt):
     torch.cuda.synchronize()
     err, ok = compare(out, want, rtol, atol)
     f64_err = None
-    if dt == torch.float32 and name in ("matmul_nn", "matmul_nt"):  # _tol of f64, as in the tests
-        a64, b64 = inp["a"].double(), inp["b"].double()
-        f64_err, f64_ok = compare(out, a64 @ (b64.t() if name == "matmul_nt" else b64),
+    if dt == torch.float32 and name in ("matmul_nn", "matmul_nt", "matmul_tnn_fused"):
+        a64, b64 = inp["a"].double(), inp["b"].double()  # _tol of f64, as in the tests
+        f64_err, f64_ok = compare(out, a64 @ (b64 if name == "matmul_nn" else b64.t()),
                                   rtol, atol)
+        ok = ok and f64_ok
+    elif dt == torch.float32 and name == "attention_fused":  # the plain version in f64
+        q64, k64, v64 = (inp[x].double() for x in ("q", "k", "v"))
+        f64_err, f64_ok = compare(out, ref.attention_fused(q64, k64, v64, inp["lengths"],
+                                                           inp["mask"]), rtol, atol)
         ok = ok and f64_ok
     prev = replaced_kernel(torch, name, inp, variant)
     prev_err = None
@@ -759,12 +786,12 @@ def run_case(torch, name, inp, dt):
 
 
 def replaced_kernel(torch, name, inp, variant):
-    """For the kernels redesigned for Hopper -- bf16 NT, fused TNN and NN,
-    f32 NN and NT, batched in both dtypes, attention's split-KV and flash
-    routes -- a call
-    of the kernel each replaced (still built: the FMA kernels of
-    csrc/matmul.cu, csrc/matmul_batched.cu and csrc/attention_fused.cu and
-    the mma.sync variant of csrc/matmul_tnn_fused.cu), launched directly
+    """For the kernels redesigned for Hopper -- bf16 NT, fused TNN in both
+    dtypes and NN, f32 NN and NT, batched in both dtypes, attention's
+    split-KV and flash routes in both dtypes -- a call of the kernel each
+    replaced (still built: the FMA kernels of csrc/matmul.cu,
+    csrc/matmul_batched.cu and csrc/attention_fused.cu and the mma.sync
+    and FMA variants of csrc/matmul_tnn_fused.cu), launched directly
     without the wrapper's checks; else None."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import launch_matmul
@@ -788,8 +815,8 @@ def replaced_kernel(torch, name, inp, variant):
         return fma_batched
     if name not in ("matmul_nt", "matmul_tnn_fused", "matmul_nn"):
         return None
-    if a.dtype == torch.float32 and (name == "matmul_tnn_fused" or variant.startswith("fma")):
-        return None  # f32's fused TNN and FMA routes run the kernels they always ran
+    if a.dtype == torch.float32 and variant.startswith("fma"):
+        return None  # f32's FMA routes run the kernels they always ran
     m, k = a.shape
     if name == "matmul_nn":
         return lambda: launch_matmul(a, b, m, b.shape[1], k, b_stored_nk=False)
@@ -797,14 +824,14 @@ def replaced_kernel(torch, name, inp, variant):
     if name == "matmul_nt":
         return lambda: launch_matmul(a, b, m, n, k, b_stored_nk=True)
 
-    def mma_sync():
+    def replaced_tnn_fused():  # the mma.sync variant (bf16) or the FMA kernel (f32)
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
         _build.launch("matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a),
                       _build.ptr(b), _build.ptr(c), m, n, k, _build.dtype_code(a.dtype),
                       _build.stream_of(a))
         return c
 
-    return mma_sync
+    return replaced_tnn_fused
 
 
 def fma_attention(torch, inp):
@@ -829,16 +856,18 @@ def fma_attention(torch, inp):
 
 def attention_label(torch, q, k, v):
     """The attention kernel a call with these operands launches."""
-    from repro_torch.kernels.attention_fused import attention_variant, decode_split_plan
+    from repro_torch.kernels.attention_fused import attention_plans
 
     g, m, dh = q.shape
     n = k.shape[1]
-    variant = attention_variant(q.dtype, g, m, n, dh,
-                                all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    variant, splits, per = attention_plans(q.dtype, g, m, n, dh,
+                                           all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                                           sms)[0][1]
     if variant == "decode_split":
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits, per = decode_split_plan(g, n, sms)
         return f"decode_split, {splits} splits of {per} keys"
+    if variant == "flash_f32" and splits > 1:
+        return f"flash_f32, {splits} splits"
     return variant
 
 
@@ -853,6 +882,22 @@ def f32_label(torch, a, b, nt):
     if variant == "fma":
         return "fma (matmul.cu)"
     label = f"{variant} f32 {tile[0]}x{tile[1]}"
+    return f"{label}, split-k {splits}" if splits > 1 else label
+
+
+def tnn_label(torch, a, b):
+    """The fused TNN route a call with these operands launches."""
+    from repro_torch.kernels.matmul_tnn_fused import tnn_fused_plans
+
+    (m, k), n = a.shape, b.shape[0]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    variant, tile, splits, _ = tnn_fused_plans(m, n, k, a.dtype, aligned, sms)[0][1]
+    if variant == "wgmma":
+        return f"wgmma 128x{tile}"
+    if variant in ("mma_sync", "fma"):
+        return f"{variant} 64x64"
+    label = f"{variant} {tile[0]}x{tile[1]}"
     return f"{label}, split-k {splits}" if splits > 1 else label
 
 
@@ -1178,9 +1223,16 @@ def phase_train_exact(torch):
     from repro_torch.models import lm
     from repro_torch.optim import tree_leaves
 
+    from repro_torch.kernels.common import reset_launches
+
     f32_args = ["--layers", "2", "--dtype", "float32", "--steps", "3"]
     specs = [*TRAIN_POLICIES.values(), CUBLAS_POLICY]
-    runs = {spec: train(f32_args + ["--policy", spec]) for spec in specs}
+    reset_launches()
+    runs = {spec: train(f32_args + ["--policy", spec]) for spec in TRAIN_POLICIES.values()}
+    launches = launch_counts()  # the kernel policies' f32 steps
+    for name in ("tnn_fused_f32_tiled", "attention_flash_f32_dh64"):
+        check(launches[name] > 0, f"f32 training never launched {name}: {launches}")
+    runs[CUBLAS_POLICY] = train(f32_args + ["--policy", CUBLAS_POLICY])
     losses = {spec: [m["loss"] for m in r.metrics] for spec, r in runs.items()}
     for spec in TRAIN_POLICIES.values():
         for a, b in zip(losses[spec], losses[CUBLAS_POLICY]):
@@ -1199,7 +1251,7 @@ def phase_train_exact(torch):
         check(worst[spec] <= EXACT_GRAD_REL_L2,
               f"f32 gradient under {spec}: a leaf is {worst[spec]} from cuBLAS's (rel L2)")
     return {"phase": "train_exact", "layers": 2, "dtype": "float32",
-            "worst_leaf_rel_l2": worst, "losses": losses}
+            "worst_leaf_rel_l2": worst, "losses": losses}, launches
 
 
 # -- phase 8a helpers ---------------------------------------------------------
@@ -1226,7 +1278,7 @@ def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32
     from repro_torch.core.engine import policy_from_spec
     from repro_torch.core.policy import use_policy
     from repro_torch.data import make_train_batch
-    from repro_torch.kernels.common import ATTENTION_ROUTES, reset_launches
+    from repro_torch.kernels.common import ATTENTION_ROUTES, GEMM_ROUTES, reset_launches
     from repro_torch.launch.steps import (
         TrainStepConfig,
         init_train_state,
@@ -1247,12 +1299,13 @@ def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32
     torch.cuda.reset_peak_memory_stats()
     fused = TRAIN_POLICIES["fused"]
     specs = (fused, CUBLAS_POLICY)
-    logits, fwd_launches, fwd_routes = {}, {}, {}
+    logits, fwd_launches, fwd_routes, fwd_gemm = {}, {}, {}, {}
     for spec in specs:
         reset_launches()
         with torch.no_grad(), use_policy(policy_from_spec(spec)):
             logits[spec] = lm.lm_forward(params, cfg, batches[0]).float()
         fwd_launches[spec], fwd_routes[spec] = launch_counts(), dict(ATTENTION_ROUTES)
+        fwd_gemm[spec] = dict(GEMM_ROUTES)
     # an MoE router sends a few near-tie tokens elsewhere under bf16
     # rounding: compare the rows of the tokens both runs route alike
     same = (~moe_rerouted(torch, cfg, params, batches[0]["tokens"], fused) if cfg.moe
@@ -1277,10 +1330,14 @@ def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32
         routes = dict(fwd_routes[spec])  # the forward's and the train steps'
         for key, count in ATTENTION_ROUTES.items():
             routes[key] = routes.get(key, 0) + count
+        gemm = dict(fwd_gemm[spec])
+        for key, count in GEMM_ROUTES.items():
+            gemm[key] = gemm.get(key, 0) + count
         runs[spec] = {"metrics": metrics, "step_ms": [t * 1e3 for t in times],
                       "launches": {k: fwd_launches[spec][k] + v
                                    for k, v in launch_counts().items()},
-                      "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()}}
+                      "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()},
+                      "gemm_routes": {" ".join(key): c for key, c in gemm.items()}}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gn32, gn_to32 = None, None
     if f32_anchor:
@@ -1311,6 +1368,11 @@ def arch_train(torch, arch, reduced, layers=1, gen=0, kernels=TRAIN_KERNELS, f32
           f"{arch}: cuBLAS training launched kernels: {runs[CUBLAS_POLICY]['launches']}")
     unused = [k for k in kernels if not runs[fused]["launches"][k]]
     check(not unused, f"{arch}: kernels of the fused training path never launched: {unused}")
+    if cfg.moe:  # the f32 router's forward: the as-stored f32 kernel, never the FMA one
+        gemm = runs[fused]["gemm_routes"]
+        check(gemm.get("matmul_tnn_fused f32_skinny float32", 0) > 0
+              and not gemm.get("matmul_tnn_fused fma float32", 0),
+              f"{arch}: the f32 router's fused TNN did not run f32_skinny alone: {gemm}")
     row = {
         "arch": arch, "reduced": {"depth": reduced, "layers": cfg.n_layers},
         "optimizer": cfg.optimizer,
@@ -1370,9 +1432,11 @@ def phase_arch(torch, card):
     f32 = ["--layers", "1", "--dtype", "float32"]
     reset_launches()
     e_k = serve(f32 + kernel_policy_args(), GEMMA3_ARGS)
-    f32_routes = dict(ATTENTION_ROUTES)
-    check(f32_routes.get(("fma", WIDE_DH), 0) > 0,
-          f"gemma3-4b f32: attention_fused never ran fma at d_head {WIDE_DH}: {f32_routes}")
+    f32_routes, exact_launches = dict(ATTENTION_ROUTES), launch_counts()
+    check(f32_routes.get(("flash_f32", WIDE_DH), 0) > 0,
+          f"gemma3-4b f32: attention_fused never ran flash_f32 at d_head {WIDE_DH}: {f32_routes}")
+    check(not any(count for (variant, _), count in f32_routes.items() if variant == "fma"),
+          f"gemma3-4b f32: attention_fused ran the FMA kernel: {f32_routes}")
     e_x = serve(f32 + ["--policy", CUBLAS_POLICY], GEMMA3_ARGS)
     check_engine(e_k, GEMMA3_GEN, "gemma3-4b f32 kernel policies")
     check_engine(e_x, GEMMA3_GEN, "gemma3-4b f32 cuBLAS policy")
@@ -1393,7 +1457,7 @@ def phase_arch(torch, card):
            "train": train_rows, "seconds": time.perf_counter() - t0,
            "seconds_by_part": {"serve": serve_s, "exact": exact_s,
                                "train": time.perf_counter() - t0 - serve_s - exact_s}}
-    return row, serve_launches, train_launches
+    return row, serve_launches, train_launches, exact_launches
 
 
 # -- phase 8b helpers ---------------------------------------------------------
@@ -1446,7 +1510,7 @@ def served_tokens(engine):
 def moe_ssm_serve(torch, arch, gen):
     """One architecture of phase 8b served: the kernel policies, then
     cuBLAS on the same weights, then both in f32 at a cut depth.  Returns
-    its row and the kernel-policy run's launches."""
+    its row and the launches of the kernel-policy run and of its f32 run."""
     from repro_torch.kernels.common import ATTENTION_ROUTES, GEMM_ROUTES, LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.optim import tree_leaves
@@ -1536,23 +1600,34 @@ def moe_ssm_serve(torch, arch, gen):
         "peak_memory_gb": peak_gb, "init_seconds": init_s, "serve_seconds": serve_s,
         "exact": None,
     }
+    exact_launches = {}
     if f32_repeats:
-        row["exact"] = moe_ssm_exact(torch, arch, f32_repeats, gen)
+        row["exact"], exact_launches = moe_ssm_exact(torch, arch, f32_repeats, gen)
     row["seconds"] = time.perf_counter() - t0
-    return row, launches
+    return row, launches, exact_launches
 
 
 def moe_ssm_exact(torch, arch, repeats, gen):
     """f32 at full width and ``repeats`` of each segment: greedy tokens of
-    both kernel policies identical to cuBLAS's.  The cache holds the
-    longest request (a 2048-token bucket's buffers are not needed)."""
+    both kernel policies identical to cuBLAS's, attention on the routes of
+    MOE_SSM_F32_ROUTES and never on the FMA kernel.  The cache holds the
+    longest request (a 2048-token bucket's buffers are not needed).
+    Returns its row and the kernel-policy run's launches."""
     from repro_torch.models import lm
+
+    from repro_torch.kernels.common import ATTENTION_ROUTES, reset_launches
 
     cublas = {cls: CUBLAS_POLICY for cls in KERNEL_POLICIES}
     cfg32 = moe_ssm_config(arch, repeats, "float32")
     params = lm.init_lm(gen(), cfg32, device=DEVICE)
+    reset_launches()
     eng = serve_requests(torch, cfg32, params, KERNEL_POLICIES, F32_MAX_SEQ)
+    routes, launches = dict(ATTENTION_ROUTES), launch_counts()
     check_engine(eng, MOE_SSM_GEN, f"{arch} f32 kernel policies")
+    for route in MOE_SSM_F32_ROUTES.get(arch, ()):
+        check(routes.get(route, 0) > 0, f"{arch} f32: attention_fused never ran {route}: {routes}")
+    check(not any(count for (variant, _), count in routes.items() if variant == "fma"),
+          f"{arch} f32: attention_fused ran the FMA kernel: {routes}")
     tokens32, _ = served_tokens(eng)
     del eng
     torch.cuda.empty_cache()
@@ -1564,7 +1639,8 @@ def moe_ssm_exact(torch, arch, repeats, gen):
     del eng, params
     torch.cuda.empty_cache()
     return {"layers": cfg32.n_layers, "dtype": "float32", "max_seq": F32_MAX_SEQ,
-            "identical": True}
+            "identical": True,
+            "attention_routes": {f"{v} dh{d}": c for (v, d), c in routes.items()}}, launches
 
 
 def rel_l2(a, b):
@@ -1663,14 +1739,18 @@ def moe_kept(torch, p, x, b, cfg):
 
 def phase_moe_ssm(torch, card):
     """Phase 8b; returns its row and the launches of the kernel-policy serve
-    runs and of the fused-policy training runs."""
+    runs, of the fused-policy training runs and of the f32 kernel-policy
+    serve runs."""
     t0 = time.perf_counter()
     gen = lambda: torch.Generator(device=DEVICE).manual_seed(0)  # noqa: E731
     serve_rows, serve_launches = {}, {name: 0 for name in launch_counts()}
+    exact_launches = dict(serve_launches)
     for arch in MOE_SSM_SERVE:
-        serve_rows[arch], launches = moe_ssm_serve(torch, arch, gen)
+        serve_rows[arch], launches, f32_launches = moe_ssm_serve(torch, arch, gen)
         for name, count in launches.items():
             serve_launches[name] += count
+        for name, count in f32_launches.items():
+            exact_launches[name] += count
         emit({"phase": "moe_ssm_serve", "arch": arch, **{
             k: serve_rows[arch][k] for k in ("first_token_rel_l2", "tokens_per_s", "seconds")}})
     serve_s = time.perf_counter() - t0
@@ -1684,7 +1764,7 @@ def phase_moe_ssm(torch, card):
     row = {"phase": "moe_ssm", "card": card, "serve": serve_rows, "train": train_rows,
            "seconds": time.perf_counter() - t0,
            "seconds_by_part": {"serve": serve_s, "train": time.perf_counter() - t0 - serve_s}}
-    return row, serve_launches, train_launches
+    return row, serve_launches, train_launches, exact_launches
 
 
 # -- phase 9/10/11 helpers ----------------------------------------------------
@@ -1814,6 +1894,9 @@ def phase_selector(torch, card, out_dir):
             "per_op": per_op,
             "nt_fastest_share": {c: float((t_all.argmin(axis=1) == i).mean())
                                  for i, c in enumerate(nt_names)},
+            # the share of the NT shapes where each kernel beats cuBLAS NT
+            "nt_beats_cublas_share": {c: float((ds_nt.times[c] < ds_nt.times["XLA_NT"]).mean())
+                                      for c in nt_names if c != "XLA_NT"},
             "kway_nt": {k: kway[k] for k in ("oracle_match", "mean_slowdown_vs_oracle",
                                              "mean_speedup_vs_worst")},
             "close_pairs": close_pairs(torch, ds, dtype, CARD_PAIR),
@@ -2238,15 +2321,20 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = []
+    ptxas = []  # "<library> <kernel>: Used N registers, ..." per compiled kernel
     for src in _build.SOURCES:
         log = _build.library_path(src).with_suffix(".log")
-        if log.exists():
-            ptxas += [ln.strip() for ln in log.read_text().splitlines() if "Used" in ln]
+        kernel = "?"
+        for ln in log.read_text().splitlines() if log.exists() else ():
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1] if "'" in ln else ln.strip()
+            elif "Used" in ln:
+                ptxas.append(f"{src} {kernel}: {ln.split(':', 1)[-1].strip()}")
     emit({"phase": "build", "seconds": build_s, "sources": list(_build.SOURCES),
           "ptxas": ptxas})
 
     # 3. kernels vs plain
+    t0 = time.perf_counter()
     rows = []
     for kname, label, dt, inp in kernel_cases(torch):
         r = run_case(torch, kname, inp, dt)
@@ -2254,7 +2342,7 @@ def main() -> int:
         rows.append(r)
         check(r["ok"], f"{kname} {label} {r['dtype']}: max_abs_err {r['err']} "
                        f"beyond atol {r['atol']} / rtol {r['rtol']}")
-    emit({"phase": "kernels", "card": card, "cases": rows})
+    emit({"phase": "kernels", "card": card, "cases": rows, "seconds": time.perf_counter() - t0})
     results["kernel_cases"] = rows
 
     # 4. serve smollm-135m, full config, bf16
@@ -2277,7 +2365,11 @@ def main() -> int:
 
     # 5. exact: f32, full width, 2 layers -> identical greedy tokens
     f32 = ["--layers", "2", "--dtype", "float32"]
+    reset_launches()
     e_k = serve(f32 + kernel_policy_args())
+    exact_launches = launch_counts()
+    check(exact_launches["attention_flash_f32_dh64"] > 0,
+          f"f32 serving never launched the f32 flash kernel: {exact_launches}")
     e_x = serve(f32 + ["--policy", CUBLAS_POLICY])
     check_engine(e_k, 16, "f32 kernel policies")
     check_engine(e_x, 16, "f32 cuBLAS policy")
@@ -2294,18 +2386,20 @@ def main() -> int:
     results["train"] = train_row
 
     # 8. train_exact: f32, full width, 2 layers
-    exact_row = phase_train_exact(torch)
+    exact_row, train_exact_launches = phase_train_exact(torch)
     emit(exact_row)
     results["train_exact"] = exact_row
 
     # 8a. arch: gemma3-4b served at full config; the other four trained
-    arch_row, arch_serve_launches, arch_train_launches = phase_arch(torch, card)
+    arch_row, arch_serve_launches, arch_train_launches, arch_exact_launches = phase_arch(
+        torch, card)
     emit(arch_row)
     results["arch"] = arch_row
 
     # 8b. moe_ssm: mamba2 and zamba2 served at full config, grok-1 and kimi-k2
     # at full width; three of them trained
-    moe_row, moe_serve_launches, moe_train_launches = phase_moe_ssm(torch, card)
+    moe_row, moe_serve_launches, moe_train_launches, moe_exact_launches = phase_moe_ssm(
+        torch, card)
     emit(moe_row)
     results["moe_ssm"] = moe_row
 
@@ -2337,10 +2431,12 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
 
     # the contract line: one row per kernel at a main-path shape; launches
-    # are the sum over the paths: the serve path's kernel-policy run, the two
-    # kernel-policy training runs, gemma3's kernel-policy serve run and the
+    # are the sum over the paths: the serve path's kernel-policy run and its
+    # f32 run (phase 5), the two kernel-policy training runs and their f32
+    # runs (phase 8), gemma3's kernel-policy serve run, its f32 run and the
     # four architectures' fused-policy training runs, phase 8b's four
-    # kernel-policy serve runs and three fused-policy training runs, the selector's
+    # kernel-policy serve runs, their f32 runs and three fused-policy
+    # training runs, the selector's
     # measurements, the FCN runs, the runs under the learned policies, phase
     # 12's tuned measurement and autotune serving run, and phase 13's
     # benchmarks (each counted from 0).  The wide-head flash instances and
@@ -2362,12 +2458,24 @@ def main() -> int:
         "attention_flash_dh120": ("attention_fused", H2O_PREFILL_CASE, "bfloat16"),
         "matmul_f32_skinny": ("matmul_nt", "(4,6144)x(8,6144)^T", "float32"),
         "matmul_f32_tiled": ("matmul_nn", "(2048,2048)x(2048,2048)", "float32"),
+        "tnn_fused_f32_skinny": ("matmul_tnn_fused", "(1024,6144)x(8,6144)^T", "float32"),
+        "tnn_fused_f32_tiled": ("matmul_tnn_fused", "(2048,576)x(49152,576)^T", "float32"),
+        "attention_flash_f32_dh64": ("attention_fused", TRAIN_ATTN_CASE, "float32"),
+        "attention_flash_f32_dh128": ("attention_fused", ZAMBA2_PREFILL_CASE + " dh=112",
+                                      "float32"),
+        "attention_flash_f32_dh256": ("attention_fused", GEMMA3_PREFILL_CASE, "float32"),
     }
     routes = {  # row: whether a case ran its route
         **{f"attention_flash_dh{dh}": (lambda r, dh=dh: r["variant"] == "flash_mma"
                                        and r["dh"] == dh) for dh in WIDE_FLASH_DHS},
         **{f"matmul_f32_{route}": (lambda r, route=route: r["variant"].startswith(
             f"{route} f32")) for route in F32_ROUTES},
+        **{f"tnn_fused_f32_{route}": (lambda r, route=route: r["kernel"] == "matmul_tnn_fused"
+                                      and r["variant"].startswith(f"f32_{route}"))
+           for route in F32_ROUTES},
+        **{f"attention_flash_f32_dh{w}": (lambda r, dhs=dhs: r["variant"].startswith("flash_f32")
+                                          and r["dh"] in dhs)
+           for w, dhs in FLASH_F32_INSTANCES.items()},
     }
     kernels = []
     for cname, (kname, case, dtype) in contract.items():
@@ -2379,10 +2487,14 @@ def main() -> int:
         on_route = routes.get(cname, lambda r: True)
         check(on_route(row), f"{cname}: its case {case} ran {row['variant']}")
         by_path = {"serve": launches.get(cname, 0),
+                   "exact": exact_launches[cname],
                    "train": sum(train_launches[s][cname] for s in TRAIN_POLICIES.values()),
+                   "train_exact": train_exact_launches[cname],
                    "arch_serve": arch_serve_launches[cname],
+                   "arch_exact": arch_exact_launches[cname],
                    "arch_train": arch_train_launches[cname],
                    "moe_ssm_serve": moe_serve_launches[cname],
+                   "moe_ssm_exact": moe_exact_launches[cname],
                    "moe_ssm_train": moe_train_launches[cname],
                    "selector_measure": selector_launches[cname],
                    "fcn": fcn_launches[cname],
@@ -2400,7 +2512,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "queued_ms": row["queued_ms"],
             "library_queued_ms": row["library_queued_ms"], "shape": case,
-            "dtype": dtype, "variant": row["variant"],
+            "dtype": dtype, "variant": row["variant"], "f64_err": row["f64_err"],
+            "replaced_ms": row["replaced_ms"], "replaced_device_ms": row["replaced_device_ms"],
         })
     results["kernels"] = kernels
     results["card"] = card

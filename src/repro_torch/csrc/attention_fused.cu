@@ -14,8 +14,8 @@
 // decode rows see slot 0): masked entries add exactly 0 here, so such a row
 // comes out 0, where the Pallas kernel's result depends on its tiling.
 //
-// Three kernels; the wrapper picks one per call from dtype and shape
-// (kernels/attention_fused.py::attention_variant):
+// Four kernels; the wrapper picks one per call from dtype, shape and
+// alignment (kernels/attention_fused.py::attention_variant):
 //
 // attention_flash -- bf16, dh 64, 112, 120, 128 or 256, m > 16: prefill
 //   and training.
@@ -50,6 +50,42 @@
 //   -Xptxas -v (CUDA 12.8, sm_90a): 248 registers a thread for the 256
 //   instance, 170 for 128, 110 for 64, none spilling.
 
+// attention_flash_f32 -- f32, dh 64, 112, 120, 128 or 256, 16-byte aligned
+//   operands, m > 16: prefill and training in f32.
+//   Bound on the H100: operations, exact f32 FFMA (no TF32): at gemma3's
+//   prefill (g 4, m 2048, n 1024, window 1024, dh 256) the visible
+//   products are 4.3 GFLOP, 64 us at 67 TFLOP/s, against 13 us of bytes.
+//   Design: a flash-attention forward in FFMA.  A block takes 64 query
+//   rows with 256 threads, thread (ty, tx) the rows 4 ty .. 4 ty + 3; the
+//   16 lanes of a half-warp share those rows.  K/V tiles of the block's
+//   live key range come through a 2-stage cp.async ring of 16-byte
+//   copies, as stored (dh-contiguous rows padded by 4 floats, so the 16
+//   keys a K load reads sit in distinct bank groups); keys at or beyond
+//   `lengths` are never read, they land as 0.  S = Q K^T: each thread
+//   scores its 4 rows against keys tx + 16 j, reading float4 runs along dh
+//   of Q's and K's stored rows (a quarter-warp's Q read is a broadcast).
+//   The online softmax runs in registers: a row's max by shuffles over its
+//   half-warp, exp as exp2f of log2e-scaled f32 differences, each lane
+//   keeping its share of the row sum until the end.  P goes to shared
+//   memory, where only the row's own half-warp reads it back (a warp
+//   barrier, no block barrier), and O += P V reads V's stored rows as
+//   float4 along dh: 4 rows x dh / 16 columns of O a thread.  The masks are
+//   the flash kernel's (visible_cols, residues, live_keys, all_visible,
+//   flash_block_row: most keys first under a causal mask).  Instances by
+//   the tile width DH: 64, 128 and 256, with 64-key tiles (32 at 256: Q
+//   and two stages of 32 keys are 204 KiB of dynamic shared memory, one
+//   block an SM; 64 at DH 64 is 102 KiB, two blocks; 182 KiB at 128, one).
+//   dh 112 and 120 run the 128 instance over rows of their true stride,
+//   the pieces from dh to 127 zero-filled and never stored.  Where the
+//   q-blocks fill less than two waves of the card (gemma3's and
+//   paligemma's prefill: 128 blocks, one an SM at dh 256, the causal ones
+//   seeing 2 to 32 tiles), each block's live tiles split into 2 to 4 runs
+//   over gridDim.z (kernels/attention_fused.py::flash_f32_splits, from the
+//   shape and the SM count, never from `lengths`), whose f32 partials
+//   attention_flash_combine adds in split order: the same bits on every
+//   call.  nvcc -Xptxas -v (CUDA 12.8, sm_90a): 205 registers a thread at
+//   DH 256, 160 at 128, 128 at 64 (the two-block cap), none spilling.
+//
 // attention_decode_split + attention_combine -- m <= 16 (decode: one kv
 //   head's GQA group of rows), both dtypes, any dh up to 256.  Bound on the
 //   H100: bytes (K and V of the live prefix, read once) and, at decode's
@@ -68,13 +104,14 @@
 //   call), each scaled by exp(max_i - max).  With one split the block
 //   writes the output itself: one launch.
 //
-// attention_kernel -- FMA: f32 at m > 16, and any other dh.  The kernel of
-//   the port's first slice, kept as it was.  Bound at prefill by its FMA
+// attention_kernel -- FMA: m > 16 with unaligned operands or a dh that
+//   no flash instance takes (in either dtype).  The kernel of the port's
+//   first slice, kept as it was.  Bound at prefill by its FMA
 //   work: one block of 128 threads per (slice, 16 query rows), a loop
 //   inside the block over 32-key tiles of the live range; Q, K, V tiles and
 //   the tile's scores sit in shared memory as f32; each thread owns one
 //   query row's slice of the f32 output accumulator in registers.  It is
-//   also the bf16 kernel the flash and split kernels replaced
+//   also the kernel the flash (bf16 and f32) and split kernels replaced
 //   (repro_attention_fused_fma launches it for any operands).
 //
 // Head dims.  The FMA and split kernels are templates on a head-dim bound,
@@ -669,6 +706,321 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, const int*
   return cudaGetLastError();
 }
 
+// -- attention_flash_f32 ------------------------------------------------------
+
+constexpr int kF32Rows = 64;      // query rows per block
+constexpr int kF32Threads = 256;  // 16 x 16; thread (ty, tx) holds rows 4 ty .. 4 ty + 3
+constexpr int kF32Stages = 2;     // (K, V) tiles in the ring
+
+// Shared memory of the DH instance, in floats: Q's tile, the stages' K and
+// V tiles (rows padded by 4 floats: consecutive rows in distinct 16-byte
+// bank groups), and P.  64-key tiles, 32 at DH 256, where two stages of
+// 64 keys would not fit beside Q.
+template <int DH>
+struct FlashF32Cfg {
+  static constexpr int kKeys = DH == 256 ? 32 : 64;
+  static constexpr int kKJ = kKeys / 16;  // keys a thread scores per tile
+  static constexpr int kDC = DH / 64;     // float4 column groups of O a thread holds
+  static constexpr int kPitch = DH + 4;
+  static constexpr int kPPitch = kKeys + 4;
+  static constexpr int kQ = kF32Rows * kPitch;
+  static constexpr int kKV = kKeys * kPitch;  // one K or V tile
+  static constexpr int kSmem = (kQ + 2 * kF32Stages * kKV + kF32Rows * kPPitch) * 4;
+  static constexpr int kMinBlocks = kSmem <= 113 * 1024 ? 2 : 1;  // two fit an SM's 228 KB
+};
+
+// Block (x, y, z): slice x, q-block y (flash_block_row's order), split z
+// of the block's live key tiles (contiguous runs of cdiv(tiles, splits)).
+// ws == nullptr: one split, which writes the output; else the split's f32
+// partial goes to ws: O unnormalised at ((slice * splits + z) * m + row)
+// * dh, and (row max, row sum) at g * splits * m * dh + 2 * (that row's
+// index), for attention_flash_combine.
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads, FlashF32Cfg<DH>::kMinBlocks)
+    attention_flash_f32(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ lengths,
+                        float* __restrict__ out, float* __restrict__ ws, int m, int n, int dh,
+                        Mask mask) {
+  // dh <= DH is the row stride of q, k, v and out (dh % 4 == 0); pieces
+  // from dh to DH land as zeros and are never stored.
+  using Cfg = FlashF32Cfg<DH>;
+  constexpr int kKeys = Cfg::kKeys, kKJ = Cfg::kKJ, kDC = Cfg::kDC;
+  constexpr int kPitch = Cfg::kPitch, kPPitch = Cfg::kPPitch;
+  constexpr int kPieces = DH / 4;  // 16-byte pieces of a row
+  static_assert((kKeys * kPieces) % kF32Threads == 0, "copy layout");
+  extern __shared__ __align__(16) float flash_f32_smem[];
+  float* q_s = flash_f32_smem;
+  float* kv_s = q_s + Cfg::kQ;  // stage s: K at kv_s + 2 s kKV, its V after it
+  float* p_s = kv_s + 2 * kF32Stages * Cfg::kKV;
+  const uint32_t q_addr = repro::smem_addr(q_s), kv_addr = repro::smem_addr(kv_s);
+
+  const int slice = blockIdx.x;
+  const int seg = mask.q_seg > 0 ? mask.q_seg : m;
+  const int q0 = flash_block_row(blockIdx.y, gridDim.y, kF32Rows, m, seg, mask.causal != 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = lane % 16, ty = warp * 2 + lane / 16;  // a row's 16 lanes: one half-warp
+  const int r0 = 4 * ty;
+  const int len = min(max(lengths[slice], 0), n);
+  q += static_cast<size_t>(slice) * m * dh;
+  k += static_cast<size_t>(slice) * n * dh;
+  v += static_cast<size_t>(slice) * n * dh;
+
+  // the block's live key tiles, and this split's run of them
+  const KeyRange keys = live_keys(residues(q0, min(q0 + kF32Rows, m) - 1, seg), len, mask);
+  const int all_tiles = keys.hi >= keys.lo ? keys.hi / kKeys - keys.lo / kKeys + 1 : 0;
+  const int run = (all_tiles + gridDim.z - 1) / gridDim.z;
+  const int tile_lo = keys.lo / kKeys + static_cast<int>(blockIdx.z) * run;
+  const int n_tiles = max(0, min(run, all_tiles - static_cast<int>(blockIdx.z) * run));
+
+  // Q as stored: rows past m and pieces past dh land as 0.
+  for (int c = threadIdx.x; c < kF32Rows * kPieces; c += kF32Threads) {
+    const int r = c / kPieces, p = c % kPieces;
+    const bool in = p * 4 < dh && q0 + r < m;
+    repro::cp_async16(q_addr + (r * kPitch + p * 4) * 4,
+                      in ? q + static_cast<size_t>(q0 + r) * dh + p * 4 : q, in);
+  }
+  // Tile t into its ring slot as stored; K and V rows at or beyond lengths
+  // are not read: they land as 0.  One commit group per tile, empty past
+  // the last.
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      const int t0 = (tile_lo + t) * kKeys;
+      const uint32_t ks = kv_addr + (t % kF32Stages) * 2 * Cfg::kKV * 4;
+      const uint32_t vs = ks + Cfg::kKV * 4;
+#pragma unroll
+      for (int i = 0; i < kKeys * kPieces / kF32Threads; ++i) {
+        const int c = threadIdx.x + i * kF32Threads;
+        const int r = c / kPieces, p = c % kPieces;
+        const bool in = p * 4 < dh && t0 + r < len;
+        const size_t off = static_cast<size_t>(t0 + r) * dh + p * 4;
+        const uint32_t d = (r * kPitch + p * 4) * 4;
+        repro::cp_async16(ks + d, in ? k + off : k, in);
+        repro::cp_async16(vs + d, in ? v + off : v, in);
+      }
+    }
+    repro::cp_async_commit();
+  };
+  load_tile(0);  // with Q
+
+  // The key columns each of this thread's rows sees, and the fold residues
+  // of this warp's 8 rows (for the tiles that need no per-element mask).
+  VisibleCols cols[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cols[i] = visible_cols(mask.q_start + (q0 + r0 + i) % seg, len, mask);
+  const int w_hi = min(q0 + 8 * warp + 7, m - 1);
+  const Residues w_res = residues(min(q0 + 8 * warp, w_hi), w_hi, seg);
+
+  // o[i][c]: row r0 + i, columns 4 tx + 64 c .. + 3
+  float4 o[4][kDC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < kDC; ++c) o[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float row_max[4], row_sum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row_max[i] = kNegInf;
+    row_sum[i] = 0.f;  // this thread's share; the half-warp's sum at the end
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro::cp_async_wait<0>();  // tile it (first with Q) has landed: this thread's copies,
+    __syncthreads();            // then everyone's; and slot it - 1 and P are free
+    load_tile(it + 1);
+    const int t0 = (tile_lo + it) * kKeys;
+    const float* ks = kv_s + (it % kF32Stages) * 2 * Cfg::kKV;
+    const float* vs = ks + Cfg::kKV;
+
+    // S = Q K^T: rows r0 .. r0 + 3 x keys tx + 16 j, float4 runs along dh
+    // of Q's and K's stored rows.
+    float s[4][kKJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) s[i][j] = 0.f;
+    }
+#pragma unroll 4
+    for (int d = 0; d < dh; d += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(q_s + (r0 + i) * kPitch + d);
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kPitch + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[i][j];
+          x = fmaf(qv[i].x, kv.x, x);
+          x = fmaf(qv[i].y, kv.y, x);
+          x = fmaf(qv[i].z, kv.z, x);
+          s[i][j] = fmaf(qv[i].w, kv.w, x);
+        }
+      }
+    }
+    if (mask.softcap != 0.f) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < kKJ; ++j) s[i][j] = mask.softcap * tanhf(s[i][j] / mask.softcap);
+      }
+    }
+    if (!all_visible(t0, t0 + kKeys - 1, w_res, len, mask)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < kKJ; ++j) {
+          if (!visible(t0 + tx + 16 * j, cols[i])) s[i][j] = kNegInf;
+        }
+      }
+    }
+    // online softmax in registers; a row's max over its half-warp by shuffles
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < kKJ; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 8; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(row_max[i], mx);
+      // No visible key so far (m_new is NEG_INF): every p is exactly 0,
+      // never exp(NEG_INF - NEG_INF) = 1.
+      const bool seen = m_new > kNegInf;
+      const float alpha = exp2f((row_max[i] - m_new) * kLog2e);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        const float p = seen ? exp2f((s[i][j] - m_new) * kLog2e) : 0.f;
+        s[i][j] = p;
+        sum += p;
+      }
+      row_sum[i] = row_sum[i] * alpha + sum;
+      row_max[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kDC; ++c) {
+        o[i][c].x *= alpha;
+        o[i][c].y *= alpha;
+        o[i][c].z *= alpha;
+        o[i][c].w *= alpha;
+      }
+    }
+    // P through shared memory: a row is written and read by its own
+    // half-warp only, so a warp barrier orders the two.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) p_s[(r0 + i) * kPPitch + tx + 16 * j] = s[i][j];
+    }
+    __syncwarp();
+    // O += P V: P's float4 runs along the keys, V's stored rows along dh.
+#pragma unroll 2
+    for (int j4 = 0; j4 < kKeys; j4 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(p_s + (r0 + i) * kPPitch + j4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int c = 0; c < kDC; ++c) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vs + (j4 + e) * kPitch + 4 * tx + 64 * c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+            o[i][c].x = fmaf(p, vv.x, o[i][c].x);
+            o[i][c].y = fmaf(p, vv.y, o[i][c].y);
+            o[i][c].z = fmaf(p, vv.z, o[i][c].z);
+            o[i][c].w = fmaf(p, vv.w, o[i][c].w);
+          }
+        }
+      }
+    }
+  }
+  repro::cp_async_wait<0>();  // no copy outlives the block (n_tiles may be 0)
+
+  // the row sums over the half-warp; unsplit, a zero denominator becomes 1
+  const size_t part = (static_cast<size_t>(slice) * gridDim.z + blockIdx.z) * m;
+  float* stats = ws != nullptr ? ws + static_cast<size_t>(gridDim.x) * gridDim.z * m * dh
+                               : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float sum = row_sum[i];
+#pragma unroll
+    for (int off = 8; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int row = q0 + r0 + i;
+    if (row >= m) continue;
+    const float inv = ws != nullptr ? 1.f : 1.f / (sum == 0.f ? 1.f : sum);
+    float* dst = ws != nullptr ? ws + (part + row) * dh
+                               : out + (static_cast<size_t>(slice) * m + row) * dh;
+#pragma unroll
+    for (int c = 0; c < kDC; ++c) {
+      const int col = 4 * tx + 64 * c;
+      if (col < dh) {
+        *reinterpret_cast<float4*>(dst + col) =
+            make_float4(o[i][c].x * inv, o[i][c].y * inv, o[i][c].z * inv, o[i][c].w * inv);
+      }
+    }
+    if (ws != nullptr && tx == 0) {
+      *reinterpret_cast<float2*>(stats + 2 * (part + row)) = make_float2(row_max[i], sum);
+    }
+  }
+}
+
+constexpr int kCombineThreads = 256;
+
+// out = (sum_s O_s e^(max_s - M)) / (sum_s sum_s e^(max_s - M)) over the
+// splits of attention_flash_f32, added in split order (the same bits on
+// every call); a split whose row saw no key scales by exactly 0, and a
+// zero denominator becomes 1.  One thread per (row, 4 columns); grid
+// (cdiv(m * dh / 4, 256), g).
+__global__ void __launch_bounds__(kCombineThreads)
+    attention_flash_combine(const float* __restrict__ ws, float* __restrict__ out, int m,
+                            int dh, int splits) {
+  const int slice = blockIdx.y, pieces = dh / 4;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(m) * pieces) return;
+  const int row = static_cast<int>(i / pieces), col = static_cast<int>(i % pieces) * 4;
+  const float* stats = ws + static_cast<size_t>(gridDim.y) * splits * m * dh;
+  const size_t part0 = static_cast<size_t>(slice) * splits * m + row;
+  float mx = kNegInf;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, stats[2 * (part0 + s * m)]);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float den = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 st = *reinterpret_cast<const float2*>(stats + 2 * (part0 + s * m));
+    const float sc = st.x == kNegInf ? 0.f : exp2f((st.x - mx) * kLog2e);
+    den += st.y * sc;
+    const float4 o = *reinterpret_cast<const float4*>(ws + (part0 + s * m) * dh + col);
+    acc.x += o.x * sc;
+    acc.y += o.y * sc;
+    acc.z += o.z * sc;
+    acc.w += o.w * sc;
+  }
+  const float inv = 1.f / (den == 0.f ? 1.f : den);
+  *reinterpret_cast<float4*>(out + (static_cast<size_t>(slice) * m + row) * dh + col) =
+      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+}
+
+template <int DH>
+cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const int* lengths,
+                             void* out, void* ws, int g, int m, int n, int dh, Mask mask,
+                             int splits, cudaStream_t s) {
+  constexpr int kSmem = FlashF32Cfg<DH>::kSmem;
+  const cudaError_t e = repro::allow_dynamic_smem<attention_flash_f32<DH>>(kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(g, repro::cdiv(m, kF32Rows), splits);
+  float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  attention_flash_f32<DH><<<grid, kF32Threads, kSmem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      lengths, static_cast<float*>(out), part, m, n, dh, mask);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || splits == 1) return e2;
+  const dim3 cgrid(repro::cdiv(m * (dh / 4), kCombineThreads), g);
+  attention_flash_combine<<<cgrid, kCombineThreads, 0, s>>>(part, static_cast<float*>(out), m,
+                                                           dh, splits);
+  return cudaGetLastError();
+}
+
 // -- attention_decode_split, attention_combine ---------------------------------
 
 constexpr int kDecodeThreads = 128;
@@ -1070,6 +1422,38 @@ REPRO_EXPORT int repro_attention_fused_flash(
   }
   if (dh == 256) {
     return static_cast<int>(launch_flash<256>(q, k, v, len, out, g, m, n, dh, mask, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// f32, dh 64, 112, 120, 128 or 256, q, k, v, out and ws 16-byte aligned
+// (the wrapper checks); splits >= 1 runs of each q-block's key tiles,
+// splits <= 65535; splits > 1: ws holds g x splits x m x (dh + 2) f32
+// (allocated by the caller) and a second kernel combines them into out.
+REPRO_EXPORT int repro_attention_fused_flash_f32(
+    const void* q, const void* k, const void* v, const void* lengths, void* out, void* ws, int g,
+    int m, int n, int dh, int causal, int window, int q_start, int k_start, int prefix_len,
+    int q_seg, float softcap, int splits, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(ws)) % 16 != 0 ||
+      splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  if (dh == 64) {
+    return static_cast<int>(
+        launch_flash_f32<64>(q, k, v, len, out, ws, g, m, n, dh, mask, splits, s));
+  }
+  if (dh == 112 || dh == 120 || dh == 128) {
+    return static_cast<int>(
+        launch_flash_f32<128>(q, k, v, len, out, ws, g, m, n, dh, mask, splits, s));
+  }
+  if (dh == 256) {
+    return static_cast<int>(
+        launch_flash_f32<256>(q, k, v, len, out, ws, g, m, n, dh, mask, splits, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,7 +13,7 @@
 // Hopper's tensor cores neither turns B around: B's stored rows are the
 // K-major operand both instructions want.
 //
-// Three variants, picked by the wrapper (kernels/matmul_tnn_fused.py)
+// Four variants, picked by the wrapper (kernels/matmul_tnn_fused.py)
 // before the launch, from dtype, shape and alignment:
 //
 //   wgmma (bf16, k % 8 == 0, A and B 16-byte aligned).  A persistent grid
@@ -40,12 +40,38 @@
 //   the fragments.  Loads and compute are not overlapped; unaligned rows
 //   take a zero-filling scalar path.
 //
-//   FMA (f32): the same K-major tiles feed FMA (no TF32: the port's f32
-//   bound of 1e-5*sqrt(k) needs full f32 products), with one padding
-//   column against bank conflicts.
+//   f32 (f32, k % 4 == 0, A and B 16-byte aligned): exact FFMA (no TF32:
+//   the port keeps TF32 off and holds f32 to 1e-5*sqrt(k) of f64), so the
+//   bound is the card's 67 TFLOP/s of f32 FMA where the product is large
+//   and the bytes of the long operand where one side is short (the MoE
+//   routers, decode).  Both operands are read as stored: 16-byte cp.async
+//   copies of A's and B's K-contiguous rows go straight into K-major
+//   shared tiles of 20-float rows (no register staging, no turned-around
+//   tile; 80 bytes put 8 consecutive rows in 8 distinct 16-byte bank
+//   groups), in a 3-stage ring of 16-deep k-steps, zero-filled past m, n
+//   and k.  Each thread holds a TM x TN register micro-tile and reads
+//   float4 runs along k of its TM A rows and, one at a time, of its TN B
+//   rows; a warp's quarter reads one A row (a broadcast) and 8
+//   consecutive B rows.  Three tiles (kernels/matmul_tnn_fused.py picks):
+//     f32_tiled   128 x 128, 256 threads, 8 x 8 (the training forward);
+//     f32_skinny  16 x 128 (m <= 16) or 128 x 16 (n <= 64), 128 threads,
+//                 4 x 4 (decode, the routers: the long operand streamed once).
+//   Where the tiles leave SMs idle, k splits over gridDim.z, as gemm_f32
+//   does (csrc/matmul.cu, kernels/common.py::f32_split): f32 partials in a
+//   workspace, summed in split order by repro::splitk_reduce, so two calls
+//   give the same bits.  gemm_f32's NT instance reads the same operands
+//   but turns both around in registers on the way into shared memory; it
+//   measured as fast as this read as stored.  nvcc -Xptxas -v (CUDA 12.8,
+//   sm_90a): 168 registers a thread for f32_tiled (one block an SM), 96
+//   for f32_skinny, none spilling.
+//
+//   FMA (f32, unaligned or k % 4 != 0; the f32 kernel it replaced): the
+//   same K-major tiles feed FMA with scalar loads, one padding column
+//   against bank conflicts.
 //
 // The mma.sync and FMA blocks walk the m-tiles along blockIdx.x and the
-// n-tiles along blockIdx.y, so consecutive blocks share one B strip.
+// n-tiles along blockIdx.y, so consecutive blocks share one B strip; the
+// f32 blocks walk the n-tiles along blockIdx.x, as gemm_f32's do.
 #include "hopper.cuh"
 
 namespace {
@@ -243,6 +269,150 @@ __global__ void __launch_bounds__(kFmaThreads)
   }
 }
 
+// -- the f32 variants: as-stored register micro-tiles -------------------------
+
+constexpr int kFBK = 16;              // k per step; also the unit of a split
+constexpr int kFStages = 3;           // the cp.async ring
+constexpr int kFPitch = kFBK + 4;     // floats per shared row: 80 bytes
+
+// A (BM x BN) output tile of (BM / TM) x (BN / TN) threads, each a TM x TN
+// micro-tile whose rows are ty + TY i and columns tx + TX j.  A warp holds
+// (32 / WX) x WX threads: the 8 lanes of a quarter-warp read at most two
+// A rows (a broadcast) and WX consecutive B rows, which the 80-byte pitch
+// puts in distinct 16-byte bank groups.
+template <int BM, int BN, int TM, int TN>
+struct TnnF32 {
+  static constexpr int kTY = BM / TM, kTX = BN / TN;
+  static constexpr int kThreads = kTY * kTX;
+  static constexpr int kWX = kTX < 8 ? kTX : 8;
+  static constexpr int kWarpsX = kTX / kWX;
+  static constexpr int kStage = (BM + BN) * kFPitch;  // floats of a stage: A's rows, then B's
+  static constexpr int kSmem = kFStages * kStage * 4;
+  // The 128 x 128 tile holds 64 accumulators and 8 float4 of A a thread:
+  // capped at 128 registers (two blocks an SM) it spilled and measured 4-6 %
+  // slower than at one block an SM with 168 registers.
+  static constexpr int kMinBlocks = kThreads == 256 ? 1 : 4;
+  static_assert(kTY % (32 / kWX) == 0 && kTX % kWX == 0, "warp layout");
+};
+
+// Copy k-columns [k0, k0 + 16) of rows [r0, r0 + R) of a row-major (rows, k)
+// f32 matrix, as stored, into R shared rows of kFPitch floats: one 16-byte
+// cp.async a piece, zero-filled (never read) past `rows` and past k.
+template <int R, int kThreads>
+__device__ __forceinline__ void copy_rows_f32(uint32_t dst, const float* __restrict__ src,
+                                              int rows, int k, int r0, int k0) {
+  constexpr int kPieces = R * (kFBK / 4);
+#pragma unroll
+  for (int p = 0; p < (kPieces + kThreads - 1) / kThreads; ++p) {
+    const int c = threadIdx.x + p * kThreads;
+    if (kPieces % kThreads != 0 && c >= kPieces) break;
+    const int r = c / (kFBK / 4), kc = (c % (kFBK / 4)) * 4;
+    const bool in = r0 + r < rows && k0 + kc < k;  // k % 4 == 0: a piece is all in or all out
+    repro::cp_async16(dst + (r * kFPitch + kc) * 4,
+                      in ? src + static_cast<size_t>(r0 + r) * k + k0 + kc : src, in);
+  }
+}
+
+// Block (x, y, z): n-tile x, m-tile y, split z.  ws == nullptr: write C;
+// else this split's partials to ws[z] (m x n).  Split z walks k-steps
+// [z per, z per + per).
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(TnnF32<BM, BN, TM, TN>::kThreads,
+                                  TnnF32<BM, BN, TM, TN>::kMinBlocks)
+    tnn_fused_f32_tiled(const float* __restrict__ a, const float* __restrict__ b,
+                        float* __restrict__ c, float* __restrict__ ws, int m, int n, int k,
+                        int per) {
+  using Cfg = TnnF32<BM, BN, TM, TN>;
+  extern __shared__ __align__(16) float f32_smem[];
+  const uint32_t base = smem_addr(f32_smem);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = (warp % Cfg::kWarpsX) * Cfg::kWX + lane % Cfg::kWX;
+  const int ty = (warp / Cfg::kWarpsX) * (32 / Cfg::kWX) + lane / Cfg::kWX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nks = (k + kFBK - 1) / kFBK;
+  const int ks0 = blockIdx.z * per;
+  const int ks1 = min(nks, ks0 + per);
+
+  // Step kt into ring slot kt % kFStages; one commit group per step, empty
+  // past the last, so that the wait below always counts the same groups.
+  auto load_step = [&](int kt) {
+    if (kt < ks1) {
+      const uint32_t slot = base + (kt % kFStages) * Cfg::kStage * 4;
+      copy_rows_f32<BM, Cfg::kThreads>(slot, a, m, k, m0, kt * kFBK);
+      copy_rows_f32<BN, Cfg::kThreads>(slot + BM * kFPitch * 4, b, n, k, n0, kt * kFBK);
+    }
+    repro::cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) load_step(ks0 + s);
+  for (int kt = ks0; kt < ks1; ++kt) {
+    repro::cp_async_wait<kFStages - 2>();  // step kt has landed (this thread's copies)
+    __syncthreads();                       // everyone's; the slot of kt - 1 is free
+    load_step(kt + kFStages - 1);
+    const float* a_s = f32_smem + (kt % kFStages) * Cfg::kStage;
+    const float* b_s = a_s + BM * kFPitch;
+#pragma unroll
+    for (int kk = 0; kk < kFBK; kk += 4) {
+      // A's float4 runs along k for the TM rows; B's one at a time
+      float4 av[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(a_s + (ty + Cfg::kTY * i) * kFPitch + kk);
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 bv =
+            *reinterpret_cast<const float4*>(b_s + (tx + Cfg::kTX * j) * kFPitch + kk);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          float s = acc[i][j];
+          s = fmaf(av[i].x, bv.x, s);
+          s = fmaf(av[i].y, bv.y, s);
+          s = fmaf(av[i].z, bv.z, s);
+          acc[i][j] = fmaf(av[i].w, bv.w, s);
+        }
+      }
+    }
+  }
+  repro::cp_async_wait<0>();  // no copy outlives the block
+
+  float* out = ws != nullptr ? ws + static_cast<size_t>(blockIdx.z) * m * n : c;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty + Cfg::kTY * i;
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tx + Cfg::kTX * j;
+      if (col < n) out[static_cast<size_t>(row) * n + col] = acc[i][j];
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN>
+cudaError_t launch_f32(const float* a, const float* b, float* c, float* ws, int m, int n, int k,
+                       int splits, int per, cudaStream_t s) {
+  using Cfg = TnnF32<BM, BN, TM, TN>;
+  const cudaError_t e =
+      repro::allow_dynamic_smem<tnn_fused_f32_tiled<BM, BN, TM, TN>>(Cfg::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(repro::cdiv(n, BN), repro::cdiv(m, BM), splits);
+  tnn_fused_f32_tiled<BM, BN, TM, TN><<<grid, Cfg::kThreads, Cfg::kSmem, s>>>(
+      a, b, c, splits > 1 ? ws : nullptr, m, n, k, per);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || splits == 1) return e2;
+  return repro::launch_splitk_reduce<float>(ws, c, static_cast<size_t>(m) * n, splits, s);
+}
+
 
 // -- the wgmma variant ---------------------------------------------------------
 
@@ -433,4 +603,37 @@ REPRO_EXPORT int repro_matmul_tnn_fused_wgmma(const void* a, const void* b, void
     case 256: return static_cast<int>(launch_wgmma<256>(a, b, c, m, n, k, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// f32, k % 4 == 0, a, b, c and ws 16-byte aligned (the wrapper checks);
+// (bm, bn) one of the three tiles; k-steps of 16 in `splits` runs of
+// `per`, none empty; splits > 1: ws holds splits x m x n f32 (allocated by
+// the caller) and a second kernel sums them into c in split order.
+REPRO_EXPORT int repro_matmul_tnn_fused_f32(const void* a, const void* b, void* c, void* ws,
+                                            int m, int n, int k, int bm, int bn, int splits,
+                                            int per, void* stream) {
+  const int nks = (k + kFBK - 1) / kFBK;
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(ws)) % 16 != 0 ||
+      m < 1 || n < 1 || k < 1 || k % 4 != 0 || splits < 1 || per < 1 || splits > 65535 ||
+      static_cast<long long>(splits) * per < nks ||
+      static_cast<long long>(splits - 1) * per >= nks || (splits > 1 && ws == nullptr) ||
+      bm < 1 || repro::cdiv(m, bm) > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* ap = static_cast<const float*>(a);
+  const auto* bp = static_cast<const float*>(b);
+  auto* cp = static_cast<float*>(c);
+  auto* wp = static_cast<float*>(ws);
+  if (bm == 128 && bn == 128) {
+    return static_cast<int>(launch_f32<128, 128, 8, 8>(ap, bp, cp, wp, m, n, k, splits, per, s));
+  }
+  if (bm == 16 && bn == 128) {
+    return static_cast<int>(launch_f32<16, 128, 4, 4>(ap, bp, cp, wp, m, n, k, splits, per, s));
+  }
+  if (bm == 128 && bn == 16) {
+    return static_cast<int>(launch_f32<128, 16, 4, 4>(ap, bp, cp, wp, m, n, k, splits, per, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

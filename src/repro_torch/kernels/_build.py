@@ -50,12 +50,14 @@ _SIGNATURES = {
     "attention_fused": {
         "repro_attention_fused_fma": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
         "repro_attention_fused_flash": [_P] * 5 + [_I] * 10 + [_F, _P],
+        "repro_attention_fused_flash_f32": [_P] * 6 + [_I] * 10 + [_F, _I, _P],
         "repro_attention_fused_decode": [_P] * 6 + [_I] * 10 + [_F, _I, _I, _I, _P],
     },
     "matmul_nt": {"repro_matmul_nt": [_P] * 4 + [_I] * 5 + [_P]},
     "matmul_tnn_fused": {
         "repro_matmul_tnn_fused": [_P, _P, _P, _I, _I, _I, _I, _P],
         "repro_matmul_tnn_fused_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "repro_matmul_tnn_fused_f32": [_P] * 4 + [_I] * 7 + [_P],
     },
     "matmul_batched": {
         "repro_matmul_batched_fma": [_P] * 3 + [_I] * 6 + [_P],

@@ -4,9 +4,9 @@ subgraph as one kernel.
   attention_fused   q:(g, m, dh)  k:(g, n, dh)  v:(g, n, dh) -> (g, m, dh)
 
 Replaces the Pallas kernel ``repro/kernels/attention_fused.py:338``.  On
-CUDA tensors the wrapper launches one of three kernels of
+CUDA tensors the wrapper launches one of four kernels of
 ``csrc/attention_fused.cu``, picked before the launch by
-``attention_variant`` from dtype and shape:
+``attention_variant`` from dtype, shape and alignment:
 
 - ``decode_split`` (m <= 16: decode, one kv head's GQA group of rows;
   both dtypes, any dh up to 256): split-KV.  The grid is (g, splits), with
@@ -25,9 +25,20 @@ CUDA tensors the wrapper launches one of three kernels of
   Pallas kernel pads every dh to the 128 edge); dh 256 has an instance of
   its own (161 KiB of shared memory, P V as one ``m64n256k16``).  Bound by
   bytes.
-- ``fma`` (everything else: f32 at m > 16, other dh up to 256): one
-  block per (slice, 16 query rows) over the 32-key tiles the mask leaves
-  live, f32 staged in shared memory.
+- ``flash_f32`` (f32, dh 64, 112, 120, 128 or 256, 16-byte aligned, m >
+  16: f32 prefill and training): a flash-attention forward in exact FFMA.
+  A block of 256 threads takes 64 query rows; K/V tiles (64 keys, 32 at
+  dh 256) come through a ``cp.async`` ring as stored, each thread scores
+  4 rows x 4 keys (2 at 256) from float4 runs along dh, the online softmax
+  runs in registers (a row's max over its 16 lanes by shuffles, exp2 of
+  log2e-scaled differences), and P goes through shared memory into O += P
+  V.  112 and 120 run the 128-wide instance.  Where the q-blocks fill less
+  than two waves of the card, each block's live key tiles split into 2 to
+  4 runs (``flash_f32_splits``, from the shape and the SM count), whose f32
+  partials a second kernel adds in split order.  Bound by operations.
+- ``fma`` (everything else: unaligned operands and other dh up to 256 at
+  m > 16): one block per (slice, 16 query rows) over the 32-key tiles the
+  mask leaves live, f32 staged in shared memory.
 
 The split and FMA kernels are built twice, for head dims up to 128 and up
 to 256; a call takes the smaller instance that holds its dh.  Above 256
@@ -39,8 +50,9 @@ and ``block=None`` launches that one.  On the ``decode_split`` route a
 config (bq, bk) names a split of the keys: bq the kernel's row instance
 (4 for m <= 4, else 16), bk the keys of one split (``decode_split_plan``'s,
 and those of 1, 2, 4, ... 64 splits: a multiple of 16, at least 32).  The
-``flash_mma`` route runs one tile, (64, 64), and the ``fma`` route (16,
-32).  Any other config raises, on both routes.
+``flash_mma`` route runs one tile, (64, 64), the ``flash_f32`` route one,
+(64, 64) or at dh 256 (64, 32), and the ``fma`` route (16, 32).  Any other
+config raises, on both routes.
 
 Each kernel keeps the live key range of the mask and never reads K or V
 beyond ``lengths``.  Each call counts one launch, split or not, in
@@ -77,7 +89,7 @@ from .common import (
 )
 
 __all__ = ["MaskParams", "NEG_INF", "DH_MAX", "attention_fused", "attention_variant",
-           "decode_split_plan", "attention_plans"]
+           "decode_split_plan", "flash_f32_splits", "attention_plans"]
 
 NEG_INF = -1e30  # finite: exp(NEG_INF - finite_max) == 0.0 exactly, no nan
 
@@ -94,20 +106,22 @@ _DECODE_MAX_SPLITS = 64  # csrc kCombineMaxSplits: the combine's scales per row
 _DECODE_WARPS = 4  # csrc kDecodeWarps
 _FMA_KEYS = 32  # csrc kBKV: keys per FMA tile
 _FLASH_KEYS = 64  # csrc kFlashKeys
+_FLASH_F32_ROWS = 64  # csrc kF32Rows
+_FLASH_F32_MAX_SPLITS = 4
 _DH_SMALL = 128  # csrc kDhSmall: the smaller instance of the split and FMA kernels
 
 
 def attention_variant(dtype: torch.dtype, g: int, m: int, n: int, dh: int,
                       aligned: bool = True) -> str:
     """The kernel a CUDA call launches: ``"decode_split"`` (m <= 16),
-    ``"flash_mma"`` (bf16, dh 64, 112, 120, 128 or 256, q, k and v 16-byte
-    aligned) or ``"fma"``.  A pure function of dtype and shape (and of the
-    operands' alignment, which the flash kernel's 16-byte copies need),
-    decided before the launch."""
+    ``"flash_mma"`` (bf16) or ``"flash_f32"`` (f32) at dh 64, 112, 120, 128
+    or 256 with q, k and v 16-byte aligned, or ``"fma"``.  A pure function
+    of dtype and shape (and of the operands' alignment, which the flash
+    kernels' 16-byte copies need), decided before the launch."""
     if m <= _DECODE_MAX_M:
         return "decode_split"
-    if dtype == torch.bfloat16 and dh in _FLASH_DH and aligned:
-        return "flash_mma"
+    if dh in _FLASH_DH and aligned:
+        return "flash_mma" if dtype == torch.bfloat16 else "flash_f32"
     return "fma"
 
 
@@ -124,6 +138,26 @@ def decode_split_plan(g: int, n: int, sms: int) -> Tuple[int, int]:
     return cdiv(n, per), per
 
 
+def _flash_f32_keys(dh: int) -> int:
+    """Keys per K/V tile of the f32 flash instance dh runs on (csrc
+    FlashF32Cfg::kKeys)."""
+    return 32 if dh > 128 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def flash_f32_splits(g: int, m: int, n: int, dh: int, sms: int) -> int:
+    """Runs of each q-block's key tiles the f32 flash kernel takes: a
+    pure function of the shape and the card's SM count, never of
+    ``lengths``.  Blocks that fill at least two waves (one block an SM at
+    dh above 64, two at 64) run whole; fewer split into as many runs as
+    bring the grid to about two waves, at most 4, and at most half the
+    key tiles of n."""
+    blocks = g * cdiv(m, _FLASH_F32_ROWS)
+    per_sm = 2 if dh <= 64 else 1
+    want = (2 * sms * per_sm) // max(1, blocks)
+    return max(1, min(_FLASH_F32_MAX_SPLITS, want, cdiv(n, _flash_f32_keys(dh)) // 2))
+
+
 def _decode_rows(m: int) -> int:
     """The split kernel's row instance for m (csrc launch_decode)."""
     return 4 if m <= 4 else _DECODE_MAX_M
@@ -134,8 +168,12 @@ def attention_plans(dtype: torch.dtype, g: int, m: int, n: int, dh: int, aligned
                     sms: int = H100_SMS):
     """The (config, plan) pairs of this shape's route (``aligned``: q, k
     and v 16-byte aligned), the route's own first.  A plan is
-    ``(variant, splits, keys per split)``."""
+    ``(variant, splits, keys per split)``; ``flash_f32`` splits each
+    q-block's own live tiles, so its plan names no keys per split (None)."""
     variant = attention_variant(dtype, g, m, n, dh, aligned)
+    if variant == "flash_f32":
+        tile = (_FLASH_F32_ROWS, _flash_f32_keys(dh))
+        return ((tile, (variant, flash_f32_splits(g, m, n, dh, sms), None)),)
     if variant != "decode_split":
         tile = (_FLASH_ROWS, _FLASH_KEYS) if variant == "flash_mma" else (_FMA_ROWS, _FMA_KEYS)
         return ((tile, (variant, 1, 1)),)
@@ -206,7 +244,7 @@ def attention_fused(
     if plain:
         return ref.attention_fused(q, k, v, lengths, mask)
     if variant != "decode_split":
-        rows = _FLASH_ROWS if variant == "flash_mma" else _FMA_ROWS
+        rows = _FMA_ROWS if variant == "fma" else _FLASH_ROWS
         if cdiv(m, rows) > _MAX_GRID_Y:
             raise ValueError(f"attention kernel takes at most {_MAX_GRID_Y * rows} query rows")
     out = torch.empty_like(q)
@@ -224,6 +262,12 @@ def attention_fused(
     elif variant == "flash_mma":
         _build.launch("attention_fused", "repro_attention_fused_flash", *head, *geometry,
                       _build.stream_of(q))
+    elif variant == "flash_f32":
+        ws = (torch.empty((g * splits * m * (dh + 2),), dtype=torch.float32, device=q.device)
+              if splits > 1 else None)
+        _build.launch("attention_fused", "repro_attention_fused_flash_f32", *head,
+                      _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
+                      *geometry, splits, _build.stream_of(q))
     else:
         _build.launch("attention_fused", "repro_attention_fused_fma", *head, *geometry,
                       _build.dtype_code(q.dtype), _build.stream_of(q))

@@ -77,9 +77,9 @@ LAUNCHES: Dict[str, int] = {
 ATTENTION_ROUTES: Dict[Tuple[str, int], int] = {}
 
 
-# Launches of the NN and NT wrappers by route and dtype, e.g.
-# ("matmul_nn", "tiled", "float32"): the wrapper adds one beside its
-# LAUNCHES count.
+# Launches of the NN, NT and fused TNN wrappers by route and dtype, e.g.
+# ("matmul_nn", "tiled", "float32") or ("matmul_tnn_fused", "f32_skinny",
+# "float32"): the wrapper adds one beside its LAUNCHES count.
 GEMM_ROUTES: Dict[Tuple[str, str, str], int] = {}
 
 
@@ -92,7 +92,7 @@ CONFIG_LAUNCHES: Dict[Tuple[str, str], int] = {}
 def count_launch(name: str, block=None,
                  gemm_route: Optional[Tuple[str, torch.dtype]] = None) -> None:
     """Count one launch of kernel ``name`` at config ``block`` (None: the
-    wrapper's own plan), and for the NN and NT wrappers under ``gemm_route``
+    wrapper's own plan), and for the GEMM wrappers under ``gemm_route``
     (route, dtype); wrappers call it where they launch, nowhere else."""
     LAUNCHES[name] += 1
     key = (name, config_key(block))

@@ -16,7 +16,15 @@ variant it picks before the launch from dtype, shape and alignment
   64 x 64 tiles, whose column-major B operand is B's stored (n, k) rows,
   loaded with ``ldmatrix`` and no ``.trans``; unaligned rows take a
   zero-filling scalar path.
-- ``fma`` (f32): FMA over the same K-major tiles, no TF32.
+- ``f32_tiled`` / ``f32_skinny`` (f32, k % 4 == 0, A and B 16-byte
+  aligned): exact FFMA on register micro-tiles, both operands copied as
+  stored (16-byte ``cp.async``) into K-major shared tiles; 128 x 128
+  tiles for the training forward, 16 x 128 (m <= 16) or 128 x 16 (n <= 64)
+  for decode and the MoE routers, and k split over the grid where the
+  tiles leave SMs idle (``common.f32_split``'s cost model), the partials
+  summed in split order.
+- ``fma`` (f32, any other k or alignment): FMA over the same K-major
+  tiles with scalar loads, no TF32.
 
 The skinny arm, for serving, is the direct NT kernel (``matmul_nt``).  A
 launch that fails raises; no variant stands in for another.
@@ -25,27 +33,43 @@ Tile configs (``kernels/tiling.py``): ``tnn_fused_plans`` lists the
 plans of a shape's route as (config, plan) pairs, the cost model's first,
 and ``block=None`` launches that one.  On the ``wgmma`` route a config
 (128, BN, 64) launches the BN instance (64, 96, 192 or 256; 64 is the k of
-a stage); the ``mma_sync`` and ``fma`` routes run one tile each, (64, 64,
-32).  Any other config raises, on both routes.  On CPU tensors the wrapper
+a stage); on the f32 routes a config (bm, bn, bk) is the route's tile and
+the k of one split (the cost model's, and that of 1, 2, 4, ... up to 32
+splits); the ``mma_sync`` and ``fma`` routes run one tile each, (64, 64,
+32).  Any other config raises, on both routes.  Each launch is counted
+under its route and dtype in ``GEMM_ROUTES``.  On CPU tensors the wrapper
 runs the plain version in ``ref.py``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build, ref
-from .common import cdiv, check_operand, count_launch, pick_plan, route, validate_config
+from .common import (
+    H100_SMS,
+    cdiv,
+    check_operand,
+    count_launch,
+    f32_plans,
+    f32_route,
+    pick_plan,
+    route,
+    sm_count,
+    validate_config,
+)
 
 __all__ = ["matmul_tnn_fused", "tnn_fused_variant", "tnn_fused_plans"]
 
 _TILE = 64  # csrc kBM = kBN of the mma.sync and FMA variants
 _TILE_BK = 32  # their kBK
 _WG_BK = 64  # kWgBK: k per stage of the wgmma variant
-_MAX_N = 65535 * _TILE  # their gridDim.y walks the n-tiles
+_MAX_GRID_Y = 65535
+_MAX_N = _MAX_GRID_Y * _TILE  # their gridDim.y walks the n-tiles; the f32 ones' the m-tiles
 _WG_BM = 128  # csrc kWgBM: the wgmma variant's tile rows
 _SMS = 132  # an H100's SMs: the persistent grid's width
 # The wgmma variant's tile widths (csrc launch_wgmma instances), widest
@@ -59,11 +83,13 @@ _MAX_TILES = 2**31 - 1  # the wgmma variant numbers its tiles with an int
 def tnn_fused_variant(dtype: torch.dtype, m: int, n: int, k: int, a_ptr: int,
                       b_ptr: int) -> Tuple[str, Optional[int]]:
     """The kernel variant a CUDA call launches, and the wgmma variant's
-    tile width BN: ``("wgmma", BN)``, ``("mma_sync", None)`` or
-    ``("fma", None)``.  A pure function of dtype, shape and the operands'
-    addresses, decided before the launch."""
-    if dtype == torch.float32:
-        return "fma", None
+    tile width BN: ``("wgmma", BN)``, ``("mma_sync", None)``,
+    ``("f32_tiled", None)``, ``("f32_skinny", None)`` or ``("fma", None)``.
+    A pure function of dtype, shape and the operands' addresses, decided
+    before the launch."""
+    if dtype == torch.float32:  # gemm_f32's NT routes: the same tiles and rules
+        f32 = f32_route(m, n, k, True, a_ptr % 16 == 0 and b_ptr % 16 == 0)
+        return (f32 if f32 == "fma" else f"f32_{f32}"), None
     if k > 0 and k % 8 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0:
         return "wgmma", _wgmma_block_n(m, n)
     return "mma_sync", None
@@ -80,12 +106,19 @@ def _wgmma_block_n(m: int, n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def tnn_fused_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True):
+def tnn_fused_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
+                    sms: int = H100_SMS):
     """The (config, plan) pairs of this shape's route (``aligned``: A and
-    B 16-byte aligned), the cost model's first.  A plan is ``(variant, BN,
-    1, 1)``, as ``tnn_fused_variant`` names them."""
+    B 16-byte aligned), the cost model's first.  A plan is ``(variant,
+    tile, splits, k-steps per split)``: ``("wgmma", BN, 1, 1)``, an f32
+    route's ``(variant, (bm, bn), splits, per)`` (``common.f32_plans``'s
+    NT plans on ``sms`` SMs: the cost model's split first, then 1, 2, 4,
+    ... 32 splits), or ``(variant, None, 1, 1)``."""
     ptr = 0 if aligned else 1
     variant, bn0 = tnn_fused_variant(dtype, m, n, k, ptr, ptr)
+    if variant.startswith("f32_"):
+        return tuple((config, (variant, *plan[1:]))
+                     for config, plan in f32_plans(m, n, k, True, aligned, sms))
     if variant != "wgmma":
         return (((_TILE, _TILE, _TILE_BK), (variant, None, 1, 1)),)
     widths = [bn0] + [bn for bn in sorted(_WG_BN_COST)
@@ -108,15 +141,23 @@ def matmul_tnn_fused(
     if k != k2 or a.dtype != b.dtype:
         raise ValueError(f"fused TNN operands mismatch: {tuple(a.shape)} {a.dtype} @ "
                          f"{tuple(b.shape)}^T {b.dtype}")
+    plain = route(a, b) == "plain"
+    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    variant, bn, _, _ = pick_plan(tnn_fused_plans(m, n, k, a.dtype, aligned), block,
-                                  f"fused TNN kernel at ({m}, {n}, {k}) {a.dtype}")
-    if route(a, b) == "plain":
+    variant, tile, splits, per = pick_plan(tnn_fused_plans(m, n, k, a.dtype, aligned, sms),
+                                           block,
+                                           f"fused TNN kernel at ({m}, {n}, {k}) {a.dtype}")
+    if plain:
         return ref.matmul_tnn_fused(a, b)
+    f32 = variant.startswith("f32_")
     if variant == "wgmma":
-        if cdiv(m, _WG_BM) * cdiv(n, bn) > _MAX_TILES:
+        if cdiv(m, _WG_BM) * cdiv(n, tile) > _MAX_TILES:
             raise ValueError(f"fused TNN kernel takes at most {_MAX_TILES} tiles, "
                              f"got ({m}, {n})")
+    elif f32:
+        if cdiv(m, tile[0]) > _MAX_GRID_Y:
+            raise ValueError(f"fused TNN f32 kernel takes at most {_MAX_GRID_Y * tile[0]} "
+                             f"rows, got {m}")
     elif n > _MAX_N:
         raise ValueError(f"fused TNN kernel takes at most {_MAX_N} columns, got {n}")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
@@ -124,12 +165,20 @@ def matmul_tnn_fused(
         if variant == "wgmma":
             _build.launch(
                 "matmul_tnn_fused", "repro_matmul_tnn_fused_wgmma", _build.ptr(a),
-                _build.ptr(b), _build.ptr(c), m, n, k, bn, _build.stream_of(a),
+                _build.ptr(b), _build.ptr(c), m, n, k, tile, _build.stream_of(a),
+            )
+        elif f32:
+            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+                  if splits > 1 else None)
+            _build.launch(
+                "matmul_tnn_fused", "repro_matmul_tnn_fused_f32", _build.ptr(a), _build.ptr(b),
+                _build.ptr(c), _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
+                m, n, k, tile[0], tile[1], splits, per, _build.stream_of(a),
             )
         else:
             _build.launch(
                 "matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a), _build.ptr(b),
                 _build.ptr(c), m, n, k, _build.dtype_code(a.dtype), _build.stream_of(a),
             )
-        count_launch("matmul_tnn_fused", block)
+        count_launch("matmul_tnn_fused", block, (variant, a.dtype))
     return c

@@ -86,12 +86,18 @@ def attention_visibility(mask, lengths: torch.Tensor, m: int, n: int) -> torch.T
     return vis.expand(-1, m, n)
 
 
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in the accumulation dtype: f32, or f64 for f64 inputs (which
+    makes these functions the f64 references of the tests)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _masked_logits(q, k, lengths, mask):
-    """f32 logits, softcapped, at the finite NEG_INF where not visible, and
-    the visibility."""
+    """f32 (f64 for f64 inputs) logits, softcapped, at the finite NEG_INF
+    where not visible, and the visibility."""
     from .attention_fused import NEG_INF
 
-    s = torch.matmul(q.float(), k.float().transpose(1, 2))
+    s = torch.matmul(_acc(q), _acc(k).transpose(1, 2))
     if mask.softcap:
         s = mask.softcap * torch.tanh(s / mask.softcap)
     vis = attention_visibility(mask, lengths, q.shape[1], k.shape[1])
@@ -107,17 +113,18 @@ def attention_fused(q, k, v, lengths, mask) -> torch.Tensor:
     """softmax(mask(Q K^T)) V per slice, computed densely.
 
     q:(g,m,dh), k/v:(g,n,dh), lengths:(g,) int -> (g,m,dh) in q's dtype.
-    Logits in f32, softcapped, masked at the finite ``NEG_INF``; masked
-    entries weigh exactly 0; p is cast to V's dtype before the PV product
-    while the denominator sums the f32 p, and a zero denominator becomes
-    1; V rows beyond ``lengths`` are zeroed.  A row that sees no key at
-    all comes out 0 (the model never produces one)."""
+    Logits in f32 (f64 for f64 inputs), softcapped, masked at the finite
+    ``NEG_INF``; masked entries weigh exactly 0; p is cast to V's dtype
+    before the PV product while the denominator sums the unrounded p, and
+    a zero denominator becomes 1; V rows beyond ``lengths`` are zeroed.  A
+    row that sees no key at all comes out 0 (the model never produces
+    one)."""
     s, vis = _masked_logits(q, k, lengths, mask)
     p = torch.where(vis, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
     denom = p.sum(dim=-1, keepdim=True)
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     vz = _zero_v_beyond_lengths(v, lengths)
-    out = torch.matmul(p.to(v.dtype).float(), vz.float()) / denom
+    out = torch.matmul(_acc(p.to(v.dtype)), _acc(vz)) / denom
     return out.to(q.dtype)
 
 

@@ -21,12 +21,18 @@ that the route of that shape can launch:
                     bf16 unaligned (FMA)      (16|64, 64, 32)   none
   matmul_tnn_fused  bf16, k % 8 == 0 (wgmma)  (128, BN, 64)     BN: 64/96/192/256
                     bf16 other (mma.sync)     (64, 64, 32)      none
-                    f32 (FMA)                 (64, 64, 32)      none
+                    f32 aligned, m <= 16 or   (16, 128, bk) or  bk: k per split, 16 | bk
+                    n <= 64 (f32_skinny)      (128, 16, bk)
+                    f32 aligned (f32_tiled)   (128, 128, bk)    bk: k per split, 16 | bk
+                    f32 other (FMA)           (64, 64, 32)      none
   matmul_bnt/bnn    f32 aligned (tiled)       (64, 64, bk)      bk: k per split, 16 | bk
                     bf16 aligned (mma.sync)   (64, 64, 64)      none
                     other (FMA)               (16|64, 64, 32)   none
   attention_fused   m <= 16 (decode_split)    (MR, bk)          bk: keys per split, 16 | bk, >= 32
                     flash_mma                 (64, 64)          none
+                    flash_f32                 (64, 64), or      none
+                                              (64, 32) above
+                                              d_head 64
                     fma                       (16, 32)          none
 
 MA is the A-row instance (8, 16, 32 or 64) that min(m, 64) takes; MR the
@@ -114,7 +120,7 @@ def tile_plans(kernel: str, m: int, n: int, k: int, dsize: int = 4, g: int = 1,
     if kernel == "matmul_nn":
         return matmul_nn.nn_plans(m, n, k, dt, aligned, sms)
     if kernel == "matmul_tnn_fused":
-        return matmul_tnn_fused.tnn_fused_plans(m, n, k, dt, aligned)
+        return matmul_tnn_fused.tnn_fused_plans(m, n, k, dt, aligned, sms)
     if kernel in ("matmul_bnt", "matmul_bnn"):
         return matmul_batched.batched_plans(dt, g, m, n, k, kernel == "matmul_bnt", aligned, sms)
     if kernel == "attention_fused":

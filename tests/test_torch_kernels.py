@@ -28,8 +28,10 @@ from repro_torch.kernels.attention_fused import (  # noqa: E402
     NEG_INF,
     MaskParams,
     attention_fused,
+    attention_plans,
     attention_variant,
     decode_split_plan,
+    flash_f32_splits,
 )
 from repro_torch.kernels.common import (  # noqa: E402
     ATTENTION_ROUTES,
@@ -43,7 +45,10 @@ from repro_torch.kernels.common import (  # noqa: E402
 from repro_torch.kernels.matmul_batched import batched_plan  # noqa: E402
 from repro_torch.kernels.matmul_nn import nn_plan  # noqa: E402
 from repro_torch.kernels.matmul_nt import nt_plans, nt_split, nt_workspace_shape  # noqa: E402
-from repro_torch.kernels.matmul_tnn_fused import tnn_fused_variant  # noqa: E402
+from repro_torch.kernels.matmul_tnn_fused import (  # noqa: E402
+    tnn_fused_plans,
+    tnn_fused_variant,
+)
 
 
 @pytest.fixture(scope="module")
@@ -249,10 +254,64 @@ def test_cpu_route_launches_nothing():
     (torch.bfloat16, 2048, 576, 576, 2, 0, ("mma_sync", None)),  # A 2 bytes off
     (torch.bfloat16, 2048, 576, 576, 0, 8, ("mma_sync", None)),  # B 8 bytes off
     (torch.bfloat16, 4, 4, 0, 0, 0, ("mma_sync", None)),  # k = 0: no tensor map
-    (torch.float32, 2048, 49152, 576, 0, 0, ("fma", None)),
+    # f32: the as-stored FFMA kernel where k % 4 == 0 and both operands
+    # are 16-byte aligned (128 x 128 tiles; 16 x 128 at m <= 16, 128 x 16
+    # at n <= 64), the FMA kernel otherwise
+    (torch.float32, 2048, 49152, 576, 0, 0, ("f32_tiled", None)),
+    (torch.float32, 2048, 1536, 576, 0, 0, ("f32_tiled", None)),
+    (torch.float32, 17, 65, 576, 0, 0, ("f32_tiled", None)),
+    (torch.float32, 16, 65, 576, 0, 0, ("f32_skinny", None)),
+    (torch.float32, 8, 1536, 576, 0, 0, ("f32_skinny", None)),
+    (torch.float32, 1024, 8, 6144, 0, 0, ("f32_skinny", None)),  # grok-1's router
+    (torch.float32, 2048, 64, 576, 0, 0, ("f32_skinny", None)),
+    (torch.float32, 2048, 576, 129, 0, 0, ("fma", None)),  # k % 4 != 0
+    (torch.float32, 2048, 576, 130, 0, 0, ("fma", None)),
+    (torch.float32, 2048, 576, 576, 4, 0, ("fma", None)),  # A 4 bytes off
+    (torch.float32, 8, 1536, 576, 0, 8, ("fma", None)),  # B 8 bytes off
+    (torch.float32, 4, 4, 0, 0, 0, ("fma", None)),  # k = 0
 ])
 def test_tnn_fused_variant_follows_shape_and_alignment(dtype, m, n, k, a_ptr, b_ptr, want):
     assert tnn_fused_variant(dtype, m, n, k, a_ptr, b_ptr) == want
+
+
+@pytest.mark.parametrize("m,n,k,tile", [
+    (2048, 49152, 576, (128, 128)), (2048, 1536, 576, (128, 128)), (2048, 576, 1536, (128, 128)),
+    (8, 1536, 576, (16, 128)), (4, 8, 6144, (16, 128)), (1024, 8, 6144, (128, 16)),
+    (1024, 384, 7168, (128, 128)), (17, 65, 4, (128, 128)), (1, 1, 4, (16, 128)),
+    (1000, 3, 1000, (128, 16)),
+])
+def test_tnn_fused_f32_plans_list_the_cost_model_split_first(m, n, k, tile):
+    """The f32 route's (config, plan) pairs: the tile of its route, the
+    split of gemm_f32's cost model (``f32_split``) first, then 1, 2, 4, ...
+    up to 32 splits, each covering every 16-deep k-step once and none
+    empty; unaligned operands take the FMA kernel's one plan."""
+    plans = tnn_fused_plans(m, n, k, torch.float32, True, 132)
+    variant = "f32_tiled" if tile == (128, 128) else "f32_skinny"
+    steps = -(-k // 16)
+    assert plans[0][1] == (variant, tile, *f32_split(m, n, k, *tile, 132))
+    for config, (v, t, splits, per) in plans:
+        assert (v, t) == (variant, tile) and config == (*tile, 16 * per)
+        assert 1 <= splits <= 32 and splits * per >= steps and (splits - 1) * per < steps
+    assert len({c for c, _ in plans}) == len(plans)
+    assert tnn_fused_plans(m, n, k, torch.float32, False, 132) == (
+        ((64, 64, 32), ("fma", None, 1, 1)),)
+
+
+@pytest.mark.parametrize("a_shape,b_shape,offset,block,route_name", [
+    ((256, 576), (96, 576), 0, (64, 64, 32), "f32_tiled"),  # the FMA kernel's tile
+    ((256, 576), (96, 576), 0, (16, 128, 576), "f32_tiled"),  # a skinny tile at m 256
+    ((256, 576), (96, 576), 0, (128, 128, 100), "f32_tiled"),  # no multiple of 16
+    ((256, 576), (96, 576), 0, (128, 128, 64), "f32_tiled"),  # 9 splits: not listed
+    ((8, 576), (1536, 576), 0, (128, 128, 576), "f32_skinny"),
+    ((1024, 6144), (8, 6144), 0, (16, 128, 384), "f32_skinny"),  # the m <= 16 tile at n 8
+    ((256, 576), (96, 576), 1, (128, 128, 576), "fma"),  # A at an offset
+    ((256, 578), (96, 578), 0, (128, 128, 576), "fma"),  # k % 4 != 0
+])
+def test_tnn_fused_f32_configs_off_the_list_raise(a_shape, b_shape, offset, block, route_name):
+    a = torch.zeros(a_shape[0] * a_shape[1] + offset)[offset:].view(a_shape)
+    b = torch.zeros(b_shape)
+    with pytest.raises(ValueError, match=f"{route_name} route, has no plan"):
+        ops.matmul_tnn_fused(a, b, block=block)
 
 
 @pytest.mark.parametrize("m,n,k,want", [
@@ -548,6 +607,26 @@ def test_attention_row_without_keys_is_zero():
     assert torch.all(out[0, 0] == 0) and torch.all(torch.isfinite(out))
 
 
+@pytest.mark.parametrize("mask_name", sorted(MASKS))
+def test_attention_plain_accumulates_in_f64_for_f64_inputs(mask_name):
+    """The plain version on f64 inputs is the f64 reference the card tests
+    and chip_smoke.py hold the f32 kernels to: an f64 result within f32
+    rounding of its f32 result, and the same masking (NaN past ragged
+    lengths never reaches it)."""
+    rng = np.random.RandomState(5)
+    g, m, n, dh = 3, 40, 70, 24
+    q, k, v = (torch.from_numpy(rng.randn(g, s, dh) * 0.3) for s in (m, n, n))
+    lengths = torch.tensor([70, 33, 1], dtype=torch.int32)
+    for i, length in enumerate(lengths.tolist()):
+        k[i, length:] = float("nan")
+        v[i, length:] = float("nan")
+    mask = MaskParams(**MASKS[mask_name](m, n))
+    out64 = ref.attention_fused(q, k, v, lengths, mask)
+    out32 = ref.attention_fused(q.float(), k.float(), v.float(), lengths, mask)
+    assert out64.dtype == torch.float64 and torch.isfinite(out64).all()
+    torch.testing.assert_close(out32.double(), out64, rtol=1e-5, atol=1e-6)
+
+
 def test_attention_rejects_wide_heads_and_bad_tiles():
     x = torch.zeros(1, 2, 257)  # DH_MAX is 256
     with pytest.raises(ValueError):
@@ -568,28 +647,90 @@ def test_attention_rejects_wide_heads_and_bad_tiles():
     (torch.bfloat16, 768, 16, True, "fma"),
     (torch.bfloat16, 768, 33, True, "fma"),
     (torch.bfloat16, 768, 64, False, "fma"),
-    (torch.float32, 17, 64, True, "fma"),
-    (torch.float32, 768, 128, True, "fma"),
-    # the wide heads: split-KV at decode, the flash kernel above 16 rows in
-    # bf16 (112 and 120 on its 128-wide instance), the FMA kernel in f32
+    (torch.float32, 17, 64, True, "flash_f32"),
+    (torch.float32, 768, 128, True, "flash_f32"),
+    # the wide heads: split-KV at decode, the flash kernels above 16 rows
+    # (112 and 120 on their 128-wide instances)
     (torch.bfloat16, 2, 256, True, "decode_split"),
     (torch.float32, 16, 256, True, "decode_split"),
     (torch.bfloat16, 8, 120, True, "decode_split"),
     (torch.bfloat16, 17, 256, True, "flash_mma"),
     (torch.bfloat16, 2048, 256, True, "flash_mma"),
-    (torch.float32, 2048, 256, True, "fma"),
+    (torch.float32, 2048, 256, True, "flash_f32"),
     (torch.bfloat16, 2048, 120, True, "flash_mma"),
     (torch.bfloat16, 2048, 112, True, "flash_mma"),
-    (torch.float32, 2048, 112, True, "fma"),
-    (torch.float32, 17, 120, True, "fma"),
+    (torch.float32, 2048, 112, True, "flash_f32"),
+    (torch.float32, 17, 120, True, "flash_f32"),
     (torch.bfloat16, 2048, 256, False, "fma"),  # unaligned: the FMA kernel
     (torch.bfloat16, 2048, 112, False, "fma"),
     (torch.bfloat16, 65, 120, False, "fma"),
     (torch.bfloat16, 2048, 96, True, "fma"),  # a head dim with no flash instance
     (torch.bfloat16, 2048, 200, True, "fma"),
+    # f32: the flash kernel at its head dims on aligned operands above 16
+    # rows; the FMA kernel at other head dims and on unaligned operands
+    (torch.float32, 16, 64, True, "decode_split"),
+    (torch.float32, 16, 256, False, "decode_split"),
+    (torch.float32, 17, 256, True, "flash_f32"),
+    (torch.float32, 17, 112, True, "flash_f32"),
+    (torch.float32, 2048, 120, True, "flash_f32"),
+    (torch.float32, 1000, 112, True, "flash_f32"),  # zamba2's exact-length prefill
+    (torch.float32, 2048, 96, True, "fma"),
+    (torch.float32, 2048, 200, True, "fma"),
+    (torch.float32, 17, 16, True, "fma"),
+    (torch.float32, 2048, 256, False, "fma"),
+    (torch.float32, 2048, 112, False, "fma"),
+    (torch.float32, 17, 64, False, "fma"),
 ])
 def test_attention_variant_routes_by_dtype_and_shape(dtype, m, dh, aligned, want):
     assert attention_variant(dtype, 24, m, 256, dh, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,m,dh,aligned,tile,route_name", [
+    (torch.float32, 17, 64, True, (64, 64), "flash_f32"),
+    (torch.float32, 768, 128, True, (64, 64), "flash_f32"),
+    (torch.float32, 1000, 112, True, (64, 64), "flash_f32"),
+    (torch.float32, 2048, 120, True, (64, 64), "flash_f32"),
+    (torch.float32, 2048, 256, True, (64, 32), "flash_f32"),  # two 32-key stages beside Q
+    (torch.float32, 2048, 256, False, (16, 32), "fma"),
+    (torch.float32, 2048, 96, True, (16, 32), "fma"),
+    (torch.float32, 2048, 200, True, (16, 32), "fma"),
+    (torch.bfloat16, 2048, 256, True, (64, 64), "flash_mma"),
+])
+def test_attention_plans_give_each_prefill_route_its_one_tile(dtype, m, dh, aligned, tile,
+                                                              route_name):
+    """Above 16 rows a route runs one tile (the f32 flash kernel's plan
+    names its split of the key tiles); every other config raises on the
+    CPU route too."""
+    plan = ((route_name, flash_f32_splits(24, m, 256, dh, 132), None)
+            if route_name == "flash_f32" else (route_name, 1, 1))
+    assert attention_plans(dtype, 24, m, 256, dh, aligned) == ((tile, plan),)
+    for bad in ((64, 64), (64, 32), (16, 32), (64, 128), (128, 64)):
+        if bad == tile:
+            continue
+        q = torch.zeros(24 * m * dh + (0 if aligned else 1), dtype=dtype)
+        q = q[(0 if aligned else 1):].view(24, m, dh)
+        kv = torch.zeros(24, 256, dh, dtype=dtype)
+        with pytest.raises(ValueError, match=f"{route_name} route, has no plan"):
+            attention_fused(q, kv, kv, block=bad)
+
+
+@pytest.mark.parametrize("g,m,n,dh,sms,want", [
+    (4, 2048, 1024, 256, 132, 2),  # gemma3's prefill: 128 blocks, one an SM
+    (2, 4096, 512, 256, 132, 2),  # paligemma's: 128 blocks
+    (32, 1000, 1000, 112, 132, 1),  # zamba2's: 512 blocks, about four waves
+    (16, 2048, 512, 120, 132, 1),
+    (24, 768, 256, 64, 132, 1),  # a train step's forward: 288 blocks, two an SM
+    (24, 768, 256, 128, 132, 1),
+    (4, 17, 300, 64, 132, 2),  # few blocks: at most half the key tiles (5 of 64)
+    (4, 17, 300, 256, 132, 4),  # at most 4 runs
+    (3, 192, 64, 64, 132, 1),  # one key tile: nothing to split
+    (4, 2048, 1024, 256, 78, 1),  # a smaller card: 128 blocks fill it
+])
+def test_flash_f32_splits_fill_the_card_from_the_shape(g, m, n, dh, sms, want):
+    """The f32 flash kernel splits each q-block's key tiles only where the
+    blocks fill less than two waves: a pure function of the shape and the
+    SM count."""
+    assert flash_f32_splits(g, m, n, dh, sms) == want
 
 
 @pytest.mark.parametrize("g,n,sms,want", [
@@ -1198,6 +1339,119 @@ def test_f32_gemm_at_the_router_and_grid_shapes_on_card(cuda, m, n, k):
         a_odd = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
         a_odd.copy_(a)
         assert _f32_gemm_on_card(a_odd, b, nt, sms) == "fma"
+
+
+# -- on the card: the fused TNN's f32 routes and the f32 flash attention -------------
+
+
+def _tnn_f32_on_card(a, b, sms):
+    """One f32 fused-TNN call: one launch under the route its plan names,
+    within tests/test_kernels.py::_tol of f64, and a split plan's second
+    call the same bits.  Returns the route."""
+    (m, k), n = a.shape, b.shape[0]
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    variant, _, splits, _ = tnn_fused_plans(m, n, k, torch.float32, aligned, sms)[0][1]
+    reset_launches()
+    out = ops.matmul_tnn_fused(a, b)
+    assert GEMM_ROUTES == {("matmul_tnn_fused", variant, "float32"): 1}
+    assert LAUNCHES["matmul_tnn_fused"] == 1
+    torch.testing.assert_close(out.double(), a.double() @ b.double().t(), **_tol("float32", k),
+                               msg=lambda msg: f"{variant} {(m, n, k)}: {msg}")
+    if splits > 1:
+        assert torch.equal(ops.matmul_tnn_fused(a, b), out)
+    return variant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", F32_SIDES)
+@pytest.mark.parametrize("m", F32_SIDES)
+def test_tnn_fused_f32_matches_f64_on_card(cuda, m, n):
+    """The fused TNN in f32 at every pair of ragged sides and k 4, 130,
+    1000, on operands whose storage runs on into NaN: the as-stored tiles
+    (f32_tiled, f32_skinny), and the FMA kernel where k is no multiple of 4."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k in (4, 130, 1000):
+        gen = torch.Generator(device=cuda).manual_seed(m * 31 + n * 7 + k)
+        a = _poisoned((m, k), torch.float32, cuda, gen)
+        w = _poisoned((n, k), torch.float32, cuda, gen)
+        variant = _tnn_f32_on_card(a, w, sms)
+        want = "fma" if k % 4 else ("f32_skinny" if m <= 16 or n <= 64 else "f32_tiled")
+        assert variant == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [
+    (4, 8, 6144), (1024, 8, 6144), (4, 384, 7168), (1024, 384, 7168),  # the MoE routers
+    (2048, 49152, 576), (2048, 1536, 576), (2048, 192, 576), (2048, 576, 1536),  # LM head, MLP, k/v
+    (8, 1536, 576), (1024, 80, 2560),  # decode; mamba2's dt projection
+    (1024, 1024, 1024), (4096, 4096, 4096),  # the selector's grid
+])
+def test_tnn_fused_f32_at_the_router_and_training_shapes_on_card(cuda, m, n, k):
+    """The main-path f32 shapes against f64 (split plans the same bits
+    twice); the same operands one float past an aligned address take the
+    FMA kernel, chosen before the launch."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = _poisoned((m, k), torch.float32, cuda, gen)
+    w = _poisoned((n, k), torch.float32, cuda, gen)
+    assert _tnn_f32_on_card(a, w, sms) != "fma"
+    a_odd = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
+    a_odd.copy_(a)
+    assert _tnn_f32_on_card(a_odd, w, sms) == "fma"
+
+
+FLASH_F32_DHS = (64, 112, 120, 128, 256)
+FLASH_F32_MS = (17, 100, 200, 2048)  # around and past the 64-row block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", FLASH_F32_DHS)
+@pytest.mark.parametrize("mask_name", sorted(MASKS))
+def test_flash_f32_matches_plain_and_f64_on_card(cuda, mask_name, dh):
+    """The f32 flash kernel at every instance (112 and 120 on the 128-wide
+    one), every mask (softcap and a fold boundary among them), ragged
+    lengths with NaN in K and V beyond them and a slice of length 0: the
+    plain version's output and f64's within 1e-4, one launch on
+    flash_f32, the same bits twice; rows that see no key come out 0."""
+    g, n = 4, 300
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    lengths = torch.tensor([300, 77, 1, 0], device=cuda, dtype=torch.int32)
+    for m in FLASH_F32_MS:
+        q, k, v = (torch.randn(g, s, dh, device=cuda, generator=gen).mul(0.3)
+                   for s in (m, n, n))
+        for i, length in enumerate(lengths.tolist()):
+            k[i, length:] = float("nan")
+            v[i, length:] = float("nan")
+        assert attention_variant(q.dtype, g, m, n, dh) == "flash_f32"
+        mask = MaskParams(**MASKS[mask_name](m, n))
+        out = _check_attention_on_card(q, k, v, lengths, mask, "float32")
+        assert ATTENTION_ROUTES == {("flash_f32", dh): 2}
+        want = ref.attention_fused(q.double(), k.double(), v.double(), lengths, mask)
+        torch.testing.assert_close(out.double(), want, rtol=1e-4, atol=1e-4,
+                                   msg=lambda s: f"m {m}, dh {dh}: {s}")
+        assert torch.isfinite(out).all() and torch.all(out[3] == 0)
+    unseen = MaskParams(causal=True, q_start=0, k_start=1)  # row 0 sees no key
+    out = _check_attention_on_card(q, k, v, lengths, unseen, "float32")
+    assert torch.all(out[:, 0] == 0) and torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", FLASH_F32_DHS)
+def test_flash_f32_split_and_whole_agree_on_card(cuda, dh):
+    """The same slices through the split plan (4 slices: too few q-blocks
+    to fill the card) and the whole one (40 slices): both within the f32
+    bound of the plain version and of each other, the split one the same
+    bits twice."""
+    g, m, n = 40, 2048, 1024
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gen = torch.Generator(device=cuda).manual_seed(dh + 1)
+    q, k, v = (torch.randn(g, s, dh, device=cuda, generator=gen).mul(0.3) for s in (m, n, n))
+    mask = MaskParams(causal=True, window=700, q_seg=1024)
+    assert flash_f32_splits(g, m, n, dh, sms) == 1 < flash_f32_splits(4, m, n, dh, sms)
+    whole = _check_attention_on_card(q, k, v, None, mask, "float32")
+    few = [x[:4].contiguous() for x in (q, k, v)]
+    split = _check_attention_on_card(*few, None, mask, "float32")
+    torch.testing.assert_close(split, whole[:4], rtol=1e-5, atol=1e-5)
 
 
 # -- on the card: every tile config reaches its kernel ---------------------------

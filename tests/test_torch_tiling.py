@@ -80,6 +80,34 @@ def test_validate_config_matches_the_reference(config, arity):
     assert outcome(tiling.validate_config) == outcome(jtiling.validate_config)
 
 
+@pytest.mark.parametrize("kernel,m,n,k,dsize", [
+    ("matmul_tnn_fused", 2048, 1536, 576, 4),  # f32_tiled
+    ("matmul_tnn_fused", 1024, 8, 6144, 4),  # f32_skinny, n <= 64
+    ("matmul_tnn_fused", 8, 1536, 576, 4),  # f32_skinny, m <= 16
+    ("matmul_tnn_fused", 2048, 1536, 576, 2),  # wgmma
+    ("attention_fused", 2048, 1024, 256, 4),  # flash_f32, 32-key tile
+    ("attention_fused", 768, 256, 64, 4),  # flash_f32
+])
+def test_new_route_config_keys_match_the_reference(kernel, m, n, k, dsize):
+    """Every config of the route's space keeps the JAX package's key form
+    (both packages write it and parse it back alike), and a config that
+    both packages admit at this shape -- the port's as a plan, the JAX
+    package's within its VMEM budget -- is the same tile under both."""
+    configs = tiling.enumerate_tile_configs(kernel, m, n, k, dsize)
+    arity = 2 if kernel == "attention_fused" else 3
+    assert configs
+    for cfg in configs:
+        key = tiling.config_key(cfg)
+        assert key == jtiling.config_key(cfg)
+        assert jtiling.parse_config_key(key, arity=arity) == tuple(cfg)
+        assert tiling.parse_config_key(jtiling.config_key(cfg), arity=arity) == tuple(cfg)
+    theirs = (jtiling.enumerate_attn_configs(m, n, k, dsize) if arity == 2
+              else jtiling.enumerate_tile_configs(m, n, k, dsize))
+    for cfg in set(configs) & set(map(tuple, theirs)):
+        assert tiling.config_feasible(kernel, cfg, m, n, k, dsize)
+        assert jtiling.config_key(cfg) == tiling.config_key(cfg)
+
+
 # -- tile tables from one cache ----------------------------------------------------
 
 
