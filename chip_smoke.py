@@ -42,6 +42,12 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   5. exact    f32 at full width and 2 layers: greedy tokens of both kernel
               policies identical to fixed:XLA_NT, prefill attention on
               flash_f32
+ 5a. legacy   launch.serve --legacy (one fixed-batch prefill, then greedy
+              decode against its cache) on smollm-135m at full config, batch
+              4, 32-token prompts, 16 new, under the interactive kernel policy
+              and fixed:XLA_NT in bf16 (the kernels launched, none under
+              cuBLAS), then in f32 at 2 layers with an f32 cache: greedy
+              tokens of the two identical
   6. imports  no jax in the process
   7. train    repro_torch.launch.train.main on smollm-135m at full config
               in bf16 (remat full, AdamW), batch 8 x seq 256, 6 steps, under
@@ -55,6 +61,13 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               device busy share per policy; the profiled kernel-policy
               steps must run no FMA kernel the redesigns replaced, and the
               fused policy's must run the flash attention kernel
+ 7a. remat_dots  the fused train policy, 8 steps from phase 7's weights and
+              batches, under remat="full" and remat="dots": step-0 loss and
+              grad norm of "dots" within phase 7's gates of phase 7's run; no
+              NT/NN/TN GEMM dispatched in the recompute (each replays the
+              forward's output) and the NT dispatches saved equal those
+              replayed; ms/step (median of steps 1-7) and peak memory of
+              both (each over what was allocated before it)
   8. train_exact  f32 at full width and 2 layers: every gradient leaf of
               step 0 under both kernel policies within relative L2 1e-4 of
               fixed:XLA_NT's, and the losses of 3 steps within 1e-5; the
@@ -159,6 +172,29 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               kernel_sweep --quick in f32 and bf16: every benchmark
               returns, no sweep cell disagrees with f64; each headline
               printed beside the paper's (GTX 1080 / Titan X)
+ 14. serve_load  python -m repro_torch.benchmarks.serve_load --full, in
+              process: smollm-135m at full config, bf16, seed 0, 32 requests
+              of 1-48 prompt tokens and 2-24 new, arriving 0-2 virtual steps
+              apart, 8 slots, max_seq 96, interactive under autotune and bulk
+              under analytic: every request finishes, no step crashes, no
+              class measures after warmup; tokens/s and p50/p99 decode ms per
+              class beside the card's name and power limit
+ 15. faults   the fault drill (healthy, first-fault and degraded ms per
+              dispatch of fixed:PALLAS_TNN_FUSED at (256,512,384) f32 and the
+              LM head (8,576)x(49152,576)^T bf16), then smollm-135m at full
+              config through launch.serve.main under phase 4's class policies
+              with --chaos "raise:PALLAS_NT.NT;raise:FUSED_ATTN.ATTN": every
+              request finishes, no step crashes, exactly those two arms
+              quarantined, neither kernel launched, first-token logits of both
+              degraded policies within phase 4's gates of cuBLAS; the
+              quarantine cleared and empty afterwards
+
+Every phase's line carries the dispatch engine's fault ledger, its
+``fallbacks`` and ``quarantined`` arms, and the run fails unless both are
+empty (phase 15 reports what its injected faults did under keys of its
+own and clears the ledger first): a kernel fault on the card must never
+hide behind the cuBLAS arm.  Phases 9, 12 and 14 also fail if a
+measurement took more than one try or left a candidate out.
 
 The ``kernels`` line holds one row per kernel at a main-path shape, and one
 per route of the flash kernel's wide-head instances (d_head 112, 120 and
@@ -175,6 +211,7 @@ outside a checkout, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -391,6 +428,39 @@ def check(cond, msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def dispatch_health():
+    """The dispatch engine's fault ledger: every fallback taken, as
+    ``op:selected->executed``, and every quarantined arm, as ``op:label``."""
+    from repro_torch.core import faults
+
+    return {"fallbacks": {f"{op}:{sel}->{ex}": n
+                          for (op, sel, ex), n in sorted(faults.fallback_counts().items())},
+            "quarantined": [f"{e.op}:{e.label()}" for e in faults.quarantine_entries()]}
+
+
+def emit_phase(row):
+    """Print a phase's JSON line with ``dispatch_health()`` beside it, and
+    fail the run on any fallback or quarantined arm: a kernel fault on the
+    card must never hide behind the cuBLAS arm."""
+    row = {**row, **dispatch_health()}
+    emit(row)
+    check(not row["fallbacks"] and not row["quarantined"],
+          f"phase {row.get('phase')}: dispatch fell back {row['fallbacks']}, "
+          f"quarantined {row['quarantined']}")
+    return row
+
+
+def check_measurement(label, cache, failures):
+    """Phases 9 and 12: every (candidate, config) pair of a measurement ran
+    at its first try, and none was left out; returns the most tries."""
+    tries = [n for key, _ in cache.records()
+             for per_cfg in (cache.get_attempts(key) or {}).values() for n in per_cfg.values()]
+    check(len(tries) and max(tries) == 1,
+          f"{label}: a measurement took {max(tries, default=None)} tries")
+    check(not failures, f"{label}: measurements left out after failing: {failures}")
+    return max(tries)
 
 
 def nvidia_smi_line() -> str:
@@ -1751,7 +1821,7 @@ def phase_moe_ssm(torch, card):
             serve_launches[name] += count
         for name, count in f32_launches.items():
             exact_launches[name] += count
-        emit({"phase": "moe_ssm_serve", "arch": arch, **{
+        emit_phase({"phase": "moe_ssm_serve", "arch": arch, **{
             k: serve_rows[arch][k] for k in ("first_token_rel_l2", "tokens_per_s", "seconds")}})
     serve_s = time.perf_counter() - t0
     train_rows, train_launches = {}, {name: 0 for name in launch_counts()}
@@ -1848,12 +1918,14 @@ def phase_selector(torch, card, out_dir):
         reset_launches()
         # device time: below about 2^11 per side an event pair around one
         # call times the host's launch, not the kernels
+        dropped = {}
         cache = measure_grid(MeasurementCache(str(out_dir / f"measured_{short}.json")), dtype,
-                             lo, hi, device=DEVICE, queued=True)
+                             lo, hi, device=DEVICE, queued=True, failures=dropped)
         for name, count in launch_counts().items():
             launches[name] += count
         cache.save()
         measure_s = time.perf_counter() - t0
+        max_tries = check_measurement(f"selector {dtype} grid", cache, dropped)
         ds = dataset_from_measurements(cache, pair=CARD_PAIR, dtype=dtype)
         check(len(ds) == len(MEASURED_OPS) * (hi - lo + 1) ** 3,
               f"{dtype}: {len(ds)} records, expected every grid shape of every op")
@@ -1901,6 +1973,7 @@ def phase_selector(torch, card, out_dir):
                                              "mean_speedup_vs_worst")},
             "close_pairs": close_pairs(torch, ds, dtype, CARD_PAIR),
             "measure_seconds": measure_s, "artifact": str(paths[dtype].relative_to(ROOT)),
+            "measure_max_tries": max_tries, "measure_dropped": dropped,
         }
     return row, paths, launches
 
@@ -2161,11 +2234,13 @@ def phase_tiles(torch, card, out_dir):
     lo, hi = TUNED_GRID
     t0 = time.perf_counter()
     reset_launches()
+    dropped = {}
     cache = measure_grid(MeasurementCache(str(out_dir / "measured_bf16_tuned.json")), "bfloat16",
-                         lo, hi, device=DEVICE, tune=True, queued=True)
+                         lo, hi, device=DEVICE, tune=True, queued=True, failures=dropped)
     measure_launches = launch_counts()
     cache.save()
     row["tuned_measure_seconds"] = time.perf_counter() - t0
+    row["tuned_measure_max_tries"] = check_measurement("tuned bf16 grid", cache, dropped)
     tables = tile_tables_from_cache(cache, dtype="bfloat16")
     row["tuned_gains"] = tuned_gains(cache)
     row["tile_table_sizes"] = {f"{op} {name}": len(e["by_shape"])
@@ -2218,7 +2293,10 @@ def phase_tiles(torch, card, out_dir):
     check_engine(eng, 16, "autotune policy")
     misses = eng.cold_misses()
     check(set(misses.values()) == {0}, f"autotune serving measured after warmup: {misses}")
+    tries = {c: check_measurement(f"autotune class {c}", p.cache, p.failures)
+             for c, p in eng.policies.items()}
     row["autotune_serve"] = {"cold_misses": misses, "seconds": time.perf_counter() - t0,
+                             "measure_max_tries": tries,
                              "measured_keys": {c: p.n_measured for c, p in eng.policies.items()},
                              "decisions": eng.class_dispatch_rows()}
     launches = {name: measure_launches[name] + serve_launches[name] for name in launch_counts()}
@@ -2287,6 +2365,252 @@ def phase_bench(torch, card, out_dir):
     return row, launches
 
 
+# -- phases 5a, 7a, 14 and 15: the fixed-batch path, remat="dots", serving
+# load and fault tolerance -----------------------------------------------------
+
+LEGACY_ARGS = ["--arch", "smollm-135m", "--legacy", "--batch", "4", "--prompt-len", "32",
+               "--gen", "16", "--seed", "0", "--device", DEVICE]
+LEGACY_KERNEL_POLICY = KERNEL_POLICIES["interactive"]
+LEGACY_KERNELS = ("transpose", "matmul_nn", "attention_fused")  # what that policy names
+REMAT_STEPS = 8  # ms/step is the median of steps 1-7: two steps read only the host's noise
+SERVE_LOAD_REQUESTS = 32  # serve_load's non-quick trace
+CHAOS_SPEC = "raise:PALLAS_NT.NT;raise:FUSED_ATTN.ATTN"
+CHAOS_ARMS = {("PALLAS_NT", "NT"), ("FUSED_ATTN", "ATTN")}
+
+
+def phase_legacy(torch, card):
+    """Phase 5a: ``launch.serve --legacy`` on smollm-135m at full config
+    (batch 4, 32-token prompts, 16 new) under the interactive kernel policy
+    and cuBLAS, bf16; then f32 at 2 layers (f32 cache), where the greedy
+    tokens of the two must be identical.  Returns its row and the kernel
+    runs' launches."""
+    import numpy as np
+
+    from repro_torch.kernels.common import reset_launches
+
+    t0 = time.perf_counter()
+    runs, launches = {}, {}
+    for label, extra in (("bf16", []), ("f32", ["--layers", "2", "--dtype", "float32",
+                                                "--cache-dtype", "float32"])):
+        for spec in (LEGACY_KERNEL_POLICY, CUBLAS_POLICY):
+            reset_launches()
+            t1 = time.perf_counter()
+            gen = serve(extra + ["--policy", spec], LEGACY_ARGS)
+            runs[(label, spec)] = (gen, time.perf_counter() - t1)
+            launches[(label, spec)] = launch_counts()
+            check(gen.shape == (4, 16) and int(gen.min()) >= 0 and int(gen.max()) < 49152,
+                  f"legacy {label} {spec}: tokens {gen.shape} in [{gen.min()}, {gen.max()}]")
+        check(all(launches[(label, LEGACY_KERNEL_POLICY)][k] > 0 for k in LEGACY_KERNELS),
+              f"legacy {label}: kernels not launched: {launches[(label, LEGACY_KERNEL_POLICY)]}")
+        check(not any(launches[(label, CUBLAS_POLICY)].values()),
+              f"legacy {label}: cuBLAS launched kernels: {launches[(label, CUBLAS_POLICY)]}")
+    f32_k, f32_x = runs[("f32", LEGACY_KERNEL_POLICY)][0], runs[("f32", CUBLAS_POLICY)][0]
+    check(np.array_equal(f32_k, f32_x), "legacy f32: the kernel policy's greedy tokens differ "
+          f"from cuBLAS's: {f32_k.tolist()} vs {f32_x.tolist()}")
+    bf16_k, bf16_x = runs[("bf16", LEGACY_KERNEL_POLICY)][0], runs[("bf16", CUBLAS_POLICY)][0]
+    row = {"phase": "legacy", "card": card, "arch": "smollm-135m", "batch": 4, "prompt_len": 32,
+           "gen": 16, "policies": [LEGACY_KERNEL_POLICY, CUBLAS_POLICY],
+           "bf16_greedy_agreement": float((bf16_k == bf16_x).mean()), "f32_identical": True,
+           "run_seconds": {f"{label} {spec}": t for (label, spec), (_, t) in runs.items()},
+           "seconds": time.perf_counter() - t0}
+    kernel_launches = {name: sum(launches[(label, LEGACY_KERNEL_POLICY)][name]
+                                 for label in ("bf16", "f32"))
+                       for name in launch_counts()}
+    return row, kernel_launches
+
+
+def phase_remat_dots(torch, card, train_row):
+    """Phase 7a: the fused train policy for REMAT_STEPS steps from phase
+    7's weights and batches (seed 0, ``launch/steps.py``'s train step, as
+    the launcher runs it) under remat="full" and remat="dots": step-0
+    loss and grad norm of "dots" within phase 7's gates of phase 7's
+    "full" run; under "dots" no NT/NN/TN GEMM runs in the recompute (the
+    forward's outputs are replayed, counted by dispatch), and the NT
+    dispatches saved are those "full" runs again; ms/step and peak
+    memory of both, over what was allocated before each run (the previous
+    run's state dropped first).  Returns its row and the "dots" run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.kernels.common import reset_launches
+    from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step
+    from repro_torch.models import lm
+
+    spec = TRAIN_POLICIES["fused"]
+    t0 = time.perf_counter()
+    metrics, times, nt, peak, counts, launches = {}, {}, {}, {}, {}, {}
+    for remat in ("full", "dots"):
+        cfg = get_config("smollm-135m").replace(remat=remat)
+        policy = policy_from_spec(spec)
+        step_fn = make_train_step(cfg, TrainStepConfig(total_steps=REMAT_STEPS), policy=policy)
+        gc.collect()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.REMAT_COUNTS.update(saved=0, replayed=0, recompute_gemms=0)
+        reset_launches()
+        state = init_train_state(cfg, lm.init_lm(0, cfg, device=DEVICE))
+        metrics[remat], times[remat] = [], []
+        for step in range(REMAT_STEPS):
+            batch = train_batch(torch, cfg, step)
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            metrics[remat].append({k: float(v) for k, v in m.items()})  # waits for the card
+            times[remat].append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated() - start) / 2 ** 30
+        del state, step_fn
+        counts[remat] = dict(engine.REMAT_COUNTS)
+        launches[remat] = launch_counts()
+        nt[remat] = sum(policy.stats.by_op.get("NT", {}).values())
+        check(all(math.isfinite(m["loss"]) for m in metrics[remat]),
+              f"remat={remat}: a non-finite loss")
+    ref = train_row["step0"][spec]
+    d0 = metrics["dots"][0]
+    check(rel(d0["loss"], ref["loss"]) <= LOSS_REL,
+          f"remat=dots: step-0 loss {d0['loss']} vs remat=full's {ref['loss']}")
+    check(rel(d0["grad_norm"], ref["grad_norm"]) <= GRAD_NORM_REL,
+          f"remat=dots: step-0 grad norm {d0['grad_norm']} vs remat=full's {ref['grad_norm']}")
+    dots = counts["dots"]
+    check(dots["recompute_gemms"] == 0, f"remat=dots: the recompute dispatched GEMMs: {dots}")
+    check(0 < dots["replayed"] <= dots["saved"], f"remat=dots: nothing replayed: {dots}")
+    check(nt["full"] - nt["dots"] == dots["replayed"],
+          f"remat=dots: NT dispatches {nt}, replayed {dots['replayed']}")
+    row = {"phase": "remat_dots", "card": card, "policy": spec, "steps": REMAT_STEPS,
+           "step0": {r: m[0] for r, m in metrics.items()},
+           "step0_loss_rel_vs_phase7": rel(d0["loss"], ref["loss"]),
+           "step0_grad_norm_rel_vs_phase7": rel(d0["grad_norm"], ref["grad_norm"]),
+           "ms_per_step": {r: statistics.median(t[1:]) * 1e3 for r, t in times.items()},
+           "step_ms_all": {r: [x * 1e3 for x in t] for r, t in times.items()},
+           "peak_gib_over_start": peak, "remat_counts": dots, "nt_dispatches": nt,
+           "matmul_tnn_fused_launches": {r: launches[r]["matmul_tnn_fused"] for r in launches},
+           "seconds": time.perf_counter() - t0}
+    check(launches["dots"]["matmul_tnn_fused"] < launches["full"]["matmul_tnn_fused"],
+          f"remat=dots launched the fused TNN no fewer times: {row['matmul_tnn_fused_launches']}")
+    return row, launches["dots"]
+
+
+def phase_serve_load(torch, card, out_dir):
+    """Phase 14: ``python -m repro_torch.benchmarks.serve_load --full`` in
+    process: smollm-135m at full config, bf16, seed 0, 32 requests of 1-48
+    prompt tokens and 2-24 new, 8 slots, max_seq 96, interactive under
+    autotune (measured at warmup into build/) and bulk under analytic.
+    Every request finishes, no step crashes, no class measures after
+    warmup, every measurement runs at its first try.  Returns its row and
+    launches."""
+    from repro_torch.benchmarks import serve_load
+    from repro_torch.kernels.common import reset_launches
+
+    cache = out_dir / "serve_load_autotune.json"
+    if cache.exists():
+        cache.unlink()
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
+    report_path = out_dir / "bench" / "serve_load.json"
+    report_path.parent.mkdir(parents=True, exist_ok=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = serve_load.main(["--full", "--device", DEVICE, "--seed", "0", "--out", str(report_path)])
+    launches = launch_counts()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"serve_load exited {rc}")
+    report = json.loads(report_path.read_text())
+    health = report["health"]
+    check(health["finished"] == SERVE_LOAD_REQUESTS and health["crashed_steps"] == 0,
+          f"serve_load: health {health}")
+    check(set(report["cold_misses_after_warmup"].values()) == {0},
+          f"serve_load: cold misses after warmup {report['cold_misses_after_warmup']}")
+    for cls, m in report["measurement"].items():
+        check(m["max_attempts"] in (None, 1) and not m["failures"],
+              f"serve_load class {cls}: measurement {m}")
+    check(report["measurement"]["interactive"]["max_attempts"] == 1,
+          "serve_load: the autotune class measured nothing at warmup")
+    row = {"phase": "serve_load", "card": card, "arch": report["arch"], "dtype": report["dtype"],
+           "seed": report["seed"], "requests": SERVE_LOAD_REQUESTS, "slots": report["n_slots"],
+           "max_seq": report["max_seq"], "trace": report["trace"], "warmup": report["warmup"],
+           "totals": report["totals"], "cold_misses_after_warmup":
+               report["cold_misses_after_warmup"],
+           "classes": {cls: {k: c[k] for k in ("policy", "requests", "tokens", "p50_ms",
+                                               "p99_ms", "mean_ms")}
+                       for cls, c in report["classes"].items()},
+           "tokens_per_s_by_class": {cls: c["tokens"] / report["totals"]["wall_s"]
+                                     for cls, c in report["classes"].items()},
+           "measurement": report["measurement"], "seconds": seconds}
+    for cls, c in row["classes"].items():
+        print(f"[serve_load] {cls}: {c['tokens']} tokens, p50 {c['p50_ms']:.2f} ms, "
+              f"p99 {c['p99_ms']:.2f} ms; total {report['totals']['tokens_per_s']} tokens/s "
+              f"on {card}", flush=True)
+    return row, launches
+
+
+def phase_faults(torch, card):
+    """Phase 15: the fault drill on the card, then smollm-135m at full
+    config served through launch.serve.main under phase 4's class
+    policies with --chaos CHAOS_SPEC: every request finishes, no step
+    crashes, the quarantine holds exactly the injected arms, neither the
+    direct NT kernel nor the fused attention kernel launches, and the
+    first-token logits of both (degraded) kernel policies pass phase 4's
+    gates against cuBLAS; the quarantine is cleared and must be empty.
+    Returns its row and launches."""
+    from repro_torch.benchmarks import fault_drill
+    from repro_torch.core import faults
+    from repro_torch.kernels.common import reset_launches
+
+    t0 = time.perf_counter()
+    faults.clear_quarantine()
+    reset_launches()
+    drill = fault_drill.fault_drill(device=DEVICE)
+    launches = launch_counts()
+    for case in drill["cases"]:
+        check(case["quarantined_arms"] == [f"NT:{fault_drill.CANDIDATE}"],
+              f"fault drill {case['case']}: quarantined {case['quarantined_arms']}")
+    check(len(drill["cases"]) == len(fault_drill.CASES), "the drill skipped a card case")
+    drill_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    reset_launches()
+    eng = serve(kernel_policy_args() + ["--chaos", CHAOS_SPEC])
+    chaos_launches = launch_counts()
+    check_engine(eng, 16, "chaos")
+    arms = {(e.name, e.op) for e in faults.quarantine_entries()}
+    check(arms == CHAOS_ARMS, f"chaos: quarantined {arms}, injected {CHAOS_ARMS}")
+    check(chaos_launches["matmul_nt"] == 0 and chaos_launches["attention_fused"] == 0,
+          f"chaos: a faulted kernel launched: {chaos_launches}")
+    check(chaos_launches["transpose"] > 0 and chaos_launches["matmul_nn"] > 0,
+          f"chaos: the interactive class's TNN kernels did not launch: {chaos_launches}")
+    served_fallbacks = dict(dispatch_health()["fallbacks"])
+    prompt = eng.requests[0].tokens
+    ref_logits = first_token_logits(torch, eng, CUBLAS_POLICY, prompt)
+    f32_logits = first_token_logits(torch, eng, CUBLAS_POLICY, prompt, torch.float32)
+    to_ref, to_f32 = {}, {CUBLAS_POLICY: rel_l2(ref_logits, f32_logits)}
+    for spec in KERNEL_POLICIES.values():
+        got = first_token_logits(torch, eng, spec, prompt)
+        to_ref[spec], to_f32[spec] = rel_l2(got, ref_logits), rel_l2(got, f32_logits)
+        limit = F32_DISTANCE_RATIO * to_f32[CUBLAS_POLICY] + F32_DISTANCE_FLOOR
+        check(to_ref[spec] <= LOGITS_REL_L2 and to_f32[spec] <= limit,
+              f"chaos: first-token logits under {spec}: rel L2 {to_ref[spec]} to cuBLAS, "
+              f"{to_f32[spec]} to f32 (limit {limit})")
+    ledger = [{"op": e.op, "arm": e.label(), "failures": e.count, "error": e.error}
+              for e in faults.quarantine_entries()]
+    chaos_launches = launch_counts()  # the serve run and the logits' forwards
+    check(chaos_launches["matmul_nt"] == 0 and chaos_launches["attention_fused"] == 0,
+          f"chaos: a quarantined kernel launched for the logits: {chaos_launches}")
+    faults.clear_quarantine()
+    check(not faults.quarantine_entries() and not faults.fallback_counts(),
+          "the quarantine did not clear")
+    row = {"phase": "faults", "card": card, "drill": drill["cases"], "drill_seconds": drill_s,
+           "chaos": {"spec": CHAOS_SPEC, "policies": KERNEL_POLICIES,
+                     "quarantine": ledger, "fallbacks": served_fallbacks,
+                     "health": eng.health(), "launches": {k: v for k, v in chaos_launches.items()
+                                                          if v},
+                     "first_token_rel_l2": to_ref, "first_token_rel_l2_to_f32": to_f32,
+                     "tokens_per_s": sum(len(r.generated) for r in eng.requests.values())
+                     / eng.run_seconds,
+                     "seconds": time.perf_counter() - t1},
+           "seconds": time.perf_counter() - t0}
+    return row, {k: launches[k] + chaos_launches[k] for k in launches}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
@@ -2310,7 +2634,7 @@ def main() -> int:
     # 1. device
     card = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": card, "name": name,
+    emit_phase({"phase": "device", "nvidia_smi": card, "name": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
@@ -2330,7 +2654,7 @@ def main() -> int:
                 kernel = ln.split("'")[1] if "'" in ln else ln.strip()
             elif "Used" in ln:
                 ptxas.append(f"{src} {kernel}: {ln.split(':', 1)[-1].strip()}")
-    emit({"phase": "build", "seconds": build_s, "sources": list(_build.SOURCES),
+    emit_phase({"phase": "build", "seconds": build_s, "sources": list(_build.SOURCES),
           "ptxas": ptxas})
 
     # 3. kernels vs plain
@@ -2342,7 +2666,7 @@ def main() -> int:
         rows.append(r)
         check(r["ok"], f"{kname} {label} {r['dtype']}: max_abs_err {r['err']} "
                        f"beyond atol {r['atol']} / rtol {r['rtol']}")
-    emit({"phase": "kernels", "card": card, "cases": rows, "seconds": time.perf_counter() - t0})
+    emit_phase({"phase": "kernels", "card": card, "cases": rows, "seconds": time.perf_counter() - t0})
     results["kernel_cases"] = rows
 
     # 4. serve smollm-135m, full config, bf16
@@ -2359,7 +2683,7 @@ def main() -> int:
 
     serve_row = {"phase": "serve", "card": card, "arch": "smollm-135m", "dtype": "bfloat16",
                  "launches": launches, **serve_gates_and_metrics(torch, eng_k, eng_x)}
-    emit(serve_row)
+    emit_phase(serve_row)
     results["serve"] = serve_row
     del eng_k, eng_x
 
@@ -2374,60 +2698,81 @@ def main() -> int:
     check_engine(e_k, 16, "f32 kernel policies")
     check_engine(e_x, 16, "f32 cuBLAS policy")
     check_identical_tokens(e_k, e_x, "f32")
-    emit({"phase": "exact", "layers": 2, "dtype": "float32",
-          "requests": len(e_k.requests), "identical": True})
+    emit_phase({"phase": "exact", "layers": 2, "dtype": "float32",
+                "requests": len(e_k.requests), "identical": True})
+    del e_k, e_x
+
+    # 5a. legacy: the fixed-batch prefill + greedy decode path
+    legacy_row, legacy_launches = phase_legacy(torch, card)
+    emit_phase(legacy_row)
+    results["legacy"] = legacy_row
 
     # 6. imports
     check("jax" not in sys.modules, "jax was imported")
 
     # 7. train smollm-135m, full config, bf16
     train_row, train_launches = phase_train(torch, card)
-    emit(train_row)
+    emit_phase(train_row)
     results["train"] = train_row
+
+    # 7a. remat="dots" against remat="full" under the fused policy
+    dots_row, dots_launches = phase_remat_dots(torch, card, train_row)
+    emit_phase(dots_row)
+    results["remat_dots"] = dots_row
 
     # 8. train_exact: f32, full width, 2 layers
     exact_row, train_exact_launches = phase_train_exact(torch)
-    emit(exact_row)
+    emit_phase(exact_row)
     results["train_exact"] = exact_row
 
     # 8a. arch: gemma3-4b served at full config; the other four trained
     arch_row, arch_serve_launches, arch_train_launches, arch_exact_launches = phase_arch(
         torch, card)
-    emit(arch_row)
+    emit_phase(arch_row)
     results["arch"] = arch_row
 
     # 8b. moe_ssm: mamba2 and zamba2 served at full config, grok-1 and kimi-k2
     # at full width; three of them trained
     moe_row, moe_serve_launches, moe_train_launches, moe_exact_launches = phase_moe_ssm(
         torch, card)
-    emit(moe_row)
+    emit_phase(moe_row)
     results["moe_ssm"] = moe_row
 
     # 9. selector: measure, train, save, load, select
     selector_row, artifacts, selector_launches = phase_selector(torch, card, out_dir)
-    emit(selector_row)
+    emit_phase(selector_row)
     results["selector"] = selector_row
 
     # 10. fcn: the paper's Table X, CaffeNT against CaffeMTNN
     fcn_row, fcn_launches = phase_fcn(torch, card, artifacts["float32"])
-    emit(fcn_row)
+    emit_phase(fcn_row)
     results["fcn"] = fcn_row
 
     # 11. model_policy: the default selector serving, the card's selector training
     mp_row, mp_serve_launches, mp_train_launches = phase_model_policy(
         torch, card, artifacts["bfloat16"], train_row)
-    emit(mp_row)
+    emit_phase(mp_row)
     results["model_policy"] = mp_row
 
     # 12. tiles: every config reaches its kernel; tuned tables; autotune warm
     tiles_row, tiles_launches = phase_tiles(torch, card, out_dir)
-    emit(tiles_row)
+    emit_phase(tiles_row)
     results["tiles"] = tiles_row
 
     # 13. bench: the paper's figures and tables on the card, the kernel sweep
     bench_row, bench_launches = phase_bench(torch, card, out_dir)
-    emit({k: v for k, v in bench_row.items() if not k.startswith("results")})
+    emit_phase({k: v for k, v in bench_row.items() if not k.startswith("results")})
     results["bench"] = bench_row
+
+    # 14. serve_load: the seeded serving traffic at full config
+    load_row, load_launches = phase_serve_load(torch, card, out_dir)
+    emit_phase(load_row)
+    results["serve_load"] = load_row
+
+    # 15. faults: the drill, and serving with kernel arms fault-injected
+    faults_row, faults_launches = phase_faults(torch, card)
+    emit_phase(faults_row)
+    results["faults"] = faults_row
     check("jax" not in sys.modules, "jax was imported")
 
     # the contract line: one row per kernel at a main-path shape; launches
@@ -2438,8 +2783,10 @@ def main() -> int:
     # kernel-policy serve runs, their f32 runs and three fused-policy
     # training runs, the selector's
     # measurements, the FCN runs, the runs under the learned policies, phase
-    # 12's tuned measurement and autotune serving run, and phase 13's
-    # benchmarks (each counted from 0).  The wide-head flash instances and
+    # 12's tuned measurement and autotune serving run, phase 13's
+    # benchmarks, phase 5a's two kernel-policy legacy runs, phase 7a's
+    # remat="dots" steps, phase 14's serving load and phase 15's drill and
+    # fault-injected serving run (each counted from 0).  The wide-head flash instances and
     # gemm_f32's routes have rows of their own: the flash kernel at each
     # wide head (gemma3's, zamba2's and h2o-danube's prefill) and gemm_f32's
     # two routes (grok-1's router at decode; stage 2 of the f32 TNN arm at a
@@ -2501,7 +2848,11 @@ def main() -> int:
                    "model_policy_serve": mp_serve_launches[cname],
                    "model_policy_train": mp_train_launches[cname],
                    "tiles": tiles_launches[cname],
-                   "bench": bench_launches[cname]}
+                   "bench": bench_launches[cname],
+                   "legacy": legacy_launches[cname],
+                   "remat_dots": dots_launches[cname],
+                   "serve_load": load_launches[cname],
+                   "faults": faults_launches[cname]}
         if cname in routes:
             check(sum(by_path.values()) > 0, f"{cname}: no main path launched it")
         kernels.append({

@@ -42,12 +42,15 @@ def measure_grid(
     reps: int = 3,
     tune: bool = False,
     queued: bool = False,
+    failures: Optional[Dict] = None,
 ) -> MeasurementCache:
     """Fill ``cache`` with ``measure_candidates`` of every candidate of each
     op in ``ops`` over the paper grid {2^lo..2^hi}^3 in ``dtype`` on
     ``device`` (the OOM guard skips what does not fit): each candidate's
-    own plan, and with ``tune`` its shortlisted tile configs too.  A
-    candidate that raises fails the call."""
+    own plan, and with ``tune`` its shortlisted tile configs too.  Each
+    entry keeps its try counts (``cache.get_attempts``); a pair that kept
+    failing is left out of its entry and, with ``failures``, recorded
+    there under its ``(op, m, n, k)``."""
     import torch
 
     dev = resolve_device(device)
@@ -55,9 +58,13 @@ def measure_grid(
     platform = current_platform(torch.empty(0, device=dev))
     for op in ops:
         for m, n, k in paper_grid(lo, hi):
+            attempts, dropped = {}, {}
             times = measure_candidates(m, n, k, dtype=dtype, op=op, hardware=hw,
-                                       reps=reps, device=dev, tune=tune, queued=queued)
-            cache.put((platform, hw.name, dtype, op, 1, m, n, k), times)
+                                       reps=reps, device=dev, tune=tune, queued=queued,
+                                       attempts=attempts, failures=dropped)
+            cache.put((platform, hw.name, dtype, op, 1, m, n, k), times, attempts=attempts)
+            if dropped and failures is not None:
+                failures[(op, m, n, k)] = dropped
     return cache
 
 

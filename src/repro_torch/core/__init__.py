@@ -1,7 +1,7 @@
 """repro_torch.core -- the dispatch engine, the candidate registry, the
 scoped selection policies, and the selector stack of the port: the
 analytic cost model, measurement, datasets, the GBDT and the MTNN
-selector."""
+selector; fault injection and the quarantine ledger (``faults``)."""
 
 from .candidates import (
     BINARY_PAIRS_BY_OP,
@@ -17,7 +17,16 @@ from .engine import (
     dispatch_attention,
     dispatch_batched,
     dispatch_report,
+    health_report,
     policy_from_spec,
+)
+from .faults import (
+    InjectedFault,
+    clear_quarantine,
+    inject_faults,
+    is_quarantined,
+    parse_chaos_spec,
+    quarantine_entries,
 )
 from .dataset import (
     SelectionDataset,
@@ -62,7 +71,14 @@ __all__ = [
     "dispatch_attention",
     "dispatch_batched",
     "dispatch_report",
+    "health_report",
     "policy_from_spec",
+    "InjectedFault",
+    "clear_quarantine",
+    "inject_faults",
+    "is_quarantined",
+    "parse_chaos_spec",
+    "quarantine_entries",
     "SelectionDataset",
     "collect_analytic",
     "collect_measured",

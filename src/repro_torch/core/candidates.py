@@ -62,6 +62,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from . import faults
 from .opkey import BATCHED_OPS, OPS, check_op
 
 __all__ = [
@@ -73,6 +74,7 @@ __all__ = [
     "current_platform",
     "candidate_fits_memory",
     "candidate_allowed",
+    "fallback_chain",
     "PAPER_PAIR",
     "DEFAULT_BY_OP",
     "BINARY_PAIRS_BY_OP",
@@ -244,14 +246,46 @@ def candidate_fits_memory(
 
 def candidate_allowed(
     cand: Candidate, distributed: bool, op: Optional[str] = None,
-    platform: Optional[str] = None,
+    platform: Optional[str] = None, config=None,
 ) -> bool:
-    """Distributed-safety + platform (+ op) filter.  ``platform`` is the
+    """Distributed-safety + platform (+ op) filter, plus the process-wide
+    quarantine ledger: an arm that failed at dispatch (``core/faults.py``)
+    stops being admissible everywhere -- every policy's selection and the
+    autotune measurement sweep route through here.  ``platform`` is the
     operands' (``current_platform``); None checks no platform, which every
-    port candidate passes anyway."""
+    port candidate passes anyway.  ``config`` asks about one tile of the
+    candidate: barred if that tile or the candidate's own plan is
+    quarantined."""
     if distributed and not cand.distributed_safe:
         return False
+    if op is not None and faults.is_quarantined(cand.name, op, config):
+        return False
     return cand.supports(platform=platform, op=op)
+
+
+def fallback_chain(op: str, name: Optional[str] = None) -> Tuple[str, ...]:
+    """The ordered candidate names dispatch tries when ``name`` fails on
+    ``op``: the selected candidate itself, then its binary-pair partner
+    (the paper's other arm), ending at the op's library reference
+    (``DEFAULT_BY_OP``: cuBLAS through torch, or the unfused attention
+    plan).  Every member implements ``op``; the engine attempts the last
+    one even when it is quarantined -- there is nothing beneath it."""
+    check_op(op)
+    default = DEFAULT_BY_OP[op]
+    chain: list = []
+    if name is not None and name != default:
+        cand = _REGISTRY.get(name)
+        if cand is not None and op in cand.ops:
+            chain.append(name)
+        pair = BINARY_PAIRS_BY_OP.get(op, ())
+        if name in pair:
+            partner = pair[1] if pair[0] == name else pair[0]
+            pc = _REGISTRY.get(partner)
+            if (partner != default and partner not in chain
+                    and pc is not None and op in pc.ops):
+                chain.append(partner)
+    chain.append(default)
+    return tuple(chain)
 
 
 # -- library arms: plain torch calls (cuBLAS on the card) ---------------------

@@ -37,22 +37,48 @@ PyTorch runs eagerly, so the policy selects on every call (the JAX
 engine selects once per key at trace time; the learned, analytic and
 autotune policies memoise per key); ``dispatch_report`` counts calls.
 With no ``use_policy`` block open, the default policy (the learned
-selector) decides.  A failing candidate raises: the JAX engine's
-fault-fallback chain is not ported (ROADMAP queue A, with ``faults.py``),
-so a kernel fault on the card can never hide behind a fallback.
+selector) decides.
+
+Fault tolerance is the JAX engine's: ``run_decision`` walks the
+decision's fallback chain -- the selected (candidate, tile), the same
+candidate at its own plan, its binary-pair partner, and the op's library
+reference (``candidates.fallback_chain``); the attention plan's chain
+ends at the unfused plan.  An arm that fails is quarantined for the
+process (``core/faults.py``; every policy's admissible set drops it),
+the next arm runs, and the fallback is counted (``health_report``).
+``DispatchError`` means every arm failed.  The chain degrades through
+two failures only: an injected fault (``--chaos``), and a tile that is
+not a plan of the call's route (``TileConfigError``), which sheds the
+tile for the same candidate's own plan and goes no further.  Anything
+else propagates with nothing quarantined -- a kernel that does not build
+or does not launch (``KernelBuildError``, ``KernelLaunchError``), a
+device allocation failure, a bug: a fault on the card must never hide
+behind the cuBLAS arm, and the ledger, keyed by no shape, must not bar a
+kernel at every shape for what one shape did.
+
+``remat="dots"`` (``models/lm.py``) saves the outputs of the non-batched
+GEMMs of a checkpointed unit and recomputes the rest: inside
+``remat_record`` each NT/NN/TN dispatch keeps its output, and inside
+``remat_replay`` (the recompute, in the backward) it returns them in
+call order instead of selecting and launching again.  ``REMAT_COUNTS``
+counts both, and any NT/NN/TN GEMM that ran during a replay.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import warnings
-from typing import Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
 from repro_torch.kernels.attention_fused import NEG_INF, MaskParams
+from repro_torch.kernels.common import TileConfigError
 from repro_torch.kernels.ref import attention_visibility
 
-from .candidates import DEFAULT_BY_OP, current_platform, get_candidate
+from . import faults
+from .candidates import DEFAULT_BY_OP, current_platform, fallback_chain, get_candidate
 from .opkey import BATCHED_OPS, OPS, OpKey, check_op
 from .policy import (
     AnalyticPolicy,
@@ -74,7 +100,12 @@ __all__ = [
     "dispatch_attention",
     "dispatch_batched",
     "dispatch_report",
+    "health_report",
     "run_decision",
+    "DispatchError",
+    "REMAT_COUNTS",
+    "remat_record",
+    "remat_replay",
     "policy_select",
     "policy_from_spec",
     "add_policy_argument",
@@ -82,6 +113,17 @@ __all__ = [
     "current_policy",
     "POLICY_SPEC_HELP",
 ]
+
+
+class DispatchError(RuntimeError):
+    """Every arm of an OpKey's fallback chain failed -- raised only when
+    even the op's library reference cannot run (the chain's last arm is
+    always attempted, quarantined or not)."""
+
+
+# What the fallback chain degrades through (``_degrades``); every other
+# exception propagates, a kernel that does not build or launch above all.
+_DEGRADABLE = (faults.InjectedFault, TileConfigError)
 
 POLICY_SPEC_HELP = (
     "dispatch policy: model[:artifact.json] | fixed:<NAME>[@BMxBNxBK] | "
@@ -119,7 +161,8 @@ def policy_select(policy: SelectionPolicy, key: OpKey, operands=()) -> Decision:
     larger buffer) take another route on some kernels, and where that
     route has no plan at the tile the policy runs the candidate's own plan
     (config None).  A fixed policy's tile is the caller's own and reaches
-    the wrapper, which raises where it has no plan."""
+    the wrapper; where it has no plan, the wrapper's ``TileConfigError``
+    sheds it for the candidate's own plan (``_walk_chain``)."""
     decision = policy.select(key)
     if isinstance(decision, str):
         raise TypeError(
@@ -142,17 +185,151 @@ def policy_select(policy: SelectionPolicy, key: OpKey, operands=()) -> Decision:
     return decision
 
 
+def _decision_chain(op: str, decision: Decision) -> List[Decision]:
+    """The decisions dispatch attempts, in order: the selected arm; the
+    same candidate at its own plan (an explicit tile is the most fragile
+    part of a decision, shed before the algorithm); then the registry's
+    fallback chain, ending at the op's library reference."""
+    chain = [decision]
+    if decision.config is not None:
+        chain.append(Decision(decision.name, None))
+    for name in fallback_chain(op, decision.name):
+        if name != decision.name:
+            chain.append(Decision(name, None))
+    return chain
+
+
+def _degrades(dec: Decision, e: BaseException) -> bool:
+    """Whether the chain goes on past ``dec`` after ``e`` (one of
+    ``_DEGRADABLE``): an injected fault always; a ``TileConfigError`` only
+    from an explicit tile, whose next arm is the same candidate's own
+    plan -- the own plan is a plan of every route, so a tile error there
+    is a bug and raises."""
+    return not (isinstance(e, TileConfigError) and dec.config is None)
+
+
+def _quarantine(op: str, dec: Decision, e: BaseException) -> None:
+    faults.quarantine(dec.name, op, dec.config, e)
+    _warn_once(
+        f"quarantined:{dec.label()}:{op}",
+        f"candidate {dec.label()!r} failed on op {op!r} "
+        f"({type(e).__name__}: {e}); quarantined for this process, "
+        "dispatch degrades down the fallback chain",
+    )
+
+
+def _walk_chain(key: OpKey, decision: Decision, run: Callable[[Decision], torch.Tensor]):
+    """Run ``decision`` down its fallback chain: quarantined arms are
+    skipped without an attempt (all but the last, which has nothing
+    beneath it); an arm that fails with a degradable error (``_degrades``)
+    is quarantined, warned once and left for the next; any other error
+    raises with nothing quarantined; a fallback taken is counted.  Raises ``DispatchError`` when every arm failed.  The chain
+    is built only once the selected arm is quarantined or has failed."""
+    last_err: Optional[BaseException] = None
+    if not faults.is_quarantined(decision.name, key.op, decision.config):
+        try:
+            faults.check_candidate_fault(decision.name, key.op)
+            return run(decision)
+        except _DEGRADABLE as e:
+            if not _degrades(decision, e):
+                raise
+            _quarantine(key.op, decision, e)
+            last_err = e
+    chain = _decision_chain(key.op, decision)
+    for i, dec in enumerate(chain):
+        if i == 0 and last_err is not None:
+            continue  # the selected arm, just failed
+        if i < len(chain) - 1 and faults.is_quarantined(dec.name, key.op, dec.config):
+            continue
+        try:
+            faults.check_candidate_fault(dec.name, key.op)
+            out = run(dec)
+        except _DEGRADABLE as e:
+            if not _degrades(dec, e):
+                raise
+            _quarantine(key.op, dec, e)
+            last_err = e
+            continue
+        if i:
+            faults.record_fallback(key.op, decision.label(), dec.label())
+        return out
+    raise DispatchError(
+        f"every arm of the fallback chain for {key} failed: "
+        f"{[d.label() for d in chain]}"
+    ) from last_err
+
+
 def run_decision(key: OpKey, decision: Decision, *operands):
-    """Execute a policy decision.  An exception from the candidate
-    propagates (no fallback chain in the port)."""
-    cand = get_candidate(decision.name)
+    """Execute a policy decision fault-tolerantly, down its fallback
+    chain (``_walk_chain``)."""
     platform = current_platform(operands[0])
-    if not cand.supports(platform=platform):
+
+    def run(dec: Decision) -> torch.Tensor:
+        cand = get_candidate(dec.name)
+        if not cand.supports(platform=platform):
+            raise RuntimeError(
+                f"candidate {dec.name!r} does not run on {platform!r} "
+                f"(runs on {cand.platforms})"
+            )
+        return cand.run(*operands, config=dec.config)
+
+    return _walk_chain(key, decision, run)
+
+
+# -- remat="dots": the non-batched GEMM outputs of a checkpointed unit ------------
+
+REMAT_COUNTS: Dict[str, int] = {"saved": 0, "replayed": 0, "recompute_gemms": 0}
+
+# (mode, records, [next index]) while a unit's forward records or its
+# recompute replays; None elsewhere
+_REMAT: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "repro_torch_remat", default=None)
+
+
+@contextlib.contextmanager
+def remat_record(records: list) -> Iterator[None]:
+    """Around a checkpointed unit's forward: every NT/NN/TN dispatch
+    appends ``(op, operand shapes, output)`` to ``records``."""
+    token = _REMAT.set(("record", records))
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
+
+
+@contextlib.contextmanager
+def remat_replay(records: list) -> Iterator[None]:
+    """Around the unit's recompute: the NT/NN/TN dispatches return the
+    outputs ``remat_record`` kept, in call order, without selecting or
+    launching; batched GEMMs and attention run again."""
+    token = _REMAT.set(("replay", records, [0]))
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
+
+
+def _dense_gemm(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A 2-D GEMM of a forward, through the remat mode in force."""
+    mode = _REMAT.get()
+    if mode is None:
+        return _run(op, a, b)
+    if mode[0] == "record":
+        out = _run(op, a, b)
+        mode[1].append((op, a.shape, b.shape, out.detach()))
+        REMAT_COUNTS["saved"] += 1
+        return out
+    records, nxt = mode[1], mode[2]
+    if nxt[0] >= len(records) or records[nxt[0]][:3] != (op, a.shape, b.shape):
+        got = records[nxt[0]][:3] if nxt[0] < len(records) else None
         raise RuntimeError(
-            f"candidate {decision.name!r} does not run on {platform!r} "
-            f"(runs on {cand.platforms})"
+            f"remat='dots' recompute dispatched {op} {tuple(a.shape)} x {tuple(b.shape)} "
+            f"where its forward had {got}: the unit is not deterministic"
         )
-    return cand.run(*operands, config=decision.config)
+    out = records[nxt[0]][3].detach()  # a fresh tensor for this recompute's graph
+    nxt[0] += 1
+    REMAT_COUNTS["replayed"] += 1
+    return out
 
 
 def _run(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -167,6 +344,9 @@ def _run(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         k, m = a.shape
         n = b.shape[1]
     key = OpKey(op, int(m), int(n), int(k), a.element_size())
+    mode = _REMAT.get()
+    if mode is not None and mode[0] == "replay":
+        REMAT_COUNTS["recompute_gemms"] += 1
     return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
 
 
@@ -201,7 +381,7 @@ class _Dispatch(torch.autograd.Function):
     def forward(ctx, op, a, b):
         ctx.op, ctx.scope = op, current_scope()
         ctx.save_for_backward(a, b)
-        return (_run3 if op in BATCHED_OPS else _run)(op, a, b)
+        return (_run3 if op in BATCHED_OPS else _dense_gemm)(op, a, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -266,19 +446,25 @@ def _unfused_attn_plan(mask, q, k, v, lengths):
 
 
 def _run_attn(mask: MaskParams, q, k, v, lengths):
-    """Select and execute the attention plan: ``FUSED_ATTN`` runs the
-    fused kernel with the mask inside; every other arm (``UNFUSED_ATTN``
-    included) runs the unfused sub-dispatch plan."""
+    """Select and execute the attention plan down its fallback chain:
+    ``FUSED_ATTN`` runs the fused kernel with the mask inside; every other
+    arm (``UNFUSED_ATTN``, the chain's last, included) runs the unfused
+    sub-dispatch plan, so a faulted fused kernel degrades to the BNT/BNN
+    pair."""
     g, m, dh = q.shape
     n = k.shape[1]
     key = OpKey("ATTN", int(m), int(n), int(dh), q.element_size(), int(g))
     decision = policy_select(current_policy(), key, (q, k, v))
-    if decision.name == "FUSED_ATTN":
-        from repro_torch.kernels.attention_fused import attention_fused
 
-        block = tuple(decision.config) if decision.config is not None else None
-        return attention_fused(q, k, v, lengths, mask=mask, block=block)
-    return _unfused_attn_plan(mask, q, k, v, lengths)
+    def run(dec: Decision) -> torch.Tensor:
+        if dec.name == "FUSED_ATTN":
+            from repro_torch.kernels.attention_fused import attention_fused
+
+            block = tuple(dec.config) if dec.config is not None else None
+            return attention_fused(q, k, v, lengths, mask=mask, block=block)
+        return _unfused_attn_plan(mask, q, k, v, lengths)
+
+    return _walk_chain(key, decision, run)
 
 
 class _DispatchAttn(torch.autograd.Function):
@@ -453,6 +639,12 @@ def dispatch_report(policy: Optional[SelectionPolicy] = None) -> str:
     pol = policy if policy is not None else current_policy()
     stats = pol.stats
     lines = [f"dispatch report — {pol!r}"]
+    quarantined = faults.quarantine_entries()
+    if quarantined:
+        lines.append(
+            f"  quarantined arms: {len(quarantined)} "
+            f"({', '.join(e.label() for e in quarantined)}) — see health_report()"
+        )
     if not stats.calls:
         lines.append("  (no dispatches recorded)")
         return "\n".join(lines)
@@ -470,6 +662,34 @@ def dispatch_report(policy: Optional[SelectionPolicy] = None) -> str:
             f"  {op:<4s} {label:<{width}s} {count:8d} {100.0 * count / stats.calls:6.1f}%"
         )
     lines.append(f"  {'':<4s} {'total':<{width}s} {stats.calls:8d}")
+    return "\n".join(lines)
+
+
+def health_report() -> str:
+    """Render the process-wide dispatch health: the armed fault-injection
+    rules, the quarantine ledger (which arms failed, how, how often) and
+    the fallbacks taken.  Returns the text; callers print it."""
+    lines = ["health report — dispatch fault tolerance"]
+    rules = faults.active_faults()
+    if rules:
+        lines.append(f"  fault injection: {len(rules)} armed rule(s)")
+        lines.extend(f"    {rule.describe()}" for rule in rules)
+    else:
+        lines.append("  fault injection: (none armed)")
+    entries = faults.quarantine_entries()
+    if entries:
+        lines.append(f"  quarantined arms: {len(entries)}")
+        for e in entries:
+            lines.append(f"    {e.op:<4s} {e.label():<24s} failures={e.count} [{e.error}]")
+    else:
+        lines.append("  quarantined arms: (none)")
+    fallbacks = faults.fallback_counts()
+    if fallbacks:
+        lines.append(f"  fallbacks taken: {sum(fallbacks.values())}")
+        for (op, selected, executed), n in sorted(fallbacks.items()):
+            lines.append(f"    {op:<4s} {selected} -> {executed} x{n}")
+    else:
+        lines.append("  fallbacks taken: (none)")
     return "\n".join(lines)
 
 

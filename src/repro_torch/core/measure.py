@@ -16,10 +16,18 @@ shortlist (``Candidate.config_space``); the rest once, under
 ``"default"``.  ``top_configs_by_candidate`` and ``tile_tables_from_cache``
 fold a filled cache into the per-shape tile tables of a selector
 artifact; ``measure_transpose_configs`` tunes the transpose kernel's
-instances on their own.  A candidate that raises while it is measured
-raises out of the measurement: nothing retries it, and nothing drops it
-from the result behind the caller's back.  The OOM guard skips a pair
-before it is launched.
+instances on their own.  A (candidate, config) pair hit by an injected
+fault (``--chaos``, the ``measure`` plane) while it is measured is
+retried with exponential backoff, as in the JAX package, and a pair that
+keeps failing is no measurement: it is left out of the result.  The
+caller sees both: ``attempts`` records the tries of every pair that was
+measured (the cache keeps it beside the entry) and ``failures`` the
+error of every pair that was left out.  Any other error -- a kernel that
+does not build or launch (``KernelBuildError``, ``KernelLaunchError``),
+a device allocation failure, a bug in a wrapper -- is never retried or
+left out: it raises, so autotune never picks cuBLAS because a kernel
+broke.  The OOM guard and the quarantine ledger skip a pair before it is
+launched.
 
 ``bench_fn`` times with CUDA events after a synchronize on the card and
 with ``time.perf_counter`` on the CPU.  Event time includes the host's
@@ -43,6 +51,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 from repro_torch.kernels.tiling import DEFAULT_CONFIG_KEY, config_key
 
+from . import faults
 from .candidates import (
     CANDIDATES,
     candidate_allowed,
@@ -242,6 +251,9 @@ class MeasurementCache:
         # share one cache across serving threads
         self._lock = threading.Lock()
         self._entries: Dict[MeasurementKey, Dict[str, Dict[str, float]]] = {}  # guarded-by: _lock
+        # per-measurement bench attempt counts (retry observability):
+        # {key: {name: {config_key: attempts}}} -- parallel to _entries
+        self._attempts: Dict[MeasurementKey, Dict[str, Dict[str, int]]] = {}  # guarded-by: _lock
         # (mtime_ns, size) of the file state we last loaded/wrote
         self._synced_sig: Optional[Tuple[int, int]] = None
 
@@ -256,7 +268,8 @@ class MeasurementCache:
             raise FileNotFoundError(f"measurement cache {path!r} does not exist")
         try:
             with open(path, "rb") as fh:
-                payload = json.loads(fh.read().decode("utf-8"))
+                raw = faults.corrupt_on_read("cache", fh.read())
+            payload = json.loads(raw.decode("utf-8"))
             if not isinstance(payload, dict):
                 raise ValueError(
                     f"measurement cache {path!r} is not a JSON object"
@@ -289,6 +302,16 @@ class MeasurementCache:
                 )
             except (ValueError, TypeError, AttributeError):
                 # recover: one rotten entry must not void the warm ones
+                if not recover:
+                    raise
+                n_bad += 1
+        for ks, per_cand in (payload.get("attempts") or {}).items():
+            try:
+                cache._attempts[_parse_key(ks, version)] = {
+                    str(name): {str(ck): int(n) for ck, n in cfgs.items()}
+                    for name, cfgs in per_cand.items()
+                }
+            except (ValueError, TypeError, AttributeError):
                 if not recover:
                     raise
                 n_bad += 1
@@ -330,6 +353,8 @@ class MeasurementCache:
                     if on_disk is not None:
                         for k, v in on_disk._entries.items():
                             self._entries.setdefault(k, v)
+                        for k, v in on_disk._attempts.items():
+                            self._attempts.setdefault(k, v)
                 payload = {
                     "schema_version": MEASURE_SCHEMA_VERSION,
                     "entries": {
@@ -337,6 +362,11 @@ class MeasurementCache:
                         for k, times in sorted(self._entries.items())
                     },
                 }
+                if self._attempts:
+                    payload["attempts"] = {
+                        _key_str(k): per_cand
+                        for k, per_cand in sorted(self._attempts.items())
+                    }
             # unique tmp per writer: a fixed sibling name would let two
             # unlocked writers truncate each other's half-written file
             fd, tmp = tempfile.mkstemp(
@@ -358,13 +388,25 @@ class MeasurementCache:
     def get(self, key) -> Optional[Dict[str, Dict[str, float]]]:
         return self._entries.get(_normalize_mkey(key))
 
-    def put(self, key, times: Dict) -> None:
+    def put(self, key, times: Dict, attempts: Optional[Dict] = None) -> None:
         """Store timings for one (op, shape).  Accepts the canonical nested
         times form or the flat v1 form (normalised under ``"default"``),
-        and legacy op-less 6-tuple keys (normalised to op="NT")."""
+        and legacy op-less 6-tuple keys (normalised to op="NT").
+        ``attempts`` optionally records the bench try count per
+        (candidate, config) alongside the entry."""
         mkey = _normalize_mkey(key)
         with self._lock:
             self._entries[mkey] = _normalize_times(times)
+            if attempts:
+                self._attempts[mkey] = {
+                    str(name): {str(ck): int(n) for ck, n in cfgs.items()}
+                    for name, cfgs in attempts.items()
+                }
+
+    def get_attempts(self, key) -> Optional[Dict[str, Dict[str, int]]]:
+        """Bench attempt counts recorded with an entry (None when none
+        were)."""
+        return self._attempts.get(_normalize_mkey(key))
 
     def records(
         self,
@@ -527,6 +569,10 @@ def measure_candidates(
     tune: bool = True,
     max_tile_configs: int = 4,
     queued: bool = False,
+    retries: int = 1,
+    retry_backoff_s: float = 0.02,
+    attempts: Optional[Dict[str, Dict[str, int]]] = None,
+    failures: Optional[Dict[str, Dict[str, str]]] = None,
 ) -> Dict[str, Dict[str, float]]:
     """Time every admissible (candidate, tile config) for one (op, g,
     shape) on ``device``; returns ``{name: {config_key: seconds}}``.
@@ -540,10 +586,18 @@ def measure_candidates(
     Admissibility is the shared guard set of ``candidates.py`` -- the
     paper's OOM check (extra-memory candidates must fit ``hardware``'s
     memory budget, default the device's own) and the distributed/platform
-    filter -- so a measurement never launches a pair the policies would
-    refuse; such a pair is skipped before it runs.  A candidate that
-    raises propagates its exception: a kernel fault on the card fails the
-    measurement."""
+    filter, and the quarantine ledger -- so a measurement never launches a
+    pair the policies would refuse; such a pair is skipped before it runs.
+
+    A pair hit by an injected fault (``faults.InjectedFault``) is retried
+    up to ``retries`` more times with exponential backoff from
+    ``retry_backoff_s``; a pair that keeps failing is not a measurement
+    and is left out (a candidate with no pair left is absent from the
+    result).  With ``attempts`` the try count of every measured pair is
+    recorded as ``{name: {config_key: n}}``, with ``failures`` the last
+    error of every pair left out.  Every other exception propagates at
+    its first raise, a kernel that does not build or launch
+    (``KernelBuildError``, ``KernelLaunchError``) above all."""
     import torch
 
     from repro_torch import resolve_device
@@ -573,11 +627,26 @@ def measure_candidates(
             if tune:
                 sweep += list(cand.config_space(m, n, k, dsize, max_configs=max_tile_configs,
                                                 hardware=hw, g=g))
-            times[name] = {
-                config_key(cfg): bench_fn(lambda *x, _c=cfg: cand.run(*x, config=_c),
-                                          *operands, reps=reps, warmup=warmup, queued=queued)
-                for cfg in sweep
-            }
+            entry: Dict[str, float] = {}
+            entry_tries: Dict[str, int] = {}
+            for cfg in sweep:
+                ck = config_key(cfg)
+                for n_try in range(1, retries + 2):
+                    try:
+                        faults.check_measure_fault(name, op)
+                        entry[ck] = bench_fn(lambda *x, _c=cfg: cand.run(*x, config=_c),
+                                             *operands, reps=reps, warmup=warmup, queued=queued)
+                        entry_tries[ck] = n_try
+                        break
+                    except faults.InjectedFault as e:  # nothing else is retried away
+                        if n_try <= retries:
+                            time.sleep(retry_backoff_s * 2 ** (n_try - 1))
+                        elif failures is not None:
+                            failures.setdefault(name, {})[ck] = f"{type(e).__name__}: {e}"
+            if entry:
+                times[name] = entry
+                if attempts is not None:
+                    attempts[name] = entry_tries
     return times
 
 

@@ -34,7 +34,9 @@ port's analytic tile choice.
 
 PyTorch runs eagerly, so a policy selects on every call (JAX selects
 once per key at trace time).  The learned, analytic and autotune policies
-memoise their decision per ``OpKey``; ``stats`` counts every call.
+memoise their decision per ``OpKey``, and drop their memos when the
+quarantine ledger changes (``faults.quarantine_epoch``), so a memo never
+brings back an arm that failed at dispatch; ``stats`` counts every call.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from typing import (
     runtime_checkable,
 )
 
+from . import faults
 from .candidates import (
     CANDIDATES,
     DEFAULT_BY_OP,
@@ -152,12 +155,16 @@ class PolicyBase:
         self.distributed = distributed
         self.mem_budget_frac = mem_budget_frac
         self.stats = SelectorStats()
+        # the memoising policies drop their memo when the quarantine ledger
+        # moved: a memo hit must never bring back an arm that has since been
+        # quarantined (or keep avoiding one that was cleared)
+        self._q_watch = faults.QuarantineWatch()
 
-    def _admissible(self, cand: Candidate, key: OpKey) -> bool:
+    def _admissible(self, cand: Candidate, key: OpKey, config=None) -> bool:
         return candidate_fits_memory(
             cand, key.m, key.n, key.k, key.dsize,
             self.hardware.mem_gib, self.mem_budget_frac, op=key.op, g=key.g,
-        ) and candidate_allowed(cand, self.distributed, op=key.op)
+        ) and candidate_allowed(cand, self.distributed, op=key.op, config=config)
 
     def select(self, key: OpKey) -> Decision:
         raise NotImplementedError
@@ -303,6 +310,8 @@ class AnalyticPolicy(PolicyBase):
         from .simulate import simulate_time
 
         key = coerce_key(key)
+        if self._q_watch.moved():
+            self._cache.clear()
         decision = self._cache.get(key)
         if decision is None:
             best_t, name = None, None
@@ -361,7 +370,7 @@ class CascadePolicy(PolicyBase):
         chosen = None
         for name, config in self.entries:
             cand = get_candidate(name)
-            if self._admissible(cand, key) and (
+            if self._admissible(cand, key, config) and (
                     config is None or cand.supports(op=key.op, config=config, shape=shape)):
                 chosen = Decision(name, config)
                 break
@@ -392,7 +401,11 @@ class AutotunePolicy(PolicyBase):
     measurement is disabled -- ``measure=False``, ``distributed=True``, a
     dtype width with no measurable dtype, or a key over
     ``max_measure_flops`` -- it answers with ``AnalyticPolicy``.  A
-    candidate that raises while it is measured raises out of ``select``.
+    (candidate, config) pair hit by an injected fault while it is
+    measured is retried with backoff and, if it keeps failing, dropped
+    from the measurement (``failures`` keeps its error); the try counts
+    persist beside the cache entry (``MeasurementCache.get_attempts``).
+    Any other error of a candidate raises out of ``select``.
 
     ``device`` is where measurements run (default ``cuda``; resolved at
     the first measurement, so building the policy needs no card).  Cache
@@ -451,7 +464,9 @@ class AutotunePolicy(PolicyBase):
             distributed=self.distributed,
             mem_budget_frac=self.mem_budget_frac,
         )
-        # observability: cold keys measured / warm hits / analytic fallbacks
+        # observability: cold keys measured / warm hits / analytic fallbacks,
+        # and the (candidate, config) pairs a measurement dropped
+        self.failures: Dict[str, Dict[str, str]] = {}
         self.n_measured = 0
         self.n_cache_hits = 0
         self.n_fallbacks = 0
@@ -469,6 +484,8 @@ class AutotunePolicy(PolicyBase):
         from .measure import DTYPE_BY_DSIZE, measure_candidates
 
         key = coerce_key(key)
+        if self._q_watch.moved():
+            self._decisions.clear()
         hit = self._decisions.get(key)
         if hit is not None:
             self.n_cache_hits += 1
@@ -489,6 +506,7 @@ class AutotunePolicy(PolicyBase):
         if times is not None:
             self.n_cache_hits += 1
         elif self._can_measure(dtype, 2.0 * key.g * key.m * key.n * key.k):
+            attempts: Dict[str, Dict[str, int]] = {}
             times = measure_candidates(
                 key.m, key.n, key.k,
                 dtype=dtype,
@@ -503,10 +521,12 @@ class AutotunePolicy(PolicyBase):
                 device=self.device,
                 max_tile_configs=self.max_tile_configs,
                 queued=True,
+                attempts=attempts,
+                failures=self.failures,
             )
             self.n_measured += 1
             if times:
-                self.cache.put(cache_key, times)
+                self.cache.put(cache_key, times, attempts=attempts)
                 if self.cache.path:
                     self.cache.save()
         decision = None
@@ -530,14 +550,14 @@ class AutotunePolicy(PolicyBase):
                         cfg = parse_config_key(cfg_key, arity=cand.config_arity)
                     except ValueError:
                         continue
-                    if cfg is not None and not cand.supports(config=cfg, shape=shape):
+                    if cfg is not None and not (cand.supports(config=cfg, shape=shape)
+                                                and self._admissible(cand, key, cfg)):
                         continue
                     if best is None or t < best:
                         best, decision = t, Decision(cand_name, cfg)
         if decision is None:
             self.n_fallbacks += 1
             decision = self.fallback.select(key)
-        # memoised either way: a measurement that failed raised instead
         self._decisions[key] = decision
         self.stats.record(decision.name, decision.config, op=key.op)
         return decision

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from . import faults
 from .candidates import (
     BINARY_PAIRS_BY_OP,
     CANDIDATES,
@@ -143,6 +144,7 @@ class MTNNSelector:
         # decision memo per OpKey: every port candidate runs on both
         # platforms, so admissibility does not depend on the operands'
         self._cache: Dict[OpKey, str] = {}
+        self._q_watch = faults.QuarantineWatch()
 
     def tile_config_for(
         self,
@@ -222,6 +224,9 @@ class MTNNSelector:
         O(trees*depth) walk on the first call per key; one dict lookup
         after that."""
         key = coerce_key(key)
+        # memoised decisions must not outlive a quarantine-ledger change
+        if self._q_watch.moved():
+            self._cache.clear()
         hit = self._cache.get(key)
         if hit is not None:
             self.stats.record(hit, None, op=key.op)
@@ -317,7 +322,8 @@ class MTNNSelector:
         is given."""
         try:
             with open(path, "rb") as fh:
-                payload = json.loads(fh.read().decode("utf-8"))
+                raw = faults.corrupt_on_read("artifact", fh.read())
+            payload = json.loads(raw.decode("utf-8"))
             if not isinstance(payload, dict):
                 raise ValueError(
                     f"selector artifact {path!r} is not a JSON object"

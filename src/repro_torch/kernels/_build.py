@@ -6,13 +6,16 @@ interface, ``build/repro_torch/lib<name>-<hash>.so`` under the checkout
 hash covers the source, the shared headers and the nvcc flags, so an
 edited source rebuilds and an unchanged one loads at once.  Nothing is
 built at import: the first CUDA launch calls ``build_all``, which starts
-one nvcc per missing library, all at once, and waits for them.  A failed
-nvcc raises with its output.
+one nvcc per missing library, all at once, and waits for them.  A missing
+nvcc or a failed one raises ``KernelBuildError`` (with nvcc's output).
 
 Calling convention: every pointer and the stream go as ``c_void_p`` (a
 bare Python int would be cut to 32 bits), ints as ``c_int``; each entry
-point returns ``cudaGetLastError()`` and ``launch`` raises when that is
-not 0.  Kernels allocate nothing: the wrappers allocate outputs with
+point returns ``cudaGetLastError()`` and ``launch`` raises
+``KernelLaunchError`` when that is not 0.  The dispatch engine's fallback
+chain re-raises both and quarantines neither: a kernel that does not
+build or launch is a fault of the card's path, never a reason to run the
+library arm in its place.  Kernels allocate nothing: the wrappers allocate outputs with
 ``torch.empty``.
 """
 
@@ -29,8 +32,16 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "build_dir", "library_path", "launch", "ptr",
-           "stream_of", "dtype_code"]
+__all__ = ["SOURCES", "KernelBuildError", "KernelLaunchError", "build_all", "build_dir",
+           "library_path", "launch", "ptr", "stream_of", "dtype_code"]
+
+
+class KernelBuildError(RuntimeError):
+    """The kernels could not be built: no nvcc, or nvcc failed."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a non-zero ``cudaError``."""
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("transpose", "matmul", "matmul_nt", "attention_fused", "matmul_tnn_fused",
@@ -88,7 +99,7 @@ def _nvcc() -> str:
                  os.path.join(home, "bin", "nvcc")):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (looked at $NVCC, PATH and $CUDA_HOME/bin): the "
         "port's CUDA kernels are compiled from csrc/ at first use"
     )
@@ -134,7 +145,7 @@ def _compile_missing() -> None:
         else:
             os.replace(tmp, target)
     if errors:
-        raise RuntimeError("\n\n".join(errors))
+        raise KernelBuildError("\n\n".join(errors))
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -166,7 +177,7 @@ def launch(name: str, fn: str, *args) -> None:
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
-        raise RuntimeError(f"{fn} failed to launch: {msg} (cudaError {rc})")
+        raise KernelLaunchError(f"{fn} failed to launch: {msg} (cudaError {rc})")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -34,6 +34,7 @@ __all__ = [
     "config_key",
     "parse_config_key",
     "validate_config",
+    "TileConfigError",
     "split_choices",
     "pick_plan",
     "KERNEL_DTYPES",
@@ -288,18 +289,25 @@ def split_choices(steps: int, max_splits: Optional[int] = None) -> Tuple[int, ..
     return tuple(pers)
 
 
+class TileConfigError(ValueError):
+    """A tile config that is not a plan of the route a call takes (or, for
+    the transpose, not one of its instances).  Raised before any launch;
+    the dispatch engine's fallback chain sheds the tile and runs the
+    candidate's own plan instead."""
+
+
 def pick_plan(plans: Tuple[Tuple[TileConfig, tuple], ...], block: Optional[TileConfig],
               what: str) -> tuple:
     """The plan of ``block`` in a route's ``(config, plan)`` pairs, the
     cost model's first (a plan's first item names the route): None picks
     that one; a config the route has no plan for raises ``ValueError``
-    naming the route and its configs."""
+    naming the route and its configs (``TileConfigError``)."""
     if block is None:
         return plans[0][1]
     for config, plan in plans:
         if config == block:
             return plan
-    raise ValueError(f"{what}, {plans[0][1][0]} route, has no plan for tile {tuple(block)}; "
+    raise TileConfigError(f"{what}, {plans[0][1][0]} route, has no plan for tile {tuple(block)}; "
                      f"its configs: {[c for c, _ in plans]}")
 
 

@@ -22,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build, ref
-from .common import check_operand, count_launch, route, validate_config
+from .common import TileConfigError, check_operand, count_launch, route, validate_config
 
 __all__ = ["transpose", "TRANSPOSE_INSTANCES", "check_transpose_config"]
 
@@ -36,7 +36,7 @@ _GRID_Y = 65535  # gridDim.y walks the row tiles
 def check_transpose_config(config: Sequence[int]) -> Tuple[int, int]:
     config = validate_config(config, arity=2)
     if config not in TRANSPOSE_INSTANCES:
-        raise ValueError(f"transpose kernel has no {config[0]}x{config[1]} instance; "
+        raise TileConfigError(f"transpose kernel has no {config[0]}x{config[1]} instance; "
                          f"instances (b_rows, b_cols): {TRANSPOSE_INSTANCES}")
     return config
 

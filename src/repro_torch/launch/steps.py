@@ -11,6 +11,11 @@ backward of every microbatch run in one ``use_policy`` block, as the JAX
 package wraps ``value_and_grad``, so the policy selects the gradient GEMMs
 too.  Updates are functional: the step returns new params and optimizer
 state and leaves its inputs as they were.
+
+``make_prefill_step(cfg, max_seq, policy)`` and ``make_serve_step(cfg,
+policy)`` are the fixed-batch serving steps of ``launch/serve.py
+--legacy``: ``lm_prefill`` of a rectangular batch, then one ``lm_decode``
+token at a time against its cache, each under ``use_policy(policy)``.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from repro_torch.optim import (
     warmup_cosine,
 )
 
-__all__ = ["TrainStepConfig", "make_train_step", "init_train_state", "loss_and_grads"]
+__all__ = ["TrainStepConfig", "make_train_step", "init_train_state", "loss_and_grads",
+           "make_prefill_step", "make_serve_step"]
 
 
 class TrainStepConfig:
@@ -123,3 +129,25 @@ def make_train_step(
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+def make_prefill_step(cfg, max_seq: int, policy: Optional[SelectionPolicy] = None,
+                      cache_dtype=torch.bfloat16) -> Callable:
+    """``prefill_step(params, batch) -> (logits, cache)``: ``lm_prefill``
+    of a rectangular batch into a ``max_seq`` cache of ``cache_dtype``
+    (bf16 by default, as in the JAX package)."""
+    def prefill_step(params, batch):
+        with torch.no_grad(), _policy_scope(policy):
+            return lm.lm_prefill(params, cfg, batch, max_seq=max_seq, cache_dtype=cache_dtype)
+
+    return prefill_step
+
+
+def make_serve_step(cfg, policy: Optional[SelectionPolicy] = None) -> Callable:
+    """``serve_step(params, cache, batch) -> (logits, cache)``: one
+    ``lm_decode`` token, the cache updated in place."""
+    def serve_step(params, cache, batch):
+        with torch.no_grad(), _policy_scope(policy):
+            return lm.lm_decode(params, cfg, cache, batch)
+
+    return serve_step

@@ -18,7 +18,9 @@ Example (CPU, reduced config):
 (musicgen-large) and ``vlm`` (paligemma-3b, whose ``--seq`` counts its
 patch prefix) ones included; each trains with the optimizer its config
 names (Adafactor for grok-1-314b and kimi-k2-1t-a32b, else AdamW).  The JAX launcher's flags, except that
-``--mesh`` takes ``1x1`` only and there is no ``--chaos``.  ``--device`` defaults to ``cuda`` and raises
+``--mesh`` takes ``1x1`` only.  ``--chaos SPEC`` arms fault injection
+for the run (``core/faults.py``), and ``health_report()`` is printed at
+the end.  ``--device`` defaults to ``cuda`` and raises
 when there is no card; ``--layers`` cuts the depth and ``--dtype`` sets
 the parameter dtype; weights are random from ``--seed``.  The default
 ``--policy model`` is the default learned selector; ``--policy autotune``
@@ -39,7 +41,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.core.engine import add_policy_argument, dispatch_report, policy_from_spec
+from repro_torch.core.engine import (
+    add_policy_argument,
+    dispatch_report,
+    health_report,
+    policy_from_spec,
+)
+from repro_torch.core.faults import add_chaos_argument, chaos_scope
 from repro_torch.data import make_train_batch
 from repro_torch.launch.serve import config_from_args
 from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step
@@ -89,6 +97,7 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="1x1", choices=("1x1",),
                     help="device mesh (this slice trains on one device)")
     add_policy_argument(ap)
+    add_chaos_argument(ap)
     return ap
 
 
@@ -105,6 +114,11 @@ def _to_device(batch, device) -> Dict[str, torch.Tensor]:
 def main(argv=None) -> TrainRun:
     ap = _build_parser()
     args = ap.parse_args(argv)
+    with chaos_scope(args.chaos):
+        return _run(args, ap)
+
+
+def _run(args, ap) -> TrainRun:
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     try:
@@ -155,6 +169,7 @@ def main(argv=None) -> TrainRun:
         print(f"[train] done: {len(run.times)} steps, "
               f"median {statistics.median(run.times) * 1e3:.0f} ms/step")
     print(dispatch_report(policy))
+    print(health_report())
     run.state = state
     return run
 

@@ -13,7 +13,13 @@ Entry points:
                  jax.random; ``repro_torch.convert`` carries JAX weights over)
   lm_forward     full-sequence logits; ``cfg.remat == "full"`` checkpoints
                  each layer unit, so its forward GEMMs run again in the
-                 backward (``jax.checkpoint`` in the JAX package)
+                 backward (``jax.checkpoint`` in the JAX package);
+                 ``"dots"`` checkpoints it too but keeps the outputs of
+                 its non-batched GEMMs (NT/NN/TN dispatches), which the
+                 recompute reuses instead of launching again, as the JAX
+                 package's ``dots_with_no_batch_dims_saveable`` policy
+                 saves them; the batched GEMMs, attention and every
+                 elementwise op are recomputed
   lm_loss        mean next-token cross-entropy of ``lm_forward`` (text
                  positions only under ``vlm``)
   lm_prefill     forward that also emits the decode cache
@@ -32,6 +38,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.core.engine import remat_record, remat_replay
 from repro_torch.core.policy import current_scope, resume_scope
 
 from .attention import init_attention
@@ -132,22 +139,33 @@ def _remat_contexts():
     return contextlib.nullcontext(), resume_scope(current_scope())
 
 
+@contextlib.contextmanager
+def _replaying(scope, records):
+    with resume_scope(scope), remat_replay(records):
+        yield
+
+
+def _dots_contexts():
+    """``remat="dots"`` checkpoint contexts: the forward records its
+    NT/NN/TN outputs, and the recompute replays them under the forward's
+    policy scope."""
+    records: list = []
+    return remat_record(records), _replaying(current_scope(), records)
+
+
 def _remat_wrap(fn, cfg):
     if cfg.remat == "none":
         return fn
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the dots, recompute the rest) is not ported "
-            "(ROADMAP.md queue A); use 'full' or 'none'"
-        )
-    if cfg.remat != "full":
+    if cfg.remat not in ("full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
+    contexts = _remat_contexts if cfg.remat == "full" else _dots_contexts
 
     def wrapped(x, *args):
-        # 'full': save only unit boundaries; the model draws no random numbers
+        # save only unit boundaries (and under 'dots' the unit's non-batched
+        # GEMM outputs); the model draws no random numbers
         return torch.utils.checkpoint.checkpoint(
             fn, x, *args, use_reentrant=False, preserve_rng_state=False,
-            context_fn=_remat_contexts,
+            context_fn=contexts,
         )
 
     return wrapped

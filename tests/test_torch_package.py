@@ -57,7 +57,10 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.configs.gemma3_4b, repro_torch.configs.paligemma_3b, "
         "repro_torch.kernels.tiling, repro_torch.benchmarks.run, "
         "repro_torch.benchmarks.kernel_sweep, repro_torch.examples.quickstart, "
-        "repro_torch.examples.collect_and_train_selector\n"
+        "repro_torch.examples.collect_and_train_selector, repro_torch.core.faults, "
+        "repro_torch.benchmarks.serve_load, repro_torch.benchmarks.bench_drift, "
+        "repro_torch.benchmarks.fault_drill, repro_torch.examples.serve_lm, "
+        "repro_torch.examples.arch_tour\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"
@@ -86,8 +89,12 @@ def test_entry_points_raise_on_cuda_without_a_card(no_card):
         serve.main(["--arch", "smollm-135m", "--smoke", "--policy", "fixed:XLA_NT"])
 
 
-@pytest.mark.parametrize("argv", [["--legacy"], ["--chaos", "raise:*"], ["--mesh", "2x4"]])
+@pytest.mark.parametrize("argv", [["--legacy", "--mesh", "2x4"],
+                                  ["--chaos", "raise:PALLAS_*", "--mesh", "1x2"],
+                                  ["--mesh", "2x4"]])
 def test_launcher_rejects_what_this_slice_does_not_serve(argv):
+    """``--legacy`` and ``--chaos`` are served (``tests/test_torch_launch.py``);
+    a mesh other than 1x1 is not, in either mode."""
     with pytest.raises(SystemExit):
         serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu"] + argv)
 
@@ -98,8 +105,10 @@ def test_train_launcher_raises_on_cuda_without_a_card(no_card):
                     "--policy", "fixed:XLA_NT"])
 
 
-@pytest.mark.parametrize("argv", [["--chaos", "raise:*"], ["--mesh", "2x4"]])
+@pytest.mark.parametrize("argv", [["--chaos", "raise:PALLAS_*", "--mesh", "2x2"],
+                                  ["--mesh", "2x4"]])
 def test_train_launcher_rejects_what_this_slice_does_not_train(argv):
+    """``--chaos`` is trained under; a mesh other than 1x1 is not."""
     with pytest.raises(SystemExit):
         train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1",
                     "--policy", "fixed:XLA_NT"] + argv)

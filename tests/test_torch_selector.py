@@ -6,8 +6,10 @@ six ops; the analytic and cascade policies pick the same names.  The
 stated difference: the port's decisions carry ``config=None`` (its
 candidates pick their own tiles).
 
-On a card, a candidate that raises while it is measured fails the
-measurement (``gpu`` marker: skipped without CUDA).  jax is imported in a
+A candidate that raises while it is measured fails its measurement: it
+is retried, then left out of the result with its error recorded, and
+never dispatched; a kernel that does not launch raises out of the
+measurement.  On a card too (``gpu`` marker: skipped without CUDA).  jax is imported in a
 fixture, so that test also runs where jax is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_selector.py``
 """
@@ -231,23 +233,56 @@ def test_measurement_oom_guard_skips_before_launch():
     assert set(times) == {"XLA_NT"} and not called
 
 
+BOOM_CALLS = []
+
+
 def _boom(a, b):
+    BOOM_CALLS.append(1)
     pcand.get_candidate("PALLAS_NT").run(a, b)
     raise RuntimeError("kernel fault")
 
 
+def _launch_refused(a, b):
+    from repro_torch.kernels._build import KernelLaunchError
+
+    raise KernelLaunchError("repro_matmul_nt failed to launch: kernel fault (cudaError 1)")
+
+
 def _measure_with_a_failing_candidate(device):
+    """A candidate that raises fails the measurement at its first try --
+    never retried, never dropped in favour of the library arm; only an
+    injected fault is retried and then left out."""
+    from repro_torch.core.faults import inject_faults
+
     pcand.register_candidate("BOOM_NT", sim_algo="NT_DIRECT")(_boom)
+    pcand.register_candidate("REFUSED_NT", sim_algo="NT_DIRECT")(_launch_refused)
     try:
+        BOOM_CALLS.clear()
+        attempts, failures = {}, {}
         with pytest.raises(RuntimeError, match="kernel fault"):
             pmeasure.measure_candidates(64, 64, 64, device=device,
-                                        candidates=("XLA_NT", "BOOM_NT"))
+                                        candidates=("XLA_NT", "BOOM_NT"), retries=2,
+                                        retry_backoff_s=0.001, attempts=attempts,
+                                        failures=failures)
+        assert len(BOOM_CALLS) == 1 and not failures
         pol = ppolicy.AutotunePolicy(candidates=("XLA_NT", "BOOM_NT"), device=device)
         with pytest.raises(RuntimeError, match="kernel fault"):
             pol.select(OpKey("NT", 64, 64, 64, 4))
-        assert len(pol.cache) == 0
+        assert len(pol.cache) == 0 and not pol.failures
+        with pytest.raises(RuntimeError, match="kernel fault"):
+            pmeasure.measure_candidates(64, 64, 64, device=device,
+                                        candidates=("XLA_NT", "REFUSED_NT"))
+        with inject_faults("raise:measure:cand=PALLAS_NT"):
+            times = pmeasure.measure_candidates(64, 64, 64, device=device, tune=False,
+                                                candidates=("XLA_NT", "PALLAS_NT"), retries=2,
+                                                retry_backoff_s=0.001, attempts=attempts,
+                                                failures=failures)
+        assert set(times) == {"XLA_NT"} and attempts == {"XLA_NT": {"default": 1}}
+        assert failures == {"PALLAS_NT": {"default": "InjectedFault: injected raise fault: "
+                                                     "measurement of PALLAS_NT on op NT"}}
     finally:
         pcand.unregister_candidate("BOOM_NT")
+        pcand.unregister_candidate("REFUSED_NT")
 
 
 def test_a_candidate_that_raises_fails_the_measurement():

@@ -27,7 +27,7 @@ from repro_torch.core import measure as pmeasure  # noqa: E402
 from repro_torch.core import selector as pselector  # noqa: E402
 from repro_torch.core.candidates import get_candidate  # noqa: E402
 from repro_torch.core.opkey import OpKey  # noqa: E402
-from repro_torch.core import engine  # noqa: E402
+from repro_torch.core import engine, faults  # noqa: E402
 from repro_torch.core.policy import (  # noqa: E402
     AutotunePolicy,
     CascadePolicy,
@@ -242,7 +242,9 @@ def test_tuned_tiles_give_way_to_operands_at_an_offset(op, a_shape, b_shape, dsi
     """A cascade's tile names a plan of aligned operands' route; operands at
     an offset take the FMA route, where the tile has no plan, so the policy
     runs the candidate's own plan.  A fixed policy's tile is the caller's:
-    the wrapper raises."""
+    the wrapper raises ``TileConfigError``, and dispatch's fallback chain
+    quarantines that tile and runs the candidate's own plan, as the JAX
+    engine degrades a failing tile."""
     rng = np.random.RandomState(6)
     a, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(DT[dsize])
             for s in (a_shape, b_shape))
@@ -259,10 +261,22 @@ def test_tuned_tiles_give_way_to_operands_at_an_offset(op, a_shape, b_shape, dsi
     with engine.use_policy(cascade):
         torch.testing.assert_close(run(a, b).float(), want, **_tol(dsize, k))
         torch.testing.assert_close(run(a_off, b_off).float(), want, **_tol(dsize, k))
-    with engine.use_policy(FixedPolicy(name, config=tile)):
-        torch.testing.assert_close(run(a, b).float(), want, **_tol(dsize, k))
-        with pytest.raises(ValueError, match="fma route, has no plan"):
-            run(a_off, b_off)
+    faults.clear_quarantine()
+    try:
+        with engine.use_policy(FixedPolicy(name, config=tile)):
+            torch.testing.assert_close(run(a, b).float(), want, **_tol(dsize, k))
+            with pytest.raises(common.TileConfigError, match="fma route, has no plan"):
+                get_candidate(name).run(a_off, b_off, config=tile)
+            assert not faults.quarantine_entries()
+            with pytest.warns(UserWarning, match="quarantined"):
+                torch.testing.assert_close(run(a_off, b_off).float(), want, **_tol(dsize, k))
+        (entry,) = faults.quarantine_entries()
+        assert (entry.name, entry.op, entry.config_key) == (name, op, tiling.config_key(tile))
+        assert "fma route, has no plan" in entry.error
+        label = f"{name}@{tiling.config_key(tile)}"
+        assert faults.fallback_counts() == {(op, label, name): 1}
+    finally:
+        faults.clear_quarantine()
 
 
 # -- every config of every space on the CPU route -----------------------------------------

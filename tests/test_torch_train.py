@@ -6,7 +6,8 @@ for token models and for the ``frames`` (musicgen-large) and ``vlm``
 (paligemma-3b: patches ahead of the text, the loss on the text only)
 input modes (``test_torch_train_moe_ssm.py`` runs these tests on the MoE,
 Mamba-2 and Zamba2 smoke configs); plus the port's own rules: remat, policy scope,
-accumulation, the checkpoint manager and a resumed launcher run.
+accumulation, the checkpoint manager and a resumed launcher run; and
+``remat="dots"`` against the JAX package's.
 
 Tolerances, f32 throughout.  Loss: rtol 1e-5 (one mean over B*S
 log-softmaxes of sums in another order).  Gradient leaves:
@@ -294,11 +295,40 @@ def test_schedules_match_jax():
             np.testing.assert_allclose(mine(step), float(theirs(jnp.int32(step))), rtol=1e-6)
 
 
-def test_unported_training_options_name_the_roadmap():
-    cfg = to_port_cfg(TINY_WINDOWED).replace(remat="dots")
-    _, params = converted_params(TINY_WINDOWED)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_and_grads(cfg, params, _t(_batches(cfg, 1)[0]), engine.policy_from_spec(CUBLAS))
+@pytest.mark.parametrize("spec", [KERNEL, CUBLAS])
+def test_remat_dots_gradients_match_jax_dots_and_none(spec):
+    """``remat="dots"`` keeps the unit's NT/NN/TN outputs and recomputes
+    the rest: the JAX package's ``dots_with_no_batch_dims_saveable``
+    gradients and the port's ``remat="none"`` ones, within ``_tol``, and
+    no non-batched GEMM dispatched twice (the recompute replays them)."""
+    jcfg = TINY_WINDOWED.replace(remat="dots")
+    jparams, params = converted_params(TINY_WINDOWED, seed=4)
+    cfg = to_port_cfg(jcfg)
+    batch = _batches(cfg, 1)[0]
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jlm.lm_loss(p, jcfg, b)[0]))
+    with jengine.use_policy(jengine.policy_from_spec(CUBLAS)):
+        jloss, jgrads = grad_fn(jparams, jax.tree.map(jnp.asarray, batch))
+    runs = {}
+    for remat in ("none", "dots"):
+        pol = engine.policy_from_spec(spec)
+        engine.REMAT_COUNTS.update(saved=0, replayed=0, recompute_gemms=0)
+        runs[remat] = loss_and_grads(cfg.replace(remat=remat), params, _t(batch), pol), pol
+        counts = dict(engine.REMAT_COUNTS)
+    (loss_d, g_d), pol_d = runs["dots"]
+    (loss_n, g_n), pol_n = runs["none"]
+    np.testing.assert_allclose(float(loss_d), float(jloss), rtol=1e-5)
+    assert float(loss_d) == float(loss_n)
+    for g, want, none in zip(_leaves(g_d), _leaves(jgrads), _leaves(g_n)):
+        np.testing.assert_allclose(g, want, rtol=1e-5, atol=1e-5 * (B * S) ** 0.5)
+        np.testing.assert_allclose(g, none, rtol=1e-5, atol=1e-5 * (B * S) ** 0.5)
+    # 7 NT dispatches a layer, each kept by the forward; the recompute
+    # replays them (up to the unit's last saved tensor) and launches none
+    assert counts["saved"] == 7 * cfg.n_layers and counts["recompute_gemms"] == 0
+    assert 0 < counts["replayed"] <= counts["saved"]
+    for op in ("NT", "NN", "TN"):
+        assert pol_d.stats.by_op[op] == pol_n.stats.by_op[op]
+    # attention is recomputed: its plan is selected once more per layer
+    assert sum(pol_d.stats.by_op["ATTN"].values()) == 2 * sum(pol_n.stats.by_op["ATTN"].values())
 
 
 def test_checkpoints_are_atomic_kept_and_skipped_when_torn(tmp_path):
