@@ -189,6 +189,45 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               degraded policies within phase 4's gates of cuBLAS; the
               quarantine cleared and empty afterwards
 
+ 16. mesh     the port's distribution layer on the card.  16a: a one-rank
+              NCCL process group: its all-reduce, all-gather, reduce-scatter
+              and broadcast leave a tensor as it was, and so do the
+              collective wrappers' own NCCL bodies (``*_in``) on it along
+              dim 1 and the wrappers over a mesh of one rank;
+              compressed_mean returns its input within half an int8 step.
+              16b: two gloo ranks sharing the card (NCCL refuses two ranks
+              on one device), each drawing the weights on a CUDA generator
+              seeded 0, under phase 7's fused kernel policy with the step of
+              tests/test_torch_distributed.py (lr 1e-3, warmup 1): first
+              every wrapper on CUDA tensors over each axis of 2x1 and 1x2
+              against the values of every rank's seeded input (sums within
+              1e-5 of the f64 sum, the rest and compressed_mean exact);
+              gemma3-4b at full width in two layers (one local, one global),
+              bf16, batch 4 x 256, accum 2, 3 steps on meshes 2x1 and 1x2
+              (ZeRO-1 over data, tensor parallelism over model, the
+              vocabulary split), each step's loss within 1e-2 and grad norm
+              within 5e-2 of the same run on one rank in this process;
+              smollm-135m at full config on 1x2, 2 steps, whose 9 heads make
+              every rank gather the q/k/v projections, step 0 against one
+              rank's by the same gates; in f32, smollm-135m at full width in
+              2 layers (phase 8's cut) on 2x1 (ZeRO-1's update) and gemma3-4b
+              in one global layer on 1x2, 2 steps each: every leaf within
+              relative L2 1e-4 of one rank's and each step's loss within
+              1e-5; gemma3's f32 run then serves 4 requests, 8 new tokens
+              each, under phase 4's class policies: every logits row it
+              gathers within relative max error 1e-4 of one rank's and the
+              greedy tokens identical.
+              Launches are counted from 0 on each rank before its mesh runs
+              and read before rank 0's one-rank references; the NT, fused
+              TNN, NN, transpose and attention kernels must launch on every
+              rank (their sum lands in launches_by_path["mesh"]).  The phase
+              prints its seconds and must finish within 150 s.
+              ``python3 chip_smoke.py --mesh-alone`` runs phase 16 alone
+              (after the build); ``--nccl-cards 4`` runs it alone on four
+              cards: four NCCL ranks, a card each, with every run above on
+              the 2x2 mesh (so every wrapper's NCCL body runs over groups of
+              2 and 4)
+
 Every phase's line carries the dispatch engine's fault ledger, its
 ``fallbacks`` and ``quarantined`` arms, and the run fails unless both are
 empty (phase 15 reports what its injected faults did under keys of its
@@ -2611,7 +2650,477 @@ def phase_faults(torch, card):
     return row, {k: launches[k] + chaos_launches[k] for k in launches}
 
 
+# -- phase 16: mesh ----------------------------------------------------------
+
+# gemma3-4b at full width in two layers (one local, one global: the ring and
+# the whole-sequence cache both), and in one global layer for the f32 checks
+MESH_BATCH, MESH_SEQ, MESH_ACCUM, MESH_STEPS = 4, 256, 2, 3
+MESH_SMOLLM_STEPS = 2
+MESH_F32_STEPS = 2
+# the step of tests/test_torch_distributed.py: an update large enough that a
+# wrong mean, piece or gather shows in the next step's metrics and leaves
+MESH_STEP = {"lr": 1e-3, "warmup": 1}
+MESH_REQUESTS, MESH_GEN, MESH_PROMPT, MESH_MAX_SEQ = 4, 8, 48, 2048
+MESH_LOGITS_REL = 1e-4  # f32 serving on a mesh against one rank: reduction order only
+MESH_SUM_REL = 1e-5  # a collective's f32 sum against the f64 sum of its inputs
+# the phase's limit: gloo stages every collective through the host, and
+# ZeRO-1 on 2x1 moves gemma3's ~0.9 B f32 gradients and bf16 params a step
+MESH_SECONDS = 150
+MESH_KERNELS = ("matmul_nt", "matmul_tnn_fused", "matmul_nn", "transpose", "attention_fused")
+# the meshes of each run: two gloo ranks sharing one card (16b), or four
+# NCCL ranks a card each (``--nccl-cards 4``)
+MESH_PLANS = {
+    "gloo": {"backend": "gloo", "world": 2, "collectives": ((2, 1), (1, 2)),
+             "gemma3": ((2, 1), (1, 2)), "smollm": (1, 2), "smollm_f32": (2, 1),
+             "gemma3_f32": (1, 2)},
+    "nccl": {"backend": "nccl", "world": 4, "collectives": ((2, 2),),
+             "gemma3": ((2, 2),), "smollm": (2, 2), "smollm_f32": (2, 2),
+             "gemma3_f32": (2, 2)},
+}
+
+
+def mesh_name(dm):
+    return f"{dm[0]}x{dm[1]}"
+
+
+def mesh_config(f32=False):
+    """gemma3-4b at full width: one local and one global layer in bf16, one
+    global layer in f32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma3-4b")
+    local, glob = cfg.segments[0][1][0], cfg.segments[0][1][-1]
+    if f32:
+        return cfg.replace(segments=((1, (glob,)),), param_dtype="float32")
+    return cfg.replace(segments=((1, (local, glob)),))
+
+
+def mesh_params(torch, cfg):
+    """``cfg``'s weights drawn on a CUDA generator seeded 0: the same on
+    every process and card."""
+    from repro_torch.models import lm
+
+    return lm.init_lm(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
+
+
+def mesh_train(torch, cfg, params, mesh, steps, batch, seq, accum, policy):
+    """``steps`` train steps (MESH_STEP) of ``cfg`` from full ``params`` on
+    ``mesh`` (None: one rank), the launcher's batches (seed 0) cut to this
+    rank's shard; returns (metrics, final state: this rank's pieces)."""
+    from repro_torch.distributed.sharding import batch_specs, param_specs, shard
+    from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step
+
+    if mesh is not None:
+        params = shard(params, param_specs(params, mesh), mesh)
+    state = init_train_state(cfg, params, mesh)
+    step_fn = make_train_step(cfg, TrainStepConfig(accum=accum, total_steps=steps, **MESH_STEP),
+                              policy=policy, mesh=mesh)
+    metrics = []
+    for i in range(steps):
+        b = train_batch_of(torch, cfg, i, batch, seq)
+        if mesh is not None:
+            b = shard(b, batch_specs(b, mesh), mesh)
+        state, m = step_fn(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, state
+
+
+def train_batch_of(torch, cfg, step, batch, seq):
+    from repro_torch.data import make_train_batch
+
+    return {k: torch.as_tensor(v, device=DEVICE).long()
+            for k, v in make_train_batch(cfg, seq, batch, step, seed=0).items()}
+
+
+class recorded_logits:
+    """In the block, every logits tensor that ``lm.gather_logits`` returns
+    (the serving engine's prefill and decode steps) is kept, its last
+    position over the vocabulary, on the host, in ``self.rows``."""
+
+    def __enter__(self):
+        from repro_torch.models import lm
+
+        self.lm, self.gather, self.rows = lm, lm.gather_logits, []
+
+        def record(cfg, logits):
+            out = self.gather(cfg, logits)
+            self.rows.append(out[:, -1, :cfg.vocab].float().cpu())
+            return out
+
+        lm.gather_logits = record
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.gather_logits = self.gather
+
+
+def logits_rel(torch, got, want):
+    """The largest relative max error over matching logits rows, the
+    padding rows' non-finite entries required to match."""
+    check(len(got) == len(want), f"{len(got)} logits steps against one rank's {len(want)}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        check(a.shape == b.shape and torch.equal(fa, fb),
+              "logits rows differ in shape or in where they are finite")
+        if fb.any():
+            worst = max(worst, float((a[fb] - b[fb]).abs().max() / b[fb].abs().max()))
+    return worst
+
+
+def mesh_serve(torch, cfg, params, mesh):
+    """MESH_REQUESTS seeded requests through ``ServeEngine`` under phase 4's
+    class policies on ``mesh`` (None: one rank); returns their tokens and
+    every logits row the engine gathered."""
+    import numpy as np
+
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.serving import ServeEngine
+
+    engine = ServeEngine(cfg, params, n_slots=4, max_seq=MESH_MAX_SEQ,
+                         policies={c: policy_from_spec(s) for c, s in KERNEL_POLICIES.items()},
+                         cache_dtype=getattr(torch, cfg.param_dtype), device=DEVICE, mesh=mesh)
+    engine.warmup()
+    rng = np.random.RandomState(0)
+    classes = sorted(KERNEL_POLICIES)
+    for i in range(MESH_REQUESTS):
+        prompt = rng.randint(0, cfg.vocab, (int(rng.randint(1, MESH_PROMPT + 1)),))
+        engine.submit(prompt, max_new=MESH_GEN, cls=classes[i % len(classes)])
+    with recorded_logits() as rec:
+        engine.run()
+    check_engine(engine, MESH_GEN, f"mesh {mesh!r} serving")
+    tokens = [r.generated for r in sorted(engine.requests.values(), key=lambda r: r.rid)]
+    return tokens, rec.rows
+
+
+def leaf_rel_l2(torch, a_tree, b_tree):
+    """(largest relative L2 distance over the leaves, that leaf's index)."""
+    from repro_torch.optim import tree_leaves
+
+    dists = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+             for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree))]
+    worst = max(range(len(dists)), key=dists.__getitem__)
+    return dists[worst], worst
+
+
+def mesh_collectives(torch, dm):
+    """Every collective wrapper on CUDA tensors over each axis set of a
+    ``dm`` mesh, against the value computed here from every rank's seeded
+    input: sums within MESH_SUM_REL of the f64 sum (the group's reduction
+    order), max, gathers, broadcasts and compressed_mean (the int8 payload
+    summed, the scales' max) exact.  Returns each sum's error."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(*dm)
+    xs = [torch.randn(6, 8 * mesh.size, 5, generator=torch.Generator().manual_seed(r))
+          for r in range(mesh.size)]
+    mine = xs[mesh.rank].to(DEVICE)
+    errs = {}
+    for axes in (("data",), ("model",), ("data", "model")):
+        S = mesh.axis_size(axes)
+        if S == 1:
+            continue
+        name = f"{mesh_name(dm)} {'+'.join(axes)}"
+        group = next(g for g in mesh.group_ranks(axes) if mesh.rank in g)
+        idx, part = mesh.axis_index(axes), xs[0].shape[1] // S
+        total = sum(xs[r].double() for r in group)
+        for label, got, want in (
+                ("all_reduce", C.all_reduce(mine, axes, mesh=mesh), total),
+                ("reduce_scatter", C.reduce_scatter(mine, axes, dim=1, mesh=mesh),
+                 total.narrow(1, idx * part, part))):
+            e = errs[f"{label} {name}"] = float((got.cpu().double() - want).abs().max()
+                                                / total.abs().max())
+            check(got.device == mine.device and e <= MESH_SUM_REL,
+                  f"{label} {name}: relative error {e} against the f64 sum")
+        check(torch.equal(
+            C.all_reduce(mine, axes, op="max", mesh=mesh).cpu(),
+            torch.stack([xs[r] for r in group]).amax(0)), f"all_reduce max {name}")
+        check(torch.equal(C.all_gather(mine, axes, dim=1, mesh=mesh).cpu(),
+                          torch.cat([xs[r] for r in group], dim=1)), f"all_gather {name}")
+        check(torch.equal(C.broadcast(mine, axes, src=S - 1, mesh=mesh).cpu(), xs[group[-1]]),
+              f"broadcast {name}")
+        qs = [C.quantize_int8(xs[r]) for r in group]
+        want = C.dequantize_int8(sum(q.to(torch.int32) for q, _ in qs),
+                                 torch.stack([s for _, s in qs]).amax(0),
+                                 xs[0].shape, torch.float32) / S
+        got = C.compressed_mean({"g": mine}, mesh, axes)["g"].cpu()
+        check(torch.equal(got, want), f"compressed_mean {name}: off by "
+              f"{float((got - want).abs().max())}")
+    return errs
+
+
+def mesh_rank(rank, world, store, out_dir, plan):
+    """One rank of phase 16's ``plan`` (MESH_PLANS): gloo ranks share card
+    0, NCCL ranks take a card each.  Writes its numbers and launch counts
+    to ``out_dir/rank<rank>.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    spec = MESH_PLANS[plan]
+    torch.cuda.set_device(rank if spec["backend"] == "nccl" else 0)
+    dist.init_process_group(spec["backend"], init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        row = mesh_rank_body(torch, rank, spec)
+        row.update(dispatch_health())
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
+
+
+def mesh_rank_body(torch, rank, spec):
+    """The mesh runs of one rank, its launches counted from 0 before them
+    and read after them; then, on rank 0, the f32 runs again on one rank
+    (outside the mesh and its counts) and their distances."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.distributed.sharding import param_specs, unshard
+    from repro_torch.kernels.common import reset_launches
+    from repro_torch.launch.common import check_shardable
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+
+    reset_launches()
+    row = {"rank": rank, "collectives": {}}
+    t0 = time.perf_counter()
+    for dm in spec["collectives"]:
+        row["collectives"].update(mesh_collectives(torch, dm))
+    row["collectives_s"] = time.perf_counter() - t0
+    policy = policy_from_spec(TRAIN_POLICIES["fused"])
+    cfg = mesh_config()
+    params = mesh_params(torch, cfg)
+    for dm in spec["gemma3"]:
+        mesh = make_local_mesh(*dm)
+        check_shardable(cfg, mesh)
+        t0 = time.perf_counter()
+        metrics, _ = mesh_train(torch, cfg, params, mesh, MESH_STEPS, MESH_BATCH, MESH_SEQ,
+                                MESH_ACCUM, policy)
+        row[f"gemma3_{mesh_name(dm)}"] = {"metrics": metrics,
+                                          "seconds": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    smollm = get_config("smollm-135m")
+    dm = spec["smollm"]
+    t0 = time.perf_counter()
+    metrics, _ = mesh_train(torch, smollm, lm.init_lm(0, smollm, device=DEVICE),
+                            make_local_mesh(*dm), MESH_SMOLLM_STEPS, TRAIN_BATCH, TRAIN_SEQ, 1,
+                            policy)
+    row["smollm"] = {"mesh": mesh_name(dm), "metrics": metrics,
+                     "seconds": time.perf_counter() - t0}
+
+    runs = {}  # f32 run -> (cfg, full params, gathered leaves after the run, logits)
+    # f32 at phase 8's depth: 2 layers (leaves after 2 AdamW steps follow
+    # the gradients' rounding, which grows with depth)
+    smollm32 = smollm.replace(segments=((2, smollm.segments[0][1]),), param_dtype="float32")
+    for key, cfg32 in (("smollm_f32", smollm32), ("gemma3_f32", mesh_config(f32=True))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        dm = spec[key]
+        mesh = make_local_mesh(*dm)
+        params32 = mesh_params(torch, cfg32)
+        t0 = time.perf_counter()
+        metrics, state = mesh_train(torch, cfg32, params32, mesh, MESH_F32_STEPS, MESH_BATCH,
+                                    MESH_SEQ, 1, policy)
+        t1 = time.perf_counter()
+        full = unshard(state["params"], param_specs(params32, mesh), mesh)
+        del state
+        row[key] = {"mesh": mesh_name(dm), "metrics": metrics, "train_s": t1 - t0,
+                    "unshard_s": time.perf_counter() - t1}
+        logits = None
+        if key == "gemma3_f32":
+            t1 = time.perf_counter()
+            row[key]["tokens"], logits = mesh_serve(torch, cfg32, params32, mesh)
+            row[key]["serve_s"] = time.perf_counter() - t1
+        row[key]["seconds"] = time.perf_counter() - t0
+        runs[key] = (cfg32, params32, full, logits)
+    row["launches"] = launch_counts()  # the mesh runs only
+
+    if rank == 0:  # one rank's runs of the same, outside the mesh
+        for key, (cfg32, params32, full, logits) in runs.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            metrics, state = mesh_train(torch, cfg32, params32, None, MESH_F32_STEPS,
+                                        MESH_BATCH, MESH_SEQ, 1, policy)
+            dist_, leaf = leaf_rel_l2(torch, full, state["params"])
+            one = {"metrics": metrics, "worst_leaf_rel_l2": dist_, "worst_leaf": leaf}
+            del state
+            if logits is not None:
+                one["tokens"], one_logits = mesh_serve(torch, cfg32, params32, None)
+                one["logits_rel"] = logits_rel(torch, logits, one_logits)
+            one["seconds"] = time.perf_counter() - t0
+            row[f"{key}_one_rank"] = one
+        runs.clear()
+    return row
+
+
+def mesh_one_rank_nccl(torch, out_dir):
+    """Phase 16a: NCCL's collectives, the wrappers' NCCL bodies and the
+    wrappers themselves over a one-rank group on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{out_dir / 'nccl_store'}", rank=0,
+                            world_size=1)
+    try:
+        x = torch.randn(4099, device=DEVICE)
+        for op in (lambda t: dist.all_reduce(t), lambda t: dist.broadcast(t, 0)):
+            y = x.clone()
+            op(y)
+            check(torch.equal(y, x), "NCCL all_reduce/broadcast over one rank changed its input")
+        g = torch.empty_like(x)
+        dist.all_gather_into_tensor(g, x)
+        dist.reduce_scatter_tensor(y, x)
+        check(torch.equal(g, x) and torch.equal(y, x), "NCCL all_gather/reduce_scatter over "
+              "one rank changed its input")
+        world = dist.group.WORLD
+        x3 = torch.randn(6, 10, 5, device=DEVICE)
+        for label, got in (("all_reduce_in", collectives.all_reduce_in(x3, world)),
+                           ("all_gather_in", collectives.all_gather_in(x3, world, 1, 1)),
+                           ("reduce_scatter_in", collectives.reduce_scatter_in(x3, world, 1, 0,
+                                                                               1)),
+                           ("broadcast_in", collectives.broadcast_in(x3, world, 0))):
+            check(got.device == x3.device and torch.equal(got, x3),
+                  f"{label} over a one-rank NCCL group changed its input")
+        mesh = make_local_mesh(1, 1)
+        collectives.reset_stats()
+        for fn in (lambda t: collectives.all_reduce(t, "data", mesh=mesh),
+                   lambda t: collectives.all_gather(t, "model", mesh=mesh),
+                   lambda t: collectives.reduce_scatter(t, "data", mesh=mesh),
+                   lambda t: collectives.broadcast(t, "model", mesh=mesh)):
+            check(torch.equal(fn(x), x), "a collective over a group of one changed its input")
+        grads = {"a": torch.randn(64, 33, device=DEVICE), "b": torch.randn(4099, device=DEVICE)}
+        got = collectives.compressed_mean(grads, mesh, ("data",))
+        int8_err = {}
+        for k, v in grads.items():
+            err = float((got[k] - v).abs().max())
+            scale = float(v.abs().max()) / 127.0
+            int8_err[k] = err
+            check(got[k].is_cuda and err <= 0.5 * scale + 1e-6,
+                  f"compressed_mean {k}: error {err} beyond half an int8 step {0.5 * scale}")
+        nccl_row = {"backend": dist.get_backend(), "int8_err": int8_err,
+                    "recorded": collectives.STATS.count}
+    finally:
+        dist.destroy_process_group()
+    return nccl_row
+
+
+def phase_mesh(torch, card, plan="gloo"):
+    """Phase 16: 16a the collectives on a one-rank NCCL group, then the
+    ranks of ``plan`` (MESH_PLANS: 16b's two gloo ranks sharing the card,
+    or four NCCL ranks a card each) against one rank's runs of the same
+    weights and batches.  Returns its row and the ranks' summed launches."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.models import lm
+
+    spec = MESH_PLANS[plan]
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    out_dir = ROOT / "build" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+
+    nccl_row = mesh_one_rank_nccl(torch, out_dir)  # 16a
+
+    # the one-rank bf16 references, from the same weights and batches
+    policy = policy_from_spec(TRAIN_POLICIES["fused"])
+    cfg = mesh_config()
+    t0 = time.perf_counter()
+    ref, _ = mesh_train(torch, cfg, mesh_params(torch, cfg), None, MESH_STEPS, MESH_BATCH,
+                        MESH_SEQ, MESH_ACCUM, policy)
+    smollm = get_config("smollm-135m")
+    smollm_ref, _ = mesh_train(torch, smollm, lm.init_lm(0, smollm, device=DEVICE), None, 1,
+                               TRAIN_BATCH, TRAIN_SEQ, 1, policy)
+    ref_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16b: the plan's ranks
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(spec["world"], str(out_dir / "store"), str(out_dir), plan),
+             nprocs=spec["world"], join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(spec["world"])]
+    for r in ranks:
+        check(not r["fallbacks"] and not r["quarantined"],
+              f"mesh rank {r['rank']}: dispatch fell back {r['fallbacks']}, "
+              f"quarantined {r['quarantined']}")
+        for k in MESH_KERNELS:
+            check(r["launches"][k] > 0, f"mesh rank {r['rank']} never launched {k}: "
+                  f"{r['launches']}")
+
+    def same_on_every_rank(key):
+        m0 = ranks[0][key]["metrics"]
+        check(all(m0 == r[key]["metrics"] for r in ranks), f"{key}: the ranks' metrics differ")
+        check(all(math.isfinite(m["loss"]) for m in m0), f"{key}: a non-finite loss")
+        return m0
+
+    gates = {}
+    for dm in spec["gemma3"]:
+        key = f"gemma3_{mesh_name(dm)}"
+        m0 = same_on_every_rank(key)
+        gates[key] = [{"loss_rel": rel(m["loss"], w["loss"]),
+                       "grad_norm_rel": rel(m["grad_norm"], w["grad_norm"])}
+                      for m, w in zip(m0, ref)]
+        check(len(m0) == len(ref) and all(
+            g["loss_rel"] <= LOSS_REL and g["grad_norm_rel"] <= GRAD_NORM_REL
+            for g in gates[key]), f"{key}: steps {m0} vs one rank's {ref}")
+    s0, w0 = same_on_every_rank("smollm")[0], smollm_ref[0]
+    gates["smollm"] = {"loss_rel": rel(s0["loss"], w0["loss"]),
+                       "grad_norm_rel": rel(s0["grad_norm"], w0["grad_norm"])}
+    check(gates["smollm"]["loss_rel"] <= LOSS_REL
+          and gates["smollm"]["grad_norm_rel"] <= GRAD_NORM_REL,
+          f"smollm-135m {ranks[0]['smollm']['mesh']}: step 0 {s0} vs one rank's {w0}")
+    for key in ("smollm_f32", "gemma3_f32"):
+        m0, one = same_on_every_rank(key), ranks[0][f"{key}_one_rank"]
+        gates[key] = {"worst_leaf_rel_l2": one["worst_leaf_rel_l2"],
+                      "worst_leaf": one["worst_leaf"],
+                      "loss_rel": [rel(m["loss"], w["loss"])
+                                   for m, w in zip(m0, one["metrics"])]}
+        check(one["worst_leaf_rel_l2"] <= EXACT_GRAD_REL_L2,
+              f"{key} {ranks[0][key]['mesh']}: leaf {one['worst_leaf']} after "
+              f"{MESH_F32_STEPS} steps is {one['worst_leaf_rel_l2']} from one rank's")
+        check(max(gates[key]["loss_rel"]) <= EXACT_LOSS_REL,
+              f"{key}: losses {m0} vs one rank's {one['metrics']}")
+    one = ranks[0]["gemma3_f32_one_rank"]
+    gates["gemma3_f32"]["logits_rel"] = one["logits_rel"]
+    check(one["logits_rel"] <= MESH_LOGITS_REL,
+          f"gemma3_f32 serving: logits {one['logits_rel']} from one rank's")
+    check(all(r["gemma3_f32"]["tokens"] == one["tokens"] for r in ranks),
+          f"gemma3_f32 serving: tokens {ranks[0]['gemma3_f32']['tokens']} vs one rank's "
+          f"{one['tokens']}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    seconds = time.perf_counter() - t_start
+    row = {"phase": "mesh", "card": card, "plan": plan, "seconds": seconds, "nccl": nccl_row,
+           "one_rank_ref_s": ref_s, "spawn_s": spawn_s, "reference": ref,
+           "smollm_reference": w0, "gates": gates,
+           "ranks": [{k: v for k, v in r.items() if k != "launches"} for r in ranks],
+           "launches_by_rank": [{k: v for k, v in r["launches"].items() if v} for r in ranks],
+           "launches": launches}
+    check(seconds <= MESH_SECONDS, f"phase 16 took {seconds:.0f} s, over {MESH_SECONDS} s")
+    return row, launches
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on the card (one card: every "
+                                 "phase).")
+    ap.add_argument("--mesh-alone", action="store_true",
+                    help="run phase 16 alone: two gloo ranks sharing the card")
+    ap.add_argument("--nccl-cards", type=int, choices=(MESH_PLANS["nccl"]["world"],),
+                    help="run phase 16 alone, with NCCL ranks a card each on the 2x2 mesh")
+    args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
               "from the root of a checkout", file=sys.stderr)
@@ -2656,6 +3165,19 @@ def main() -> int:
                 ptxas.append(f"{src} {kernel}: {ln.split(':', 1)[-1].strip()}")
     emit_phase({"phase": "build", "seconds": build_s, "sources": list(_build.SOURCES),
           "ptxas": ptxas})
+
+    if args.mesh_alone or args.nccl_cards:
+        check(torch.cuda.device_count() >= (args.nccl_cards or 1),
+              f"--nccl-cards {args.nccl_cards}: {torch.cuda.device_count()} cards present")
+        plan = "nccl" if args.nccl_cards else "gloo"
+        mesh_row, _ = phase_mesh(torch, card, plan=plan)
+        emit_phase(mesh_row)
+        (out_dir / f"chip_smoke_mesh_{plan}.json").write_text(json.dumps(mesh_row, indent=1))
+        check("jax" not in sys.modules, "jax was imported")
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # 3. kernels vs plain
     t0 = time.perf_counter()
@@ -2773,6 +3295,12 @@ def main() -> int:
     faults_row, faults_launches = phase_faults(torch, card)
     emit_phase(faults_row)
     results["faults"] = faults_row
+
+    # 16. mesh: collectives on a one-rank NCCL group; two gloo ranks training
+    # and serving on the card against one rank
+    mesh_row, mesh_launches = phase_mesh(torch, card)
+    emit_phase(mesh_row)
+    results["mesh"] = mesh_row
     check("jax" not in sys.modules, "jax was imported")
 
     # the contract line: one row per kernel at a main-path shape; launches
@@ -2785,8 +3313,9 @@ def main() -> int:
     # measurements, the FCN runs, the runs under the learned policies, phase
     # 12's tuned measurement and autotune serving run, phase 13's
     # benchmarks, phase 5a's two kernel-policy legacy runs, phase 7a's
-    # remat="dots" steps, phase 14's serving load and phase 15's drill and
-    # fault-injected serving run (each counted from 0).  The wide-head flash instances and
+    # remat="dots" steps, phase 14's serving load, phase 15's drill and
+    # fault-injected serving run and phase 16b's two ranks (each counted
+    # from 0).  The wide-head flash instances and
     # gemm_f32's routes have rows of their own: the flash kernel at each
     # wide head (gemma3's, zamba2's and h2o-danube's prefill) and gemm_f32's
     # two routes (grok-1's router at decode; stage 2 of the f32 TNN arm at a
@@ -2852,7 +3381,8 @@ def main() -> int:
                    "legacy": legacy_launches[cname],
                    "remat_dots": dots_launches[cname],
                    "serve_load": load_launches[cname],
-                   "faults": faults_launches[cname]}
+                   "faults": faults_launches[cname],
+                   "mesh": mesh_launches[cname]}
         if cname in routes:
             check(sum(by_path.values()) > 0, f"{cname}: no main path launched it")
         kernels.append({

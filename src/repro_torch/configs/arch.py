@@ -2,8 +2,12 @@
 
 ``segments`` is a tuple of ``(repeat, (BlockCfg, ...))``: the layer stack
 loops over each segment, one iteration applying the unit's blocks in
-order.  The fields are the JAX package's that the architectures set
-(its sharding and accounting fields have no counterpart on one device).
+order.  The fields are the JAX package's that the architectures set; its
+``sp_attention`` and ``unroll_segments`` have no counterpart here (the
+port's per-rank program has no sequence-parallel attention yet, and its
+layer stack is a Python loop, which the dry run's accounting counts
+whole).  ``param_count`` and ``active_param_count`` are the JAX
+package's formulas.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ class ArchConfig:
     # numerics: params in param_dtype, and activations follow them
     param_dtype: str = "bfloat16"
     # training: rematerialisation per layer unit and the optimizer
-    remat: str = "full"  # none | full ('dots' is not ported)
+    remat: str = "full"  # none | dots | full
     optimizer: str = "adamw"  # adamw | adafactor (the MoE giants)
     # capability flags
     sub_quadratic: bool = False  # eligible for long_500k
@@ -70,3 +74,52 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Exact parameter count (the number of elements ``init_lm`` makes)."""
+        d, dh = self.d_model, self.d_head
+        n = self.vocab_padded * d  # embedding
+        if not self.tie_embeddings:
+            n += self.vocab_padded * d
+        n += d  # final norm
+        attn = (self.n_heads * dh + 2 * self.n_kv * dh) * d + d * self.n_heads * dh
+        if self.qk_norm:
+            attn += 2 * dh
+        mlp = 3 * d * self.d_ff
+        for count, blocks in self.segments:
+            for b in blocks:
+                per = d  # ln1
+                if b.mixer == "attn":
+                    per += attn
+                elif b.mixer == "mamba":
+                    s = self.ssm
+                    di, N, H = s.d_inner, s.d_state, s.n_heads
+                    per += 2 * di * d + 2 * N * d + H * d  # z,x,B,C,dt proj
+                    per += s.d_conv * di + di  # conv
+                    per += 3 * H  # A_log, D, dt_bias
+                    per += di + d * di  # norm + out proj
+                if self.post_norm:
+                    per += d
+                if b.ffn == "mlp":
+                    per += d + mlp + (d if self.post_norm else 0)
+                elif b.ffn == "moe":
+                    m = self.moe
+                    per += d + m.n_experts * (3 * d * m.d_ff) + m.n_experts * d
+                    per += d if self.post_norm else 0
+                n += count * per
+        if any(b.mixer == "shared_attn" for _, bl in self.segments for b in bl):
+            n += attn  # one shared set
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        total = self.param_count()
+        moe_blocks = sum(
+            c * sum(1 for b in bl if b.ffn == "moe") for c, bl in self.segments
+        )
+        all_experts = moe_blocks * m.n_experts * 3 * self.d_model * m.d_ff
+        active = moe_blocks * m.top_k * 3 * self.d_model * m.d_ff
+        return total - all_experts + active

@@ -56,6 +56,12 @@ device allocation failure, a bug: a fault on the card must never hide
 behind the cuBLAS arm, and the ledger, keyed by no shape, must not bar a
 kernel at every shape for what one shape did.
 
+``account_dispatches(hook)`` (the dry run's ``launch/accounting.py``)
+calls ``hook(key, operands, out)`` once for each outermost dispatch --
+a GEMM or an attention plan, forward or backward -- whatever candidate
+ran it; the sub-dispatches of the unfused attention plan and the aten
+ops beneath a dispatch are inside it (``dispatch_depth() > 0``).
+
 ``remat="dots"`` (``models/lm.py``) saves the outputs of the non-batched
 GEMMs of a checkpointed unit and recomputes the rest: inside
 ``remat_record`` each NT/NN/TN dispatch keeps its output, and inside
@@ -112,6 +118,8 @@ __all__ = [
     "use_policy",
     "current_policy",
     "POLICY_SPEC_HELP",
+    "account_dispatches",
+    "dispatch_depth",
 ]
 
 
@@ -147,6 +155,44 @@ def _warn_once(tag: str, msg: str) -> None:
 
 def _spec_error(msg: str) -> ValueError:
     return ValueError(f"{msg} ({POLICY_SPEC_HELP})")
+
+
+# -- per-dispatch cost accounting ---------------------------------------------------
+
+_ACCOUNT: Optional[Callable] = None  # hook(key, operands, out), or None
+_DEPTH = [0]  # dispatches in progress (module-wide: backward threads too)
+
+
+@contextlib.contextmanager
+def account_dispatches(hook: Callable) -> Iterator[None]:
+    """Call ``hook(key, operands, out)`` for every outermost dispatch in
+    the block (the module docstring)."""
+    global _ACCOUNT
+    prev, _ACCOUNT = _ACCOUNT, hook
+    try:
+        yield
+    finally:
+        _ACCOUNT = prev
+
+
+def dispatch_depth() -> int:
+    """How many dispatches are in progress: 0 outside every one."""
+    return _DEPTH[0]
+
+
+def _accounted(key: OpKey, operands, fn: Callable, *args) -> torch.Tensor:
+    """``fn(*args)`` with the hook called on its result if it is an
+    outermost dispatch; the dispatchers call it only while accounting is
+    on, and ``fn`` directly otherwise."""
+    outer = _DEPTH[0] == 0
+    _DEPTH[0] += 1
+    try:
+        out = fn(*args)
+    finally:
+        _DEPTH[0] -= 1
+    if outer:
+        _ACCOUNT(key, operands, out)
+    return out
 
 
 def policy_select(policy: SelectionPolicy, key: OpKey, operands=()) -> Decision:
@@ -266,7 +312,8 @@ def run_decision(key: OpKey, decision: Decision, *operands):
 
     def run(dec: Decision) -> torch.Tensor:
         cand = get_candidate(dec.name)
-        if not cand.supports(platform=platform):
+        # every candidate takes meta operands (the kernel wrappers' meta route)
+        if platform != "meta" and not cand.supports(platform=platform):
             raise RuntimeError(
                 f"candidate {dec.name!r} does not run on {platform!r} "
                 f"(runs on {cand.platforms})"
@@ -347,6 +394,12 @@ def _run(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     mode = _REMAT.get()
     if mode is not None and mode[0] == "replay":
         REMAT_COUNTS["recompute_gemms"] += 1
+    if _ACCOUNT is not None:
+        return _accounted(key, (a, b), _select_gemm, key, a, b)
+    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
+
+
+def _select_gemm(key: OpKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
 
 
@@ -355,6 +408,8 @@ def _run3(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     g, m, k = a.shape
     n = b.shape[1] if op == "BNT" else b.shape[2]
     key = OpKey(op, int(m), int(n), int(k), a.element_size(), int(g))
+    if _ACCOUNT is not None:
+        return _accounted(key, (a, b), _select_gemm, key, a, b)
     return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
 
 
@@ -454,6 +509,12 @@ def _run_attn(mask: MaskParams, q, k, v, lengths):
     g, m, dh = q.shape
     n = k.shape[1]
     key = OpKey("ATTN", int(m), int(n), int(dh), q.element_size(), int(g))
+    if _ACCOUNT is not None:
+        return _accounted(key, (q, k, v, lengths), _select_attn, key, mask, q, k, v, lengths)
+    return _select_attn(key, mask, q, k, v, lengths)
+
+
+def _select_attn(key: OpKey, mask: MaskParams, q, k, v, lengths):
     decision = policy_select(current_policy(), key, (q, k, v))
 
     def run(dec: Decision) -> torch.Tensor:

@@ -237,12 +237,14 @@ def attention_fused(
     else:
         lengths = lengths.reshape(g).to(device=q.device, dtype=torch.int32).contiguous()
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    plain = route(q, k, v, lengths) == "plain"
-    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
+    r = route(q, k, v, lengths)
+    sms = H100_SMS if r != "kernel" else sm_count(torch.cuda.current_device())
     variant, splits, per = pick_plan(attention_plans(q.dtype, g, m, n, dh, aligned, sms), block,
                                      f"attention kernel at g={g} m={m} n={n} dh={dh} {q.dtype}")
-    if plain:
+    if r == "plain":
         return ref.attention_fused(q, k, v, lengths, mask)
+    if r == "meta":
+        return torch.empty_like(q)
     if variant != "decode_split":
         rows = _FMA_ROWS if variant == "fma" else _FLASH_ROWS
         if cdiv(m, rows) > _MAX_GRID_Y:

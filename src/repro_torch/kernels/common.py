@@ -325,14 +325,18 @@ def check_operand(name: str, x, ndim: int) -> None:
 
 
 def route(*tensors: torch.Tensor) -> str:
-    """``"plain"`` for CPU operands, ``"kernel"`` for CUDA operands; raises
-    on mixed devices or any other device type."""
+    """``"plain"`` for CPU operands, ``"kernel"`` for CUDA operands,
+    ``"meta"`` for meta operands (the dry run: the wrapper returns a meta
+    result of the right shape and dtype, and builds and launches nothing);
+    raises on mixed devices or any other device type."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands lie on different devices: {sorted(map(str, devices))}")
     dev = devices.pop()
     if dev.type == "cpu":
         return "plain"
+    if dev.type == "meta":
+        return "meta"
     if dev.type == "cuda":
         if dev.index is not None and dev.index != torch.cuda.current_device():
             raise RuntimeError(

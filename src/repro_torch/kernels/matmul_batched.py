@@ -132,9 +132,12 @@ def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
     if g != g2 or k != k2 or a.dtype != b.dtype:
         raise ValueError(f"batched operands mismatch: {tuple(a.shape)} {a.dtype} vs "
                          f"{tuple(b.shape)} {b.dtype} ({'BNT' if nt else 'BNN'})")
-    if route(a, b) == "plain":
+    r = route(a, b)
+    if r != "kernel":
         if block is not None:
             batched_plan(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(), H100_SMS, block)
+        if r == "meta":
+            return a.new_empty((g, m, n))
         return ref.matmul_bnt(a, b) if nt else ref.matmul_bnn(a, b)
     if g > _MAX_Z:
         raise ValueError(f"batched kernel takes at most {_MAX_Z} slices, got {g}")

@@ -174,12 +174,14 @@ def matmul_nn(
     if k != k2 or a.dtype != b.dtype:
         raise ValueError(f"NN operands mismatch: {tuple(a.shape)} {a.dtype} @ "
                          f"{tuple(b.shape)} {b.dtype}")
-    plain = route(a, b) == "plain"
-    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
+    r = route(a, b)
+    sms = H100_SMS if r != "kernel" else sm_count(torch.cuda.current_device())
     plan = nn_plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), sms, block)
     variant, bn, splits, per = plan
-    if plain:
+    if r == "plain":
         return ref.matmul_nn(a, b)
+    if r == "meta":
+        return a.new_empty((m, n))
     if m * n == 0:
         return torch.empty((m, n), dtype=a.dtype, device=a.device)
     if variant == "fma":

@@ -132,14 +132,16 @@ def matmul_nt(
     if k != k2 or a.dtype != b.dtype:
         raise ValueError(f"NT operands mismatch: {tuple(a.shape)} {a.dtype} @ "
                          f"{tuple(b.shape)}^T {b.dtype}")
-    plain = route(a, b) == "plain"
-    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
+    r = route(a, b)
+    sms = H100_SMS if r != "kernel" else sm_count(torch.cuda.current_device())
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     plan = pick_plan(nt_plans(m, n, k, a.dtype, aligned, sms), block,
                      f"NT kernel at ({m}, {n}, {k}) {a.dtype}")
     route_, _, splits, per = plan
-    if plain:
+    if r == "plain":
         return ref.matmul_nt(a, b)
+    if r == "meta":
+        return a.new_empty((m, n))
     if route_ == "fma":
         c = launch_matmul(a, b, m, n, k, b_stored_nk=True)
     elif a.dtype == torch.float32:

@@ -141,14 +141,16 @@ def matmul_tnn_fused(
     if k != k2 or a.dtype != b.dtype:
         raise ValueError(f"fused TNN operands mismatch: {tuple(a.shape)} {a.dtype} @ "
                          f"{tuple(b.shape)}^T {b.dtype}")
-    plain = route(a, b) == "plain"
-    sms = H100_SMS if plain else sm_count(torch.cuda.current_device())
+    r = route(a, b)
+    sms = H100_SMS if r != "kernel" else sm_count(torch.cuda.current_device())
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     variant, tile, splits, per = pick_plan(tnn_fused_plans(m, n, k, a.dtype, aligned, sms),
                                            block,
                                            f"fused TNN kernel at ({m}, {n}, {k}) {a.dtype}")
-    if plain:
+    if r == "plain":
         return ref.matmul_tnn_fused(a, b)
+    if r == "meta":
+        return a.new_empty((m, n))
     f32 = variant.startswith("f32_")
     if variant == "wgmma":
         if cdiv(m, _WG_BM) * cdiv(n, tile) > _MAX_TILES:

@@ -46,9 +46,12 @@ def transpose(b: torch.Tensor, *, block: Optional[Tuple[int, int]] = None) -> to
     (the 32x32 instance) or a (b_rows, b_cols) instance."""
     tile = TRANSPOSE_INSTANCES[0] if block is None else check_transpose_config(block)
     check_operand("b", b, 2)
-    if route(b) == "plain":
+    r = route(b)
+    if r == "plain":
         return ref.transpose(b)
     n, k = b.shape
+    if r == "meta":
+        return b.new_empty((k, n))
     if n > _GRID_Y * tile[0]:
         raise ValueError(f"transpose kernel takes at most {_GRID_Y * tile[0]} rows, got {n}")
     out = torch.empty((k, n), dtype=b.dtype, device=b.device)

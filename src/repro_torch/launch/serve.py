@@ -17,7 +17,10 @@ the ``frames`` and ``vlm`` ones, as the JAX engine does.  A windowed
 architecture's prompts bucket to multiples of its window (1024 for
 gemma3-4b), so ``--max-seq`` must hold one such bucket plus ``--gen``;
 the Mamba ones (mamba2, zamba2) prefill each prompt at its exact length.
-``--mesh`` takes ``1x1`` only.  ``--device`` defaults
+``--mesh DxM`` serves one rank's program per process under ``python -m
+torch.distributed.run --nproc-per-node D*M`` (``ServeEngine(mesh=)``;
+the legacy demo too): tensor parallelism over M, and the D data
+replicas serve the same requests.  ``--device`` defaults
 to ``cuda`` and raises when there is no card.  ``--layers`` cuts the
 depth and ``--dtype`` sets the parameter dtype; weights are random from
 ``--seed``.  The default ``--policy model`` is the default learned
@@ -47,7 +50,6 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.engine import (
     POLICY_SPEC_HELP,
@@ -57,7 +59,15 @@ from repro_torch.core.engine import (
     policy_from_spec,
 )
 from repro_torch.core.faults import add_chaos_argument, chaos_scope
+from repro_torch.distributed.sharding import param_specs, shard
+from repro_torch.launch.common import (
+    add_mesh_argument,
+    check_shardable,
+    parse_mesh,
+    setup_distributed,
+)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.serving.kv_cache import pool_specs
 from repro_torch.models import lm
 
 DEFAULT_CLASSES = ("interactive", "bulk")
@@ -100,8 +110,7 @@ def _build_parser() -> argparse.ArgumentParser:
                          "1..prompt-len tokens)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", default="1x1", choices=("1x1",),
-                    help="device mesh (this slice serves on one device)")
+    add_mesh_argument(ap)
     add_policy_argument(ap)
     add_chaos_argument(ap)
     return ap
@@ -123,6 +132,18 @@ def _class_policies(args, parser):
         parser.error(str(e))
 
 
+def _mesh(args, parser, cfg):
+    """The ``--mesh`` of this run (None for one rank): malformed specs exit
+    through ``parser.error``; an architecture this port cannot shard on it
+    raises ``NotImplementedError``."""
+    try:
+        mesh = parse_mesh(args.mesh)
+    except ValueError as e:
+        parser.error(str(e))
+    check_shardable(cfg, mesh)
+    return mesh if mesh.size > 1 else None
+
+
 def config_from_args(args):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
@@ -134,21 +155,22 @@ def config_from_args(args):
     return cfg
 
 
-def _engine_main(args, parser):
+def _engine_main(args, parser, device):
     from repro_torch.serving import QueueFullError, ServeEngine
 
-    device = resolve_device(args.device)
     cfg = config_from_args(args)
+    mesh = _mesh(args, parser, cfg)
     policies = _class_policies(args, parser)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     max_seq = args.max_seq or (args.prompt_len + args.gen)
     params = lm.init_lm(args.seed, cfg, device=device)
     engine = ServeEngine(
         cfg, params, n_slots=args.slots, max_seq=max_seq, policies=policies,
         budget_tokens=args.budget_tokens or None, max_queue=args.max_queue or None,
-        cache_dtype=getattr(torch, cfg.param_dtype), device=device,
+        cache_dtype=getattr(torch, cfg.param_dtype), device=device, mesh=mesh,
     )
     warm = engine.warmup()
-    print(f"[serve] warmup: {warm['shapes_run']} bucketed shapes — buckets "
+    say(f"[serve] warmup: {warm['shapes_run']} bucketed shapes — buckets "
           f"batch={engine.buckets.decode_batches} len_step={engine.buckets.len_step}")
 
     rng = np.random.RandomState(args.seed)
@@ -160,28 +182,28 @@ def _engine_main(args, parser):
             engine.submit(prompt, max_new=args.gen, cls=classes[i % len(classes)],
                           deadline_s=args.deadline_s)
         except QueueFullError:
-            print(f"[serve] request {i} rejected: admission queue full "
+            say(f"[serve] request {i} rejected: admission queue full "
                   f"(max_queue={engine.max_queue})")
     engine.run()
 
     lats = [t for r in engine.requests.values() for t in r.token_lat[1:]]
     n_tok = sum(len(r.generated) for r in engine.requests.values())
-    print(f"[serve] {args.requests} requests, {n_tok} tokens in "
+    say(f"[serve] {args.requests} requests, {n_tok} tokens in "
           f"{engine.run_seconds:.2f}s ({n_tok / max(engine.run_seconds, 1e-9):.1f} tok/s) "
           f"on {device}")
     if lats:
-        print(f"[serve] per-token decode latency: p50 {statistics.median(lats) * 1e3:.2f} ms, "
+        say(f"[serve] per-token decode latency: p50 {statistics.median(lats) * 1e3:.2f} ms, "
               f"max {max(lats) * 1e3:.2f} ms")
-    print(f"[serve] post-warmup cold-miss measurements: {engine.cold_misses()}")
+    say(f"[serve] post-warmup cold-miss measurements: {engine.cold_misses()}")
     health = engine.health()
-    print(f"[serve] health: finished={health['finished']} "
+    say(f"[serve] health: finished={health['finished']} "
           f"deadline_exceeded={health['deadline_exceeded']} evicted={health['evicted']} "
           f"crashed_steps={health['crashed_steps']} "
           f"rejected_submits={health['rejected_submits']}")
     for cls, report in sorted(engine.class_reports().items()):
-        print(f"[serve] class {cls!r}:")
-        print(report)
-    print(health_report())
+        say(f"[serve] class {cls!r}:")
+        say(report)
+    say(health_report())
     return engine
 
 
@@ -190,11 +212,11 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _legacy_main(args, parser):
+def _legacy_main(args, parser, device):
     """The fixed-batch demo: one prefill of ``--batch`` prompts, then
     ``--gen`` greedy decode steps; returns the (batch, gen) tokens."""
-    device = resolve_device(args.device)
     cfg = config_from_args(args)
+    mesh = _mesh(args, parser, cfg)
     try:
         policy = policy_from_spec(args.policy, device=args.device)
     except (ValueError, KeyError) as e:
@@ -203,6 +225,8 @@ def _legacy_main(args, parser):
     rng = np.random.RandomState(args.seed)
     B = args.batch
     params = lm.init_lm(args.seed, cfg, device=device)
+    if mesh is not None:
+        params = shard(params, param_specs(params, mesh), mesh)
     if cfg.input_mode == "frames":
         prompt = {"frames": torch.from_numpy(
             rng.randn(B, args.prompt_len, cfg.d_model).astype(np.float32) * 0.02).to(device)}
@@ -210,8 +234,10 @@ def _legacy_main(args, parser):
         prompt = {"tokens": torch.from_numpy(
             rng.randint(0, cfg.vocab, (B, args.prompt_len))).long().to(device)}
     prefill = make_prefill_step(cfg, max_seq=max_seq, policy=policy,
-                                cache_dtype=getattr(torch, args.cache_dtype or "bfloat16"))
-    serve = make_serve_step(cfg, policy=policy)
+                                cache_dtype=getattr(torch, args.cache_dtype or "bfloat16"),
+                                mesh=mesh)
+    serve = make_serve_step(cfg, policy=policy, mesh=mesh,
+                            cache_specs=pool_specs(cfg, B, max_seq, mesh) if mesh else None)
     t0 = time.perf_counter()
     logits, cache = prefill(params, prompt)
     _sync(device)
@@ -242,10 +268,17 @@ def _legacy_main(args, parser):
 def main(argv=None):
     parser = _build_parser()
     args = parser.parse_args(argv)
-    with chaos_scope(args.chaos):
-        if args.legacy:
-            return _legacy_main(args, parser)
-        return _engine_main(args, parser)
+    device, owned = setup_distributed(args)
+    try:
+        with chaos_scope(args.chaos):
+            if args.legacy:
+                return _legacy_main(args, parser, device)
+            return _engine_main(args, parser, device)
+    finally:
+        if owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,17 @@ state and leaves its inputs as they were.
 policy)`` are the fixed-batch serving steps of ``launch/serve.py
 --legacy``: ``lm_prefill`` of a rectangular batch, then one ``lm_decode``
 token at a time against its cache, each under ``use_policy(policy)``.
+
+With ``mesh=`` (``launch/mesh.py``) each step is one rank's program
+(``distributed/``): the state holds this rank's pieces under
+``train_state_specs`` (``shard_train_state`` cuts a full state to them,
+``unshard_train_state`` gathers it back), the batch is this rank's shard
+under ``batch_specs``, and the train step splits that shard into its
+microbatches, takes the gradient mean over the data axes and applies the
+ZeRO-1 update (``optim.adamw_update_zero1``).  The serving steps return
+the whole vocabulary's logits.  ``train_state_shapes``,
+``train_state_specs`` and ``shardings_for_train`` are the JAX package's,
+on meta tensors.
 """
 
 from __future__ import annotations
@@ -26,8 +37,23 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core.policy import SelectionPolicy, use_policy
+from repro_torch.distributed.collectives import all_reduce
+from repro_torch.distributed.context import mesh_scope
+from repro_torch.distributed.sharding import (
+    P,
+    batch_specs,
+    data_axes,
+    local_shape,
+    map_with_path,
+    opt_state_specs,
+    param_specs,
+    shard,
+    unshard,
+)
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
 from repro_torch.optim import (
+    adamw_update_zero1,
     clip_by_global_norm,
     make_optimizer,
     tree_leaves,
@@ -36,7 +62,8 @@ from repro_torch.optim import (
 )
 
 __all__ = ["TrainStepConfig", "make_train_step", "init_train_state", "loss_and_grads",
-           "make_prefill_step", "make_serve_step"]
+           "make_prefill_step", "make_serve_step", "train_state_shapes", "train_state_specs",
+           "shardings_for_train", "shard_train_state", "unshard_train_state"]
 
 
 class TrainStepConfig:
@@ -57,11 +84,60 @@ class TrainStepConfig:
         self.weight_decay = weight_decay
 
 
-def init_train_state(cfg, params) -> Dict:
-    """The train state of fresh ``params``: optimizer state and step 0."""
+def init_train_state(cfg, params, mesh=None) -> Dict:
+    """The train state of fresh ``params``: optimizer state and step 0.
+    With ``mesh``, ``params`` are this rank's pieces and the optimizer
+    state is this rank's zeros under ``train_state_specs``."""
     opt_init, _ = make_optimizer(cfg.optimizer)
-    return {"params": params, "opt": opt_init(params),
-            "step": torch.zeros((), dtype=torch.int32)}
+    if mesh is None:
+        return {"params": params, "opt": opt_init(params),
+                "step": torch.zeros((), dtype=torch.int32)}
+    shapes = train_state_shapes(cfg)
+    specs = train_state_specs(shapes, mesh)
+    device = tree_leaves(params)[0].device
+    opt = map_with_path(
+        lambda _, t, s: torch.zeros(local_shape(t.shape, s, mesh), dtype=t.dtype,
+                                    device=device if t.ndim else "cpu"),
+        shapes["opt"], specs["opt"])
+    return {"params": params, "opt": opt, "step": torch.zeros((), dtype=torch.int32)}
+
+
+def train_state_shapes(cfg) -> Dict:
+    """The full train state of ``cfg`` as meta tensors (no allocation);
+    the 0-d counters stay host tensors, which the optimizer reads."""
+    opt_init, _ = make_optimizer(cfg.optimizer)
+    params = lm.init_lm(0, cfg, device="meta")
+    state = {"params": params, "opt": opt_init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    return tree_map(lambda t: t.to("meta") if t.ndim else t, state)
+
+
+def train_state_specs(state_shapes, mesh) -> Dict:
+    return {
+        "params": param_specs(state_shapes["params"], mesh),
+        "opt": opt_state_specs(state_shapes["opt"], None, mesh),
+        "step": P(),
+    }
+
+
+def shardings_for_train(cfg, mesh, batch_shapes):
+    state_shapes = train_state_shapes(cfg)
+    state_specs = train_state_specs(state_shapes, mesh)
+    b_specs = batch_specs(batch_shapes, mesh)
+    metrics_specs = {"loss": P(), "grad_norm": P(), "lr": P()}
+    return state_shapes, state_specs, b_specs, metrics_specs
+
+
+def shard_train_state(cfg, state, mesh, rank=None) -> Dict:
+    """A full train state cut to rank ``rank``'s pieces (default: the
+    mesh's own)."""
+    return shard(state, train_state_specs(train_state_shapes(cfg), mesh), mesh, rank)
+
+
+def unshard_train_state(cfg, state, mesh) -> Dict:
+    """The full train state from every rank's pieces (a collective: every
+    rank of the mesh calls it), as a checkpoint keeps it."""
+    return unshard(state, train_state_specs(train_state_shapes(cfg), mesh), mesh)
 
 
 def _policy_scope(policy: Optional[SelectionPolicy]):
@@ -100,31 +176,59 @@ def make_train_step(
     cfg,
     step_cfg: Optional[TrainStepConfig] = None,
     policy: Optional[SelectionPolicy] = None,
+    mesh=None,
 ) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)``; with ``mesh`` one
+    rank's step (the module docstring).  AdamW always takes the ZeRO-1
+    update, on one rank over a mesh of one (every collective the
+    identity, every leaf whole); Adafactor, which no mesh larger than one
+    trains yet, clips and updates whole leaves."""
     sc = step_cfg or TrainStepConfig()
-    opt_kw = {"weight_decay": sc.weight_decay} if cfg.optimizer == "adamw" else {}
-    _, opt_update = make_optimizer(cfg.optimizer, **opt_kw)
     sched = warmup_cosine(sc.lr, sc.warmup, sc.total_steps)
+    zero1 = cfg.optimizer == "adamw"
+    if not zero1:
+        _, opt_update = make_optimizer(cfg.optimizer)
+    if mesh is not None:
+        from .common import check_shardable
 
-    def train_step(state, batch):
-        params = state["params"]
+        check_shardable(cfg, mesh)
+        specs = train_state_specs(train_state_shapes(cfg), mesh)
+    ranks = mesh if mesh is not None else Mesh((1, 1), ("data", "model"))
+    daxes = data_axes(ranks)
+
+    def _grads(params, batch):
+        """(loss, f32 gradients): the mean over ``batch``'s microbatches."""
         if sc.accum == 1:
             loss, grads = loss_and_grads(cfg, params, batch, policy)
-            grads = tree_map(lambda g: g.float(), grads)
-        else:
-            loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            for mb in _split_micro(batch, sc.accum):
-                loss_mb, g = loss_and_grads(cfg, params, mb, policy)
-                grads = tree_map(lambda a, b: a + b.float(), grads, g)
-                loss = loss + loss_mb
-            loss = loss / sc.accum
-            grads = tree_map(lambda g: g / sc.accum, grads)
-        with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, sc.max_grad_norm)
+            return loss, tree_map(lambda g: g.float(), grads)
+        loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        for mb in _split_micro(batch, sc.accum):
+            loss_mb, g = loss_and_grads(cfg, params, mb, policy)
+            grads = tree_map(lambda a, b: a + b.float(), grads, g)
+            loss = loss + loss_mb
+        return loss / sc.accum, tree_map(lambda g: g / sc.accum, grads)
+
+    def train_step(state, batch):
+        with mesh_scope(mesh):
+            params = state["params"]
+            loss, grads = _grads(params, batch)
+            loss = all_reduce(loss, daxes, mesh=ranks) / ranks.axis_size(daxes)
             lr = sched(int(state["step"]))
-            new_params, new_opt = opt_update(grads, state["opt"], params, lr)
+            if zero1:
+                if mesh is None:
+                    whole = tree_map(lambda p: P(*(None,) * p.ndim), params)
+                    p_specs, o_specs = whole, {"m": whole}
+                else:
+                    p_specs, o_specs = specs["params"], specs["opt"]
+                new_params, new_opt, gnorm = adamw_update_zero1(
+                    grads, state["opt"], params, lr, p_specs, o_specs, ranks,
+                    max_grad_norm=sc.max_grad_norm, weight_decay=sc.weight_decay)
+            else:
+                with torch.no_grad():
+                    grads, gnorm = clip_by_global_norm(grads, sc.max_grad_norm)
+                    new_params, new_opt = opt_update(grads, state["opt"], params, lr)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
@@ -132,22 +236,30 @@ def make_train_step(
 
 
 def make_prefill_step(cfg, max_seq: int, policy: Optional[SelectionPolicy] = None,
-                      cache_dtype=torch.bfloat16) -> Callable:
+                      cache_dtype=torch.bfloat16, mesh=None) -> Callable:
     """``prefill_step(params, batch) -> (logits, cache)``: ``lm_prefill``
     of a rectangular batch into a ``max_seq`` cache of ``cache_dtype``
-    (bf16 by default, as in the JAX package)."""
+    (bf16 by default, as in the JAX package); with ``mesh``, this rank's
+    pieces of the params and the cache, and the whole vocabulary's
+    logits."""
     def prefill_step(params, batch):
-        with torch.no_grad(), _policy_scope(policy):
-            return lm.lm_prefill(params, cfg, batch, max_seq=max_seq, cache_dtype=cache_dtype)
+        with torch.no_grad(), _policy_scope(policy), mesh_scope(mesh):
+            logits, cache = lm.lm_prefill(params, cfg, batch, max_seq=max_seq,
+                                          cache_dtype=cache_dtype)
+            return lm.gather_logits(cfg, logits), cache
 
     return prefill_step
 
 
-def make_serve_step(cfg, policy: Optional[SelectionPolicy] = None) -> Callable:
+def make_serve_step(cfg, policy: Optional[SelectionPolicy] = None, mesh=None,
+                    cache_specs=None) -> Callable:
     """``serve_step(params, cache, batch) -> (logits, cache)``: one
-    ``lm_decode`` token, the cache updated in place."""
+    ``lm_decode`` token, the cache updated in place; with ``mesh`` (and
+    ``cache_specs``, the specs of the cache ``make_prefill_step`` made:
+    ``serving.kv_cache.pool_specs``) as ``make_prefill_step``."""
     def serve_step(params, cache, batch):
-        with torch.no_grad(), _policy_scope(policy):
-            return lm.lm_decode(params, cfg, cache, batch)
+        with torch.no_grad(), _policy_scope(policy), mesh_scope(mesh):
+            logits, cache = lm.lm_decode(params, cfg, cache, batch, cache_specs=cache_specs)
+            return lm.gather_logits(cfg, logits), cache
 
     return serve_step

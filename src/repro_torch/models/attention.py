@@ -12,10 +12,24 @@ the unfused plan.  The leading ``(batch, kv)`` axes collapse to the
 OpKey's batch extent ``g`` and the GQA group folds into the per-slice
 query extent (declared with ``q_seg``), so K/V are never materialised at
 ``n_heads`` width.
+
+Tensor parallelism (``layers.dense_tp``).  When the ``model`` axis splits
+wq, wk and wv along their outputs and divides both head counts, each
+rank attends its own heads, and wo sums the ranks' partial outputs.
+Where a split misses a head boundary -- smollm-135m's 9 heads and 3 kv
+heads over 2 ranks, whose 576- and 192-wide outputs the rules still
+split -- the projections' outputs are gathered before the head reshape,
+every rank attends every head, and wo takes this rank's columns of the
+result.  Decode caches follow ``distributed.sharding.cache_specs_tree``:
+kv heads over ``model`` when they divide it, else the slots (and the
+slots over the data axes when the batch does not divide them); a
+slot-split cache is written by the rank that owns the new position's
+slot and gathered whole for attention.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -23,8 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dispatch_attention
+from repro_torch.distributed.collectives import all_gather, copy_to_group, gather_from_group
+from repro_torch.distributed.context import current_mesh, model_size
+from repro_torch.distributed.sharding import _spec_for_cache, spec_axes
+from repro_torch.launch.mesh import Mesh
 
-from .layers import Param, dense, init_dense, init_rmsnorm, rmsnorm
+from .layers import Param, dense, dense_tp, init_dense, init_rmsnorm, rmsnorm, tp_mesh, weight_dim
 from .rope import apply_rope
 
 __all__ = [
@@ -68,21 +86,81 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
     return p
 
 
+@dataclass(frozen=True)
+class _Split:
+    """How the ``model`` axis splits one attention layer: the split dim of
+    wq, wk, wv and wo (``layers.weight_dim``) and whether each rank
+    attends its own heads (``local``)."""
+
+    dims: Tuple[Optional[int], ...]
+    local: bool
+    m: int
+
+
+def _split(cfg: AttnConfig) -> Optional[_Split]:
+    mesh = tp_mesh()
+    if mesh is None:
+        return None
+    m = model_size(mesh)
+    d, qw, kw = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv * cfg.d_head
+    dims = tuple(weight_dim((n, "w"), shape) for n, shape in
+                 (("wq", (qw, d)), ("wk", (kw, d)), ("wv", (kw, d)), ("wo", (d, qw))))
+    local = dims[:3] == (0, 0, 0) and cfg.n_heads % m == 0 and cfg.n_kv % m == 0
+    return _Split(dims, local, m)
+
+
+def _slots_split(cfg: AttnConfig, sp: _Split, batch: int, slots: int) -> bool:
+    """Whether the cache's slot dim of ``slots`` (full extent) is split
+    over ``model``: the cache rules on the mesh's model axis."""
+    spec = _spec_for_cache(("k",), (1, batch, slots, cfg.n_kv, cfg.d_head),
+                           Mesh((1, sp.m), ("data", "model")))
+    assert (spec[-2] == "model") == sp.local, (spec, sp)
+    return spec[-3] == "model"
+
+
 def _project_qkv(
     p: Param, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x:(B,S,d) -> q:(B,S,kv,g,dh), k/v:(B,S,kv,dh), RoPE'd and normed."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, AttnConfig]:
+    """x:(B,S,d) -> q:(B,S,kv,g,dh), k/v:(B,S,kv,dh), RoPE'd and normed,
+    and the config of the heads this rank attends (its own under a
+    head-local split, else all of them)."""
     B, S, _ = x.shape
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv, cfg.d_head)
-    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv, cfg.d_head)
+    sp = _split(cfg)
+    if sp is None:
+        q, k, v = (dense(p[n], x) for n in ("wq", "wk", "wv"))
+    else:
+        xc = copy_to_group(x) if 0 in sp.dims[:3] else x
+        outs = []
+        for name, wd in zip(("wq", "wk", "wv"), sp.dims):
+            y, y_split = dense_tp(p[name], xc if wd == 0 else x, wd, copied=True)
+            outs.append(gather_from_group(y) if y_split and not sp.local else y)
+        q, k, v = outs
+        if sp.local:
+            cfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // sp.m, n_kv=cfg.n_kv // sp.m)
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    k = k.reshape(B, S, cfg.n_kv, cfg.d_head)
+    v = v.reshape(B, S, cfg.n_kv, cfg.d_head)
     if cfg.qk_norm:
-        q = rmsnorm(p["qn"], q)
-        k = rmsnorm(p["kn"], k)
+        qn, kn = p["qn"], p["kn"]
+        if sp is not None and sp.local:  # whole scales over this rank's heads only:
+            # their gradients are the group's sum
+            qn, kn = ({"scale": copy_to_group(n["scale"])} for n in (qn, kn))
+        q = rmsnorm(qn, q)
+        k = rmsnorm(kn, k)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = q.reshape(B, S, cfg.n_kv, cfg.group, cfg.d_head)
-    return q, k, v
+    return q, k, v, cfg
+
+
+def _out_proj(p: Param, out: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
+    """wo over the attention output: this rank's heads' columns under a
+    head-local split, else this rank's slice of all of them."""
+    sp = _split(cfg)
+    if sp is None:
+        return dense(p["wo"], out)
+    y, y_split = dense_tp(p["wo"], out, sp.dims[3], x_split=sp.local)
+    return gather_from_group(y) if y_split else y
 
 
 def _chunk_attend(
@@ -137,7 +215,8 @@ def attention(
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    full_cfg = cfg
+    q, k, v, cfg = _project_qkv(p, x, cfg, positions)
     q = q * (cfg.d_head**-0.5)
 
     chunk = min(cfg.chunk, S)
@@ -157,7 +236,7 @@ def attention(
             q[:, q_lo:q_hi], k[:, lo:q_hi], v[:, lo:q_hi], cfg, q_lo, lo, prefix_len
         ))
     out = torch.cat(outs, dim=1).reshape(B, S, cfg.n_heads * cfg.d_head)
-    out = dense(p["wo"], out)
+    out = _out_proj(p, out, full_cfg)
     if not return_kv:
         return out
     max_seq = max_seq or S
@@ -175,6 +254,11 @@ def attention(
     else:
         pad = (0, 0, 0, 0, 0, slots - S)
         ck, cv = F.pad(k, pad), F.pad(v, pad)
+    sp = _split(full_cfg)
+    if sp is not None and _slots_split(full_cfg, sp, B, slots):
+        part = slots // sp.m
+        lo = current_mesh().axis_index("model") * part
+        ck, cv = (c.narrow(1, lo, part).contiguous() for c in (ck, cv))
     return out, {"k": ck.to(cache_dtype), "v": cv.to(cache_dtype)}
 
 
@@ -198,29 +282,49 @@ def attention_decode(
     cfg: AttnConfig,
     cache: Dict[str, torch.Tensor],
     pos,  # int / scalar tensor, or (B,) per-sequence positions
+    cspec=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step.  ``pos`` is the index of each row's new token.
 
     Each row writes its K/V at its own position -- in place, with
     ``index_copy_`` into the cache tensors (the JAX package returns a new
     cache from donated buffers) -- and attends only the slots its own
-    length has filled (per-row ``lengths`` of the attention plan)."""
+    length has filled (per-row ``lengths`` of the attention plan).
+    Where the mesh splits the cache's slots -- over ``model`` when the kv
+    heads do not divide it, over the data axes when the batch does not --
+    the rank owning the new position's slot writes it and the cache is
+    gathered whole for attention.  ``cspec``, the spec of this layer's
+    ``k`` leaf (``cache_specs_tree``), names the slots' axes (None: the
+    slots are whole)."""
     B = x.shape[0]
+    full_cfg = cfg
     slots = cache["k"].shape[1]
     pos_b = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B).long()
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos_b[:, None])
+    q, k_new, v_new, cfg = _project_qkv(p, x, cfg, pos_b[:, None])
     q = q * (cfg.d_head**-0.5)
 
-    write = pos_b % slots if cfg.window is not None else pos_b
-    flat = torch.arange(B, device=x.device) * slots + write
+    axes = spec_axes(cspec[-3]) if cspec is not None else ()
+    total, lo = slots, 0
+    if axes:
+        mesh = current_mesh()
+        total, lo = slots * mesh.axis_size(axes), mesh.axis_index(axes) * slots
+    write = (pos_b % total if cfg.window is not None else pos_b) - lo
+    mine = (write >= 0) & (write < slots)
+    flat = torch.arange(B, device=x.device) * slots + write.clamp(0, slots - 1)
     for name, new in (("k", k_new), ("v", v_new)):
-        c = cache[name]
-        c.view(B * slots, cfg.n_kv, cfg.d_head).index_copy_(0, flat, new[:, 0].to(c.dtype))
+        rows = cache[name].view(B * slots, cfg.n_kv, cfg.d_head)
+        new = new[:, 0].to(rows.dtype)
+        if total != slots:  # another rank owns some rows' slots: leave theirs
+            new = torch.where(mine[:, None, None], new, rows[flat])
+        rows.index_copy_(0, flat, new)
+    kc, vc = cache["k"], cache["v"]
+    if total != slots:
+        kc, vc = (all_gather(c, axes, dim=1) for c in (kc, vc))
 
-    lengths = torch.repeat_interleave(torch.clamp(pos_b + 1, max=slots), cfg.n_kv)
+    lengths = torch.repeat_interleave(torch.clamp(pos_b + 1, max=total), cfg.n_kv)
     q2 = q.permute(0, 2, 3, 1, 4).reshape(B * cfg.n_kv, cfg.group, cfg.d_head)
-    k2 = cache["k"].to(q.dtype).transpose(1, 2).reshape(B * cfg.n_kv, slots, cfg.d_head)
-    v2 = cache["v"].to(q.dtype).transpose(1, 2).reshape(B * cfg.n_kv, slots, cfg.d_head)
+    k2 = kc.to(q.dtype).transpose(1, 2).reshape(B * cfg.n_kv, total, cfg.d_head)
+    v2 = vc.to(q.dtype).transpose(1, 2).reshape(B * cfg.n_kv, total, cfg.d_head)
     out = dispatch_attention(q2, k2, v2, lengths=lengths, softcap=cfg.softcap)
     out = out.reshape(B, 1, cfg.n_heads * cfg.d_head)
-    return dense(p["wo"], out), cache
+    return _out_proj(p, out, full_cfg), cache

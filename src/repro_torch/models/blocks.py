@@ -83,7 +83,8 @@ def _ffn(p: Param, x: torch.Tensor, b: BlockCfg, mc) -> torch.Tensor:
     if b.ffn == "none":
         return x
     h = rmsnorm(p["ln2"], x)
-    h = gated_mlp(p["mlp"], h, mc.activation) if b.ffn == "mlp" else moe_layer(p["moe"], h, mc.moe)
+    h = (gated_mlp(p["mlp"], h, mc.activation, d_ff=mc.d_ff) if b.ffn == "mlp"
+         else moe_layer(p["moe"], h, mc.moe))
     if mc.post_norm:
         h = rmsnorm(p["ln2b"], h)
     return x + h
@@ -150,13 +151,15 @@ def init_block_cache(b: BlockCfg, mc, batch: int, max_seq: int, dtype=torch.bflo
 
 
 def decode_block(p: Param, x: torch.Tensor, b: BlockCfg, mc, cache, pos,
-                 shared: Optional[Param] = None):
+                 shared: Optional[Param] = None, cspec=None):
     """One decode step of one block.  An attention cache is updated in
     place and returned; a Mamba block returns a new ``{"conv", "ssm"}``
-    cache, which the caller writes back."""
+    cache, which the caller writes back.  ``cspec``, the spec of its
+    ``k`` leaf: see ``attention_decode``."""
     h = rmsnorm(p["ln1"], x)
     if b.mixer == "mamba":
         h, cache = ssm_decode(p["ssm"], h, mc.ssm, cache)
     else:
-        h, cache = attention_decode(_attn_params(p, b, shared), h, _attn_cfg(b, mc), cache, pos)
+        h, cache = attention_decode(_attn_params(p, b, shared), h, _attn_cfg(b, mc), cache, pos,
+                                    cspec=cspec)
     return _ffn(p, _residual(p, x, h, mc), b, mc), cache

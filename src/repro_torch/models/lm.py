@@ -27,6 +27,14 @@ Entry points:
                  (attention writes its K/V row, a Mamba block copies its
                  new conv and SSM state over the old)
   init_lm_cache  zero cache with the tree lm_prefill produces
+  gather_logits  the whole vocabulary's logits from this rank's slice
+
+Under a mesh (``distributed.context.use_mesh``) every entry point is one
+rank's program on its pieces of the params (``distributed.sharding``):
+the ``model`` axis splits the layers (``layers.dense_tp``,
+``attention.py``) and a vocab-split embedding splits the logits, which
+``lm_forward``, ``lm_prefill`` and ``lm_decode`` return as this rank's
+vocabulary slice (``gather_logits`` joins them).
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ import torch.utils.checkpoint
 from repro_torch import resolve_device
 from repro_torch.core.engine import remat_record, remat_replay
 from repro_torch.core.policy import current_scope, resume_scope
+from repro_torch.distributed.collectives import all_gather
+from repro_torch.distributed.context import current_mesh
 
 from .attention import init_attention
 from .blocks import (
@@ -59,9 +69,11 @@ from .layers import (
     rmsnorm,
     softcap,
     unembed,
+    weight_dim,
 )
 
-__all__ = ["init_lm", "lm_forward", "lm_loss", "lm_prefill", "lm_decode", "init_lm_cache"]
+__all__ = ["init_lm", "lm_forward", "lm_loss", "lm_prefill", "lm_decode", "init_lm_cache",
+           "gather_logits", "vocab_split"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -171,16 +183,32 @@ def _remat_wrap(fn, cfg):
     return wrapped
 
 
+def vocab_split(cfg) -> bool:
+    """Whether the current mesh's ``model`` axis splits the embedding (and
+    the LM head) over the vocabulary."""
+    return weight_dim(("embed", "emb"), (cfg.vocab_padded, cfg.d_model)) == 0
+
+
+def gather_logits(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """The whole vocabulary's logits from this rank's slice (as they are
+    without a vocab split)."""
+    return all_gather(logits, "model", dim=-1) if vocab_split(cfg) else logits
+
+
+def _embed_tokens(params: Param, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    return embed(params["embed"], tokens, cfg.emb_scale, vocab_split=vocab_split(cfg))
+
+
 def _embed_input(params: Param, cfg, batch: Dict[str, torch.Tensor]):
     """(x, prefix_len): the embedded input and the length of its
     bidirectional prefix (the patches under ``vlm``, else 0)."""
     if cfg.input_mode == "tokens":
-        return embed(params["embed"], batch["tokens"], cfg.emb_scale), 0
+        return _embed_tokens(params, cfg, batch["tokens"]), 0
     if cfg.input_mode == "frames":
         return batch["frames"].to(_dtype(cfg)), 0
     if cfg.input_mode == "vlm":
         patches = batch["patches"].to(_dtype(cfg))
-        text = embed(params["embed"], batch["tokens"], cfg.emb_scale)
+        text = _embed_tokens(params, cfg, batch["tokens"])
         return torch.cat([patches, text], dim=1), patches.shape[1]
     raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
 
@@ -188,7 +216,7 @@ def _embed_input(params: Param, cfg, batch: Dict[str, torch.Tensor]):
 def _logits(params: Param, cfg, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return softcap(unembed(head, x), cfg.final_softcap)
+    return softcap(unembed(head, x, vocab_split(cfg)), cfg.final_softcap)
 
 
 def lm_forward(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -215,7 +243,8 @@ def lm_loss(params: Param, cfg, batch: Dict[str, torch.Tensor]):
     logits = lm_forward(params, cfg, batch)
     if cfg.input_mode == "vlm":
         logits = logits[:, cfg.prefix_len:]  # loss on text positions only
-    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"),
+                              vocab_split=vocab_split(cfg))
     return loss, {"loss": loss}
 
 
@@ -284,27 +313,35 @@ def init_lm_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     return {"segments": caches, "pos": pos}
 
 
-def lm_decode(params: Param, cfg, cache, batch: Dict[str, torch.Tensor]):
+def lm_decode(params: Param, cfg, cache, batch: Dict[str, torch.Tensor], cache_specs=None):
     """One-token step.  batch: {'tokens': (B, 1)} or {'frames': (B, 1, d)}.
 
     Returns (logits (B, 1, V), cache with pos + 1).  ``cache['pos']`` may
     be a scalar (uniform batch) or a ``(B,)`` vector (each row decodes at
     its own position).  The cache tensors are updated in place, a Mamba
     block's new state copied over its old: the returned cache holds the
-    same tensors."""
+    same tensors.  Under a mesh of more than one rank ``cache_specs`` (the
+    cache's ``cache_specs_tree``, its ``pos`` entry unread) must say how
+    its leaves are split (``attention_decode``)."""
+    mesh = current_mesh()
+    if cache_specs is None and mesh is not None and mesh.size > 1:
+        raise ValueError("decode on a mesh needs cache_specs: the cache's specs tell "
+                         "which slots this rank holds")
     pos = cache["pos"]
     if cfg.input_mode == "frames":
         x = batch["frames"].to(_dtype(cfg))
     else:
-        x = embed(params["embed"], batch["tokens"], cfg.emb_scale)
+        x = _embed_tokens(params, cfg, batch["tokens"])
     shared = params.get("shared")
-    for (count, blocks), slot_params, seg_cache in zip(
-        cfg.segments, params["segments"], cache["segments"]
+    seg_specs = cache_specs["segments"] if cache_specs is not None else [None] * len(cfg.segments)
+    for (count, blocks), slot_params, seg_cache, seg_spec in zip(
+        cfg.segments, params["segments"], cache["segments"], seg_specs
     ):
+        cspecs = [s.get("k") for s in seg_spec] if seg_spec is not None else [None] * len(blocks)
         for i in range(count):
-            for b, sp, sc in zip(blocks, slot_params, seg_cache):
+            for b, sp, sc, cspec in zip(blocks, slot_params, seg_cache, cspecs):
                 old = _index(sc, i)
-                x, new = decode_block(_index(sp, i), x, b, cfg, old, pos, shared)
+                x, new = decode_block(_index(sp, i), x, b, cfg, old, pos, shared, cspec)
                 if new is not old:  # a Mamba block's new state
                     for k, leaf in new.items():
                         old[k].copy_(leaf)

@@ -14,28 +14,55 @@ from typing import Callable, Tuple
 import torch
 
 from .adafactor import adafactor_init, adafactor_update
-from .adamw import adamw_init, adamw_update, tree_leaves, tree_map
+from .adamw import adamw_init, adamw_update, adamw_update_zero1, tree_leaves, tree_map
 from .schedule import constant, warmup_cosine, warmup_linear
 
 __all__ = [
     "adamw_init",
     "adamw_update",
+    "adamw_update_zero1",
     "adafactor_init",
     "adafactor_update",
     "warmup_cosine",
     "warmup_linear",
     "constant",
     "clip_by_global_norm",
+    "global_norm",
     "make_optimizer",
     "tree_leaves",
     "tree_map",
 ]
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale the gradient tree so its global L2 norm is at most
-    ``max_norm``; returns (clipped tree, norm before clipping)."""
-    gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads)))
+def global_norm(grads, specs=None, mesh=None) -> torch.Tensor:
+    """The L2 norm of the gradient tree.  With ``specs`` (the pieces' specs,
+    ``distributed.sharding``) each rank holds pieces of the leaves of
+    ``mesh``: the squares are summed over each leaf's pieces once -- one
+    all-reduce per set of axes that splits some leaf, over those axes --
+    so a leaf that the mesh replicates counts once, not once a rank."""
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads)))
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed.sharding import map_with_path, spec_axes
+
+    sums = {}
+
+    def add(_, g, spec):
+        axes = tuple(a for a in mesh.axis_names
+                     if mesh.shape[a] > 1 and any(a in spec_axes(e) for e in spec))
+        sq = torch.sum(g.float() ** 2)
+        sums[axes] = sums[axes] + sq if axes in sums else sq
+
+    map_with_path(add, grads, specs)
+    total = sum(all_reduce(v, axes, mesh=mesh) if axes else v
+                for axes, v in sorted(sums.items()))
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads, max_norm: float, specs=None, mesh=None):
+    """Scale the gradient tree so its global L2 norm (``global_norm``) is
+    at most ``max_norm``; returns (clipped tree, norm before clipping)."""
+    gn = global_norm(grads, specs, mesh)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 

@@ -26,6 +26,13 @@ at the cache's null slot with length 0.  Prompts bucket too, except for
 architectures with Mamba blocks (``exact_prefill``): an SSM state sums
 over every position of a right-padded prompt, so they prefill at each
 prompt's exact length.
+
+``ServeEngine(mesh=)`` serves on a mesh: each rank holds its pieces of
+the params (it shards the full ``params`` it is given) and of the cache
+pool, runs the same schedule on the same requests, and takes its greedy
+tokens from the gathered logits, so every rank admits, decodes and
+evicts alike and issues the same collectives.  Wall-clock deadlines are
+refused there: a rank's own clock would desynchronise the schedules.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.engine import dispatch_report
 from repro_torch.core.policy import SelectionPolicy, use_policy
+from repro_torch.distributed.context import mesh_scope
+from repro_torch.distributed.sharding import param_specs, shard
 from repro_torch.models import lm
 
 from .buckets import BucketSpec, default_buckets
@@ -134,19 +143,27 @@ class ServeEngine:
         max_queue: Optional[int] = None,
         cache_dtype=torch.bfloat16,
         device="cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if cfg.input_mode != "tokens":
             raise ValueError(
                 f"ServeEngine serves token LMs; arch {cfg.name!r} has "
                 f"input_mode={cfg.input_mode!r}"
             )
         self.cfg = cfg
+        if self.mesh is not None:
+            from repro_torch.launch.common import check_shardable
+
+            check_shardable(cfg, self.mesh)
+            params = shard(params, param_specs(params, self.mesh), self.mesh)
         self.params = params
         self.max_seq = int(max_seq)
         self.policies = dict(policies or {"interactive": None, "bulk": None})
         self.cache_dtype = cache_dtype
-        self.kv = PagedKVCache(cfg, n_slots, max_seq, dtype=cache_dtype, device=self.device)
+        self.kv = PagedKVCache(cfg, n_slots, max_seq, dtype=cache_dtype, device=self.device,
+                               mesh=self.mesh)
         windows = [b.window for _, blocks in cfg.segments for b in blocks
                    if b.window is not None]
         self.buckets = bucket_spec or default_buckets(
@@ -185,7 +202,7 @@ class ServeEngine:
         ``lm_decode`` (which writes each row's new K/V in place), and copy
         the rows back into the pool in place.  Padding rows all target
         the null slot, so duplicate copies land only there."""
-        with _policy_scope(self.policies[cls]):
+        with _policy_scope(self.policies[cls]), mesh_scope(self.mesh):
             gathered = [
                 tuple({k: leaf.index_select(1, slot_ids) for k, leaf in slot.items()}
                       for slot in seg)
@@ -193,18 +210,20 @@ class ServeEngine:
             ]
             logits, new = lm.lm_decode(
                 self.params, self.cfg, {"segments": gathered, "pos": lengths},
-                {"tokens": tok},
+                {"tokens": tok}, cache_specs=self.kv.specs,
             )
             for big, rows in zip(self.kv.leaves(), self.kv.leaves(new["segments"])):
                 big.index_copy_(1, slot_ids, rows)
+            logits = lm.gather_logits(self.cfg, logits)
             return torch.argmax(logits[:, -1, : self.cfg.vocab], dim=-1)
 
     def _prefill_step(self, cls: str, tokens, true_len: int):
-        with _policy_scope(self.policies[cls]):
+        with _policy_scope(self.policies[cls]), mesh_scope(self.mesh):
             logits, cache = lm.lm_prefill(
                 self.params, self.cfg, {"tokens": tokens}, max_seq=self.max_seq,
                 cache_dtype=self.cache_dtype, true_len=true_len,
             )
+            logits = lm.gather_logits(self.cfg, logits)
             return torch.argmax(logits[:, -1, : self.cfg.vocab], dim=-1), cache
 
     # -- request lifecycle -------------------------------------------------
@@ -238,6 +257,9 @@ class ServeEngine:
             self.buckets.bucket_len(tokens.size)  # fail fast on oversize
         if deadline_s is not None and deadline_s < 0:
             raise ValueError(f"deadline_s must be >= 0, got {deadline_s}")
+        if deadline_s is not None and self.mesh is not None:
+            raise ValueError("deadlines are not served on a mesh: each rank's wall clock "
+                             "would expire requests at different steps")
         req = Request(
             rid=self._next_rid, tokens=tokens, max_new=int(max_new), cls=cls,
             deadline_s=deadline_s, submit_step=self.clock,

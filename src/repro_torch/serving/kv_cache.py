@@ -18,6 +18,11 @@ row).
 Device updates are in place (``index_copy_``) where the JAX package
 donates the pool to a jitted update.  Slot bookkeeping (free list,
 lengths, owners) is host-side numpy.
+
+With a ``mesh`` whose ``model`` axis is larger than one, each rank holds
+its piece of every leaf under ``distributed.sharding.cache_specs_tree``
+on that axis (kv heads, else slots; ``pool_specs``): the data axes
+replicate the pool, so every data replica serves the same requests.
 """
 
 from __future__ import annotations
@@ -29,16 +34,27 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import P, cache_specs_tree, local_shape, map_with_path
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
 
-__all__ = ["PagedKVCache"]
+__all__ = ["PagedKVCache", "pool_specs"]
+
+
+def pool_specs(cfg, batch: int, max_seq: int, mesh):
+    """The cache specs of a serving pool of ``batch`` sequences on
+    ``mesh``: the rules on its ``model`` axis alone (the data axes
+    replicate the pool), as ``{"segments": ..., "pos": ...}``."""
+    view = Mesh((1, mesh.shape.get("model", 1)), ("data", "model"))
+    specs = cache_specs_tree(lm.init_lm_cache(cfg, batch, max_seq, device="meta"), view)
+    return map_with_path(lambda _, s: P(*(e if e == "model" else None for e in s)), specs)
 
 
 class PagedKVCache:
     """Fixed pool of ``n_slots`` sequence slots + 1 null scratch row."""
 
     def __init__(self, cfg, n_slots: int, max_seq: int, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if n_slots < 1:
             raise ValueError(f"need at least one slot, got {n_slots}")
         self.cfg = cfg
@@ -46,9 +62,15 @@ class PagedKVCache:
         self.max_seq = int(max_seq)
         self.device = resolve_device(device)
         self.null_slot = self.n_slots  # scratch row for bucket padding
-        self.data = lm.init_lm_cache(
-            cfg, self.n_slots + 1, max_seq, dtype=dtype, device=self.device
-        )["segments"]
+        mesh = mesh if mesh is not None else Mesh((1, 1), ("data", "model"))
+        specs = pool_specs(cfg, self.n_slots + 1, max_seq, mesh)
+        # the pool's cache specs on a mesh larger than one, else None
+        self.specs = specs if mesh.size > 1 else None
+        full = lm.init_lm_cache(cfg, self.n_slots + 1, max_seq, dtype=dtype, device="meta")
+        self.data = map_with_path(
+            lambda _, t, s: torch.zeros(local_shape(t.shape, s, mesh), dtype=t.dtype,
+                                        device=self.device),
+            full["segments"], specs["segments"])
         # slot bookkeeping is shared with the engine's admission path;
         # allocate/free must be atomic under concurrent submitters
         self._lock = threading.Lock()

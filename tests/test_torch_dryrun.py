@@ -1,0 +1,96 @@
+"""The port's dry run: one rank's step of a cell on meta tensors
+(``launch/accounting.py``, ``launch/dryrun.py``).
+
+  * ``lower_cell`` on smollm smoke at an abstract 2x4 mesh: status ok, and
+    the per-device parameter bytes it records are the sum of the pieces'
+    sizes the specs give;
+  * on a 1x1 mesh, the dispatches it counts and their GEMM FLOPs equal
+    what a real CPU step of the same config dispatches (the policy's
+    dispatch report, and the engine's accounting hook on real tensors);
+  * smollm-135m ``train_4k`` on the 16x16 mesh at full config runs on
+    meta and fits an 80 GB card;
+  * kimi-k2 records the ``NotImplementedError`` naming ROADMAP's item,
+    through ``main``.
+"""
+
+import json
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs.shapes import ShapeCell  # noqa: E402
+from repro_torch.core.engine import account_dispatches, policy_from_spec  # noqa: E402
+from repro_torch.distributed.sharding import local_shape, map_with_path, param_specs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.accounting import account_cell  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.launch.steps import init_train_state, make_train_step  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+
+KERNEL = ("fixed:nt=PALLAS_TNN_FUSED,nn=PALLAS_NN,tn=PALLAS_TN,bnt=PALLAS_BNT,"
+          "bnn=PALLAS_BNN,attn=fused")
+CELL = ShapeCell("train_small", 32, 8, "train")
+
+
+def test_lower_cell_at_2x4_records_the_specs_param_bytes():
+    cfg = smoke_config("smollm-135m")
+    mesh = Mesh((2, 4), ("data", "model"))
+    rec = dryrun.lower_cell("smollm-135m", CELL, mesh=mesh, cfg=cfg)
+    assert rec["status"] == "ok" and rec["mesh"] == "2x4" and rec["accum"] == 4
+    shapes = lm.init_lm(0, cfg, device="meta")
+    want = []
+    map_with_path(lambda _, t, s: want.append(
+        math.prod(local_shape(t.shape, s, mesh)) * t.element_size()),
+        shapes, param_specs(shapes, mesh))
+    mem = rec["memory"]
+    assert mem["param_bytes"] == sum(want)
+    assert mem["argument_bytes"] == mem["param_bytes"] + mem["opt_bytes"] + mem["batch_bytes"]
+    assert mem["peak_temp_bytes"] > 0 and mem["fits_80gb"]
+    r = rec["roofline"]
+    assert r["collective_bytes"] > 0 and set(r["collective_by_kind"]) >= {"all-reduce",
+                                                                          "all-gather"}
+    assert r["bottleneck"] in ("compute", "memory", "collective") and 0 < r["useful_ratio"]
+
+
+def test_a_one_rank_cell_counts_what_a_real_step_dispatches():
+    cfg = smoke_config("gemma3-4b")
+    cell = ShapeCell("t", 16, 4, "train")
+    costs = account_cell(cfg, cell, Mesh((1, 1), ("data", "model")), accum=1,
+                         policy=policy_from_spec(KERNEL))
+    seen = []
+
+    def hook(key, operands, out):
+        mult = 4 if key.op == "ATTN" else 2
+        seen.append(mult * key.g * key.m * key.n * key.k)
+
+    policy = policy_from_spec(KERNEL)
+    step = make_train_step(cfg, policy=policy)
+    state = init_train_state(cfg, lm.init_lm(0, cfg, device="cpu"))
+    batch = {"tokens": torch.zeros((4, 16), dtype=torch.long),
+             "labels": torch.ones((4, 16), dtype=torch.long)}
+    with account_dispatches(hook):
+        step(state, batch)
+    assert costs["dispatches"] == len(seen) == policy.stats.calls
+    assert costs["dispatch_flops"] == sum(seen) == costs["flops"]
+    assert costs.get("coll_bytes", 0.0) == 0.0  # one rank: every group is of one
+
+
+def test_smollm_train_4k_on_the_production_mesh_runs_on_meta():
+    rec = dryrun.lower_cell("smollm-135m", "train_4k")
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16" and rec["accum"] == 16
+    assert rec["memory"]["fits_80gb"]
+    r = rec["roofline"]
+    assert r["model_flops"] == 6.0 * get_config("smollm-135m").active_param_count() * 256 * 4096
+    assert all(r[k] > 0 for k in ("t_compute_s", "t_memory_s", "t_collective_s"))
+
+
+def test_kimi_k2_records_its_error(tmp_path):
+    assert dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
+                        "--out", str(tmp_path)]) == 1
+    rec = json.loads((tmp_path / "kimi-k2-1t-a32b_train_4k_16x16.json").read_text())
+    assert rec["status"] == "error"
+    assert rec["error"].startswith("NotImplementedError") and "ROADMAP queue A item 4b" in \
+        rec["error"]

@@ -60,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.examples.collect_and_train_selector, repro_torch.core.faults, "
         "repro_torch.benchmarks.serve_load, repro_torch.benchmarks.bench_drift, "
         "repro_torch.benchmarks.fault_drill, repro_torch.examples.serve_lm, "
-        "repro_torch.examples.arch_tour\n"
+        "repro_torch.examples.arch_tour, repro_torch.distributed, "
+        "repro_torch.launch.dryrun, repro_torch.launch.accounting, "
+        "repro_torch.benchmarks.roofline_table, repro_torch.benchmarks.gemma2_accum_iter\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"
@@ -92,11 +94,14 @@ def test_entry_points_raise_on_cuda_without_a_card(no_card):
 @pytest.mark.parametrize("argv", [["--legacy", "--mesh", "2x4"],
                                   ["--chaos", "raise:PALLAS_*", "--mesh", "1x2"],
                                   ["--mesh", "2x4"]])
-def test_launcher_rejects_what_this_slice_does_not_serve(argv):
-    """``--legacy`` and ``--chaos`` are served (``tests/test_torch_launch.py``);
-    a mesh other than 1x1 is not, in either mode."""
+def test_serve_launcher_exits_on_a_mesh_this_process_cannot_form(argv, capsys):
+    """``--legacy`` and ``--chaos`` are served (``tests/test_torch_launch.py``),
+    and so is a mesh (``tests/test_torch_distributed.py``), but only over a
+    process group of as many ranks: one process has one rank."""
     with pytest.raises(SystemExit):
         serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu"] + argv)
+    ranks = 8 if "2x4" in argv else 2
+    assert f"needs {ranks} devices; 1 present" in capsys.readouterr().err
 
 
 def test_train_launcher_raises_on_cuda_without_a_card(no_card):
@@ -107,11 +112,14 @@ def test_train_launcher_raises_on_cuda_without_a_card(no_card):
 
 @pytest.mark.parametrize("argv", [["--chaos", "raise:PALLAS_*", "--mesh", "2x2"],
                                   ["--mesh", "2x4"]])
-def test_train_launcher_rejects_what_this_slice_does_not_train(argv):
-    """``--chaos`` is trained under; a mesh other than 1x1 is not."""
+def test_train_launcher_exits_on_a_mesh_this_process_cannot_form(argv, capsys):
+    """``--chaos`` is trained under; a mesh needs a process group of as
+    many ranks."""
     with pytest.raises(SystemExit):
         train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1",
                     "--policy", "fixed:XLA_NT"] + argv)
+    ranks = 8 if "2x4" in argv else 4
+    assert f"needs {ranks} devices; 1 present" in capsys.readouterr().err
 
 
 def test_train_launcher_default_policy_names_the_roadmap_item():
