@@ -227,6 +227,37 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               cards: four NCCL ranks, a card each, with every run above on
               the 2x2 mesh (so every wrapper's NCCL body runs over groups of
               2 and 4)
+ 17. mesh_moe_ssm  the MoE, Mamba-2 and hybrid architectures on two gloo
+              ranks sharing the card, each drawing the weights as in 16b,
+              under phase 7's fused policy with 16b's step, batch 2 x 512:
+              grok-1-314b at full width in one layer, bf16, 2 Adafactor
+              steps at 1x2 (expert parallel, 4 experts a rank) and 2x1 (its
+              experts' d_ff over data, gathered a layer at a time, FSDP);
+              mamba2-2.7b at full width in two layers and zamba2-7b in one
+              unit (5 Mamba blocks and the shared attention), bf16, 2 AdamW
+              steps at 1x2 (the Mamba blocks split by head), then each one's
+              f32 twin (the same weights in f32) trains 2 steps and serves 4
+              requests of 8 tokens: every step's loss within 1e-2 and grad
+              norm within 5e-2 of the same run on one rank in this process
+              (run before the ranks start; a Mamba stack's step-0 grad norm
+              may pass phase 8b's f32-distance gate against its f32 twin's
+              instead: random Mamba stacks are chaotic in bf16), the f32
+              twins' step-0 loss within 1e-5 and grad norm within 1e-4 (a
+              later step by the bf16 gates: AdamW's first step moves a
+              near-zero gradient's entry by lr in a direction rounding
+              picks), the ranks' metrics equal, the f32 logits rows within 1e-4 and
+              the greedy tokens identical.  Every rank launches the five kernels of
+              16b; launches are counted from 0 before the runs and land in
+              launches_by_path["mesh_moe_ssm"]; the phase must finish within
+              150 s.  ``--mesh-alone`` and ``--nccl-cards 4`` run it after
+              phase 16; with four cards it runs kimi-k2-1t-a32b at full
+              width in one layer at 1x4 and 2x2 on NCCL ranks: its forward
+              (under phase 4's bulk policy, direct NT) logits over the
+              tokens every layer routes alike within relative L2 5e-2 of
+              one rank's forward on card 0, at most 5 % of that forward's
+              expert choices made otherwise, then 2 Adafactor steps whose
+              metrics are equal on every rank and finite (one card cannot
+              train that layer, so no one-rank training reference)
 
 Every phase's line carries the dispatch engine's fault ledger, its
 ``fallbacks`` and ``quarantined`` arms, and the run fails unless both are
@@ -2703,16 +2734,18 @@ def mesh_params(torch, cfg):
     return lm.init_lm(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
 
 
-def mesh_train(torch, cfg, params, mesh, steps, batch, seq, accum, policy):
+def mesh_train(torch, cfg, params, mesh, steps, batch, seq, accum, policy, sharded=False):
     """``steps`` train steps (MESH_STEP) of ``cfg`` from full ``params`` on
-    ``mesh`` (None: one rank), the launcher's batches (seed 0) cut to this
-    rank's shard; returns (metrics, final state: this rank's pieces)."""
+    ``mesh`` (None: one rank; ``sharded``: ``params`` are this rank's pieces
+    already), the launcher's batches (seed 0) cut to this rank's shard;
+    returns (metrics, final state: this rank's pieces)."""
     from repro_torch.distributed.sharding import batch_specs, param_specs, shard
     from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step
 
-    if mesh is not None:
+    if mesh is not None and not sharded:
         params = shard(params, param_specs(params, mesh), mesh)
     state = init_train_state(cfg, params, mesh)
+    del params  # the state holds them: each step's update may free the last ones
     step_fn = make_train_step(cfg, TrainStepConfig(accum=accum, total_steps=steps, **MESH_STEP),
                               policy=policy, mesh=mesh)
     metrics = []
@@ -2878,7 +2911,6 @@ def mesh_rank_body(torch, rank, spec):
     from repro_torch.core.engine import policy_from_spec
     from repro_torch.distributed.sharding import param_specs, unshard
     from repro_torch.kernels.common import reset_launches
-    from repro_torch.launch.common import check_shardable
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import lm
 
@@ -2893,10 +2925,9 @@ def mesh_rank_body(torch, rank, spec):
     params = mesh_params(torch, cfg)
     for dm in spec["gemma3"]:
         mesh = make_local_mesh(*dm)
-        check_shardable(cfg, mesh)
         t0 = time.perf_counter()
-        metrics, _ = mesh_train(torch, cfg, params, mesh, MESH_STEPS, MESH_BATCH, MESH_SEQ,
-                                MESH_ACCUM, policy)
+        metrics = mesh_train(torch, cfg, params, mesh, MESH_STEPS, MESH_BATCH, MESH_SEQ,
+                             MESH_ACCUM, policy)[0]
         row[f"gemma3_{mesh_name(dm)}"] = {"metrics": metrics,
                                           "seconds": time.perf_counter() - t0}
         gc.collect()
@@ -2905,9 +2936,9 @@ def mesh_rank_body(torch, rank, spec):
     smollm = get_config("smollm-135m")
     dm = spec["smollm"]
     t0 = time.perf_counter()
-    metrics, _ = mesh_train(torch, smollm, lm.init_lm(0, smollm, device=DEVICE),
-                            make_local_mesh(*dm), MESH_SMOLLM_STEPS, TRAIN_BATCH, TRAIN_SEQ, 1,
-                            policy)
+    metrics = mesh_train(torch, smollm, lm.init_lm(0, smollm, device=DEVICE),
+                         make_local_mesh(*dm), MESH_SMOLLM_STEPS, TRAIN_BATCH, TRAIN_SEQ, 1,
+                         policy)[0]
     row["smollm"] = {"mesh": mesh_name(dm), "metrics": metrics,
                      "seconds": time.perf_counter() - t0}
 
@@ -3036,11 +3067,11 @@ def phase_mesh(torch, card, plan="gloo"):
     policy = policy_from_spec(TRAIN_POLICIES["fused"])
     cfg = mesh_config()
     t0 = time.perf_counter()
-    ref, _ = mesh_train(torch, cfg, mesh_params(torch, cfg), None, MESH_STEPS, MESH_BATCH,
-                        MESH_SEQ, MESH_ACCUM, policy)
+    ref = mesh_train(torch, cfg, mesh_params(torch, cfg), None, MESH_STEPS, MESH_BATCH,
+                     MESH_SEQ, MESH_ACCUM, policy)[0]
     smollm = get_config("smollm-135m")
-    smollm_ref, _ = mesh_train(torch, smollm, lm.init_lm(0, smollm, device=DEVICE), None, 1,
-                               TRAIN_BATCH, TRAIN_SEQ, 1, policy)
+    smollm_ref = mesh_train(torch, smollm, lm.init_lm(0, smollm, device=DEVICE), None, 1,
+                            TRAIN_BATCH, TRAIN_SEQ, 1, policy)[0]
     ref_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3111,15 +3142,354 @@ def phase_mesh(torch, card, plan="gloo"):
     return row, launches
 
 
+# -- phase 17: mesh_moe_ssm -----------------------------------------------------
+
+# grok-1 at full width in one layer (bf16, Adafactor) at 1x2 (expert parallel,
+# 4 experts a rank) and 2x1 (d_ff over data, FSDP); mamba2 at full width in
+# two layers (phase 8b's cut) and zamba2 in one unit (5 Mamba blocks and the
+# shared attention), bf16, AdamW, at 1x2, then their f32 twins serve; with
+# --nccl-cards 4, kimi-k2 at full width in one layer at 1x4 and 2x2
+MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_STEPS = 2, 512, 2
+MESH_MOE_SECONDS = 150
+MESH_MOE_PLANS = {
+    "gloo": {"backend": "gloo", "world": 2, "grok": ((1, 2), (2, 1)),
+             "ssm": {"mamba2-2.7b": (1, 2), "zamba2-7b": (1, 2)}, "kimi": ()},
+    "nccl": {"backend": "nccl", "world": 4, "grok": (), "ssm": {},
+             "kimi": ((1, 4), (2, 2))},
+}
+
+
+def mesh_moe_config(arch, f32=False):
+    """``arch`` at full width: grok-1 and kimi-k2 one layer, mamba2 two,
+    zamba2 its first unit (5 Mamba blocks and the shared attention)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "zamba2-7b":
+        cfg = cfg.replace(segments=((1, cfg.segments[0][1]),))
+    else:
+        keep = 2 if arch == "mamba2-2.7b" else 1
+        cfg = cfg.replace(segments=tuple((keep, blocks) for _, blocks in cfg.segments))
+    return cfg.replace(param_dtype="float32") if f32 else cfg
+
+
+def mesh_pieces(torch, cfg, mesh):
+    """This rank's pieces of ``cfg``'s seeded weights (``mesh_params``); the
+    whole tree is dropped as soon as it is cut."""
+    from repro_torch.distributed.sharding import param_specs, shard
+
+    full = mesh_params(torch, cfg)
+    return shard(full, param_specs(full, mesh), mesh)
+
+
+def routed_forward(torch, cfg, params, batch, mesh, policy):
+    """``lm_forward``'s logits over the whole vocabulary (f32, on the host)
+    and, per MoE layer, each token's chosen experts ((G, T, E) bool)."""
+    from repro_torch.core.policy import use_policy
+    from repro_torch.distributed.context import mesh_scope
+    from repro_torch.models import lm, moe
+
+    chosen, route = [], moe._route
+
+    def record(logits, c, capacity):
+        out = route(logits, c, capacity)
+        chosen.append((out[0].sum(-1) > 0).cpu())
+        return out
+
+    moe._route = record
+    try:
+        with torch.no_grad(), use_policy(policy), mesh_scope(mesh):
+            logits = lm.gather_logits(cfg, lm.lm_forward(params, cfg, batch))
+    finally:
+        moe._route = route
+    return logits[..., :cfg.vocab].float().cpu(), chosen
+
+
+def routed_alike_rel(torch, got, want):
+    """(relative L2 distance of the logits over the tokens routed alike in
+    every layer, the share of tokens routed otherwise, the share of
+    ``want``'s expert choices that ``got`` does not make); ``got`` and
+    ``want`` are ``routed_forward``'s, over the same tokens.  A top-k
+    router makes k near-tie decisions a token, so the token share grows
+    with k (kimi-k2's 8) for the same rounding; the choice share is the
+    same measure for every k."""
+    (lg, cg), (lw, cw) = got, want
+    alike = torch.ones(lg.shape[:2], dtype=torch.bool)
+    missed = chosen = 0
+    for a, b in zip(cg, cw):
+        alike &= (a == b).all(-1).reshape(lg.shape[:2])
+        missed, chosen = missed + int((b & ~a).sum()), chosen + int(b.sum())
+    dist_ = float((lg[alike] - lw[alike]).norm() / lw[alike].norm().clamp_min(1e-30))
+    return dist_, 1.0 - float(alike.float().mean()), missed / max(chosen, 1)
+
+
+def mesh_moe_rank(rank, world, store, out_dir, plan):
+    """One rank of phase 17's ``plan`` (MESH_MOE_PLANS), as ``mesh_rank``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    spec = MESH_MOE_PLANS[plan]
+    torch.cuda.set_device(rank if spec["backend"] == "nccl" else 0)
+    dist.init_process_group(spec["backend"], init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        row = mesh_moe_rank_body(torch, rank, spec, Path(out_dir))
+        row.update(dispatch_health())
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
+
+
+def mesh_moe_rank_body(torch, rank, spec, out_dir):
+    """The runs of one rank of phase 17, its launches counted from 0 before
+    them and read after them; the one-rank references it holds its served
+    logits and its forward against were saved to ``out_dir`` before the
+    ranks started."""
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.distributed.sharding import batch_specs, shard
+    from repro_torch.kernels.common import reset_launches
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import tree_map
+
+    reset_launches()
+    row = {"rank": rank}
+    policy = policy_from_spec(TRAIN_POLICIES["fused"])
+    forward_policy = policy_from_spec(KERNEL_POLICIES["bulk"])  # direct NT: matmul_nt
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    grok = mesh_moe_config("grok-1-314b")
+    for dm in spec["grok"]:
+        fresh()
+        mesh = make_local_mesh(*dm)
+        t0 = time.perf_counter()
+        metrics = mesh_train(torch, grok, mesh_pieces(torch, grok, mesh), mesh,
+                             MESH_MOE_STEPS, MESH_MOE_BATCH, MESH_MOE_SEQ, 1, policy,
+                             sharded=True)[0]
+        row[f"grok_{mesh_name(dm)}"] = {"metrics": metrics, "peak_gib": peak_gib(),
+                                        "seconds": time.perf_counter() - t0}
+    for arch, dm in spec["ssm"].items():
+        fresh()
+        mesh = make_local_mesh(*dm)
+        cfg, cfg32 = mesh_moe_config(arch), mesh_moe_config(arch, f32=True)
+        params = mesh_params(torch, cfg)
+        t0 = time.perf_counter()
+        metrics = mesh_train(torch, cfg, params, mesh, MESH_MOE_STEPS, MESH_MOE_BATCH,
+                             MESH_MOE_SEQ, 1, policy)[0]
+        params32 = tree_map(lambda t: t.float(), params)
+        del params
+        t1 = time.perf_counter()
+        metrics32 = mesh_train(torch, cfg32, params32, mesh, MESH_MOE_STEPS, MESH_MOE_BATCH,
+                               MESH_MOE_SEQ, 1, policy)[0]
+        t2 = time.perf_counter()
+        tokens, logits = mesh_serve(torch, cfg32, params32, mesh)
+        del params32
+        one = torch.load(out_dir / f"{arch}_logits.pt")
+        row[arch] = {"mesh": mesh_name(dm), "metrics": metrics, "tokens": tokens,
+                     "logits_rel": logits_rel(torch, logits, one), "train_s": t1 - t0,
+                     "train_f32_s": t2 - t1, "serve_s": time.perf_counter() - t2,
+                     "peak_gib": peak_gib()}
+        row[f"{arch}_f32"] = {"metrics": metrics32}
+    kimi = mesh_moe_config("kimi-k2-1t-a32b")
+    for dm in spec["kimi"]:
+        fresh()
+        mesh = make_local_mesh(*dm)
+        t0 = time.perf_counter()
+        pieces = mesh_pieces(torch, kimi, mesh)
+        batch = train_batch_of(torch, kimi, 0, MESH_MOE_BATCH, MESH_MOE_SEQ)
+        got = routed_forward(torch, kimi, pieces, shard(batch, batch_specs(batch, mesh), mesh),
+                             mesh, forward_policy)
+        want_logits, want_chosen = torch.load(out_dir / "kimi_forward.pt")
+        d, i = mesh.shape["data"], mesh.axis_index(("data",))
+        rows, groups = want_logits.shape[0] // d, want_chosen[0].shape[0] // d
+        dist_, rerouted, missed = routed_alike_rel(torch, got, (
+            want_logits[i * rows:(i + 1) * rows], [c[i * groups:(i + 1) * groups]
+                                                   for c in want_chosen]))
+        del got
+        metrics = mesh_train(torch, kimi, pieces, mesh, MESH_MOE_STEPS, MESH_MOE_BATCH,
+                             MESH_MOE_SEQ, 1, policy, sharded=True)[0]
+        row[f"kimi_{mesh_name(dm)}"] = {"metrics": metrics, "logits_rel_l2": dist_,
+                                        "rerouted": rerouted, "choices_missed": missed,
+                                        "peak_gib": peak_gib(),
+                                        "seconds": time.perf_counter() - t0}
+        del pieces
+    row["launches"] = launch_counts()
+    return row
+
+
+def phase_mesh_moe_ssm(torch, card, plan="gloo"):
+    """Phase 17: the one-rank references of ``plan`` (MESH_MOE_PLANS) in
+    this process, then its ranks against them.  Returns its row and the
+    ranks' summed launches."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.optim import tree_map
+
+    spec = MESH_MOE_PLANS[plan]
+    t_start = time.perf_counter()
+    out_dir = ROOT / "build" / "mesh_moe_ssm"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the one-rank references, from the same weights and batches
+    policy = policy_from_spec(TRAIN_POLICIES["fused"])
+    refs = {}
+    t0 = time.perf_counter()
+    if spec["grok"]:
+        fresh()
+        grok = mesh_moe_config("grok-1-314b")
+        refs["grok"] = mesh_train(torch, grok, mesh_params(torch, grok), None,
+                                  MESH_MOE_STEPS, MESH_MOE_BATCH, MESH_MOE_SEQ, 1, policy)[0]
+    for arch in spec["ssm"]:
+        fresh()
+        cfg, cfg32 = mesh_moe_config(arch), mesh_moe_config(arch, f32=True)
+        params = mesh_params(torch, cfg)
+        refs[arch] = mesh_train(torch, cfg, params, None, MESH_MOE_STEPS, MESH_MOE_BATCH,
+                                MESH_MOE_SEQ, 1, policy)[0]
+        # the f32 twin: the same weights in f32, trained and served
+        params32 = tree_map(lambda t: t.float(), params)
+        del params
+        refs[f"{arch}_f32"] = mesh_train(torch, cfg32, params32, None, MESH_MOE_STEPS,
+                                         MESH_MOE_BATCH, MESH_MOE_SEQ, 1, policy)[0]
+        tokens, logits = mesh_serve(torch, cfg32, params32, None)
+        refs[f"{arch}_tokens"] = tokens
+        torch.save(logits, out_dir / f"{arch}_logits.pt")
+        del params32
+    if spec["kimi"]:
+        fresh()
+        kimi = mesh_moe_config("kimi-k2-1t-a32b")
+        batch = train_batch_of(torch, kimi, 0, MESH_MOE_BATCH, MESH_MOE_SEQ)
+        torch.save(routed_forward(torch, kimi, mesh_params(torch, kimi), batch, None,
+                                  policy_from_spec(KERNEL_POLICIES["bulk"])),
+                   out_dir / "kimi_forward.pt")
+    ref_s = time.perf_counter() - t0
+    fresh()
+
+    t0 = time.perf_counter()
+    mp.spawn(mesh_moe_rank, args=(spec["world"], str(out_dir / "store"), str(out_dir), plan),
+             nprocs=spec["world"], join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(spec["world"])]
+    failures = []  # every gate is read before the first failure is raised
+
+    def gate(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    for r in ranks:
+        gate(not r["fallbacks"] and not r["quarantined"],
+             f"phase 17 rank {r['rank']}: dispatch fell back {r['fallbacks']}, "
+             f"quarantined {r['quarantined']}")
+        for k in MESH_KERNELS:
+            gate(r["launches"][k] > 0, f"phase 17 rank {r['rank']} never launched {k}: "
+                 f"{r['launches']}")
+
+    def same_on_every_rank(key):
+        m0 = ranks[0][key]["metrics"]
+        gate(all(m0 == r[key]["metrics"] for r in ranks), f"{key}: the ranks' metrics differ")
+        gate(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in m0),
+             f"{key}: a non-finite loss or grad norm {m0}")
+        return m0
+
+    def step_gates(key, m0, ref, gn32=None):
+        """Phase 16's gates at every step; with ``gn32`` (a Mamba stack's
+        f32 twin's step-0 norm), step 0's grad norm may pass phase 8b's
+        f32-distance gate in their place: a random Mamba stack's bf16
+        gradients leave f32 whatever runs them, one way on one rank and
+        another on two."""
+        g = [{"loss_rel": rel(m["loss"], w["loss"]),
+              "grad_norm_rel": rel(m["grad_norm"], w["grad_norm"])} for m, w in zip(m0, ref)]
+        gate(len(m0) == len(ref), f"{key}: {len(m0)} steps against one rank's {len(ref)}")
+        for step, (x, m, w) in enumerate(zip(g, m0, ref)):
+            gate(x["loss_rel"] <= LOSS_REL, f"{key} step {step}: loss {m} vs one rank's {w}")
+            ok = x["grad_norm_rel"] <= GRAD_NORM_REL
+            if step == 0 and gn32 is not None:
+                x["f32_distance"] = {"mesh": rel(m["grad_norm"], gn32),
+                                     "one_rank": rel(w["grad_norm"], gn32), "f32": gn32}
+                limit = F32_DISTANCE_RATIO * x["f32_distance"]["one_rank"] + F32_DISTANCE_FLOOR
+                ok = ok or x["f32_distance"]["mesh"] <= limit
+            gate(ok, f"{key} step {step}: grad norm {m} vs one rank's {w}"
+                 + (f", f32's {gn32}" if step == 0 and gn32 is not None else ""))
+        return g
+
+    def exact_gates(key, m0, ref):
+        """The f32 twin against one rank's f32 run: at step 0 (the same
+        weights, the gradients' reduction order alone) the loss within
+        EXACT_LOSS_REL and the grad norm within EXACT_GRAD_REL_L2; later,
+        phase 16's gates, since AdamW's first step moves every entry by
+        up to lr whatever its gradient's size, and a near-zero gradient's
+        sign is rounding (on an H100 zamba2's unit moves its step-1 loss by 4e-5)."""
+        g = [{"loss_rel": rel(m["loss"], w["loss"]),
+              "grad_norm_rel": rel(m["grad_norm"], w["grad_norm"])} for m, w in zip(m0, ref)]
+        gate(len(m0) == len(ref) and all(
+            x["loss_rel"] <= (LOSS_REL if step else EXACT_LOSS_REL)
+            and x["grad_norm_rel"] <= (GRAD_NORM_REL if step else EXACT_GRAD_REL_L2)
+            for step, x in enumerate(g)), f"{key}: f32 steps {m0} vs one rank's {ref}")
+        return g
+
+    gates = {}
+    for dm in spec["grok"]:
+        key = f"grok_{mesh_name(dm)}"
+        gates[key] = step_gates(key, same_on_every_rank(key), refs["grok"])
+    for arch in spec["ssm"]:
+        f32_key = f"{arch}_f32"
+        gates[arch] = {"steps": step_gates(arch, same_on_every_rank(arch), refs[arch],
+                                           refs[f32_key][0]["grad_norm"]),
+                       "f32_steps": exact_gates(f32_key, same_on_every_rank(f32_key),
+                                                refs[f32_key]),
+                       "logits_rel": ranks[0][arch]["logits_rel"]}
+        gate(ranks[0][arch]["logits_rel"] <= MESH_LOGITS_REL,
+             f"{arch} f32 serving: logits {ranks[0][arch]['logits_rel']} from one rank's")
+        gate(all(r[arch]["tokens"] == refs[f"{arch}_tokens"] for r in ranks),
+             f"{arch} f32 serving: tokens {ranks[0][arch]['tokens']} vs one rank's "
+             f"{refs[arch + '_tokens']}")
+    for dm in spec["kimi"]:
+        key = f"kimi_{mesh_name(dm)}"
+        same_on_every_rank(key)
+        gates[key] = [{k: r[key][k] for k in ("logits_rel_l2", "rerouted", "choices_missed")}
+                      for r in ranks]
+        gate(all(g["logits_rel_l2"] <= LOGITS_REL_L2
+                 and g["choices_missed"] <= MOE_REROUTED_SHARE for g in gates[key]),
+             f"{key}: forward against one rank's {gates[key]}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    seconds = time.perf_counter() - t_start
+    row = {"phase": "mesh_moe_ssm", "card": card, "plan": plan, "seconds": seconds,
+           "one_rank_ref_s": ref_s, "spawn_s": spawn_s,
+           "references": {k: v for k, v in refs.items() if not k.endswith("_tokens")},
+           "gates": gates,
+           "ranks": [{k: v for k, v in r.items() if k != "launches"} for r in ranks],
+           "launches_by_rank": [{k: v for k, v in r["launches"].items() if v} for r in ranks],
+           "launches": launches}
+    gate(seconds <= MESH_MOE_SECONDS, f"phase 17 took {seconds:.0f} s, over {MESH_MOE_SECONDS} s")
+    if failures:  # the row, for the record, before the first failure ends the run
+        print(json.dumps(row), file=sys.stderr, flush=True)
+    check(not failures, "; ".join(failures))
+    return row, launches
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on the card (one card: every "
                                  "phase).")
     ap.add_argument("--mesh-alone", action="store_true",
-                    help="run phase 16 alone: two gloo ranks sharing the card")
+                    help="run phases 16 and 17 alone: two gloo ranks sharing the card")
     ap.add_argument("--nccl-cards", type=int, choices=(MESH_PLANS["nccl"]["world"],),
-                    help="run phase 16 alone, with NCCL ranks a card each on the 2x2 mesh")
+                    help="run phases 16 and 17 alone, with NCCL ranks a card each (phase "
+                         "16 on the 2x2 mesh, 17 kimi-k2 at 1x4 and 2x2)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
@@ -3172,7 +3542,10 @@ def main() -> int:
         plan = "nccl" if args.nccl_cards else "gloo"
         mesh_row, _ = phase_mesh(torch, card, plan=plan)
         emit_phase(mesh_row)
-        (out_dir / f"chip_smoke_mesh_{plan}.json").write_text(json.dumps(mesh_row, indent=1))
+        moe_mesh_row, _ = phase_mesh_moe_ssm(torch, card, plan=plan)
+        emit_phase(moe_mesh_row)
+        (out_dir / f"chip_smoke_mesh_{plan}.json").write_text(json.dumps(
+            {"mesh": mesh_row, "mesh_moe_ssm": moe_mesh_row}, indent=1))
         check("jax" not in sys.modules, "jax was imported")
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3301,6 +3674,11 @@ def main() -> int:
     mesh_row, mesh_launches = phase_mesh(torch, card)
     emit_phase(mesh_row)
     results["mesh"] = mesh_row
+
+    # 17. mesh_moe_ssm: grok-1, mamba2 and zamba2 on two gloo ranks on the card
+    moe_mesh_row, moe_mesh_launches = phase_mesh_moe_ssm(torch, card)
+    emit_phase(moe_mesh_row)
+    results["mesh_moe_ssm"] = moe_mesh_row
     check("jax" not in sys.modules, "jax was imported")
 
     # the contract line: one row per kernel at a main-path shape; launches
@@ -3314,8 +3692,8 @@ def main() -> int:
     # 12's tuned measurement and autotune serving run, phase 13's
     # benchmarks, phase 5a's two kernel-policy legacy runs, phase 7a's
     # remat="dots" steps, phase 14's serving load, phase 15's drill and
-    # fault-injected serving run and phase 16b's two ranks (each counted
-    # from 0).  The wide-head flash instances and
+    # fault-injected serving run, phase 16b's two ranks and phase 17's two
+    # ranks (each counted from 0).  The wide-head flash instances and
     # gemm_f32's routes have rows of their own: the flash kernel at each
     # wide head (gemma3's, zamba2's and h2o-danube's prefill) and gemm_f32's
     # two routes (grok-1's router at decode; stage 2 of the f32 TNN arm at a
@@ -3382,7 +3760,8 @@ def main() -> int:
                    "remat_dots": dots_launches[cname],
                    "serve_load": load_launches[cname],
                    "faults": faults_launches[cname],
-                   "mesh": mesh_launches[cname]}
+                   "mesh": mesh_launches[cname],
+                   "mesh_moe_ssm": moe_mesh_launches[cname]}
         if cname in routes:
             check(sum(by_path.values()) > 0, f"{cname}: no main path launched it")
         kernels.append({

@@ -33,7 +33,12 @@ here; gloo stages CUDA tensors through the host itself.
 ``scatter_to_group`` are the four differentiable collectives of tensor
 parallelism (each one's backward is the other's forward); their
 backward re-enters the forward's policy scope, as every backward of the
-port does (``core/policy.py::resume_scope``).
+port does (``core/policy.py::resume_scope``).  ``gather_params`` is the
+fifth, FSDP's: a weight split over the data axes is all-gathered whole
+for one use, and its gradient -- each rank's from its own tokens -- is
+reduce-scattered (summed) back to this rank's piece.  Under
+``remat="full"`` the recompute calls it again, so every rank replays the
+forward's gathers in the backward, in the forward's order.
 
 ``agree`` and ``barrier`` are the host-side agreements of the whole
 mesh (the checkpoint step every rank restores, a save every rank waits
@@ -76,6 +81,7 @@ __all__ = [
     "reduce_from_group",
     "gather_from_group",
     "scatter_to_group",
+    "gather_params",
     "quantize_int8",
     "dequantize_int8",
     "compressed_psum",
@@ -335,6 +341,24 @@ class _ScatterToGroup(torch.autograd.Function):
             return all_gather(g.contiguous(), ctx.axes, ctx.dim), None, None
 
 
+class _GatherParams(torch.autograd.Function):
+    """Forward: a weight's pieces over ``axes`` concatenated along ``dim``;
+    backward: the whole weight's gradient, which differs from rank to rank
+    (each rank's own tokens), summed over the group, and this rank's piece
+    of the sum (a reduce-scatter in the gradient's dtype, as the JAX
+    package's partitioner reduces a bf16 weight's gradient)."""
+
+    @staticmethod
+    def forward(ctx, w, axes, dim):
+        ctx.axes, ctx.dim, ctx.scope = axes, dim % w.ndim, current_scope()
+        return all_gather(w, axes, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with resume_scope(ctx.scope):
+            return reduce_scatter(g.contiguous(), ctx.axes, ctx.dim), None, None
+
+
 def copy_to_group(x: torch.Tensor, axes: Axes = "model") -> torch.Tensor:
     return _CopyToGroup.apply(x, axes)
 
@@ -349,6 +373,10 @@ def gather_from_group(x: torch.Tensor, axes: Axes = "model", dim: int = -1) -> t
 
 def scatter_to_group(x: torch.Tensor, axes: Axes = "model", dim: int = -1) -> torch.Tensor:
     return _ScatterToGroup.apply(x, axes, dim)
+
+
+def gather_params(w: torch.Tensor, axes: Axes, dim: int) -> torch.Tensor:
+    return _GatherParams.apply(w, axes, dim)
 
 
 # -- int8-compressed all-reduce -----------------------------------------------------

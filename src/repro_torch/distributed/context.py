@@ -12,7 +12,7 @@ it is the identity.
 
 The JAX package's ``constrain`` (a sharding constraint inside a jitted
 program) has no counterpart in a per-rank program; sequence-parallel
-attention, which is what needs it, waits for ROADMAP queue A item 4b.
+attention, which is what needs it, is not ported.
 """
 
 from __future__ import annotations

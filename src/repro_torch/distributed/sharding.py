@@ -38,6 +38,7 @@ __all__ = [
     "cache_specs_tree",
     "param_spec",
     "spec_axes",
+    "splits",
     "local_shape",
     "shard",
     "unshard",
@@ -292,6 +293,12 @@ def spec_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def splits(spec, axes) -> bool:
+    """Whether ``spec`` splits some dim over any of ``axes`` (a leaf FSDP
+    splits over the data axes, for one)."""
+    return any(a in axes for e in spec for a in spec_axes(e))
 
 
 def local_shape(shape, spec, mesh) -> Tuple[int, ...]:

@@ -20,7 +20,9 @@ What is counted, per device:
     matrix product outside a dispatch its FLOPs; views, metadata and
     allocations count nothing;
   * collectives: the effective wire bytes the wrappers of
-    ``distributed/collectives.py`` record, by kind.
+    ``distributed/collectives.py`` record, by kind -- the FSDP gathers of
+    the MoE experts in the forward and the recompute, and their
+    gradients' reduce-scatters, among them.
 
 Memory: ``peak_temp_bytes`` is the most bytes held at once by the
 storages the step allocates (tracked in the dispatch mode from creation
@@ -56,7 +58,7 @@ from repro_torch.distributed.sharding import (
     shard,
 )
 from repro_torch.models import lm
-from repro_torch.optim import adamw_update_zero1, tree_leaves, tree_map
+from repro_torch.optim import make_zero1_update, tree_leaves, tree_map
 
 __all__ = ["account_cell", "CellCosts", "CostLedger", "tree_bytes"]
 
@@ -226,8 +228,8 @@ def account_cell(cfg, shape, mesh, accum: int = 1, policy=None) -> CellCosts:
             with torch.no_grad():
                 daxes = data_axes(mesh)
                 collectives.all_reduce(loss, daxes)
-                adamw_update_zero1(acc, state["opt"], params, 1e-3, specs["params"],
-                                   specs["opt"], mesh, max_grad_norm=1.0)
+                make_zero1_update(cfg.optimizer)(acc, state["opt"], params, 1e-3,
+                                                 specs["params"], specs["opt"], mesh)
             opt_costs = _diff(ledger.snapshot(), before)
             totals = {k: micro_costs.get(k, 0.0) * accum + opt_costs.get(k, 0.0)
                       for k in set(micro_costs) | set(opt_costs)}

@@ -3,10 +3,8 @@
 ``parse_mesh`` validates a ``--mesh`` spec and raises a clean, actionable
 ``ValueError`` (the JAX package's texts; "present" counts the ranks of
 the process group, one without one); ``resolve_mesh_and_policy`` turns
-that into ``parser.error`` (usage + exit 2) when called from a CLI, and
-refuses, with ``NotImplementedError`` naming the ROADMAP item, the
-architectures this port cannot yet shard on the mesh asked for
-(``check_shardable``).
+that into ``parser.error`` (usage + exit 2) when called from a CLI.
+Every architecture shards on every mesh the rules admit.
 
 Policy under a mesh: the JAX package passes ``distributed=True`` to the
 policy of any mesh larger than one device, which limits dispatch to the
@@ -28,17 +26,13 @@ __all__ = [
     "parse_mesh",
     "add_mesh_argument",
     "setup_distributed",
-    "check_shardable",
     "resolve_mesh_and_policy",
-    "ROADMAP_ITEM",
 ]
 
 MESH_SPEC_HELP = (
     "mesh spec: DATAxMODEL with two positive integers (e.g. 1x1, 2x4) "
     "or 'production'"
 )
-
-ROADMAP_ITEM = "ROADMAP queue A item 4b"
 
 
 def _world_size() -> int:
@@ -127,32 +121,10 @@ def setup_distributed(args):
     return dev, owned
 
 
-def check_shardable(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` for what this port does not shard yet:
-    MoE architectures on any mesh larger than one rank (expert
-    parallelism and the experts' 2-D FSDP), Mamba or hybrid blocks with
-    ``model`` > 1, and Adafactor under ZeRO-1."""
-    if mesh is None or mesh.size == 1:
-        return
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE expert parallelism and the experts' 2-D FSDP are not "
-            f"ported yet ({ROADMAP_ITEM}); run it on a 1x1 mesh")
-    mixers = {b.mixer for _, blocks in cfg.segments for b in blocks}
-    if mesh.shape.get("model", 1) > 1 and mixers & {"mamba", "shared_attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba and hybrid blocks on the model axis are not ported yet "
-            f"({ROADMAP_ITEM}); shard it over the data axis only (Dx1)")
-    if cfg.optimizer != "adamw":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.optimizer} under ZeRO-1 is not ported yet ({ROADMAP_ITEM})")
-
-
-def resolve_mesh_and_policy(args, parser=None, cfg=None):
+def resolve_mesh_and_policy(args, parser=None):
     """(mesh, policy) from parsed ``--mesh``/``--policy`` args.  With a
     ``parser``, malformed specs exit via ``parser.error`` (clean usage
-    message) instead of a traceback; with ``cfg``, an architecture this
-    port cannot shard on the mesh raises ``NotImplementedError``."""
+    message) instead of a traceback."""
     try:
         mesh = parse_mesh(args.mesh)
         policy = policy_from_spec(args.policy, distributed=False,
@@ -161,6 +133,4 @@ def resolve_mesh_and_policy(args, parser=None, cfg=None):
         if parser is not None:
             parser.error(str(e))
         raise
-    if cfg is not None:
-        check_shardable(cfg, mesh)
     return mesh, policy

@@ -14,9 +14,12 @@ Per cell this script:
      (``launch/roofline.py``, datasheet peaks) and ``useful_ratio``, and
      writes one JSON record per cell under ``build/dryrun/``.
 
-Cells this port cannot shard yet (MoE on any mesh, Mamba and hybrid
-blocks on the model axis) record ``status: "error"`` with the
-``NotImplementedError`` text, as the JAX package records a failing cell.
+Every architecture's cells run, the MoE ones with their experts split
+over ``model`` and gathered over the data axes (FSDP) and the Mamba
+blocks split by head; the collective bytes include the FSDP gathers and
+reduce-scatters and the expert-parallel reduces, which the wrappers
+record as they run.  A cell that raises records ``status: "error"`` with
+the error's text, as the JAX package records a failing cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
@@ -35,7 +38,6 @@ from repro_torch.configs import SHAPES, cell_applicable, get_config, list_archs
 from repro_torch.core.engine import add_policy_argument, policy_from_spec
 from repro_torch.distributed.sharding import P, data_axes
 from repro_torch.launch.accounting import account_cell
-from repro_torch.launch.common import check_shardable
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import (
     HW_H100,
@@ -79,14 +81,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, policy=None,
     ``mesh`` and ``cfg`` default to the production mesh and the arch's
     full config, ``accum`` (train cells) to ``_accum_for``'s.  The JAX
     package's ``optimized`` variant (sequence-parallel attention, sharded
-    gradient accumulators) waits for ROADMAP queue A item 4b."""
+    gradient accumulators) is not ported."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     ok, why = cell_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape.name, "status": "skip", "why": why}
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
-    check_shardable(cfg, mesh)
     record = {
         "arch": arch,
         "shape": shape.name,

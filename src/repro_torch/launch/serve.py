@@ -19,8 +19,11 @@ gemma3-4b), so ``--max-seq`` must hold one such bucket plus ``--gen``;
 the Mamba ones (mamba2, zamba2) prefill each prompt at its exact length.
 ``--mesh DxM`` serves one rank's program per process under ``python -m
 torch.distributed.run --nproc-per-node D*M`` (``ServeEngine(mesh=)``;
-the legacy demo too): tensor parallelism over M, and the D data
-replicas serve the same requests.  ``--device`` defaults
+the legacy demo too): tensor parallelism over M (expert parallelism for
+the MoE ones where their experts divide M; the Mamba blocks by head),
+and the D data replicas serve the same requests, gathering the weights
+the rules split over the data axes (the MoE experts' FSDP dim) a layer
+at a time.  ``--device`` defaults
 to ``cuda`` and raises when there is no card.  ``--layers`` cuts the
 depth and ``--dtype`` sets the parameter dtype; weights are random from
 ``--seed``.  The default ``--policy model`` is the default learned
@@ -62,7 +65,6 @@ from repro_torch.core.faults import add_chaos_argument, chaos_scope
 from repro_torch.distributed.sharding import param_specs, shard
 from repro_torch.launch.common import (
     add_mesh_argument,
-    check_shardable,
     parse_mesh,
     setup_distributed,
 )
@@ -132,15 +134,13 @@ def _class_policies(args, parser):
         parser.error(str(e))
 
 
-def _mesh(args, parser, cfg):
+def _mesh(args, parser):
     """The ``--mesh`` of this run (None for one rank): malformed specs exit
-    through ``parser.error``; an architecture this port cannot shard on it
-    raises ``NotImplementedError``."""
+    through ``parser.error``."""
     try:
         mesh = parse_mesh(args.mesh)
     except ValueError as e:
         parser.error(str(e))
-    check_shardable(cfg, mesh)
     return mesh if mesh.size > 1 else None
 
 
@@ -159,7 +159,7 @@ def _engine_main(args, parser, device):
     from repro_torch.serving import QueueFullError, ServeEngine
 
     cfg = config_from_args(args)
-    mesh = _mesh(args, parser, cfg)
+    mesh = _mesh(args, parser)
     policies = _class_policies(args, parser)
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     max_seq = args.max_seq or (args.prompt_len + args.gen)
@@ -216,7 +216,7 @@ def _legacy_main(args, parser, device):
     """The fixed-batch demo: one prefill of ``--batch`` prompts, then
     ``--gen`` greedy decode steps; returns the (batch, gen) tokens."""
     cfg = config_from_args(args)
-    mesh = _mesh(args, parser, cfg)
+    mesh = _mesh(args, parser)
     try:
         policy = policy_from_spec(args.policy, device=args.device)
     except (ValueError, KeyError) as e:

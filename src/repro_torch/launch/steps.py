@@ -1,6 +1,7 @@
 """The train step: gradient accumulation over microbatches with f32
 accumulators, global-norm clipping, the LR schedule and the config's
-optimizer (AdamW, or Adafactor for the MoE giants), on one device.
+optimizer (AdamW, or Adafactor for the MoE giants), on one device or one
+rank of a mesh.
 
 ``make_train_step(cfg, step_cfg, policy)`` returns ``train_step(state,
 batch) -> (state, metrics)``.  The state is ``{"params", "opt", "step"}``
@@ -23,7 +24,8 @@ With ``mesh=`` (``launch/mesh.py``) each step is one rank's program
 ``unshard_train_state`` gathers it back), the batch is this rank's shard
 under ``batch_specs``, and the train step splits that shard into its
 microbatches, takes the gradient mean over the data axes and applies the
-ZeRO-1 update (``optim.adamw_update_zero1``).  The serving steps return
+mesh update of the config's optimizer (``optim.make_zero1_update``:
+ZeRO-1 AdamW, or Adafactor on the pieces).  The serving steps return
 the whole vocabulary's logits.  ``train_state_shapes``,
 ``train_state_specs`` and ``shardings_for_train`` are the JAX package's,
 on meta tensors.
@@ -53,9 +55,8 @@ from repro_torch.distributed.sharding import (
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
 from repro_torch.optim import (
-    adamw_update_zero1,
-    clip_by_global_norm,
     make_optimizer,
+    make_zero1_update,
     tree_leaves,
     tree_map,
     warmup_cosine,
@@ -179,28 +180,23 @@ def make_train_step(
     mesh=None,
 ) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; with ``mesh`` one
-    rank's step (the module docstring).  AdamW always takes the ZeRO-1
+    rank's step (the module docstring).  Both optimizers take their mesh
     update, on one rank over a mesh of one (every collective the
-    identity, every leaf whole); Adafactor, which no mesh larger than one
-    trains yet, clips and updates whole leaves."""
+    identity, every leaf whole)."""
     sc = step_cfg or TrainStepConfig()
     sched = warmup_cosine(sc.lr, sc.warmup, sc.total_steps)
-    zero1 = cfg.optimizer == "adamw"
-    if not zero1:
-        _, opt_update = make_optimizer(cfg.optimizer)
-    if mesh is not None:
-        from .common import check_shardable
-
-        check_shardable(cfg, mesh)
-        specs = train_state_specs(train_state_shapes(cfg), mesh)
+    opt_kw = {"weight_decay": sc.weight_decay} if cfg.optimizer == "adamw" else {}
+    update = make_zero1_update(cfg.optimizer, **opt_kw)
     ranks = mesh if mesh is not None else Mesh((1, 1), ("data", "model"))
+    specs = train_state_specs(train_state_shapes(cfg), ranks)
     daxes = data_axes(ranks)
 
     def _grads(params, batch):
-        """(loss, f32 gradients): the mean over ``batch``'s microbatches."""
+        """(loss, gradients): the mean over ``batch``'s microbatches, f32
+        accumulators; one microbatch's come in the params' dtypes, which
+        the update casts leaf by leaf."""
         if sc.accum == 1:
-            loss, grads = loss_and_grads(cfg, params, batch, policy)
-            return loss, tree_map(lambda g: g.float(), grads)
+            return loss_and_grads(cfg, params, batch, policy)
         loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
@@ -216,19 +212,9 @@ def make_train_step(
             loss, grads = _grads(params, batch)
             loss = all_reduce(loss, daxes, mesh=ranks) / ranks.axis_size(daxes)
             lr = sched(int(state["step"]))
-            if zero1:
-                if mesh is None:
-                    whole = tree_map(lambda p: P(*(None,) * p.ndim), params)
-                    p_specs, o_specs = whole, {"m": whole}
-                else:
-                    p_specs, o_specs = specs["params"], specs["opt"]
-                new_params, new_opt, gnorm = adamw_update_zero1(
-                    grads, state["opt"], params, lr, p_specs, o_specs, ranks,
-                    max_grad_norm=sc.max_grad_norm, weight_decay=sc.weight_decay)
-            else:
-                with torch.no_grad():
-                    grads, gnorm = clip_by_global_norm(grads, sc.max_grad_norm)
-                    new_params, new_opt = opt_update(grads, state["opt"], params, lr)
+            new_params, new_opt, gnorm = update(grads, state["opt"], params, lr,
+                                                specs["params"], specs["opt"], ranks,
+                                                max_grad_norm=sc.max_grad_norm)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 

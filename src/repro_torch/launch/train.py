@@ -20,19 +20,25 @@ patch prefix) ones included; each trains with the optimizer its config
 names (Adafactor for grok-1-314b and kimi-k2-1t-a32b, else AdamW).  The
 JAX launcher's flags.  ``--mesh DxM`` trains one rank's program per
 process under ``python -m torch.distributed.run --nproc-per-node D*M``
-(``launch/common.py::setup_distributed``): tensor parallelism over M,
-data parallelism with ZeRO-1 over D (``launch/steps.py``); each rank
-builds the full weights from ``--seed`` and keeps its pieces, and takes
-its shard of the global batch.  On the CPU:
+(``launch/common.py::setup_distributed``): tensor parallelism over M
+(expert parallelism for the MoE ones where their experts divide M, else
+within each expert; the Mamba blocks by head), data parallelism over D
+with ZeRO-1 AdamW or Adafactor on the pieces, and the MoE experts' second
+dim over D (FSDP: gathered a layer at a time, their gradients
+reduce-scattered) (``launch/steps.py``); each rank builds the full
+weights from ``--seed`` and keeps its pieces, and takes its shard of the
+global batch.  On the CPU:
 
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
       -m repro_torch.launch.train --arch smollm-135m --smoke --device cpu \
       --mesh 2x1 --steps 3 --batch 4 --seq 32
 
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch grok-1-314b --smoke --device cpu \
+      --mesh 2x1 --steps 3 --batch 4 --seq 32
+
 Checkpoints stay mesh-agnostic: rank 0 writes the whole state, gathered
-from every rank, and every rank restores its pieces on any mesh.  MoE
-architectures on a mesh larger than one, and Mamba or hybrid ones with
-M > 1, raise ``NotImplementedError`` (ROADMAP queue A item 4b).
+from every rank, and every rank restores its pieces on any mesh.
 ``--chaos SPEC`` arms fault injection
 for the run (``core/faults.py``), and ``health_report()`` is printed at
 the end.  ``--device`` defaults to ``cuda`` and raises
@@ -163,7 +169,7 @@ def _restore(ckpt, cfg, mesh, device, step=None):
 
 def _run(args, ap, device) -> TrainRun:
     cfg = config_from_args(args)
-    mesh, policy = resolve_mesh_and_policy(args, ap, cfg)
+    mesh, policy = resolve_mesh_and_policy(args, ap)
     mesh = mesh if mesh.size > 1 else None
     lead = mesh is None or mesh.rank == 0
     step_fn = make_train_step(

@@ -25,6 +25,12 @@ sharding rules themselves, read at each weight's full shape -- and
 
 An activation is either whole on every rank or split along its last
 dim; ``dense_tp`` gathers or slices it to what the weight needs.  A
+whole tensor that feeds this rank's share of a split computation (a
+per-head vector sliced to this rank's heads, ``group_slice``; the
+Mamba blocks' B and C, which every head contracts) enters it through
+``copy_to_group``: its gradient is the group's sum.  A weight that the
+rules split over the data axes as well (the MoE experts' second dim,
+FSDP) is gathered whole over them for its use (``gather_data_dims``).  A
 vocab-split embedding (``emb`` (V, d) over ``model``) looks up the
 tokens of its rows and sums over the group (``embed``), computes its
 slice of the logits (``unembed``), and the loss over those slices
@@ -46,11 +52,12 @@ from repro_torch.distributed.collectives import (
     all_reduce,
     copy_to_group,
     gather_from_group,
+    gather_params,
     reduce_from_group,
     scatter_to_group,
 )
 from repro_torch.distributed.context import current_mesh, model_size
-from repro_torch.distributed.sharding import param_spec
+from repro_torch.distributed.sharding import param_spec, spec_axes
 
 __all__ = [
     "Param",
@@ -67,6 +74,9 @@ __all__ = [
     "cross_entropy_loss",
     "tp_mesh",
     "weight_dim",
+    "weight_spec",
+    "gather_data_dims",
+    "group_slice",
     "dense_tp",
 ]
 
@@ -118,11 +128,36 @@ def weight_dim(names, shape) -> Optional[int]:
     """The dim of a weight of full ``shape`` at tree path ``names`` that the
     current mesh's ``model`` axis splits (None: every rank holds it
     whole), by ``distributed.sharding``'s rules."""
-    mesh = tp_mesh()
-    if mesh is None:
+    if tp_mesh() is None:
         return None
-    spec = param_spec(names, shape, mesh)
-    return next((d for d, e in enumerate(spec) if e == "model"), None)
+    return next((d for d, e in enumerate(weight_spec(names, shape)) if e == "model"), None)
+
+
+def weight_spec(names, shape):
+    """The spec of a weight of full ``shape`` at tree path ``names`` on the
+    current mesh (None off a mesh of more than one rank)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    return param_spec(names, shape, mesh)
+
+
+def gather_data_dims(w: torch.Tensor, spec) -> torch.Tensor:
+    """``w`` whole over the data axes: each dim that ``spec`` splits over
+    them is all-gathered for this use, and its gradient reduce-scattered
+    back (``collectives.gather_params``)."""
+    for d, e in enumerate(spec or ()):
+        axes = spec_axes(e)
+        if axes and "model" not in axes and current_mesh().axis_size(axes) > 1:
+            w = gather_params(w, axes, d)
+    return w
+
+
+def group_slice(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """This rank's ``n`` entries along ``dim`` of a tensor every rank of the
+    ``model`` group holds whole (rank r's are ``[r n, (r+1) n)``); the
+    gradient of ``t`` is the group's sum."""
+    return copy_to_group(t).narrow(dim, current_mesh().axis_index("model") * n, n)
 
 
 def dense_tp(p: Param, x: torch.Tensor, wdim: Optional[int], x_split: bool = False,
@@ -141,10 +176,8 @@ def dense_tp(p: Param, x: torch.Tensor, wdim: Optional[int], x_split: bool = Fal
         x_split, copied = False, False
     if wdim == 0:
         y = dispatch("NT", x if copied else copy_to_group(x), p["w"])
-        if "b" in p:  # a whole bias, this rank's slice of it: the gradient is the group's
-            n = p["w"].shape[0]
-            b = copy_to_group(p["b"]).narrow(0, current_mesh().axis_index("model") * n, n)
-            y = y + b.to(y.dtype)
+        if "b" in p:  # a whole bias, this rank's slice of it
+            y = y + group_slice(p["b"], p["w"].shape[0]).to(y.dtype)
         return y, True
     if not x_split:
         x = scatter_to_group(x)
@@ -158,12 +191,22 @@ def init_rmsnorm(d: int, dtype=torch.float32, device="cpu") -> Param:
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(p: Param, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Gemma-style RMSNorm: weight is (1 + scale), computed in f32."""
+def rmsnorm(p: Param, x: torch.Tensor, eps: float = 1e-6, split: bool = False) -> torch.Tensor:
+    """Gemma-style RMSNorm: weight is (1 + scale), computed in f32.
+    ``split``: ``x`` is this rank's slice of the normed dim, split over the
+    ``model`` group; the mean square is the group's (the partial sums of
+    squares all-reduced, their gradient too) and ``scale`` is whole."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    scale = p["scale"]
+    if split:
+        n = xf.shape[-1]
+        sq = reduce_from_group(torch.sum(xf * xf, dim=-1, keepdim=True))
+        var = copy_to_group(sq) / (n * model_size())
+        scale = group_slice(scale, n)
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
-    return (normed * (1.0 + p["scale"].float())).to(x.dtype)
+    return (normed * (1.0 + scale.float())).to(x.dtype)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,

@@ -32,7 +32,10 @@ Entry points:
 Under a mesh (``distributed.context.use_mesh``) every entry point is one
 rank's program on its pieces of the params (``distributed.sharding``):
 the ``model`` axis splits the layers (``layers.dense_tp``,
-``attention.py``) and a vocab-split embedding splits the logits, which
+``attention.py``, ``ssm.py``, ``moe.py``; zamba2's shared attention
+block like any other: its one set of weights takes the gradients of
+every unit that reads it), the data axes split the MoE experts' second
+dim (FSDP) and a vocab-split embedding splits the logits, which
 ``lm_forward``, ``lm_prefill`` and ``lm_decode`` return as this rank's
 vocabulary slice (``gather_logits`` joins them).
 """

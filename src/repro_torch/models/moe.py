@@ -7,6 +7,29 @@ in)``.  As in the JAX package, the router is the one policy-dispatched
 GEMM (an f32 NT op: an f32 weight against the f32-cast tokens); the
 dispatch, expert and combine contractions are ``torch.einsum`` products,
 which the JAX package leaves to ``jnp.einsum``.
+
+Under a mesh each rank holds the pieces of the expert tensors that the
+sharding rules give (``distributed/sharding.py``: one dim over
+``model``, and with it a second over the data axes), read through
+``layers.weight_spec``:
+
+  expert parallel (E divides ``model``)  each rank holds E/M experts; the
+      router's E is split too, and its logits are gathered before the
+      softmax and top-k, so routing is computed over all E on every rank.
+      The dispatch and combine masks are cut to this rank's experts, and
+      the combine's partial sums are summed over the group.  Tokens are
+      replicated over ``model``, so no all-to-all is needed;
+  tensor parallel within each expert (E does not divide ``model``, d_ff
+      does)  gate and up split d_ff and down sums its partial outputs, as
+      ``layers.gated_mlp`` does; the combine's partial sums are summed;
+  FSDP  the expert tensors' second dim over the data axes is gathered
+      whole once a layer, at compute time, and its gradient
+      reduce-scattered (``layers.gather_data_dims``).
+
+The tokens and the combine mask enter each rank's share through
+``copy_to_group`` (the combine cut to its experts through
+``scatter_to_group``), so their gradients are the group's sum and the
+router's backward sees the whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -18,9 +41,23 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.engine import dispatch
+from repro_torch.distributed.collectives import (
+    copy_to_group,
+    gather_from_group,
+    reduce_from_group,
+    scatter_to_group,
+)
+from repro_torch.distributed.context import current_mesh
 
-from .layers import Param, _normal, init_dense
+from .layers import (
+    Param,
+    _normal,
+    dense_tp,
+    gather_data_dims,
+    init_dense,
+    weight_dim,
+    weight_spec,
+)
 
 __all__ = ["MoEConfig", "init_moe", "moe_layer", "router_aux_loss"]
 
@@ -33,7 +70,9 @@ class MoEConfig:
     top_k: int
     group: int = 256
     capacity_factor: float = 2.0
-    shard: str = "expert"  # 'expert' (EP) or 'ffn' (TP within expert); one device here
+    # 'expert' (EP) or 'ffn' (TP within expert): the JAX package's label; the
+    # split under a mesh is the sharding rules' (the module docstring)
+    shard: str = "expert"
 
     def capacity(self, group: int) -> int:
         c = int(math.ceil(group * self.top_k * self.capacity_factor / self.n_experts))
@@ -74,8 +113,19 @@ def _route(logits: torch.Tensor, cfg: MoEConfig, capacity: int
     return dispatch_mask, dispatch_mask * gates[..., None]
 
 
+def _expert_specs(cfg: MoEConfig):
+    """{name: spec} of the expert tensors on the current mesh, and the dim
+    of ``gate`` that ``model`` splits (0 the experts, 1 d_ff; None
+    whole)."""
+    E, f, d = cfg.n_experts, cfg.d_ff, cfg.d_model
+    specs = {n: weight_spec(("moe", n), shape)
+             for n, shape in (("gate", (E, f, d)), ("up", (E, f, d)), ("down", (E, d, f)))}
+    return specs, weight_dim(("moe", "gate"), (E, f, d))
+
+
 def moe_layer(p: Param, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+    """x: (B, S, d) -> (B, S, d); under a mesh, this rank's program on its
+    pieces (the module docstring)."""
     B, S, d = x.shape
     group = min(cfg.group, S)
     if S % group != 0:  # ragged tail: one group per sequence
@@ -85,15 +135,31 @@ def moe_layer(p: Param, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     capacity = cfg.capacity(group)
 
     # router GEMM: (G*T, d) @ (E, d)^T -- an NT op, policy-dispatched, in f32
-    router_logits = dispatch("NT", xg.float(), p["router"]["w"])
+    rdim = weight_dim(("router", "w"), (cfg.n_experts, d))
+    router_logits, split = dense_tp(p["router"], xg.float(), rdim)
+    if split:
+        router_logits = gather_from_group(router_logits)
     dispatch_mask, combine = _route(router_logits, cfg, capacity)
 
+    specs, mdim = _expert_specs(cfg)
+    if mdim == 0:  # expert parallel: this rank's experts
+        n = p["gate"].shape[0]
+        dispatch_mask = dispatch_mask.narrow(2, current_mesh().axis_index("model") * n, n)
+        combine = scatter_to_group(combine, dim=2)
+    elif mdim is not None:  # tensor parallel within each expert
+        combine = copy_to_group(combine)
+    if mdim is not None:
+        xg = copy_to_group(xg)
+    gate, up, down = (gather_data_dims(p[k], specs[k]) for k in ("gate", "up", "down"))
+
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch_mask.to(x.dtype), xg)
-    g = torch.einsum("egcd,efd->egcf", expert_in, p["gate"])
-    u = torch.einsum("egcd,efd->egcf", expert_in, p["up"])
+    g = torch.einsum("egcd,efd->egcf", expert_in, gate)
+    u = torch.einsum("egcd,efd->egcf", expert_in, up)
     h = F.silu(g) * u
-    expert_out = torch.einsum("egcf,edf->egcd", h, p["down"])
+    expert_out = torch.einsum("egcf,edf->egcd", h, down)
     out = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype), expert_out)
+    if mdim is not None:
+        out = reduce_from_group(out)
     return out.reshape(B, S, d)
 
 

@@ -11,6 +11,23 @@ are ``torch.einsum`` products, as the JAX package leaves them to
 JAX package scans them).  The casts follow the JAX package's: B and C
 run in the activation dtype, the scores and the carried state too, and
 decode works in f32 and stores the state in the cache dtype.
+
+Under a mesh whose ``model`` axis is larger than one, each rank holds
+the pieces the sharding rules give: ``wz``, ``wx``, ``conv_w`` and
+``wdt`` split by head, ``wB`` and ``wC`` over d_state where ``model``
+divides it (else over their input dim), ``out`` over its input dim.
+Where the heads divide ``model`` each rank runs the SSD on its own
+heads: the replicated per-head vectors (``A_log``, ``D``, ``dt_bias``,
+``conv_b``) are sliced to them, B and C are gathered whole (every head
+contracts all N states) and enter through ``copy_to_group``, the gated
+norm's mean square is the group's (``rmsnorm(split=True)``), and ``out``
+sums the ranks' partial outputs.  The decode caches follow
+``cache_specs_tree``: ``ssm`` over heads, ``conv`` over d_inner.  Where a
+split misses a head boundary, every projection's output is gathered
+whole, every rank runs every head, and ``out`` takes this rank's columns
+(the head-boundary gather of ``attention.py``); a ``conv`` cache split
+over d_inner is then cut from the whole state and gathered back to
+decode.
 """
 
 from __future__ import annotations
@@ -21,7 +38,27 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Param, _normal, dense, init_dense, init_rmsnorm, rmsnorm
+from repro_torch.distributed.collectives import (
+    all_gather,
+    copy_to_group,
+    gather_from_group,
+)
+from repro_torch.distributed.context import current_mesh
+from repro_torch.distributed.sharding import _spec_for_cache
+from repro_torch.launch.mesh import Mesh
+
+from .layers import (
+    Param,
+    _normal,
+    dense,
+    dense_tp,
+    group_slice,
+    init_dense,
+    init_rmsnorm,
+    rmsnorm,
+    tp_mesh,
+    weight_dim,
+)
 
 __all__ = ["SSMConfig", "init_ssm", "ssm_layer", "ssm_decode", "init_ssm_cache"]
 
@@ -128,27 +165,101 @@ def _ssd_chunked(
     return y, h
 
 
+@dataclass(frozen=True)
+class _Split:
+    """How the ``model`` axis splits one Mamba layer: each projection's
+    split dim (``layers.weight_dim``), whether each rank runs its own
+    heads (``local``), the group's size and whether the ``conv`` cache is
+    split over d_inner."""
+
+    dims: Dict[str, Optional[int]]
+    local: bool
+    m: int
+    conv_split: bool
+
+
+def _split(cfg: SSMConfig) -> Optional[_Split]:
+    mesh = tp_mesh()
+    if mesh is None:
+        return None
+    m = mesh.shape["model"]
+    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_heads
+    dims = {n: weight_dim((n, "w"), shape) for n, shape in (
+        ("wz", (di, d)), ("wx", (di, d)), ("wB", (N, d)), ("wC", (N, d)), ("wdt", (H, d)),
+        ("out", (d, di)))}
+    dims["conv_w"] = weight_dim(("conv_w",), (cfg.d_conv, di))
+    local = (dims["wz"], dims["wx"], dims["wdt"], dims["conv_w"]) == (0, 0, 0, 1) and H % m == 0
+    spec = _spec_for_cache(("conv",), (1, 1, cfg.d_conv - 1, di), Mesh((1, m), ("data", "model")))
+    return _Split(dims, local, m, spec[-1] == "model")
+
+
+def _whole(p: Param, x: torch.Tensor, xc: torch.Tensor, wdim: Optional[int]) -> torch.Tensor:
+    """A projection's output whole on every rank; ``xc`` is ``x`` through
+    ``copy_to_group`` (the out-split projections' shared copy)."""
+    y, y_split = dense_tp(p, xc if wdim == 0 else x, wdim, copied=True)
+    return gather_from_group(y) if y_split else y
+
+
+def _project(p: Param, x: torch.Tensor, cfg: SSMConfig, sp: Optional[_Split]):
+    """(z, xi_raw, B, C, dt_raw, q): the input projections of this rank's
+    channels (all of them off a head-local split) and ``q``, the conv taps
+    and bias, ``A_log``, ``D`` and ``dt_bias`` of those channels' heads."""
+    names = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+    if sp is None:
+        outs = [dense(p[n], x) for n in ("wz", "wx", "wB", "wC", "wdt")]
+        return (*outs, {n: p[n] for n in names})
+    xc = copy_to_group(x) if 0 in sp.dims.values() else x
+    if not sp.local:  # every rank runs every head
+        outs = [_whole(p[n], x, xc, sp.dims[n]) for n in ("wz", "wx", "wB", "wC", "wdt")]
+        q = {n: p[n] for n in names}
+        if sp.dims["conv_w"] is not None:
+            q["conv_w"] = gather_from_group(p["conv_w"])
+        return (*outs, q)
+    z, xi_raw, dt_raw = (dense_tp(p[n], xc, 0, copied=True)[0] for n in ("wz", "wx", "wdt"))
+    # every head contracts all N states: B and C whole, their gradient the group's sum
+    Bv, Cv = (copy_to_group(_whole(p[n], x, xc, sp.dims[n])) for n in ("wB", "wC"))
+    di, H = cfg.d_inner // sp.m, cfg.n_heads // sp.m
+    q = {"conv_w": p["conv_w"], "conv_b": group_slice(p["conv_b"], di)}
+    q.update({n: group_slice(p[n], H) for n in ("A_log", "D", "dt_bias")})
+    return z, xi_raw, Bv, Cv, dt_raw, q
+
+
+def _gate_out(p: Param, y: torch.Tensor, z: torch.Tensor, sp: Optional[_Split]) -> torch.Tensor:
+    """The gated RMSNorm over the whole d_inner, then ``out``."""
+    split = sp is not None and sp.local
+    y = rmsnorm(p["norm"], y * F.silu(z), split=split)
+    out, _ = dense_tp(p["out"], y, sp.dims["out"] if sp else None, x_split=split)
+    return out
+
+
+def _conv_piece(conv: torch.Tensor, sp: Optional[_Split]) -> torch.Tensor:
+    """This rank's piece of a whole ``conv`` state (off a head-local split
+    whose cache splits d_inner)."""
+    if sp is None or sp.local or not sp.conv_split:
+        return conv
+    n = conv.shape[-1] // sp.m
+    return conv.narrow(-1, current_mesh().axis_index("model") * n, n)
+
+
 def ssm_layer(p: Param, x: torch.Tensor, cfg: SSMConfig, return_state: bool = False,
               cache_dtype=torch.bfloat16):
     """x: (B, S, d_model) -> (B, S, d_model) [, decode cache]."""
     B, S, _ = x.shape
-    z = dense(p["wz"], x)
-    xi_raw = dense(p["wx"], x)
-    xi = _causal_conv(xi_raw, p["conv_w"], p["conv_b"])
-    Bv = dense(p["wB"], x).float()
-    Cv = dense(p["wC"], x).float()
-    dt = F.softplus(dense(p["wdt"], x).float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = xi.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    sp = _split(cfg)
+    z, xi_raw, Bv, Cv, dt_raw, q = _project(p, x, cfg, sp)
+    xi = _causal_conv(xi_raw, q["conv_w"], q["conv_b"])
+    Bv, Cv = Bv.float(), Cv.float()
+    dt = F.softplus(dt_raw.float() + q["dt_bias"])
+    A = -torch.exp(q["A_log"])
+    xh = xi.reshape(B, S, -1, cfg.head_dim)
     y, h_final = _ssd_chunked(xh, Bv.to(xh.dtype), Cv.to(xh.dtype), dt, A, cfg.chunk)
-    y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
-    y = y.reshape(B, S, cfg.d_inner)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    out = dense(p["out"], y)
+    y = y + xh * q["D"][None, None, :, None].to(xh.dtype)
+    out = _gate_out(p, y.reshape(B, S, -1), z, sp)
     if not return_state:
         return out
     tail = cfg.d_conv - 1
     conv_cache = xi_raw[:, S - tail:] if S >= tail else F.pad(xi_raw, (0, 0, tail - S, 0))
+    conv_cache = _conv_piece(conv_cache, sp)
     return out, {"conv": conv_cache.to(cache_dtype), "ssm": h_final.to(cache_dtype)}
 
 
@@ -173,26 +284,28 @@ def ssm_decode(
     """One decode step; returns the output and a new cache (the input
     cache is left as it was)."""
     B = x.shape[0]
-    z = dense(p["wz"], x)[:, 0]
-    xi_raw = dense(p["wx"], x)[:, 0]  # (B, d_inner)
+    sp = _split(cfg)
+    z, xi_raw, Bv, Cv, dt_raw, q = _project(p, x, cfg, sp)
+    z, xi_raw = z[:, 0], xi_raw[:, 0]  # (B, d_inner)
 
     # conv ring: taps over [cache, new]
-    hist = torch.cat([cache["conv"].to(xi_raw.dtype), xi_raw[:, None]], dim=1)
-    conv_out = torch.einsum("btd,td->bd", hist, p["conv_w"]) + p["conv_b"]
+    conv = cache["conv"]
+    if sp is not None and not sp.local and sp.conv_split:  # whole heads, a split cache
+        conv = all_gather(conv, "model", dim=-1)
+    hist = torch.cat([conv.to(xi_raw.dtype), xi_raw[:, None]], dim=1)
+    conv_out = torch.einsum("btd,td->bd", hist, q["conv_w"]) + q["conv_b"]
     xi = F.silu(conv_out)
-    new_conv = hist[:, 1:].to(cache["conv"].dtype)
+    new_conv = _conv_piece(hist[:, 1:], sp).to(cache["conv"].dtype)
 
-    Bv = dense(p["wB"], x)[:, 0].float()  # (B, N)
-    Cv = dense(p["wC"], x)[:, 0].float()
-    dt = F.softplus(dense(p["wdt"], x)[:, 0].float() + p["dt_bias"])  # (B, H)
-    A = -torch.exp(p["A_log"])
-    xh = xi.reshape(B, cfg.n_heads, cfg.head_dim)
+    Bv, Cv = Bv[:, 0].float(), Cv[:, 0].float()  # (B, N)
+    dt = F.softplus(dt_raw[:, 0].float() + q["dt_bias"])  # (B, H)
+    A = -torch.exp(q["A_log"])
+    xh = xi.reshape(B, -1, cfg.head_dim)
 
     dA = torch.exp(dt * A)  # (B, H)
     h = cache["ssm"].float()
     h = h * dA[..., None, None] + torch.einsum("bh,bhp,bn->bhpn", dt, xh.float(), Bv)
-    y = torch.einsum("bn,bhpn->bhp", Cv, h) + xh.float() * p["D"][None, :, None]
-    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z)[:, None])
-    out = dense(p["out"], y)
+    y = torch.einsum("bn,bhpn->bhp", Cv, h) + xh.float() * q["D"][None, :, None]
+    y = y.reshape(B, 1, -1).to(x.dtype)
+    out = _gate_out(p, y, z[:, None], sp)
     return out, {"conv": new_conv, "ssm": h.to(cache["ssm"].dtype)}

@@ -4,7 +4,9 @@ Functional, as in the JAX package: an update takes the gradients, the
 state and the params and returns new params and a new state; nothing is
 updated in place.  Param trees are the model's dicts, lists and tuples of
 tensors.  AdamW, and Adafactor for the configs that name it (grok-1,
-kimi-k2).
+kimi-k2).  Each has the update of one rank of a mesh beside it
+(``adamw_update_zero1``, ``adafactor_update_zero1``), which the train
+step takes on one rank too, over a mesh of one (``make_zero1_update``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from .adafactor import adafactor_init, adafactor_update
+from .adafactor import adafactor_init, adafactor_update, adafactor_update_zero1
 from .adamw import adamw_init, adamw_update, adamw_update_zero1, tree_leaves, tree_map
 from .schedule import constant, warmup_cosine, warmup_linear
 
@@ -23,12 +25,14 @@ __all__ = [
     "adamw_update_zero1",
     "adafactor_init",
     "adafactor_update",
+    "adafactor_update_zero1",
     "warmup_cosine",
     "warmup_linear",
     "constant",
     "clip_by_global_norm",
     "global_norm",
     "make_optimizer",
+    "make_zero1_update",
     "tree_leaves",
     "tree_map",
 ]
@@ -74,3 +78,15 @@ def make_optimizer(name: str, **kw) -> Tuple[Callable, Callable]:
     if name == "adafactor":
         return adafactor_init, lambda g, s, p, lr: adafactor_update(g, s, p, lr, **kw)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+def make_zero1_update(name: str, **kw) -> Callable:
+    """The update of one rank of a mesh for optimizer ``name``:
+    ``update(grads, state, params, lr, p_specs, o_specs, mesh,
+    max_grad_norm) -> (params, state, norm)``, the data-mean of the
+    gradients, their global-norm clip and the step in one."""
+    fn = {"adamw": adamw_update_zero1, "adafactor": adafactor_update_zero1}.get(name)
+    if fn is None:
+        raise ValueError(f"unknown optimizer {name!r}")
+    return lambda g, s, p, lr, p_specs, o_specs, mesh, max_grad_norm=1.0: fn(
+        g, s, p, lr, p_specs, o_specs, mesh, max_grad_norm=max_grad_norm, **kw)

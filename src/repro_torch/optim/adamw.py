@@ -97,13 +97,16 @@ def adamw_update_zero1(
     this rank's param pieces on its own batch shard; ``p_specs`` and
     ``o_specs`` the params' and moments' specs (``state["m"]``'s).  Each
     gradient is reduce-scattered over the data axes along its ZeRO-1 dim
-    (all-reduced where it has none) and divided by their size, the global
+    (all-reduced where it has none; left as it is where the params split
+    it over the data axes already, as FSDP's experts, whose backward
+    reduce-scattered it) and divided by their size, the global
     norm is taken over those pieces (``global_norm``) and clipped to
     ``max_grad_norm`` (as ``clip_by_global_norm``), the pieces are
     updated, and the updated pieces all-gathered back.  On a mesh of one
     rank this is ``clip_by_global_norm`` and ``adamw_update``, value for
     value.  Returns (params, state, norm)."""
     from repro_torch.distributed.collectives import all_gather, all_reduce, reduce_scatter
+    from repro_torch.distributed import sharding
     from repro_torch.distributed.sharding import data_axes, map_with_path
 
     from . import global_norm
@@ -114,8 +117,12 @@ def adamw_update_zero1(
     def piece(_, g, ps, os_):
         d = _zero1_dim(ps, os_)
         g = g.float()
-        g = reduce_scatter(g, daxes, d, mesh=mesh) if d is not None else all_reduce(
-            g, daxes, mesh=mesh)
+        if d is not None:
+            g = reduce_scatter(g, daxes, d, mesh=mesh)
+        elif not sharding.splits(ps, daxes):
+            g = all_reduce(g, daxes, mesh=mesh)
+        # else the params split the leaf over the data axes (FSDP): its
+        # backward reduce-scattered the gradient already
         return g / n
 
     g_pieces = map_with_path(piece, grads, p_specs, o_specs["m"])

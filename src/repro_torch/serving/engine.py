@@ -154,9 +154,6 @@ class ServeEngine:
             )
         self.cfg = cfg
         if self.mesh is not None:
-            from repro_torch.launch.common import check_shardable
-
-            check_shardable(cfg, self.mesh)
             params = shard(params, param_specs(params, self.mesh), self.mesh)
         self.params = params
         self.max_seq = int(max_seq)

@@ -21,8 +21,10 @@ lengths, owners) is host-side numpy.
 
 With a ``mesh`` whose ``model`` axis is larger than one, each rank holds
 its piece of every leaf under ``distributed.sharding.cache_specs_tree``
-on that axis (kv heads, else slots; ``pool_specs``): the data axes
-replicate the pool, so every data replica serves the same requests.
+on that axis (``pool_specs``: attention K/V over kv heads, else slots;
+a Mamba block's ``ssm`` state over heads and ``conv`` state over
+d_inner): the data axes replicate the pool, so every data replica
+serves the same requests.
 """
 
 from __future__ import annotations

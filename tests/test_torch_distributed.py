@@ -15,8 +15,8 @@ four ranks takes seconds).  Weights come from the JAX package
     head on 1x2: neither count divides 2, so every rank gathers the q/k/v
     projections (the head-boundary gather) and its decode cache splits
     over the slots, which serving gathers whole; same bounds;
-  * each rank's ZeRO-1 ``m``/``v`` leaves have the shapes
-    ``opt_state_specs`` gives;
+  * each rank's param pieces and ZeRO-1 ``m``/``v`` leaves have the
+    shapes their specs give;
   * ``compressed_psum`` over four ranks within
     ``tests/test_distributed.py``'s bound;
   * greedy tokens of a 1x2 ``ServeEngine`` equal the JAX engine's (f32),
@@ -25,8 +25,13 @@ four ranks takes seconds).  Weights come from the JAX package
     continues as an unbroken run: the restored pieces are the saved
     state's bit for bit, and the losses and params of the continued run
     are the unbroken run's within the bounds above;
-  * mamba2 smoke at 2x1 equals its one-rank run; grok-1 at 2x1 and mamba2
-    at 1x2 raise ``NotImplementedError`` naming ROADMAP's item;
+  * mamba2 smoke at 2x1 equals its one-rank run; grok-1 smoke under
+    Adafactor at 2x1 (its experts' second dim over the data axis, FSDP)
+    and mamba2 at 1x2 (its blocks split by head) hold the JAX package's
+    loss and one rank's run (grok's router rows of experts no token chose
+    left out: their gradient is rounding noise, which Adafactor steps by
+    O(1)), and their state pieces have their specs' shapes
+    (``tests/test_torch_mesh_moe_ssm.py`` has the rest of those meshes);
   * the launchers' policy under a mesh keeps the kernels
     (``distributed=False``).
 """
@@ -52,6 +57,7 @@ PROMPTS = (3, 7, 5, 6)  # one prefill bucket: the JAX engine compiles each
 GEN = 6
 MAX_SEQ = 32
 SMOLLM_31 = dict(n_heads=3, n_kv=1)  # smollm's 9:3, cut to the smoke width
+GROK = dict(optimizer="adafactor")  # the optimizer grok-1's full config names
 
 
 def _tol(k):
@@ -130,19 +136,41 @@ def _np_tree(tree):
     return tree_map(lambda t: t.detach().float().numpy().copy(), tree)
 
 
-def _opt_shapes_ok(cfg, state, mesh):
-    """Each ZeRO-1 moment leaf has the shape its spec gives this rank."""
+def _state_shapes_ok(cfg, state, mesh):
+    """Every leaf of this rank's state has the shape its spec gives."""
     from repro_torch.distributed.sharding import local_shape, map_with_path
     from repro_torch.launch.steps import train_state_shapes, train_state_specs
 
     shapes = train_state_shapes(cfg)
     specs = train_state_specs(shapes, mesh)
     bad = []
-    for part in ("m", "v"):
+    for part in ("params", "opt"):
         map_with_path(lambda names, t, full, s: bad.append(names)
                       if tuple(t.shape) != local_shape(full.shape, s, mesh) else None,
-                      state["opt"][part], shapes["opt"][part], specs["opt"][part])
+                      state[part], shapes[part], specs[part])
     return not bad
+
+
+def _noise_rows(g):
+    """``tests/test_torch_train.py::_noise_rows``: the rows of a factored
+    leaf whose gradient is rounding noise (an expert no token chose)."""
+    if g.ndim < 2:
+        return np.zeros(g.shape, bool)
+    norms = np.linalg.norm(g, axis=-1, keepdims=True)
+    return np.broadcast_to(norms <= 1e-6 * norms.max(), g.shape)
+
+
+def kept_rows(cfg, params):
+    """Per leaf, the entries whose gradient is not rounding noise at any
+    step of ``train_run`` (one rank)."""
+    from repro_torch.launch.steps import loss_and_grads
+
+    noise = None
+    for step, batch in enumerate(_batches(cfg)):
+        now = params if step == 0 else train_run(cfg, params, None, steps=step)[1]["params"]
+        rows = [_noise_rows(g) for g in _leaves(_np_tree(loss_and_grads(cfg, now, batch)[1]))]
+        noise = rows if noise is None else [a | b for a, b in zip(noise, rows)]
+    return [~n for n in noise]
 
 
 def _start(rank, world, tmp):
@@ -160,7 +188,7 @@ def _finish(rank, tmp, out):
 
 def two_ranks(rank, world, tmp):
     from repro_torch.launch import train
-    from repro_torch.launch.common import check_shardable, resolve_mesh_and_policy
+    from repro_torch.launch.common import resolve_mesh_and_policy
     from repro_torch.launch.mesh import make_local_mesh
 
     job = _start(rank, world, tmp)
@@ -173,10 +201,10 @@ def two_ranks(rank, world, tmp):
             mesh = make_local_mesh(*dm)
             metrics, state = train_run(cfg, params, mesh)
             out[(key, dm)] = {"metrics": metrics, "params": _np_tree(_full(cfg, state, mesh)),
-                              "opt_ok": _opt_shapes_ok(cfg, state, mesh)}
+                              "opt_ok": _state_shapes_ok(cfg, state, mesh)}
         out[(key, "tokens")] = serve_tokens(cfg, params, make_local_mesh(1, 2))
 
-    # mamba2 over the data axis, and what this slice does not shard
+    # mamba2 over the data axis
     cfg = _port_cfg("mamba2-2.7b")
     params = _params(cfg, job["mamba2"])
     metrics, state = train_run(cfg, params, make_local_mesh(2, 1))
@@ -185,13 +213,14 @@ def two_ranks(rank, world, tmp):
     if rank == 0:
         metrics, state = train_run(cfg, params, None)
         out["mamba2_one"] = {"metrics": metrics, "params": _np_tree(state["params"])}
-    for key, name, dm in (("grok_2x1", "grok-1-314b", (2, 1)), ("mamba2_1x2", "mamba2-2.7b",
-                                                                (1, 2))):
-        try:
-            check_shardable(_port_cfg(name), make_local_mesh(*dm))
-            out[key] = None
-        except NotImplementedError as e:
-            out[key] = str(e)
+    # grok-1's experts over the data axis, mamba2's blocks over the model axis
+    for key, name, over, dm in (("grok", "grok-1-314b", GROK, (2, 1)),
+                                ("mamba2", "mamba2-2.7b", None, (1, 2))):
+        cfg = _port_cfg(name, over)
+        mesh = make_local_mesh(*dm)
+        metrics, state = train_run(cfg, _params(cfg, job[key]), mesh)
+        out[(key, dm)] = {"metrics": metrics, "params": _np_tree(_full(cfg, state, mesh)),
+                          "state_ok": _state_shapes_ok(cfg, state, mesh)}
 
     class Args:
         mesh, policy, device = "1x2", "analytic", "cpu"
@@ -225,7 +254,7 @@ def four_ranks(rank, world, tmp):
     mesh = make_local_mesh(2, 2)
     metrics, state = train_run(cfg, _params(cfg, job["gemma3"]), mesh)
     out["gemma3"] = {"metrics": metrics, "params": _np_tree(_full(cfg, state, mesh)),
-                     "opt_ok": _opt_shapes_ok(cfg, state, mesh)}
+                     "opt_ok": _state_shapes_ok(cfg, state, mesh)}
     g = {k: torch.from_numpy(v) for k, v in job["grads"].items()}
     out["psum"] = _np_tree(compressed_psum(g, make_local_mesh(4, 1), ("data",)))
     _finish(rank, tmp, out)
@@ -262,7 +291,7 @@ def runs(tmp_path_factory):
     ref, jax_side = {}, {}
     for key, name, over in (("gemma3", "gemma3-4b", None), ("smollm31", "smollm-135m",
                                                             SMOLLM_31),
-                            ("mamba2", "mamba2-2.7b", None)):
+                            ("mamba2", "mamba2-2.7b", None), ("grok", "grok-1-314b", GROK)):
         jcfg = j_smoke_config(name).replace(**(over or {}))
         jparams = jlm.init_lm(jax.random.PRNGKey(0), jcfg)
         jax_side[key] = (jcfg, jparams)
@@ -281,6 +310,8 @@ def runs(tmp_path_factory):
                 lambda p, b, c=jcfg: jlm.lm_loss(p, c, b)[0])(jparams, batch))
         ref[key]["metrics"], state = train_run(cfg, _params(cfg, tree), None)
         ref[key]["params"] = _np_tree(state["params"])
+        if key == "grok":
+            ref[key]["keep"] = kept_rows(cfg, _params(cfg, tree))
         if key == "gemma3":
             jeng = JServeEngine(jcfg, jparams, n_slots=4, max_seq=MAX_SEQ,
                                 cache_dtype=jnp.float32,
@@ -300,7 +331,7 @@ def runs(tmp_path_factory):
 
 def to_port(key):
     return {"gemma3": _port_cfg("gemma3-4b"), "smollm31": _port_cfg("smollm-135m", SMOLLM_31),
-            "mamba2": _port_cfg("mamba2-2.7b")}[key]
+            "mamba2": _port_cfg("mamba2-2.7b"), "grok": _port_cfg("grok-1-314b", GROK)}[key]
 
 
 @pytest.fixture(scope="module")
@@ -326,10 +357,12 @@ def _leaves(tree):
     return [tree]
 
 
-def _close_params(got, want):
+def _close_params(got, want, keep=None):
+    """Every leaf within ``_tol``; ``keep``: per leaf, the entries held."""
     tol = _tol(B * S)
-    for a, b in zip(_leaves(got), _leaves(want)):
-        np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
+    for i, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
+        k = keep[i] if keep is not None else slice(None)
+        np.testing.assert_allclose(a[k], b[k], rtol=tol, atol=tol)
 
 
 def _check_run(run, one, jax_loss):
@@ -337,7 +370,7 @@ def _check_run(run, one, jax_loss):
     for m, w in zip(run["metrics"], one["metrics"]):
         np.testing.assert_allclose(m["loss"], w["loss"], rtol=1e-5)
         np.testing.assert_allclose(m["grad_norm"], w["grad_norm"], rtol=1e-5)
-    _close_params(run["params"], one["params"])
+    _close_params(run["params"], one["params"], one.get("keep"))
 
 
 @pytest.mark.parametrize("dm", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
@@ -424,10 +457,27 @@ def test_mamba2_over_the_data_axis_equals_one_rank(two):
         _close_params(r["mamba2"]["params"], two[0]["mamba2_one"]["params"])
 
 
-def test_what_this_slice_does_not_shard_raises_naming_the_item(two):
+def test_grok_with_its_experts_over_the_data_axis_matches_jax_and_one_rank(ref, two):
+    """grok-1 at 2x1: each rank holds half of every expert's d_ff, gathers
+    it a layer at a time and reduce-scatters its gradient; Adafactor
+    updates the pieces."""
     for r in two:
-        for key in ("grok_2x1", "mamba2_1x2"):
-            assert r[key] is not None and "ROADMAP queue A item 4b" in r[key]
+        _check_run(r[("grok", (2, 1))], ref["grok"], ref["grok"]["jax_loss"])
+
+
+def test_mamba2_on_the_model_axis_matches_jax_and_one_rank(ref, two):
+    """mamba2 at 1x2: each rank runs the SSD on its own 4 of the 8 heads."""
+    for r in two:
+        _check_run(r[("mamba2", (1, 2))], ref["mamba2"], ref["mamba2"]["jax_loss"])
+
+
+@pytest.mark.parametrize("key,dm", [("grok", (2, 1)), ("mamba2", (1, 2))],
+                         ids=["grok-2x1", "mamba2-1x2"])
+def test_moe_and_mamba_state_pieces_have_their_specs_shapes(two, key, dm):
+    """Adafactor's statistics and AdamW's moments, and every param piece,
+    as ``train_state_specs`` cuts them."""
+    for r in two:
+        assert r[(key, dm)]["state_ok"]
 
 
 def test_launchers_keep_the_kernels_under_a_mesh(two):
