@@ -222,8 +222,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               TNN, NN, transpose and attention kernels must launch on every
               rank (their sum lands in launches_by_path["mesh"]).  The phase
               prints its seconds and must finish within 150 s.
-              ``python3 chip_smoke.py --mesh-alone`` runs phase 16 alone
-              (after the build); ``--nccl-cards 4`` runs it alone on four
+              ``python3 chip_smoke.py --mesh-alone`` runs phases 16-18
+              alone (after the build); ``--nccl-cards 4`` runs them alone on four
               cards: four NCCL ranks, a card each, with every run above on
               the 2x2 mesh (so every wrapper's NCCL body runs over groups of
               2 and 4)
@@ -258,6 +258,28 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               expert choices made otherwise, then 2 Adafactor steps whose
               metrics are equal on every rank and finite (one card cannot
               train that layer, so no one-rank training reference)
+ 18. mesh_optimized  the JAX package's optimized variant on the same two
+              gloo ranks and step: smollm-135m at full width (9 heads, 3 kv
+              heads) in 10 of its 30 layers, with sequence-parallel attention
+              at MIN_MODEL_DIM 1024, bf16, batch 2 x 2048 (two 1024-row
+              chunks, 512 rows of each a rank), 2 AdamW steps at 1x2, then
+              its f32 twin at 2 layers serving 4 requests (their prefill
+              sequence-parallel); gemma3-4b (16b's two layers, 4 x 256,
+              accum 2, 3 steps) at 2x1 with zero1_grads: every step's loss
+              within 1e-2 and grad norm within 5e-2 of one rank's (smollm,
+              run first in this process) and of 16b's 2x1 run without
+              zero1_grads (gemma3), the ranks' metrics equal, the f32 logits
+              rows within 1e-4 of one rank's and the greedy tokens
+              identical, each rank's f32 accumulators (measured as the step
+              makes them) 1/data of the run without it but for the leaves
+              that have no ZeRO-1 dim; then, outside the counts, each rank's
+              attention_fused call of the second chunk at its q_start
+              offset against the kernel's plain version (bf16 2e-2).  Every
+              rank launches the five kernels of 16b (launches_by_path
+              ["mesh_optimized"]); the phase must finish within 120 s.
+              ``--mesh-alone`` and ``--nccl-cards 4`` run it after phase
+              17; with four cards smollm runs at 1x4 and gemma3 at 4x1,
+              both with and without zero1_grads on the NCCL ranks
 
 Every phase's line carries the dispatch engine's fault ledger, its
 ``fallbacks`` and ``quarantined`` arms, and the run fails unless both are
@@ -2734,11 +2756,13 @@ def mesh_params(torch, cfg):
     return lm.init_lm(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
 
 
-def mesh_train(torch, cfg, params, mesh, steps, batch, seq, accum, policy, sharded=False):
+def mesh_train(torch, cfg, params, mesh, steps, batch, seq, accum, policy, sharded=False,
+               zero1=False):
     """``steps`` train steps (MESH_STEP) of ``cfg`` from full ``params`` on
     ``mesh`` (None: one rank; ``sharded``: ``params`` are this rank's pieces
-    already), the launcher's batches (seed 0) cut to this rank's shard;
-    returns (metrics, final state: this rank's pieces)."""
+    already; ``zero1``: the sharded gradient accumulators), the launcher's
+    batches (seed 0) cut to this rank's shard; returns (metrics, final
+    state: this rank's pieces)."""
     from repro_torch.distributed.sharding import batch_specs, param_specs, shard
     from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step
 
@@ -2746,7 +2770,8 @@ def mesh_train(torch, cfg, params, mesh, steps, batch, seq, accum, policy, shard
         params = shard(params, param_specs(params, mesh), mesh)
     state = init_train_state(cfg, params, mesh)
     del params  # the state holds them: each step's update may free the last ones
-    step_fn = make_train_step(cfg, TrainStepConfig(accum=accum, total_steps=steps, **MESH_STEP),
+    step_fn = make_train_step(cfg, TrainStepConfig(accum=accum, total_steps=steps,
+                                                   zero1_grads=zero1, **MESH_STEP),
                               policy=policy, mesh=mesh)
     metrics = []
     for i in range(steps):
@@ -3480,16 +3505,304 @@ def phase_mesh_moe_ssm(torch, card, plan="gloo"):
     return row, launches
 
 
+# -- phase 18: mesh_optimized ----------------------------------------------------
+
+# The JAX package's optimized variant on the same two gloo ranks and step:
+# smollm-135m at full width (9 heads, 3 kv heads), depth cut to
+# MESH_SP_LAYERS, with sequence-parallel attention at MIN_MODEL_DIM 1024
+# (every attention projection whole: each rank projects its 512 rows of
+# each 1024-row chunk and gathers the keys and values over the sequence),
+# bf16, 2 x 2048, 2 AdamW steps; its f32 twin at 2 layers serving 4
+# requests (prefill sequence-parallel); gemma3-4b (phase 16's two layers,
+# 4 x 256, accum 2, 3 steps) with the sharded gradient accumulators, held
+# against phase 16's run of the same without them.  --nccl-cards 4:
+# smollm at 1x4 (9 heads over 4) and gemma3 at 4x1 (8 x 256), its run
+# without zero1_grads made here.
+MESH_SP_LAYERS = 10
+MESH_SP_BATCH, MESH_SP_SEQ, MESH_SP_STEPS = 2, 2048, 2
+MESH_SP_MIN_DIM = 1024
+MESH_OPT_SECONDS = 120
+MESH_OPT_PLANS = {
+    "gloo": {"backend": "gloo", "world": 2, "smollm": (1, 2), "gemma3": (2, 1),
+             "gemma3_batch": MESH_BATCH, "gemma3_plain": False},
+    # 4x1 at accum 2 needs two sequences a rank
+    "nccl": {"backend": "nccl", "world": 4, "smollm": (1, 4), "gemma3": (4, 1),
+             "gemma3_batch": 2 * MESH_BATCH, "gemma3_plain": True},
+}
+
+
+def sp_config(f32=False):
+    """smollm-135m at full width with sequence-parallel attention:
+    MESH_SP_LAYERS layers in bf16, or 2 in f32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("smollm-135m")
+    layers = 2 if f32 else MESH_SP_LAYERS
+    cfg = cfg.replace(segments=((layers, cfg.segments[0][1]),), sp_attention=True)
+    return cfg.replace(param_dtype="float32") if f32 else cfg
+
+
+def sp_offset_check(torch, cfg, mesh):
+    """This rank's sequence-parallel attention call of the second query
+    chunk -- its ``chunk/M`` rows of every head at ``q_start = chunk +
+    r chunk/M``, against the chunk's whole key slab from position 0 --
+    through the kernel and through its plain version, on seeded bf16
+    inputs; outside the counted runs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention_fused import MaskParams, attention_fused
+
+    chunk, m = cfg.attn_chunk, mesh.shape["model"]
+    rows = chunk // m
+    r = mesh.axis_index("model")
+    g, dh, n = MESH_SP_BATCH * cfg.n_kv, cfg.d_head, 2 * chunk
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    q = randn(g, (cfg.n_heads // cfg.n_kv) * rows, dh) * dh ** -0.5
+    k, v = randn(g, n, dh), randn(g, n, dh)
+    lengths = torch.full((g,), n, dtype=torch.int32, device=DEVICE)
+    mask = MaskParams(causal=True, q_start=chunk + r * rows, k_start=0, q_seg=rows)
+    out = attention_fused(q, k, v, lengths, mask=mask)
+    want = ref.attention_fused(q, k, v, lengths, mask)
+    torch.cuda.synchronize()
+    rtol = 2e-2  # phase 3's bf16 attention tolerance
+    atol = rtol * float(want.float().pow(2).mean().sqrt())
+    err, ok = compare(out, want, rtol, atol)
+    return {"q_start": mask.q_start, "rows": rows, "g": g, "n": n, "variant":
+            attention_label(torch, q, k, v), "max_abs_err": err, "atol": atol, "ok": ok}
+
+
+def mesh_opt_rank(rank, world, store, out_dir, plan):
+    """One rank of phase 18's ``plan`` (MESH_OPT_PLANS), as ``mesh_rank``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    spec = MESH_OPT_PLANS[plan]
+    torch.cuda.set_device(rank if spec["backend"] == "nccl" else 0)
+    dist.init_process_group(spec["backend"], init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        row = mesh_opt_rank_body(torch, rank, spec, Path(out_dir))
+        row.update(dispatch_health())
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
+
+
+def mesh_opt_rank_body(torch, rank, spec, out_dir):
+    """The runs of one rank of phase 18, its launches counted from 0 before
+    them and read after them; then, outside the counts, the kernel at this
+    rank's sequence-parallel offset.  The f32 twin's one-rank logits were
+    saved to ``out_dir`` before the ranks started."""
+    from repro_torch.core.engine import policy_from_spec
+    from repro_torch.distributed.sharding import min_model_dim
+    from repro_torch.kernels.common import reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.accounting import tree_bytes
+    from repro_torch.launch.mesh import make_local_mesh
+
+    reset_launches()
+    row = {"rank": rank}
+    policy = policy_from_spec(TRAIN_POLICIES["fused"])
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    sp_mesh = make_local_mesh(*spec["smollm"])
+    with min_model_dim(MESH_SP_MIN_DIM):
+        cfg = sp_config()
+        t0 = time.perf_counter()
+        metrics = mesh_train(torch, cfg, mesh_params(torch, cfg), sp_mesh, MESH_SP_STEPS,
+                             MESH_SP_BATCH, MESH_SP_SEQ, 1, policy)[0]
+        row["smollm_sp"] = {"mesh": mesh_name(spec["smollm"]), "metrics": metrics,
+                            "seconds": time.perf_counter() - t0}
+        fresh()
+        cfg32 = sp_config(f32=True)
+        t0 = time.perf_counter()
+        tokens, logits = mesh_serve(torch, cfg32, mesh_params(torch, cfg32), sp_mesh)
+        row["smollm_f32"] = {"tokens": tokens, "seconds": time.perf_counter() - t0,
+                             "logits_rel": logits_rel(
+                                 torch, logits, torch.load(out_dir / "smollm_f32_logits.pt"))}
+    fresh()
+
+    # gemma3-4b with zero1_grads: the accumulators the step makes, measured as made
+    made, accumulators = [], steps.grad_accumulators
+
+    def recorded(params, p_specs, mesh, zero1_grads):
+        acc = accumulators(params, p_specs, mesh, zero1_grads)
+        made.append(tree_bytes(acc))
+        return acc
+
+    cfg = mesh_config()
+    mesh = make_local_mesh(*spec["gemma3"])
+    runs = (True, False) if spec["gemma3_plain"] else (True,)
+    steps.grad_accumulators = recorded
+    try:
+        for zero1 in runs:
+            fresh()
+            made.clear()
+            t0 = time.perf_counter()
+            metrics = mesh_train(torch, cfg, mesh_params(torch, cfg), mesh, MESH_STEPS,
+                                 spec["gemma3_batch"], MESH_SEQ, MESH_ACCUM, policy,
+                                 zero1=zero1)[0]
+            row["gemma3_zero1" if zero1 else "gemma3_plain"] = {
+                "mesh": mesh_name(spec["gemma3"]), "metrics": metrics,
+                "accumulator_bytes": made[0], "seconds": time.perf_counter() - t0}
+    finally:
+        steps.grad_accumulators = accumulators
+    row["accumulators"] = accumulator_bytes(torch, cfg, mesh)
+    row["launches"] = launch_counts()  # the mesh runs only
+    row["offset_check"] = sp_offset_check(torch, sp_config(), sp_mesh)
+    return row
+
+
+def accumulator_bytes(torch, cfg, mesh):
+    """The f32 accumulator bytes of this rank's pieces of ``cfg`` on
+    ``mesh`` without and with zero1_grads, and the bytes of the leaves that
+    have no ZeRO-1 dim (which it accumulates whole), on meta tensors."""
+    from repro_torch.distributed.sharding import map_with_path, param_specs, shard, zero1_dim
+    from repro_torch.launch.accounting import tree_bytes
+    from repro_torch.launch.steps import grad_accumulators
+    from repro_torch.models import lm
+
+    full = lm.init_lm(0, cfg, device="meta")
+    p_specs = param_specs(full, mesh)
+    pieces = shard(full, p_specs, mesh)
+    no_dim = []
+    map_with_path(lambda _, t, s: no_dim.append(t.numel() * 4)
+                  if zero1_dim(s, t.shape, mesh) is None else None, pieces, p_specs)
+    return {"without": tree_bytes(grad_accumulators(pieces, p_specs, mesh, False)),
+            "with": tree_bytes(grad_accumulators(pieces, p_specs, mesh, True)),
+            "no_zero1_dim": sum(no_dim)}
+
+
+def phase_mesh_optimized(torch, card, mesh_row, plan="gloo"):
+    """Phase 18: the one-rank references of ``plan`` (MESH_OPT_PLANS) in
+    this process, then its ranks against them; gemma3's run without
+    zero1_grads is phase 16's (``mesh_row``) on two gloo ranks, and the
+    ranks' own on four NCCL cards.  Returns its row and the ranks' summed
+    launches."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.engine import policy_from_spec
+
+    spec = MESH_OPT_PLANS[plan]
+    t_start = time.perf_counter()
+    out_dir = ROOT / "build" / "mesh_optimized"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-rank references, from the same weights and batches (no mesh:
+    # sp_attention changes nothing there)
+    policy = policy_from_spec(TRAIN_POLICIES["fused"])
+    t0 = time.perf_counter()
+    cfg = sp_config()
+    sp_ref = mesh_train(torch, cfg, mesh_params(torch, cfg), None, MESH_SP_STEPS,
+                        MESH_SP_BATCH, MESH_SP_SEQ, 1, policy)[0]
+    cfg32 = sp_config(f32=True)
+    ref_tokens, ref_logits = mesh_serve(torch, cfg32, mesh_params(torch, cfg32), None)
+    torch.save(ref_logits, out_dir / "smollm_f32_logits.pt")
+    ref_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mp.spawn(mesh_opt_rank, args=(spec["world"], str(out_dir / "store"), str(out_dir), plan),
+             nprocs=spec["world"], join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(spec["world"])]
+    failures = []  # every gate is read before the first failure is raised
+
+    def gate(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    for r in ranks:
+        gate(not r["fallbacks"] and not r["quarantined"],
+             f"phase 18 rank {r['rank']}: dispatch fell back {r['fallbacks']}, "
+             f"quarantined {r['quarantined']}")
+        for k in MESH_KERNELS:
+            gate(r["launches"][k] > 0, f"phase 18 rank {r['rank']} never launched {k}: "
+                 f"{r['launches']}")
+        gate(r["offset_check"]["ok"], f"phase 18 rank {r['rank']}: attention_fused at "
+             f"q_start {r['offset_check']['q_start']} against its plain version "
+             f"{r['offset_check']}")
+
+    def same_on_every_rank(key):
+        m0 = ranks[0][key]["metrics"]
+        gate(all(m0 == r[key]["metrics"] for r in ranks), f"{key}: the ranks' metrics differ")
+        gate(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in m0),
+             f"{key}: a non-finite loss or grad norm {m0}")
+        return m0
+
+    def step_gates(key, m0, ref):
+        """Phase 16's gates at every step."""
+        g = [{"loss_rel": rel(m["loss"], w["loss"]),
+              "grad_norm_rel": rel(m["grad_norm"], w["grad_norm"])} for m, w in zip(m0, ref)]
+        gate(len(m0) == len(ref) and all(x["loss_rel"] <= LOSS_REL
+                                         and x["grad_norm_rel"] <= GRAD_NORM_REL for x in g),
+             f"{key}: steps {m0} vs {ref}")
+        return g
+
+    gates = {"smollm_sp": step_gates("smollm_sp", same_on_every_rank("smollm_sp"), sp_ref)}
+    f32 = ranks[0]["smollm_f32"]
+    gates["smollm_f32"] = {"logits_rel": [r["smollm_f32"]["logits_rel"] for r in ranks]}
+    gate(all(r["smollm_f32"]["logits_rel"] <= MESH_LOGITS_REL for r in ranks),
+         f"smollm f32 sequence-parallel serving: logits {gates['smollm_f32']} from one rank's")
+    gate(all(r["smollm_f32"]["tokens"] == ref_tokens for r in ranks),
+         f"smollm f32 sequence-parallel serving: tokens {f32['tokens']} vs one rank's "
+         f"{ref_tokens}")
+    if spec["gemma3_plain"]:
+        plain = same_on_every_rank("gemma3_plain")
+    else:
+        plain = mesh_row["ranks"][0][f"gemma3_{mesh_name(spec['gemma3'])}"]["metrics"]
+    gates["gemma3_zero1"] = step_gates("gemma3_zero1", same_on_every_rank("gemma3_zero1"), plain)
+    for r in ranks:
+        acc, made = r["accumulators"], r["gemma3_zero1"]["accumulator_bytes"]
+        d = spec["gemma3"][0]
+        want = (acc["without"] - acc["no_zero1_dim"]) // d + acc["no_zero1_dim"]
+        gate(made == acc["with"] == want and acc["with"] < acc["without"],
+             f"phase 18 rank {r['rank']}: zero1 accumulators {made} bytes (computed "
+             f"{acc['with']}), want {want}: 1/{d} of {acc['without']} but "
+             f"{acc['no_zero1_dim']} kept whole")
+        if spec["gemma3_plain"]:
+            gate(r["gemma3_plain"]["accumulator_bytes"] == acc["without"],
+                 f"phase 18 rank {r['rank']}: accumulators without zero1 "
+                 f"{r['gemma3_plain']['accumulator_bytes']}, computed {acc['without']}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    seconds = time.perf_counter() - t_start
+    row = {"phase": "mesh_optimized", "card": card, "plan": plan, "seconds": seconds,
+           "one_rank_ref_s": ref_s, "spawn_s": spawn_s, "sp_reference": sp_ref,
+           "gemma3_reference": plain, "gates": gates,
+           "ranks": [{k: v for k, v in r.items() if k != "launches"} for r in ranks],
+           "launches_by_rank": [{k: v for k, v in r["launches"].items() if v} for r in ranks],
+           "launches": launches}
+    gate(seconds <= MESH_OPT_SECONDS, f"phase 18 took {seconds:.0f} s, over "
+         f"{MESH_OPT_SECONDS} s")
+    if failures:  # the row, for the record, before the first failure ends the run
+        print(json.dumps(row), file=sys.stderr, flush=True)
+    check(not failures, "; ".join(failures))
+    return row, launches
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on the card (one card: every "
                                  "phase).")
     ap.add_argument("--mesh-alone", action="store_true",
-                    help="run phases 16 and 17 alone: two gloo ranks sharing the card")
+                    help="run phases 16, 17 and 18 alone: two gloo ranks sharing the card")
     ap.add_argument("--nccl-cards", type=int, choices=(MESH_PLANS["nccl"]["world"],),
-                    help="run phases 16 and 17 alone, with NCCL ranks a card each (phase "
-                         "16 on the 2x2 mesh, 17 kimi-k2 at 1x4 and 2x2)")
+                    help="run phases 16, 17 and 18 alone, with NCCL ranks a card each "
+                         "(phase 16 on the 2x2 mesh, 17 kimi-k2 at 1x4 and 2x2, 18 "
+                         "smollm-135m at 1x4 and gemma3-4b at 4x1)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
@@ -3544,8 +3857,11 @@ def main() -> int:
         emit_phase(mesh_row)
         moe_mesh_row, _ = phase_mesh_moe_ssm(torch, card, plan=plan)
         emit_phase(moe_mesh_row)
+        opt_row, _ = phase_mesh_optimized(torch, card, mesh_row, plan=plan)
+        emit_phase(opt_row)
         (out_dir / f"chip_smoke_mesh_{plan}.json").write_text(json.dumps(
-            {"mesh": mesh_row, "mesh_moe_ssm": moe_mesh_row}, indent=1))
+            {"mesh": mesh_row, "mesh_moe_ssm": moe_mesh_row, "mesh_optimized": opt_row},
+            indent=1))
         check("jax" not in sys.modules, "jax was imported")
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3679,6 +3995,12 @@ def main() -> int:
     moe_mesh_row, moe_mesh_launches = phase_mesh_moe_ssm(torch, card)
     emit_phase(moe_mesh_row)
     results["mesh_moe_ssm"] = moe_mesh_row
+
+    # 18. mesh_optimized: sequence-parallel attention and zero1_grads on two
+    # gloo ranks on the card
+    opt_row, opt_launches = phase_mesh_optimized(torch, card, mesh_row)
+    emit_phase(opt_row)
+    results["mesh_optimized"] = opt_row
     check("jax" not in sys.modules, "jax was imported")
 
     # the contract line: one row per kernel at a main-path shape; launches
@@ -3692,8 +4014,8 @@ def main() -> int:
     # 12's tuned measurement and autotune serving run, phase 13's
     # benchmarks, phase 5a's two kernel-policy legacy runs, phase 7a's
     # remat="dots" steps, phase 14's serving load, phase 15's drill and
-    # fault-injected serving run, phase 16b's two ranks and phase 17's two
-    # ranks (each counted from 0).  The wide-head flash instances and
+    # fault-injected serving run, phase 16b's two ranks, phase 17's two
+    # ranks and phase 18's two ranks (each counted from 0).  The wide-head flash instances and
     # gemm_f32's routes have rows of their own: the flash kernel at each
     # wide head (gemma3's, zamba2's and h2o-danube's prefill) and gemm_f32's
     # two routes (grok-1's router at decode; stage 2 of the f32 TNN arm at a
@@ -3761,7 +4083,8 @@ def main() -> int:
                    "serve_load": load_launches[cname],
                    "faults": faults_launches[cname],
                    "mesh": mesh_launches[cname],
-                   "mesh_moe_ssm": moe_mesh_launches[cname]}
+                   "mesh_moe_ssm": moe_mesh_launches[cname],
+                   "mesh_optimized": opt_launches[cname]}
         if cname in routes:
             check(sum(by_path.values()) > 0, f"{cname}: no main path launched it")
         kernels.append({

@@ -5,11 +5,14 @@ under ``build/dryrun/`` for one mesh, prints one row per (arch x shape):
 the three roofline terms in seconds, the bottleneck, ``useful_ratio`` and
 the per-device memory (arguments plus the step's peak temporaries)
 against the H100's 80 GB, and writes the rows to
-``build/bench/roofline_<mesh>.json``.  Every number is meta-tensor
+``build/bench/roofline_<mesh>.json``; ``--variant optimized`` reads the
+records of ``dryrun --variant optimized`` and writes
+``roofline_<mesh>_optimized.json``.  Every number is meta-tensor
 accounting with the H100 80GB HBM3's datasheet peaks
 (``launch/roofline.py``), not a chip measurement.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.roofline_table [--mesh 16x16]
+      [--variant optimized]
 """
 
 from __future__ import annotations
@@ -19,25 +22,29 @@ import glob
 import json
 import os
 
-from repro_torch.launch.dryrun import OUT_DIR
+from repro_torch.launch.dryrun import OUT_DIR, VARIANTS
 
 from .common import save_json, section
 
 __all__ = ["load_records", "roofline_table", "main"]
 
 
-def load_records(mesh: str = "16x16", directory: str = OUT_DIR):
+def _suffix(mesh: str, variant: str) -> str:
+    return mesh if variant == "baseline" else f"{mesh}_{variant}"
+
+
+def load_records(mesh: str = "16x16", directory: str = OUT_DIR, variant: str = "baseline"):
     recs = []
-    for path in sorted(glob.glob(os.path.join(directory, f"*_{mesh}.json"))):
+    for path in sorted(glob.glob(os.path.join(directory, f"*_{_suffix(mesh, variant)}.json"))):
         with open(path) as fh:
             recs.append(json.load(fh))
     return recs
 
 
-def roofline_table(mesh: str = "16x16", directory: str = OUT_DIR):
-    section(f"Roofline per (arch x shape) on the {mesh} mesh (dry run: meta-tensor accounting, "
-            "H100 datasheet peaks)")
-    recs = load_records(mesh, directory)
+def roofline_table(mesh: str = "16x16", directory: str = OUT_DIR, variant: str = "baseline"):
+    section(f"Roofline per (arch x shape) on the {mesh} mesh, {variant} (dry run: meta-tensor "
+            "accounting, H100 datasheet peaks)")
+    recs = load_records(mesh, directory, variant)
     if not recs:
         print("  (no dry-run records: run `python -m repro_torch.launch.dryrun --all`)")
         return {"rows": []}
@@ -64,7 +71,8 @@ def roofline_table(mesh: str = "16x16", directory: str = OUT_DIR):
                      "fit_gb": mem["fit_gb"], "fits_80gb": mem["fits_80gb"]})
     n_ok = sum(1 for r in rows if r.get("status") == "ok")
     print(f"\n  {n_ok} ok / {len(rows)} cells")
-    save_json(f"roofline_{mesh}", {"rows": rows, "source": "meta-tensor accounting"})
+    save_json(f"roofline_{_suffix(mesh, variant)}", {"rows": rows, "variant": variant,
+                                                     "source": "meta-tensor accounting"})
     return {"rows": rows}
 
 
@@ -73,8 +81,9 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--mesh", default="16x16")
     ap.add_argument("--dir", default=OUT_DIR)
+    ap.add_argument("--variant", default="baseline", choices=VARIANTS)
     args = ap.parse_args(argv)
-    return roofline_table(args.mesh, args.dir)
+    return roofline_table(args.mesh, args.dir, args.variant)
 
 
 if __name__ == "__main__":

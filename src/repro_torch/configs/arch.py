@@ -2,12 +2,12 @@
 
 ``segments`` is a tuple of ``(repeat, (BlockCfg, ...))``: the layer stack
 loops over each segment, one iteration applying the unit's blocks in
-order.  The fields are the JAX package's that the architectures set; its
-``sp_attention`` and ``unroll_segments`` have no counterpart here (the
-port's per-rank program has no sequence-parallel attention yet, and its
-layer stack is a Python loop, which the dry run's accounting counts
-whole).  ``param_count`` and ``active_param_count`` are the JAX
-package's formulas.
+order.  The fields are the JAX package's that the architectures set,
+``sp_attention`` among them (sequence-parallel attention under a mesh,
+``models/attention.py``); its ``unroll_segments`` has no counterpart
+here (the port's layer stack is a Python loop, which the dry run's
+accounting counts whole).  ``param_count`` and ``active_param_count``
+are the JAX package's formulas.
 """
 
 from __future__ import annotations
@@ -55,6 +55,10 @@ class ArchConfig:
     # modality
     input_mode: str = "tokens"  # tokens | frames (audio stub) | vlm (patch stub)
     prefix_len: int = 0  # vlm: bidirectional patch prefix
+    # beyond-paper: the attention block split over ``model`` along the
+    # query rows where the heads do not divide it (the dry run's optimized
+    # variant turns it on)
+    sp_attention: bool = False
     activation: str = "gelu"
     # numerics: params in param_dtype, and activations follow them
     param_dtype: str = "bfloat16"

@@ -39,6 +39,13 @@ for one use, and its gradient -- each rank's from its own tokens -- is
 reduce-scattered (summed) back to this rank's piece.  Under
 ``remat="full"`` the recompute calls it again, so every rank replays the
 forward's gathers in the backward, in the forward's order.
+``gather_seq`` is the same pair over ``model`` along the sequence, for
+sequence-parallel attention (``models/attention.py``): each rank's key
+and value rows are gathered whole, and since each rank's queries use
+every key differently, the keys' gradients differ from rank to rank and
+are reduce-scattered (summed) back to this rank's rows -- not sliced, as
+``gather_from_group``'s backward slices a gradient every rank holds
+alike.
 
 ``agree`` and ``barrier`` are the host-side agreements of the whole
 mesh (the checkpoint step every rank restores, a save every rank waits
@@ -82,6 +89,7 @@ __all__ = [
     "gather_from_group",
     "scatter_to_group",
     "gather_params",
+    "gather_seq",
     "quantize_int8",
     "dequantize_int8",
     "compressed_psum",
@@ -342,11 +350,12 @@ class _ScatterToGroup(torch.autograd.Function):
 
 
 class _GatherParams(torch.autograd.Function):
-    """Forward: a weight's pieces over ``axes`` concatenated along ``dim``;
-    backward: the whole weight's gradient, which differs from rank to rank
-    (each rank's own tokens), summed over the group, and this rank's piece
-    of the sum (a reduce-scatter in the gradient's dtype, as the JAX
-    package's partitioner reduces a bf16 weight's gradient)."""
+    """Forward: the pieces over ``axes`` (a weight's, or a sequence's rows)
+    concatenated along ``dim``; backward: the whole tensor's gradient,
+    which differs from rank to rank (each rank's own tokens or queries),
+    summed over the group, and this rank's piece of the sum (a
+    reduce-scatter in the gradient's dtype, as the JAX package's
+    partitioner reduces a bf16 weight's gradient)."""
 
     @staticmethod
     def forward(ctx, w, axes, dim):
@@ -377,6 +386,10 @@ def scatter_to_group(x: torch.Tensor, axes: Axes = "model", dim: int = -1) -> to
 
 def gather_params(w: torch.Tensor, axes: Axes, dim: int) -> torch.Tensor:
     return _GatherParams.apply(w, axes, dim)
+
+
+def gather_seq(x: torch.Tensor, axes: Axes = "model", dim: int = 1) -> torch.Tensor:
+    return _GatherParams.apply(x, axes, dim)
 
 
 # -- int8-compressed all-reduce -----------------------------------------------------

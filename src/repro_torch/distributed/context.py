@@ -11,8 +11,13 @@ one it belongs to.  A group of one rank is never made: a collective over
 it is the identity.
 
 The JAX package's ``constrain`` (a sharding constraint inside a jitted
-program) has no counterpart in a per-rank program; sequence-parallel
-attention, which is what needs it, is not ported.
+program, which XLA meets by moving rows between layouts) has no
+counterpart here: a per-rank program moves data only by the collectives
+it calls.  Its one use, sequence-parallel attention, is expressed as
+explicit collectives in ``models/attention.py`` and nowhere else: each
+rank cuts its query rows (``scatter_to_group``), gathers the keys and
+values whole (``gather_seq``) and gathers the attention output back
+(``gather_from_group``).
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ mesh's process groups: ``convert.params_from_numpy`` followed by
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -44,6 +45,8 @@ __all__ = [
     "unshard",
     "map_with_path",
     "MIN_MODEL_DIM",
+    "min_model_dim",
+    "zero1_dim",
 ]
 
 
@@ -66,6 +69,19 @@ _ROW_IN = {"wo", "down", "out"}
 # projections whose candidate dim is smaller than this are replicated
 # instead of model-sharded; 0 = the JAX package's baseline behaviour
 MIN_MODEL_DIM = 0
+
+
+@contextlib.contextmanager
+def min_model_dim(n: int) -> Iterator[int]:
+    """``MIN_MODEL_DIM`` set to ``n`` in the block and put back after it
+    (the dry run's ``optimized`` variant sets 1024 for one cell; the JAX
+    package's leaves it set)."""
+    global MIN_MODEL_DIM
+    prev, MIN_MODEL_DIM = MIN_MODEL_DIM, n
+    try:
+        yield n
+    finally:
+        MIN_MODEL_DIM = prev
 
 
 def data_axes(mesh) -> Tuple[str, ...]:
@@ -174,7 +190,7 @@ def param_specs(shapes_tree, mesh):
 
 
 @functools.lru_cache(maxsize=None)
-def _param_spec_cached(names, shape, axis_names, sizes) -> PartitionSpec:
+def _param_spec_cached(names, shape, axis_names, sizes, min_dim) -> PartitionSpec:
     from repro_torch.launch.mesh import Mesh
 
     return _spec_for_param(names, shape, Mesh(sizes, axis_names))
@@ -183,9 +199,10 @@ def _param_spec_cached(names, shape, axis_names, sizes) -> PartitionSpec:
 def param_spec(names: Tuple[str, ...], shape, mesh) -> PartitionSpec:
     """The spec of one parameter of full ``shape`` at tree path ``names``
     (memoised): how the model's layers learn which of their weights'
-    dims the ``model`` axis splits, from the rules themselves."""
+    dims the ``model`` axis splits, from the rules themselves (keyed by
+    ``MIN_MODEL_DIM`` too, which the rules read)."""
     return _param_spec_cached(tuple(names), tuple(int(s) for s in shape),
-                              mesh.axis_names, mesh.devices_shape)
+                              mesh.axis_names, mesh.devices_shape, MIN_MODEL_DIM)
 
 
 def _zero1(spec: PartitionSpec, shape, mesh) -> PartitionSpec:
@@ -208,6 +225,17 @@ def _zero1(spec: PartitionSpec, shape, mesh) -> PartitionSpec:
     _, dim = max(free)
     entries[dim] = daxes if len(daxes) > 1 else daxes[0]
     return P(*entries)
+
+
+def zero1_dim(spec: PartitionSpec, shape, mesh) -> Optional[int]:
+    """The dim ZeRO-1 cuts over the data axes (``_zero1``) of a leaf of
+    ``shape`` whose param spec is ``spec``, or None: no free dim divides,
+    or the params split the leaf over the data axes already (FSDP).  The
+    dims it may cut are whole in a rank's piece, so ``shape`` may be the
+    piece's."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return next((d for d, (a, b) in enumerate(zip(entries, _zero1(spec, shape, mesh)))
+                 if a != b), None)
 
 
 def opt_state_specs(opt_state_shapes, params_specs, mesh, zero1: bool = True):

@@ -82,7 +82,7 @@ _SIGNATURES = {
 }
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}  # guarded-by: _LOCK
 
 
 def build_dir() -> Path:

@@ -22,7 +22,11 @@ What is counted, per device:
   * collectives: the effective wire bytes the wrappers of
     ``distributed/collectives.py`` record, by kind -- the FSDP gathers of
     the MoE experts in the forward and the recompute, and their
-    gradients' reduce-scatters, among them.
+    gradients' reduce-scatters, among them.  With ``zero1_grads`` (the
+    train step's sharded accumulators, ``launch/steps.py``) each
+    microbatch counts the reduce-scatters that land its gradients, the
+    accumulators count at their sharded size and the optimizer counts
+    the pieces it is given.
 
 Memory: ``peak_temp_bytes`` is the most bytes held at once by the
 storages the step allocates (tracked in the dispatch mode from creation
@@ -58,7 +62,7 @@ from repro_torch.distributed.sharding import (
     shard,
 )
 from repro_torch.models import lm
-from repro_torch.optim import make_zero1_update, tree_leaves, tree_map
+from repro_torch.optim import make_zero1_update, tree_leaves
 
 __all__ = ["account_cell", "CellCosts", "CostLedger", "tree_bytes"]
 
@@ -168,13 +172,17 @@ def _diff(after: Dict[str, float], before: Dict[str, float]) -> Dict[str, float]
     return {k: after.get(k, 0.0) - before.get(k, 0.0) for k in set(after) | set(before)}
 
 
-def account_cell(cfg, shape, mesh, accum: int = 1, policy=None) -> CellCosts:
+def account_cell(cfg, shape, mesh, accum: int = 1, policy=None,
+                 zero1_grads: bool = False) -> CellCosts:
     """Run one rank's step of the (cfg, shape) cell on ``mesh`` on meta
     tensors and return its costs (the module docstring).  ``policy``
     selects each dispatch's candidate (default: the learned selector),
     which moves no number here but the peak of an unfused attention
-    plan's probabilities."""
+    plan's probabilities; ``zero1_grads`` is the train step's (at
+    ``accum`` 1 it changes nothing)."""
     from repro_torch.launch.steps import (
+        accumulate,
+        grad_accumulators,
         loss_and_grads,
         train_state_shapes,
         train_state_specs,
@@ -217,11 +225,11 @@ def account_cell(cfg, shape, mesh, accum: int = 1, policy=None) -> CellCosts:
     with use_mesh(mesh), use_policy(policy), account_dispatches(ledger.on_dispatch), ledger:
         if shape.kind == "train":
             params = state["params"]
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device="meta"), params)
+            zero1 = zero1_grads and accum > 1
+            acc = grad_accumulators(params, specs["params"], mesh, zero1)
             before = ledger.snapshot()
             loss, grads = loss_and_grads(cfg, params, batch)
-            acc = tree_map(lambda a, g: a + g.float(), acc, grads)
+            acc = accumulate(acc, grads, specs["params"], mesh, zero1)
             del grads
             micro_costs = _diff(ledger.snapshot(), before)
             before = ledger.snapshot()
@@ -229,7 +237,8 @@ def account_cell(cfg, shape, mesh, accum: int = 1, policy=None) -> CellCosts:
                 daxes = data_axes(mesh)
                 collectives.all_reduce(loss, daxes)
                 make_zero1_update(cfg.optimizer)(acc, state["opt"], params, 1e-3,
-                                                 specs["params"], specs["opt"], mesh)
+                                                 specs["params"], specs["opt"], mesh,
+                                                 reduced=zero1)
             opt_costs = _diff(ledger.snapshot(), before)
             totals = {k: micro_costs.get(k, 0.0) * accum + opt_costs.get(k, 0.0)
                       for k in set(micro_costs) | set(opt_costs)}

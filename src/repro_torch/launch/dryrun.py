@@ -21,9 +21,19 @@ reduce-scatters and the expert-parallel reduces, which the wrappers
 record as they run.  A cell that raises records ``status: "error"`` with
 the error's text, as the JAX package records a failing cell.
 
+``--variant optimized`` is the JAX package's beyond-paper variant: it
+sets ``sharding.MIN_MODEL_DIM`` to 1024 for the cell (thin projections
+stay whole; put back when the cell ends, where the JAX package leaves
+it set), turns on sequence-parallel attention where the heads do not
+divide ``model`` (``ArchConfig.sp_attention``) and takes the sharded
+gradient accumulators for train cells (``zero1_grads``); its records
+carry ``variant: "optimized"`` and their files the suffix
+``_optimized``.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--skip-existing]
+                                      [--variant optimized]
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import traceback
 
 from repro_torch.configs import SHAPES, cell_applicable, get_config, list_archs
 from repro_torch.core.engine import add_policy_argument, policy_from_spec
-from repro_torch.distributed.sharding import P, data_axes
+from repro_torch.distributed.sharding import P, data_axes, min_model_dim
 from repro_torch.launch.accounting import account_cell
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import (
@@ -50,7 +60,7 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build", "dr
 
 HBM_BYTES = 80e9  # an H100 80GB's device memory
 
-__all__ = ["lower_cell", "run_cell", "main", "OUT_DIR"]
+__all__ = ["lower_cell", "run_cell", "main", "OUT_DIR", "VARIANTS"]
 
 
 def _accum_for(cfg, shape, mesh) -> int:
@@ -75,25 +85,40 @@ def _logits_spec(cfg, mesh, batch: int):
     return P(b_axis, None, v_axis)
 
 
+VARIANTS = ("baseline", "optimized")
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, policy=None, mesh=None,
-               cfg=None, accum=None):
+               cfg=None, accum=None, variant: str = "baseline"):
     """The record of one cell (``status`` ok, skip or, raised, error).
     ``mesh`` and ``cfg`` default to the production mesh and the arch's
-    full config, ``accum`` (train cells) to ``_accum_for``'s.  The JAX
-    package's ``optimized`` variant (sequence-parallel attention, sharded
-    gradient accumulators) is not ported."""
+    full config, ``accum`` (train cells) to ``_accum_for``'s; ``variant``
+    is ``baseline`` or ``optimized`` (the module docstring), whose
+    ``MIN_MODEL_DIM`` holds for this cell only."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; have {VARIANTS}")
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     ok, why = cell_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape.name, "status": "skip", "why": why}
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
+    optimized = variant == "optimized"
+    if optimized and cfg.n_heads and cfg.n_heads % mesh.shape["model"] != 0:
+        cfg = cfg.replace(sp_attention=True)
+    if not optimized:
+        return _lower(arch, cfg, shape, mesh, policy, accum, variant)
+    with min_model_dim(1024):
+        return _lower(arch, cfg, shape, mesh, policy, accum, variant)
+
+
+def _lower(arch, cfg, shape, mesh, policy, accum, variant):
     record = {
         "arch": arch,
         "shape": shape.name,
         "mesh": "x".join(str(s) for s in mesh.devices_shape),
         "kind": shape.kind,
-        "variant": "baseline",
+        "variant": variant,
         "status": "ok",
     }
     t0 = time.time()
@@ -102,7 +127,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, policy=None,
         record["accum"] = accum
     else:
         record["logits_spec"] = list(_logits_spec(cfg, mesh, shape.global_batch))
-    costs = account_cell(cfg, shape, mesh, accum=accum, policy=policy)
+    costs = account_cell(cfg, shape, mesh, accum=accum, policy=policy,
+                         zero1_grads=variant == "optimized" and shape.kind == "train")
     record["run_s"] = round(time.time() - t0, 1)
     arg, peak = costs["argument_bytes"], costs["peak_temp_bytes"]
     memory = {k: v for k, v in costs.items() if k.endswith("_bytes") and k != "coll_bytes"}
@@ -118,11 +144,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, policy=None,
     return record
 
 
-def run_cell(arch, shape_name, multi_pod=False, verbose=True, policy=None):
-    record = lower_cell(arch, shape_name, multi_pod, policy=policy)
+def run_cell(arch, shape_name, multi_pod=False, verbose=True, policy=None, variant="baseline"):
+    record = lower_cell(arch, shape_name, multi_pod, policy=policy, variant=variant)
     if verbose and record["status"] == "ok":
         r, m = record["roofline"], record["memory"]
-        print(f"--- {arch} x {shape_name} ({record['mesh']}) ---")
+        print(f"--- {arch} x {shape_name} ({record['mesh']}, {variant}) ---")
         print(f"memory: arguments {m['argument_bytes'] / 1e9:.3f} GB + peak temporaries "
               f"{m['peak_temp_bytes'] / 1e9:.3f} GB = {m['fit_gb']:.3f} GB of 80 "
               f"({'fits' if m['fits_80gb'] else 'does NOT fit'})")
@@ -145,6 +171,7 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--variant", default="baseline", choices=VARIANTS)
     add_policy_argument(ap)
     args = ap.parse_args(argv)
     # each rank runs a local program: the kernels stay candidates
@@ -158,12 +185,15 @@ def main(argv=None):
     for arch in archs:
         for shape_name in shapes:
             tag = f"{arch}_{shape_name}_{'2x16x16' if args.multi_pod else '16x16'}"
+            if args.variant != "baseline":
+                tag += f"_{args.variant}"
             path = os.path.join(args.out, tag + ".json")
             if args.skip_existing and os.path.exists(path):
                 print(f"skip existing {tag}")
                 continue
             try:
-                record = run_cell(arch, shape_name, args.multi_pod, policy=policy)
+                record = run_cell(arch, shape_name, args.multi_pod, policy=policy,
+                                  variant=args.variant)
             except Exception as e:
                 record = {
                     "arch": arch,

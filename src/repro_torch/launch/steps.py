@@ -26,7 +26,22 @@ under ``batch_specs``, and the train step splits that shard into its
 microbatches, takes the gradient mean over the data axes and applies the
 mesh update of the config's optimizer (``optim.make_zero1_update``:
 ZeRO-1 AdamW, or Adafactor on the pieces).  The serving steps return
-the whole vocabulary's logits.  ``train_state_shapes``,
+the whole vocabulary's logits.
+
+``TrainStepConfig(zero1_grads=True)`` (the JAX package's ZeRO-2-style
+accumulation, which the dry run's ``optimized`` variant takes) shards
+the f32 accumulators as the ZeRO-1 optimizer state is sharded: at
+``accum`` > 1, each microbatch's gradient of a leaf with a ZeRO-1 dim
+(``sharding.zero1_dim``) is reduce-scattered over the data axes into an
+accumulator of 1/data of the leaf's piece, and the update takes those
+pieces as they are, already summed.  A leaf with no ZeRO-1 dim is
+accumulated whole and reduced once by the update, and an FSDP leaf's
+gradient arrives reduce-scattered by its backward, as without it.  It
+trades memory for traffic: the accumulators shrink by the data size,
+and a step issues ``accum`` reduce-scatters of such a leaf in place of
+one.  The step equals the step without it up to the order of
+summation; at ``accum`` 1 it changes nothing (the JAX package then
+scans no microbatches).  ``train_state_shapes``,
 ``train_state_specs`` and ``shardings_for_train`` are the JAX package's,
 on meta tensors.
 """
@@ -39,7 +54,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core.policy import SelectionPolicy, use_policy
-from repro_torch.distributed.collectives import all_reduce
+from repro_torch.distributed.collectives import all_reduce, reduce_scatter
 from repro_torch.distributed.context import mesh_scope
 from repro_torch.distributed.sharding import (
     P,
@@ -51,6 +66,7 @@ from repro_torch.distributed.sharding import (
     param_specs,
     shard,
     unshard,
+    zero1_dim,
 )
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
@@ -63,6 +79,7 @@ from repro_torch.optim import (
 )
 
 __all__ = ["TrainStepConfig", "make_train_step", "init_train_state", "loss_and_grads",
+           "grad_accumulators", "accumulate",
            "make_prefill_step", "make_serve_step", "train_state_shapes", "train_state_specs",
            "shardings_for_train", "shard_train_state", "unshard_train_state"]
 
@@ -76,6 +93,7 @@ class TrainStepConfig:
         total_steps: int = 10000,
         max_grad_norm: float = 1.0,
         weight_decay: float = 0.1,
+        zero1_grads: bool = False,
     ):
         self.accum = accum
         self.lr = lr
@@ -83,6 +101,8 @@ class TrainStepConfig:
         self.total_steps = total_steps
         self.max_grad_norm = max_grad_norm
         self.weight_decay = weight_decay
+        # the f32 accumulators sharded over the data axes (module docstring)
+        self.zero1_grads = zero1_grads
 
 
 def init_train_state(cfg, params, mesh=None) -> Dict:
@@ -159,6 +179,38 @@ def _split_micro(batch: Dict[str, torch.Tensor], accum: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
 
 
+def grad_accumulators(params, p_specs, mesh, zero1_grads: bool):
+    """The f32 zeros the microbatches' gradients add into: each leaf's
+    piece, cut over the data axes along its ZeRO-1 dim under
+    ``zero1_grads`` (the module docstring)."""
+    n = mesh.axis_size(data_axes(mesh))
+
+    def zeros(_, p, ps):
+        shape = list(p.shape)
+        d = zero1_dim(ps, shape, mesh) if zero1_grads else None
+        if d is not None:
+            shape[d] //= n
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    return map_with_path(zeros, params, p_specs)
+
+
+def accumulate(acc, grads, p_specs, mesh, zero1_grads: bool):
+    """``acc`` plus one microbatch's ``grads`` in f32; under ``zero1_grads``
+    a leaf with a ZeRO-1 dim arrives reduce-scattered over the data
+    axes."""
+    daxes = data_axes(mesh)
+
+    def add(_, a, g, ps):
+        g = g.float()
+        d = zero1_dim(ps, g.shape, mesh) if zero1_grads else None
+        if d is not None:
+            g = reduce_scatter(g, daxes, d, mesh=mesh)
+        return a + g
+
+    return map_with_path(add, acc, grads, p_specs)
+
+
 def loss_and_grads(cfg, params, batch: Dict[str, torch.Tensor],
                    policy: Optional[SelectionPolicy] = None):
     """(loss, gradient tree) of ``lm.lm_loss`` at ``params``, the forward
@@ -190,19 +242,21 @@ def make_train_step(
     ranks = mesh if mesh is not None else Mesh((1, 1), ("data", "model"))
     specs = train_state_specs(train_state_shapes(cfg), ranks)
     daxes = data_axes(ranks)
+    zero1 = sc.zero1_grads and sc.accum > 1
 
     def _grads(params, batch):
         """(loss, gradients): the mean over ``batch``'s microbatches, f32
-        accumulators; one microbatch's come in the params' dtypes, which
-        the update casts leaf by leaf."""
+        accumulators (ZeRO-1 pieces under ``zero1_grads``); one
+        microbatch's come in the params' dtypes, which the update casts
+        leaf by leaf."""
         if sc.accum == 1:
             return loss_and_grads(cfg, params, batch, policy)
         loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        grads = grad_accumulators(params, specs["params"], ranks, zero1)
         for mb in _split_micro(batch, sc.accum):
             loss_mb, g = loss_and_grads(cfg, params, mb, policy)
-            grads = tree_map(lambda a, b: a + b.float(), grads, g)
+            grads = accumulate(grads, g, specs["params"], ranks, zero1)
+            del g
             loss = loss + loss_mb
         return loss / sc.accum, tree_map(lambda g: g / sc.accum, grads)
 
@@ -214,7 +268,7 @@ def make_train_step(
             lr = sched(int(state["step"]))
             new_params, new_opt, gnorm = update(grads, state["opt"], params, lr,
                                                 specs["params"], specs["opt"], ranks,
-                                                max_grad_norm=sc.max_grad_norm)
+                                                max_grad_norm=sc.max_grad_norm, reduced=zero1)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 

@@ -25,6 +25,25 @@ kv heads over ``model`` when they divide it, else the slots (and the
 slots over the data axes when the batch does not divide them); a
 slot-split cache is written by the rank that owns the new position's
 slot and gathered whole for attention.
+
+Sequence-parallel attention (``AttnConfig.sp_attention``, the JAX
+package's ``constrain`` over the query rows).  Where the heads do not
+split over ``model``, each rank takes its ``C/M`` rows of every query
+chunk of ``C`` -- rank ``r`` the rows ``[r C/M, (r+1) C/M)`` of each --
+and attends them, for every head, against the chunk's whole key slab;
+the attention output is gathered back whole, in position order, before
+wo and the residual.  A projection whose weight the rules leave whole
+(smollm-135m's at ``MIN_MODEL_DIM`` 1024) runs on this rank's rows, its
+weight entering through ``copy_to_group`` (its gradient is the group's
+sum of the ranks' rows); the keys and values of those rows are gathered
+whole with ``gather_seq``, whose backward reduce-scatters.  A
+projection the rules split (gemma3-4b's 2048-wide ``wq`` at 16) runs as
+above through the head-boundary gather, and the queries are then cut to
+this rank's rows (``scatter_to_group``: the rows' gradients gathered
+back), the keys and values kept whole through ``copy_to_group`` (the
+ranks' gradients summed).  Where ``C`` does not divide by ``M``, or the
+heads do split over ``model``, the layer runs as without it; the prefill
+cache is built from the whole keys and values, and decode is unchanged.
 """
 
 from __future__ import annotations
@@ -37,7 +56,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import dispatch_attention
-from repro_torch.distributed.collectives import all_gather, copy_to_group, gather_from_group
+from repro_torch.distributed.collectives import (
+    all_gather,
+    copy_to_group,
+    gather_from_group,
+    gather_seq,
+    scatter_to_group,
+)
 from repro_torch.distributed.context import current_mesh, model_size
 from repro_torch.distributed.sharding import _spec_for_cache, spec_axes
 from repro_torch.launch.mesh import Mesh
@@ -65,6 +90,9 @@ class AttnConfig:
     rope_theta: float = 10000.0
     qk_norm: bool = False
     chunk: int = 1024  # query-chunk length for the blocked schedule
+    # shard the attention block over ``model`` along the query rows where
+    # the heads do not divide it (the module docstring)
+    sp_attention: bool = False
 
     @property
     def group(self) -> int:
@@ -153,6 +181,62 @@ def _project_qkv(
     return q, k, v, cfg
 
 
+def _rows(t: torch.Tensor, chunk: int, m: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, S/m, ...): this rank's ``chunk/m`` rows of each
+    chunk, in order; their gradient is gathered back whole."""
+    B, S = t.shape[:2]
+    t = t.reshape(B, S // chunk, chunk, *t.shape[2:])
+    return scatter_to_group(t, "model", dim=2).reshape(B, S // m, *t.shape[3:])
+
+
+def _unrows(t: torch.Tensor, chunk: int, m: int, gather) -> torch.Tensor:
+    """``_rows``'s inverse: every rank's rows gathered back into position
+    order over ``model`` with ``gather`` (``gather_seq`` or
+    ``gather_from_group``): (B, S/m, ...) -> (B, S, ...)."""
+    B, n = t.shape[:2]
+    t = t.reshape(B, n * m // chunk, chunk // m, *t.shape[2:])
+    return gather(t, "model", 2).reshape(B, n * m, *t.shape[3:])
+
+
+def _sp_project(p: Param, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor,
+                sp: _Split, chunk: int):
+    """Sequence-parallel projections (the module docstring): this rank's
+    query rows ``(B, S/M, kv, g, dh)`` and the whole keys and values
+    ``(B, S, kv, dh)``, RoPE'd and normed, every head."""
+    B, S, _ = x.shape
+    m = sp.m
+    r = current_mesh().axis_index("model")
+    pos = positions.reshape(positions.shape[0], S // chunk, chunk)
+    pos_rows = pos[..., r * (chunk // m):(r + 1) * (chunk // m)].reshape(-1, S // m)
+    x_rows = _rows(x, chunk, m) if None in sp.dims[:3] else None
+    xc = copy_to_group(x) if 0 in sp.dims[:3] else x
+    out = []
+    for name, wd, heads in zip(("wq", "wk", "wv"), sp.dims, (cfg.n_heads, cfg.n_kv, cfg.n_kv)):
+        if wd is None:  # this rank's rows; a whole weight's gradient is the group's sum
+            y = dense({k: copy_to_group(w) for k, w in p[name].items()}, x_rows)
+            rows = True
+        else:
+            y, y_split = dense_tp(p[name], xc if wd == 0 else x, wd, copied=True)
+            y = gather_from_group(y) if y_split else y
+            rows = False
+        y = y.reshape(B, y.shape[1], heads, cfg.d_head)
+        norm = {"wq": "qn", "wk": "kn"}.get(name) if cfg.qk_norm else None
+        if norm is not None:
+            scale = p[norm]["scale"]
+            y = rmsnorm({"scale": copy_to_group(scale) if rows else scale}, y)
+        if name != "wv":
+            y = apply_rope(y, pos_rows if rows else positions, cfg.rope_theta)
+        if name == "wq":
+            y = y if rows else _rows(y, chunk, m)
+        elif rows:
+            y = _unrows(y, chunk, m, gather_seq)
+        else:  # whole on every rank; each rank's queries give it a share of the gradient
+            y = copy_to_group(y)
+        out.append(y)
+    q, k, v = out
+    return q.reshape(B, S // m, cfg.n_kv, cfg.group, cfg.d_head), k, v
+
+
 def _out_proj(p: Param, out: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
     """wo over the attention output: this rank's heads' columns under a
     head-local split, else this rank's slice of all of them."""
@@ -216,12 +300,19 @@ def attention(
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     full_cfg = cfg
-    q, k, v, cfg = _project_qkv(p, x, cfg, positions)
-    q = q * (cfg.d_head**-0.5)
-
     chunk = min(cfg.chunk, S)
     if S % chunk != 0:  # ragged tail: single chunk
         chunk = S
+    sp = _split(cfg)
+    if cfg.sp_attention and sp is not None and not sp.local and chunk % sp.m == 0:
+        q, k, v = _sp_project(p, x, cfg, positions, sp, chunk)
+        rows = chunk // sp.m  # this rank's rows of each chunk, from its first
+        first = current_mesh().axis_index("model") * rows
+    else:
+        q, k, v, cfg = _project_qkv(p, x, cfg, positions)
+        rows, first = chunk, 0
+    q = q * (cfg.d_head**-0.5)
+
     outs = []
     for i in range(S // chunk):
         q_lo, q_hi = i * chunk, (i + 1) * chunk
@@ -233,9 +324,12 @@ def attention(
         if prefix_len > 0:
             lo = 0  # prefix keys always visible
         outs.append(_chunk_attend(
-            q[:, q_lo:q_hi], k[:, lo:q_hi], v[:, lo:q_hi], cfg, q_lo, lo, prefix_len
+            q[:, i * rows:(i + 1) * rows], k[:, lo:q_hi], v[:, lo:q_hi], cfg, q_lo + first,
+            lo, prefix_len
         ))
-    out = torch.cat(outs, dim=1).reshape(B, S, cfg.n_heads * cfg.d_head)
+    out = torch.cat(outs, dim=1).reshape(B, q.shape[1], cfg.n_heads * cfg.d_head)
+    if rows != chunk:  # every rank's rows back in position order
+        out = _unrows(out, chunk, sp.m, gather_from_group)
     out = _out_proj(p, out, full_cfg)
     if not return_kv:
         return out
@@ -254,7 +348,6 @@ def attention(
     else:
         pad = (0, 0, 0, 0, 0, slots - S)
         ck, cv = F.pad(k, pad), F.pad(v, pad)
-    sp = _split(full_cfg)
     if sp is not None and _slots_split(full_cfg, sp, B, slots):
         part = slots // sp.m
         lo = current_mesh().axis_index("model") * part

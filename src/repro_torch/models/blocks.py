@@ -51,6 +51,7 @@ def _attn_cfg(b: BlockCfg, mc) -> AttnConfig:
         rope_theta=mc.rope_theta,
         qk_norm=mc.qk_norm,
         chunk=mc.attn_chunk,
+        sp_attention=mc.sp_attention,
     )
 
 

@@ -83,10 +83,13 @@ def make_optimizer(name: str, **kw) -> Tuple[Callable, Callable]:
 def make_zero1_update(name: str, **kw) -> Callable:
     """The update of one rank of a mesh for optimizer ``name``:
     ``update(grads, state, params, lr, p_specs, o_specs, mesh,
-    max_grad_norm) -> (params, state, norm)``, the data-mean of the
-    gradients, their global-norm clip and the step in one."""
+    max_grad_norm, reduced) -> (params, state, norm)``, the data-mean of
+    the gradients, their global-norm clip and the step in one;
+    ``reduced``: a leaf with a ZeRO-1 dim comes as its piece of the sum
+    over the data axes already (``launch/steps.py``'s ``zero1_grads``)."""
     fn = {"adamw": adamw_update_zero1, "adafactor": adafactor_update_zero1}.get(name)
     if fn is None:
         raise ValueError(f"unknown optimizer {name!r}")
-    return lambda g, s, p, lr, p_specs, o_specs, mesh, max_grad_norm=1.0: fn(
-        g, s, p, lr, p_specs, o_specs, mesh, max_grad_norm=max_grad_norm, **kw)
+    return lambda g, s, p, lr, p_specs, o_specs, mesh, max_grad_norm=1.0, reduced=False: fn(
+        g, s, p, lr, p_specs, o_specs, mesh, max_grad_norm=max_grad_norm, reduced=reduced,
+        **kw)

@@ -198,7 +198,7 @@ def _relayout(t: torch.Tensor, src, dst, mesh) -> torch.Tensor:
 @torch.no_grad()
 def adafactor_update_zero1(grads, state, params, lr, p_specs, o_specs, mesh,
                            max_grad_norm: float = 1.0, clip_threshold: float = 1.0,
-                           weight_decay: float = 0.0):
+                           weight_decay: float = 0.0, reduced: bool = False):
     """One Adafactor step of this rank (the module docstring).  ``grads``
     are the gradients of this rank's param pieces on its own batch shard;
     ``p_specs`` and ``o_specs`` the params' and optimizer state's specs.
@@ -207,10 +207,12 @@ def adafactor_update_zero1(grads, state, params, lr, p_specs, o_specs, mesh,
     divided by their size, the global norm taken over the pieces and
     clipped to ``max_grad_norm`` (as ``clip_by_global_norm``); each
     leaf's statistics come in from their stored layout and go back to it.
-    Returns (params, state, norm)."""
+    ``reduced``: a leaf with a ZeRO-1 dim comes as its piece of the sum
+    already (``zero1_grads``' accumulator), which is gathered whole over
+    the data axes, not summed again.  Returns (params, state, norm)."""
     from repro_torch.distributed import sharding
-    from repro_torch.distributed.collectives import all_reduce
-    from repro_torch.distributed.sharding import data_axes
+    from repro_torch.distributed.collectives import all_gather, all_reduce
+    from repro_torch.distributed.sharding import data_axes, zero1_dim
 
     from . import global_norm
 
@@ -223,6 +225,9 @@ def adafactor_update_zero1(grads, state, params, lr, p_specs, o_specs, mesh,
         its own update."""
         if sharding.splits(ps, daxes):
             return g
+        d = zero1_dim(ps, p.shape, mesh) if reduced else None
+        if d is not None:  # summed already: this rank's piece of the sum
+            return all_gather(g, daxes, d, mesh=mesh)
         return all_reduce(g.float(), daxes, mesh=mesh) if n > 1 else g
 
     pieces = _leaf_map(piece, params, grads, p_specs)

@@ -92,6 +92,7 @@ def adamw_update_zero1(
     b2: float = 0.95,
     eps: float = 1e-8,
     weight_decay: float = 0.1,
+    reduced: bool = False,
 ):
     """One ZeRO-1 AdamW step of this rank.  ``grads`` are the gradients of
     this rank's param pieces on its own batch shard; ``p_specs`` and
@@ -104,7 +105,9 @@ def adamw_update_zero1(
     ``max_grad_norm`` (as ``clip_by_global_norm``), the pieces are
     updated, and the updated pieces all-gathered back.  On a mesh of one
     rank this is ``clip_by_global_norm`` and ``adamw_update``, value for
-    value.  Returns (params, state, norm)."""
+    value.  ``reduced``: a leaf with a ZeRO-1 dim comes as its piece of the
+    sum already (``zero1_grads``' accumulator), taken as it is, divided
+    once and counted once in the norm.  Returns (params, state, norm)."""
     from repro_torch.distributed.collectives import all_gather, all_reduce, reduce_scatter
     from repro_torch.distributed import sharding
     from repro_torch.distributed.sharding import data_axes, map_with_path
@@ -118,7 +121,8 @@ def adamw_update_zero1(
         d = _zero1_dim(ps, os_)
         g = g.float()
         if d is not None:
-            g = reduce_scatter(g, daxes, d, mesh=mesh)
+            if not reduced:
+                g = reduce_scatter(g, daxes, d, mesh=mesh)
         elif not sharding.splits(ps, daxes):
             g = all_reduce(g, daxes, mesh=mesh)
         # else the params split the leaf over the data axes (FSDP): its

@@ -128,6 +128,36 @@ def test_state_specs_equal_the_jax_packages(ref, jax_state_shapes, mesh_name):
         assert {k: v[0] for k, v in dims.items()} == {k: v[0] for k, v in jdims.items()}, name
 
 
+def test_state_specs_at_min_model_dim_1024_equal_the_jax_packages(ref, jax_state_shapes):
+    """The optimized variant's thin-shard rule: with ``MIN_MODEL_DIM`` 1024
+    in both packages, the param and optimizer-state specs of all ten
+    architectures on 16x16 are the JAX package's; the port's knob is put
+    back after its block, and the memoised per-weight specs follow it."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import min_model_dim, param_spec
+
+    shape, axes = MESHES["16x16"]
+    jmesh, mesh = _AbstractMesh(shape, axes), Mesh(shape, axes)
+    jsh = ref["sharding"]
+    prev = jsh.MIN_MODEL_DIM
+    jsh.MIN_MODEL_DIM = 1024
+    try:
+        with min_model_dim(1024):
+            for name in ARCH_NAMES:
+                jspecs = ref["steps"].train_state_specs(jax_state_shapes[name], jmesh)
+                shapes = train_state_shapes(ARCHS[name])
+                got, want = _table(train_state_specs(shapes, mesh)), _jax_table(ref, jspecs)
+                dims = _shapes(shapes)
+                assert set(got) == set(want), name
+                for path in want:
+                    assert got[path] == _pad(want[path], len(dims[path][0])), (name, path)
+            wq = param_spec(("attn", "wq", "w"), (576, 576), mesh)
+    finally:
+        jsh.MIN_MODEL_DIM = prev
+    assert sharding.MIN_MODEL_DIM == 0 and wq == P(None, None)
+    assert param_spec(("attn", "wq", "w"), (576, 576), mesh) == P("model", None)
+
+
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
 def test_batch_and_cache_specs_equal_the_jax_packages(ref, mesh_name):
     shape, axes = MESHES[mesh_name]

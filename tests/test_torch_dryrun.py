@@ -14,7 +14,15 @@
     record ``ok`` through ``main``, with their collective bytes and
     ``fits_80gb``;
   * on grok-1 smoke under Adafactor at 2x2 the only reduce-scatters are
-    FSDP's: each expert piece's gradient once a microbatch.
+    FSDP's: each expert piece's gradient once a microbatch;
+  * the ``optimized`` variant: smollm-135m ``train_4k`` records
+    ``variant: "optimized"`` and gathers each layer's keys and values over
+    the sequence (``gather_seq``), forward and recompute; the cell sees
+    ``MIN_MODEL_DIM`` 1024, ``sp_attention`` where the heads do not divide
+    ``model`` and ``zero1_grads``, and the knob is 0 again after it, even
+    when it raises;
+  * ``zero1_grads`` on gemma3 smoke at 2x1: ``accum`` times the
+    reduce-scatter bytes, and accumulators half the size.
 """
 
 import json
@@ -134,3 +142,72 @@ def test_fsdp_reduce_scatters_each_expert_piece_once_a_microbatch():
     assert len(pieces) == 3  # gate, up and down
     got = rec["roofline"]["collective_by_kind"]["reduce-scatter"]
     assert got == rec["accum"] * (2 - 1) * sum(pieces)
+
+
+def test_an_optimized_smollm_train_4k_cell_gathers_keys_and_values_over_the_sequence():
+    """The optimized variant: smollm's 9 heads do not divide 16, so its
+    attention runs sequence-parallel, each layer gathering its keys and
+    values whole over ``model`` (``gather_seq``) in the forward and again
+    in the recompute; ``MIN_MODEL_DIM`` is 0 again after the cell."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import attention
+
+    calls, gather = [], attention.gather_seq
+
+    def counted(t, axes, dim):
+        calls.append(tuple(t.shape))
+        return gather(t, axes, dim)
+
+    attention.gather_seq = counted
+    try:
+        rec = dryrun.lower_cell("smollm-135m", "train_4k", variant="optimized")
+    finally:
+        attention.gather_seq = gather
+    assert rec["status"] == "ok" and rec["variant"] == "optimized" and rec["memory"]["fits_80gb"]
+    assert sharding.MIN_MODEL_DIM == 0
+    layers = get_config("smollm-135m").n_layers
+    assert len(calls) == 2 * 2 * layers  # k and v, forward and recompute
+    kinds = rec["roofline"]["collective_by_kind"]
+    assert kinds["all-gather"] > 0 and kinds["reduce-scatter"] > 0
+
+
+def test_min_model_dim_holds_for_an_optimized_cell_and_is_put_back_if_it_raises(monkeypatch):
+    from repro_torch.distributed import sharding
+
+    seen = []
+
+    def fails(cfg, *a, **k):
+        seen.append((sharding.MIN_MODEL_DIM, cfg.sp_attention, k["zero1_grads"]))
+        raise RuntimeError("the cell fails")
+
+    monkeypatch.setattr(dryrun, "account_cell", fails)
+    with pytest.raises(RuntimeError, match="the cell fails"):
+        dryrun.lower_cell("smollm-135m", CELL, mesh=Mesh((2, 4), ("data", "model")),
+                          cfg=smoke_config("smollm-135m"), variant="optimized")
+    assert seen == [(1024, False, True)]  # 4 heads divide 4: no sequence parallelism
+    assert sharding.MIN_MODEL_DIM == 0
+    with pytest.raises(ValueError, match="variant"):
+        dryrun.lower_cell("smollm-135m", CELL, variant="fast")
+
+
+def test_zero1_grads_counts_accum_reduce_scatters_and_sharded_accumulators():
+    """gemma3 smoke at 2x1, accum 4: without ``zero1_grads`` the AdamW
+    update reduce-scatters each leaf with a ZeRO-1 dim once a step; with
+    it every microbatch does (``accum`` times the bytes) and the update
+    none, the leaves without one are all-reduced once either way, and the
+    f32 accumulators held beside the first microbatch's gradient shrink
+    by half of the ZeRO-1 leaves' bytes."""
+    from repro_torch.distributed.sharding import zero1_dim
+
+    cfg = smoke_config("gemma3-4b")
+    mesh = Mesh((2, 1), ("data", "model"))
+    base, z1 = (account_cell(cfg, CELL, mesh, accum=4, policy=policy_from_spec(KERNEL),
+                             zero1_grads=z) for z in (False, True))
+    assert z1["coll_reduce-scatter"] == 4 * base["coll_reduce-scatter"] > 0
+    assert z1["coll_all-reduce"] == base["coll_all-reduce"]
+    shapes = lm.init_lm(0, cfg, device="meta")
+    halved = []
+    map_with_path(lambda _, t, s: halved.append(t.numel() * 4 // 2)
+                  if zero1_dim(s, t.shape, mesh) is not None else None,
+                  shapes, param_specs(shapes, mesh))
+    assert halved and base["peak_temp_bytes"] - z1["peak_temp_bytes"] >= sum(halved) // 2
