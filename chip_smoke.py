@@ -28,6 +28,18 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               batched and attention's flash routes in both dtypes; f32 NN
               and NT; attention's split-KV route) are timed beside the
               kernels they replaced, which must agree too
+ 3a. sanitize the poison sanitizer (src/repro_torch/analysis/sanitize.py,
+              NM404) over its default grid -- the JAX package's ragged cell
+              (129, 127, 65, g 3) and three ragged cells that reach the fast
+              routes -- in f32 and bf16 with NaN, +inf and -inf: every plan of
+              kernels/tiling.py of every kernel arm and of the transpose
+              kernel runs on operands placed inside poisoned buffers and on a
+              zero-filled twin, its output and workspace allocations replayed
+              as poisoned (0xFF) blocks first; outputs bit-identical between
+              the two, finite and within tests/test_kernels.py::_tol of f64.
+              Fails on any finding, on any allocation that did not come back
+              poisoned, on any plan never launched (counted per (kernel,
+              config)), or past 60 s
   4. serve    repro_torch.launch.serve.main on smollm-135m at full config
               in bf16: class interactive under fixed:nt=PALLAS_TNN,attn=fused,
               class bulk under fixed:nt=PALLAS_NT,attn=fused, then the same
@@ -165,6 +177,11 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               per (kernel, config)).  smollm-135m at full config served under
               autotune: every request finishes and cold_misses() is 0 for
               every class after warmup
+ 12a. artifacts  the artifact pass (analysis/artifacts_lint.py) over the
+              measurement caches and selector artifacts phases 9 and 12 wrote
+              to build/ (measured_{bf16,f32}, selector_{bf16,f32},
+              measured_bf16_tuned, selector_bf16_tuned_kway, autotune_smollm):
+              each exists and validates clean against the port's schemas
  13. bench    python -m repro_torch.benchmarks.run --only fig1,fig2,fig3,
               table4,table6,fig4,table8,kway,policy_overhead,blocksweep on
               phase 9's f32 grid (build/measured_f32.json, not measured
@@ -201,7 +218,11 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               tests/test_torch_distributed.py (lr 1e-3, warmup 1): first
               every wrapper on CUDA tensors over each axis of 2x1 and 1x2
               against the values of every rank's seeded input (sums within
-              1e-5 of the f64 sum, the rest and compressed_mean exact);
+              1e-5 of the f64 sum, the rest and compressed_mean exact), at
+              a size gloo carries and at one that goes through CUDA IPC
+              (collectives.py's route for ranks on one card: the gloo
+              ranks of 16-18 keep their blocks out of expandable segments,
+              and each must have run collectives there, none falling back);
               gemma3-4b at full width in two layers (one local, one global),
               bf16, batch 4 x 256, accum 2, 3 steps on meshes 2x1 and 1x2
               (ZeRO-1 over data, tensor parallelism over model, the
@@ -2395,6 +2416,89 @@ def phase_tiles(torch, card, out_dir):
     return row, launches
 
 
+SANITIZE_SECONDS = 60  # the sanitizer phase's budget on one card
+
+
+def phase_sanitize(torch, card):
+    """Phase 3a: the poison sanitizer (analysis/sanitize.py, NM404) on the
+    card over its default grid (the JAX package's ragged cell and the
+    ragged cells of the fast routes), both dtypes and the three poisons:
+    every plan of every kernel arm and of the transpose kernel launched
+    (counted per (kernel, config) against kernels/tiling.py's plans), no
+    finding, and every output and workspace allocation of a kernel arm back
+    from the allocator poisoned.  Its launches are a check's, not a main
+    path's: the counts are reset after it."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.common import (
+        ATTENTION_ROUTES,
+        CONFIG_LAUNCHES,
+        GEMM_ROUTES,
+        config_key,
+        reset_launches,
+    )
+
+    shapes = sanitize.grid()
+    dtypes = ("float32", "bfloat16")
+    reset_launches()
+    rep = sanitize.sanitize_candidates(shapes=shapes, dtypes=dtypes, device=DEVICE,
+                                       repo_root=str(ROOT))
+    launches, configs = launch_counts(), dict(CONFIG_LAUNCHES)
+    routes = sorted({f"{k[0]} {k[1]} {k[2]}" for k in GEMM_ROUTES}
+                    | {f"attention_fused {v} dh{dh}" for v, dh in ATTENTION_ROUTES})
+    reset_launches()
+    planned = {("transpose", config_key(c)) for c in tiling.TRANSPOSE_INSTANCES}
+    for kernel in tiling.TUNABLE_KERNELS:
+        grouped = kernel in ("matmul_bnt", "matmul_bnn", "attention_fused")
+        for m, n, k, g in shapes:
+            for dt in dtypes:
+                dsize = torch.finfo(getattr(torch, dt)).bits // 8
+                planned |= {(kernel, config_key(c)) for c, _ in tiling.tile_plans(
+                    kernel, m, n, k, dsize, g if grouped else 1)}
+    unlaunched = sorted(f"{kname}@{ck}" for kname, ck in planned
+                        if not configs.get((kname, ck)))
+    row = {"phase": "sanitize", "card": card, "shapes": [list(s) for s in shapes],
+           "dtypes": list(dtypes), "poisons": list(rep.poisons), "cells": rep.cells,
+           "runs": rep.runs, "plans": len(planned), "leaks": rep.leaks,
+           "findings": [f.render() for f in rep.findings[:20]],
+           "allocations": rep.allocations, "unpoisoned": rep.unpoisoned,
+           "routes": routes, "launches": launches, "seconds": rep.seconds,
+           "budget_seconds": SANITIZE_SECONDS}
+    check(not rep.findings, f"sanitizer: {len(rep.findings)} findings, {rep.leaks} leaks: "
+                            f"{row['findings']}")
+    check(rep.allocations > 0 and rep.unpoisoned == 0,
+          f"sanitizer: {rep.unpoisoned} of {rep.allocations} allocations did not come back "
+          "poisoned from the allocator")
+    check(not unlaunched, f"sanitizer: plans never launched: {unlaunched}")
+    check(rep.seconds <= SANITIZE_SECONDS,
+          f"sanitizer took {rep.seconds:.1f} s, over its {SANITIZE_SECONDS} s budget")
+    return row
+
+
+def phase_artifacts(card, out_dir):
+    """Phase 12a: the artifact pass (analysis/artifacts_lint.py) over the
+    measurement caches and selector artifacts phases 9 and 12 wrote to
+    build/: each must exist and validate clean against the schemas."""
+    from repro_torch.analysis import artifacts_lint
+
+    names = ("measured_bf16.json", "measured_f32.json", "selector_bf16.json",
+             "selector_f32.json", "measured_bf16_tuned.json", "selector_bf16_tuned_kway.json",
+             "autotune_smollm.json")
+    t0 = time.perf_counter()
+    paths = [str(out_dir / name) for name in names]
+    findings = artifacts_lint.run(str(ROOT), targets=paths)
+    kinds = {}
+    for name, path in zip(names, paths):
+        if os.path.exists(path):
+            kinds[name] = artifacts_lint.sniff_kind(json.loads(Path(path).read_text()))
+    row = {"phase": "artifacts", "card": card, "kinds": kinds,
+           "findings": [f.render() for f in findings[:20]],
+           "seconds": time.perf_counter() - t0}
+    check(not findings, f"artifacts: {len(findings)} findings: {row['findings']}")
+    check(set(kinds.values()) == {"cache", "selector"}, f"artifacts: kinds {kinds}")
+    return row
+
+
 def phase_bench(torch, card, out_dir):
     """Phase 13; returns its row and the launches of its benchmarks."""
     from repro_torch.benchmarks import kernel_sweep
@@ -2716,8 +2820,10 @@ MESH_STEP = {"lr": 1e-3, "warmup": 1}
 MESH_REQUESTS, MESH_GEN, MESH_PROMPT, MESH_MAX_SEQ = 4, 8, 48, 2048
 MESH_LOGITS_REL = 1e-4  # f32 serving on a mesh against one rank: reduction order only
 MESH_SUM_REL = 1e-5  # a collective's f32 sum against the f64 sum of its inputs
-# the phase's limit: gloo stages every collective through the host, and
-# ZeRO-1 on 2x1 moves gemma3's ~0.9 B f32 gradients and bf16 params a step
+# the phase's limit: ZeRO-1 on 2x1 moves gemma3's ~0.9 B f32 gradients and
+# bf16 params a step (on the card through CUDA IPC, collectives.py's route
+# for gloo ranks that share one; gloo's own staging through the host and
+# TCP took seconds a GB)
 MESH_SECONDS = 150
 MESH_KERNELS = ("matmul_nt", "matmul_tnn_fused", "matmul_nn", "transpose", "attention_fused")
 # the meshes of each run: two gloo ranks sharing one card (16b), or four
@@ -2866,12 +2972,23 @@ def mesh_collectives(torch, dm):
     ``dm`` mesh, against the value computed here from every rank's seeded
     input: sums within MESH_SUM_REL of the f64 sum (the group's reduction
     order), max, gathers, broadcasts and compressed_mean (the int8 payload
-    summed, the scales' max) exact.  Returns each sum's error."""
+    summed, the scales' max) exact.  Two sizes: one below
+    CARD_IPC_MIN_BYTES (gloo's own route) and one above it (the route of
+    ranks sharing a card through CUDA IPC, where the ranks share one).
+    Returns each sum's error."""
     from repro_torch.distributed import collectives as C
     from repro_torch.launch.mesh import make_local_mesh
 
     mesh = make_local_mesh(*dm)
-    xs = [torch.randn(6, 8 * mesh.size, 5, generator=torch.Generator().manual_seed(r))
+    errs = {}
+    for cols in (5, -(-C.CARD_IPC_MIN_BYTES // (6 * 8 * mesh.size * 4))):
+        errs.update(mesh_collectives_at(torch, C, mesh, dm, cols))
+    return errs
+
+
+def mesh_collectives_at(torch, C, mesh, dm, cols):
+    """``mesh_collectives`` on (6, 8 * ranks, ``cols``) f32 operands."""
+    xs = [torch.randn(6, 8 * mesh.size, cols, generator=torch.Generator().manual_seed(r))
           for r in range(mesh.size)]
     mine = xs[mesh.rank].to(DEVICE)
     errs = {}
@@ -2879,7 +2996,7 @@ def mesh_collectives(torch, dm):
         S = mesh.axis_size(axes)
         if S == 1:
             continue
-        name = f"{mesh_name(dm)} {'+'.join(axes)}"
+        name = f"{mesh_name(dm)} {'+'.join(axes)} x{cols}"
         group = next(g for g in mesh.group_ranks(axes) if mesh.rank in g)
         idx, part = mesh.axis_index(axes), xs[0].shape[1] // S
         total = sum(xs[r].double() for r in group)
@@ -2898,14 +3015,44 @@ def mesh_collectives(torch, dm):
                           torch.cat([xs[r] for r in group], dim=1)), f"all_gather {name}")
         check(torch.equal(C.broadcast(mine, axes, src=S - 1, mesh=mesh).cpu(), xs[group[-1]]),
               f"broadcast {name}")
-        qs = [C.quantize_int8(xs[r]) for r in group]
+        # quantized here on the card, as the ranks do: CUDA divides by a
+        # Python scalar (the scale's / 127) through its reciprocal, so a
+        # CPU scale may differ from the card's in the last bit
+        qs = [C.quantize_int8(xs[r].to(DEVICE)) for r in group]
         want = C.dequantize_int8(sum(q.to(torch.int32) for q, _ in qs),
                                  torch.stack([s for _, s in qs]).amax(0),
-                                 xs[0].shape, torch.float32) / S
+                                 xs[0].shape, torch.float32).cpu() / S
         got = C.compressed_mean({"g": mine}, mesh, axes)["g"].cpu()
         check(torch.equal(got, want), f"compressed_mean {name}: off by "
               f"{float((got - want).abs().max())}")
     return errs
+
+
+def rank_card(torch, spec, rank):
+    """This rank's card: NCCL ranks take one each; gloo ranks share card 0
+    and keep their blocks out of expandable segments, so that each can
+    open the others' through CUDA IPC (distributed/collectives.py's route
+    for ranks on one card; a segment's handle needs ``pidfd_open``, which
+    the card's host may lack)."""
+    if spec["backend"] == "nccl":
+        torch.cuda.set_device(rank)
+        return
+    torch.cuda.set_device(0)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def on_card_counts():
+    from repro_torch.distributed.collectives import ON_CARD
+
+    return dict(ON_CARD)
+
+
+def on_card_gate(gate, phase, spec, r):
+    """A gloo rank's large collectives went through CUDA IPC, none back to
+    gloo for want of a handle."""
+    if spec["backend"] == "gloo":
+        gate(r["on_card"]["calls"] > 0 and r["on_card"]["gloo"] == 0,
+             f"phase {phase} rank {r['rank']}: collectives on the card {r['on_card']}")
 
 
 def mesh_rank(rank, world, store, out_dir, plan):
@@ -2917,12 +3064,12 @@ def mesh_rank(rank, world, store, out_dir, plan):
     import torch.distributed as dist
 
     spec = MESH_PLANS[plan]
-    torch.cuda.set_device(rank if spec["backend"] == "nccl" else 0)
+    rank_card(torch, spec, rank)
     dist.init_process_group(spec["backend"], init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
         row = mesh_rank_body(torch, rank, spec)
-        row.update(dispatch_health())
+        row.update(dispatch_health(), on_card=on_card_counts())
     finally:
         dist.destroy_process_group()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
@@ -3114,6 +3261,7 @@ def phase_mesh(torch, card, plan="gloo"):
         for k in MESH_KERNELS:
             check(r["launches"][k] > 0, f"mesh rank {r['rank']} never launched {k}: "
                   f"{r['launches']}")
+        on_card_gate(check, 16, spec, r)
 
     def same_on_every_rank(key):
         m0 = ranks[0][key]["metrics"]
@@ -3255,12 +3403,12 @@ def mesh_moe_rank(rank, world, store, out_dir, plan):
     import torch.distributed as dist
 
     spec = MESH_MOE_PLANS[plan]
-    torch.cuda.set_device(rank if spec["backend"] == "nccl" else 0)
+    rank_card(torch, spec, rank)
     dist.init_process_group(spec["backend"], init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
         row = mesh_moe_rank_body(torch, rank, spec, Path(out_dir))
-        row.update(dispatch_health())
+        row.update(dispatch_health(), on_card=on_card_counts())
     finally:
         dist.destroy_process_group()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
@@ -3421,6 +3569,7 @@ def phase_mesh_moe_ssm(torch, card, plan="gloo"):
         for k in MESH_KERNELS:
             gate(r["launches"][k] > 0, f"phase 17 rank {r['rank']} never launched {k}: "
                  f"{r['launches']}")
+        on_card_gate(gate, 17, spec, r)
 
     def same_on_every_rank(key):
         m0 = ranks[0][key]["metrics"]
@@ -3581,12 +3730,12 @@ def mesh_opt_rank(rank, world, store, out_dir, plan):
     import torch.distributed as dist
 
     spec = MESH_OPT_PLANS[plan]
-    torch.cuda.set_device(rank if spec["backend"] == "nccl" else 0)
+    rank_card(torch, spec, rank)
     dist.init_process_group(spec["backend"], init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
         row = mesh_opt_rank_body(torch, rank, spec, Path(out_dir))
-        row.update(dispatch_health())
+        row.update(dispatch_health(), on_card=on_card_counts())
     finally:
         dist.destroy_process_group()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
@@ -3731,6 +3880,7 @@ def phase_mesh_optimized(torch, card, mesh_row, plan="gloo"):
         for k in MESH_KERNELS:
             gate(r["launches"][k] > 0, f"phase 18 rank {r['rank']} never launched {k}: "
                  f"{r['launches']}")
+        on_card_gate(gate, 18, spec, r)
         gate(r["offset_check"]["ok"], f"phase 18 rank {r['rank']}: attention_fused at "
              f"q_start {r['offset_check']['q_start']} against its plain version "
              f"{r['offset_check']}")
@@ -3880,6 +4030,10 @@ def main() -> int:
     emit_phase({"phase": "kernels", "card": card, "cases": rows, "seconds": time.perf_counter() - t0})
     results["kernel_cases"] = rows
 
+    # 3a. sanitize: every plan on poisoned memory, no leak
+    sanitize_row = emit_phase(phase_sanitize(torch, card))
+    results["sanitize"] = sanitize_row
+
     # 4. serve smollm-135m, full config, bf16
     reset_launches()
     eng_k = serve(kernel_policy_args())
@@ -3969,6 +4123,10 @@ def main() -> int:
     tiles_row, tiles_launches = phase_tiles(torch, card, out_dir)
     emit_phase(tiles_row)
     results["tiles"] = tiles_row
+
+    # 12a. artifacts: phases 9 and 12's caches and selectors against the schemas
+    artifacts_row = emit_phase(phase_artifacts(card, out_dir))
+    results["artifacts"] = artifacts_row
 
     # 13. bench: the paper's figures and tables on the card, the kernel sweep
     bench_row, bench_launches = phase_bench(torch, card, out_dir)

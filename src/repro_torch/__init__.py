@@ -16,11 +16,21 @@ The f32 parity bound of ``1e-5 * sqrt(k)`` the tests hold does not
 survive TF32's 10-bit mantissa.
 """
 
-import torch
+from __future__ import annotations
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+# torch is optional at the package level so the torch-free tooling (the
+# artifact, dispatch and concurrency passes of repro_torch.analysis) runs
+# on checkouts without the accelerator stack; every compute module still
+# imports torch directly.
+try:
+    import torch
+except ImportError:
+    torch = None
+
+if torch is not None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __all__ = ["resolve_device"]
 

@@ -1,9 +1,10 @@
 """Shared parsed-source cache for the AST lint passes.
 
 The AST passes (dispatch bypass, concurrency) walk overlapping file
-sets.  One ``SourceCache`` is created per lint invocation and threaded
-through every pass, so each file is read and ``ast.parse``d once per run,
-and the hit/miss counters feed the ``--stats`` line.
+sets, and the numerics pass reads the CUDA sources.  One ``SourceCache``
+is created per lint invocation and threaded through every pass, so each
+file is read (and, for Python, ``ast.parse``d) once per run, and the
+hit/miss counters feed the ``--stats`` line.
 
 Thread-safe: the lint CLI runs the AST passes on worker threads beside the
 registry pass, so two passes may request the same file concurrently (the
@@ -25,6 +26,7 @@ class SourceCache:
     def __init__(self):
         self._lock = threading.Lock()
         self._parsed: Dict[str, Tuple[str, ast.AST]] = {}  # guarded-by: _lock
+        self._text: Dict[str, str] = {}  # guarded-by: _lock
         self.hits = 0
         self.misses = 0
 
@@ -41,6 +43,21 @@ class SourceCache:
             self.misses += 1
             self._parsed[path] = (source, tree)
         return source, tree
+
+    def read(self, path: str) -> str:
+        """The text of a source that is not Python (the CUDA sources the
+        numerics pass reads), read once per run like a parsed one."""
+        with self._lock:
+            cached = self._text.get(path)
+            if cached is not None:
+                self.hits += 1
+                return cached
+        with open(path) as fh:
+            text = fh.read()
+        with self._lock:
+            self.misses += 1
+            self._text[path] = text
+        return text
 
     def stats(self) -> str:
         return (

@@ -48,6 +48,27 @@ RULES: Dict[str, str] = {
     "RC105": "no candidate enumerable for an (op, platform) cell",
     "RC106": "candidate's fallback chain does not terminate at the per-op "
              "default (or contains unregistered/repeated members)",
+    # artifact/schema pass
+    "AR201": "artifact file unreadable or not a JSON object",
+    "AR202": "artifact schema_version missing, non-integer, or newer than "
+             "supported",
+    "AR203": "malformed measurement-cache key or timing entry",
+    "AR204": "BENCH/selector payload violates its schema",
+    # kernel-contract pass
+    "KC301": "candidate produces the wrong output shape/dtype on the meta route "
+             "(or one that differs from the plain route's)",
+    "KC302": "enumerated tile config fails static validation "
+             "(not a plan of its route / split does not cover the extent / "
+             "shared memory over one Hopper block's)",
+    # numerics-accumulation pass
+    "NM401": "low-precision product without f32 accumulation (PTX mma D/C type "
+             "or asm outputs, a plain route's matmul, cuBLAS reduced-precision "
+             "reduction)",
+    "NM402": "accumulator (+=, fmaf or mma D target) is not declared float",
+    "NM403": "value downcast below float32 before being accumulated",
+    "NM404": "poison sanitizer: memory outside the operands, or an output "
+             "allocation, leaked into the logical output (or output deviates "
+             "from the f64 oracle)",
     # concurrency/lock-discipline pass
     "CC501": "guarded-by attribute mutated outside a 'with <lock>' block",
     "CC502": "guarded-by annotation names a lock that is never defined",

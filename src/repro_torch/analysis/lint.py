@@ -1,16 +1,25 @@
 """``python -m repro_torch.analysis.lint`` -- the port's own static analyzer.
 
-Runs the three passes the port has and exits non-zero when any
-*unsuppressed* error-severity finding remains:
+Runs the six passes and exits non-zero when any *unsuppressed*
+error-severity finding remains:
 
   dispatch     AST: GEMM-shaped calls bypassing core.dispatch (DL0xx)
   registry     candidate-registry consistency (RC1xx)
+  artifacts    torch-free schema validation of persisted JSON (AR2xx)
+  contracts    meta-route output shape/dtype against the plain route's,
+               and every enumerated plan's split and shared memory (KC30x)
+  numerics     f32 accumulation in the CUDA sources' mma instructions,
+               accumulators and downcasts, and in the kernel arms' plain
+               routes (NM401-NM403)
   concurrency  AST: guarded-by lock discipline, ContextVar set/reset
                pairing, thread/acquire hygiene (CC50x)
 
-Findings print as ``path:line: severity RULE message`` -- the gcc format
-editors and CI annotators already parse; ``--format json`` emits one
-machine-readable object instead.
+``--sanitize`` additionally runs the poison sanitizer (NM404, the plain
+routes on the CPU -- see ``sanitize.py``; on the card it runs from
+``chip_smoke.py`` and a ``gpu``-marked test).  Findings print as
+``path:line: severity RULE message`` -- the gcc format editors and CI
+annotators already parse; ``--format json`` emits one machine-readable
+object instead.
 
 Suppression goes through the committed baseline
 (``src/repro_torch/analysis/baseline.json``): a JSON map from finding
@@ -20,13 +29,14 @@ fingerprints warn (``BL903``).  Seed new entries with
 ``--write-baseline`` (sorted and deduplicated for reviewable diffs) and
 then fill in each justification by hand.
 
-``dispatch`` and ``concurrency`` import nothing beyond the standard
-library; ``registry`` imports ``repro_torch.core`` (and so ``torch``)
-lazily, only when selected.  The AST passes run on worker threads beside
-the registry pass on the main thread (``--jobs 1`` serialises) and share
-one parsed-source cache (``--stats`` shows the timings and the cache
-counters).  The rule catalogue, ``--list-rules --format md``, is
-committed as ``lint-rules.md`` beside this module.
+``dispatch``, ``artifacts`` and ``concurrency`` import nothing beyond
+the standard library; the other passes import ``repro_torch.core`` (and
+so ``torch``) lazily, only when selected.  The torch-free passes run on
+worker threads beside the others on the main thread (``--jobs 1``
+serialises) and every pass that reads sources shares one source cache
+(``--stats`` shows the timings and the cache counters).  The rule
+catalogue, ``--list-rules --format md``, is committed as
+``lint-rules.md`` beside this module.
 """
 
 from __future__ import annotations
@@ -43,17 +53,27 @@ from .findings import RULES, Baseline, Finding, apply_baseline
 
 __all__ = ["PASSES", "RULE_SECTIONS", "main", "run_passes"]
 
-PASSES = ("dispatch", "registry", "concurrency")
-# modules are imported lazily so the AST passes stay torch-free under
-# --passes
-_IMPORTS_TORCH = {"dispatch": False, "concurrency": False, "registry": True}
+PASSES = ("dispatch", "registry", "artifacts", "contracts", "numerics", "concurrency")
+# modules are imported lazily so the torch-free passes stay torch-free
+# under --passes
+_IMPORTS_TORCH = {
+    "dispatch": False,
+    "artifacts": False,
+    "concurrency": False,
+    "registry": True,
+    "contracts": True,
+    "numerics": True,
+}
 _PASS_MODULES = {
     "dispatch": "dispatch_lint",
     "registry": "registry_lint",
+    "artifacts": "artifacts_lint",
+    "contracts": "contracts",
+    "numerics": "numerics",
     "concurrency": "concurrency",
 }
 # which pass entry points accept the shared SourceCache
-_TAKES_CACHE = {"dispatch", "concurrency"}
+_TAKES_CACHE = {"dispatch", "numerics", "concurrency"}
 
 # rule catalogue sections for --list-rules --format md; a test asserts
 # every registered rule appears in exactly one section
@@ -61,6 +81,10 @@ RULE_SECTIONS: Tuple[Tuple[str, str, Tuple[str, ...]], ...] = (
     ("Dispatch bypass", "dispatch", ("DL001", "DL002")),
     ("Registry consistency", "registry",
      ("RC101", "RC102", "RC103", "RC104", "RC105", "RC106")),
+    ("Artifact schemas", "artifacts", ("AR201", "AR202", "AR203", "AR204")),
+    ("Kernel contracts", "contracts", ("KC301", "KC302")),
+    ("Numerics accumulation", "numerics + --sanitize",
+     ("NM401", "NM402", "NM403", "NM404")),
     ("Concurrency discipline", "concurrency",
      ("CC501", "CC502", "CC503", "CC504", "CC505")),
     ("Baseline hygiene", "(any)", ("BL901", "BL902", "BL903")),
@@ -96,8 +120,8 @@ def run_passes(
 ) -> List[Finding]:
     """All findings from the selected passes, in pass order.
 
-    ``jobs != 1`` runs the AST passes on worker threads beside the
-    registry pass on the main thread.  ``stats``, when given, is filled
+    ``jobs != 1`` runs the torch-free passes on worker threads beside
+    the others on the main thread.  ``stats``, when given, is filled
     with per-pass wall times (and the parse cache under ``_cache``)."""
     from .cache import SourceCache
 
@@ -175,7 +199,8 @@ def render_rules_md() -> str:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.lint",
-        description="Dispatch/registry/concurrency static analysis of the port.",
+        description="Dispatch/registry/artifact/contract/numerics/concurrency static "
+                    "analysis of the port.",
     )
     parser.add_argument("--passes", default=",".join(PASSES),
                         help="comma-separated subset of: " + ", ".join(PASSES))
@@ -191,6 +216,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--list-rules", action="store_true", help="print the rule catalogue")
     parser.add_argument("--format", choices=("text", "json", "md"), default="text",
                         help="output format; 'md' is only valid with --list-rules")
+    parser.add_argument("--sanitize", action="store_true",
+                        help="also run the poison sanitizer (NM404) over every plan of "
+                             "every candidate on the CPU's plain routes")
+    parser.add_argument("--sanitize-full", action="store_true",
+                        help="run the sanitizer over the full grid (the JAX package's "
+                             "second ragged shape too; implies --sanitize)")
     parser.add_argument("--stats", action="store_true",
                         help="print per-pass wall time and parse-cache counters")
     parser.add_argument("--jobs", type=int, default=0,
@@ -217,6 +248,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     repo_root = os.path.abspath(args.root) if args.root else _repo_root()
     stats: Dict[str, float] = {}
     findings = run_passes(passes, repo_root, jobs=args.jobs, stats=stats)
+    if args.sanitize_full:
+        args.sanitize = True
+    if args.sanitize:
+        from . import sanitize
+
+        t0 = time.perf_counter()
+        findings.extend(sanitize.run(repo_root, full=args.sanitize_full))
+        stats["sanitize"] = time.perf_counter() - t0
 
     baseline: Optional[Baseline] = None
     if not args.no_baseline and not args.write_baseline:
@@ -242,10 +281,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     errors = [f for f in active if f.severity == "error"]
     warnings = [f for f in active if f.severity == "warning"]
     cache = stats.pop("_cache", None)
+    stage_names = passes + (["sanitize"] if args.sanitize else [])
 
     if args.format == "json":
         payload = {
-            "passes": passes,
+            "passes": stage_names,
             "findings": [_finding_payload(f) for f in active],
             "suppressed": [_finding_payload(f) for f in suppressed],
             "summary": {"errors": len(errors), "warnings": len(warnings),
@@ -261,12 +301,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for f in active:
         print(f.render())
     if args.stats:
-        for name in passes:
+        for name in stage_names:
             if name in stats:
                 print(f"repro_torch-lint: pass {name}: {stats[name]:.2f}s")
         if cache is not None:
             print(f"repro_torch-lint: parse cache: {cache.stats()}")
-    print(f"repro_torch-lint: {len(passes)} pass(es) [{', '.join(passes)}]: "
+    print(f"repro_torch-lint: {len(stage_names)} pass(es) [{', '.join(stage_names)}]: "
           f"{len(errors)} error(s), {len(warnings)} warning(s), {len(suppressed)} baselined")
     return 1 if errors else 0
 

@@ -66,16 +66,6 @@ def kway_selector(full: bool = False, device="cuda", dtype: str = "float32",
     return out
 
 
-def wgmma_smem_bytes(bn: int) -> int:
-    """Shared memory of one block of the NN and fused TNN kernels' wgmma
-    instance of width ``bn`` (csrc ``WgCfg``): the TMA ring of 128 x 64 A
-    and bn x 64 B bf16 stages (3 at bn 256, else 4), the two warpgroups'
-    64 x (bn + 8) epilogue tiles, a 1 KiB alignment pad and the ring's
-    barriers."""
-    stages = 3 if bn == 256 else 4
-    return 1024 + stages * (128 * 64 + bn * 64) * 2 + 2 * 64 * (bn + 8) * 2 + 2 * stages * 8
-
-
 # (kernel, (m, n, k)) cells of the sweep: the JAX package's three shapes, on
 # the two kernels whose spaces have the most plans.
 SWEEP_SHAPES: Tuple[Tuple[int, int, int], ...] = ((4096, 4096, 4096), (8192, 1024, 8192),
@@ -109,7 +99,7 @@ def kernel_block_sweep(full: bool = False, device="cuda", dtype: str = "bfloat16
                 t_meas = bench_fn(lambda x, y, _c=cfg: fn(x, y, block=_c), a, b, reps=reps,
                                   queued=on_card) * 1e3
                 row = {"kernel": kernel, "shape": (m, n, k), "block": cfg,
-                       "smem_kib": wgmma_smem_bytes(cfg[1]) / 1024,
+                       "smem_kib": tiling.wgmma_smem_bytes(cfg[1]) / 1024,
                        "ai": 2.0 * m * n * k / nbytes, "t_model_ms": t_model,
                        "t_measured_ms": t_meas, "default": cfg == dflt}
                 rows.append(row)

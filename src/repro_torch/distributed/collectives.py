@@ -26,8 +26,16 @@ Backends: NCCL when each rank has its own card; gloo on the CPU and, for
 two ranks sharing one card, on CUDA tensors (NCCL refuses two ranks on
 one device).  gloo has no reduce-scatter: there ``reduce_scatter`` is an
 all-reduce followed by this rank's slice, still recorded as the
-reduce-scatter the program asks for.  Nothing is copied to the host
-here; gloo stages CUDA tensors through the host itself.
+reduce-scatter the program asks for.  gloo stages CUDA tensors through
+the host and over TCP, which takes seconds a GB, so a gloo collective
+of at least ``CARD_IPC_MIN_BYTES`` whose ranks all hold the same card
+runs on the card instead (``_on_card``): each rank's operand is read in
+place through CUDA IPC, and each rank combines the operands itself,
+summing in the group's rank order (so every rank's all-reduce is the
+same bits).  The gloo group carries only the handles and a barrier.
+Where a rank cannot open a peer's handle (a block of an expandable
+segment, on an OS kernel without ``pidfd_open``), every rank falls back
+to gloo; ``ON_CARD`` counts both outcomes.
 
 ``copy_to_group``, ``reduce_from_group``, ``gather_from_group`` and
 ``scatter_to_group`` are the four differentiable collectives of tensor
@@ -60,6 +68,7 @@ the max scale.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple, Union
 
 import torch
@@ -151,6 +160,77 @@ def _is_nccl(group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
+# A gloo collective of CUDA tensors of at least this many bytes goes
+# through ``_on_card`` when its ranks share one card; below it, gloo's
+# staging costs about as much as the handles' exchange, their opening and
+# the barrier (``benchmarks/collectives_on_card.py`` times both routes).
+CARD_IPC_MIN_BYTES = 16 << 20
+# the collectives that went through ``_on_card`` ("calls") and those whose
+# ranks shared a card but could not open each other's handles ("gloo")
+ON_CARD = {"calls": 0, "gloo": 0}
+
+
+def _card_sized(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` is a CUDA tensor large enough for ``_on_card`` on a
+    gloo ``group`` (the same answer on every rank: the ranks' operands
+    have one shape)."""
+    import torch.distributed as dist
+
+    return (x.is_cuda and x.numel() * x.element_size() >= CARD_IPC_MIN_BYTES
+            and not _is_nccl(group) and dist.get_world_size(group) > 1)
+
+
+def _peers(x: torch.Tensor, group):
+    """Every rank's contiguous ``x`` of ``group`` in its rank order, each
+    read in place on this rank's card through CUDA IPC, or None on every
+    rank if the ranks do not all hold the same card or one of them cannot
+    open the others' handles.  ``x``'s writes have finished when the
+    handles leave, and the caller keeps ``x`` alive and unwritten until
+    every rank has read it (``_on_card``'s barrier)."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    card = str(torch.cuda.get_device_properties(x.device).uuid)
+    torch.cuda.current_stream(x.device).synchronize()
+    shared = [None] * dist.get_world_size(group)
+    dist.all_gather_object(shared, (card, reduce_tensor(x.detach())), group=group)
+    if any(c != card for c, _ in shared):
+        return None
+    me = dist.get_rank(group)
+    try:
+        parts = [x if r == me else rebuild(*args)
+                 for r, (_, (rebuild, args)) in enumerate(shared)]
+    except RuntimeError:  # e.g. a peer's block in an expandable segment
+        parts = None
+    opened = torch.tensor([parts is not None], dtype=torch.int32)
+    dist.all_reduce(opened, op=dist.ReduceOp.MIN, group=group)
+    if not opened.item():
+        ON_CARD["gloo"] += 1
+        return None
+    ON_CARD["calls"] += 1
+    return parts
+
+
+def _on_card(x: torch.Tensor, group, combine):
+    """``combine`` of every rank's ``x`` (a list in the group's rank
+    order; ``combine`` returns a new tensor) when the ranks of the gloo
+    ``group`` share one card, else None on every rank.  No rank returns
+    before every rank has read the others' operands, so each may then
+    free or overwrite its own."""
+    import torch.distributed as dist
+
+    xc = x.contiguous()
+    parts = _peers(xc, group)
+    if parts is None:
+        return None
+    out = combine(parts)
+    if xc.is_cuda:  # read before the barrier lets the peers go on
+        torch.cuda.current_stream(xc.device).synchronize()
+    del parts
+    dist.barrier(group=group)
+    return out
+
+
 def _op(op: str):
     import torch.distributed as dist
 
@@ -174,6 +254,11 @@ def all_reduce_in(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     unrecorded."""
     import torch.distributed as dist
 
+    if _card_sized(x, group):
+        fn = {"sum": torch.add, "max": torch.maximum}[op]
+        y = _on_card(x, group, lambda parts: functools.reduce(fn, parts))
+        if y is not None:
+            return y
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=_op(op), group=group)
     return y
@@ -199,6 +284,10 @@ def all_gather_in(x: torch.Tensor, group, S: int, dim: int) -> torch.Tensor:
     unrecorded."""
     import torch.distributed as dist
 
+    if _card_sized(x, group):
+        y = _on_card(x, group, lambda parts: torch.cat(parts, dim=dim))
+        if y is not None:
+            return y
     xc = x.contiguous()
     parts = [torch.empty_like(xc) for _ in range(S)]
     dist.all_gather(parts, xc, group=group)
@@ -232,6 +321,11 @@ def reduce_scatter_in(x: torch.Tensor, group, S: int, idx: int, dim: int) -> tor
         out = xm.new_empty((part,) + tuple(xm.shape[1:]))
         dist.reduce_scatter_tensor(out, xm, group=group)
         return out.movedim(0, dim).contiguous()
+    if _card_sized(x, group):
+        y = _on_card(x, group, lambda parts: functools.reduce(
+            torch.add, [p.narrow(dim, idx * part, part) for p in parts]).contiguous())
+        if y is not None:
+            return y
     # gloo: all-reduce, then this rank's slice
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, group=group)
@@ -255,6 +349,11 @@ def broadcast_in(x: torch.Tensor, group, src_rank: int) -> torch.Tensor:
     ``src_rank``, unrecorded."""
     import torch.distributed as dist
 
+    if _card_sized(x, group):
+        src = dist.get_group_rank(group, src_rank)
+        y = _on_card(x, group, lambda parts: parts[src].clone())
+        if y is not None:
+            return y
     y = x.clone(memory_format=torch.contiguous_format)
     dist.broadcast(y, src=src_rank, group=group)
     return y

@@ -45,8 +45,11 @@ instances and, for a split knob, the cost model's split and 1, 2, 4, 8,
 by kernel name; the space, the default and feasibility all come from that
 list, and the wrapper raises ``ValueError`` on a config it does not hold.
 Nothing falls back to the default.  Every compiled instance fits the
-227 KB of shared memory one Hopper block may hold (the block sweep,
-``benchmarks/beyond_paper.py``, reports each one's footprint).
+227 KB of shared memory one Hopper block may hold: ``wgmma_smem_bytes``
+states the footprint of the wgmma instances, which hold the most (the
+block sweep, ``benchmarks/beyond_paper.py``, reports it beside each
+config, and the contract pass, ``analysis/contracts.py``, holds every
+enumerated plan to ``SMEM_PER_BLOCK``).
 
 The route depends on the operands' alignment as well as on the shape.
 The spaces here are those of 16-byte aligned operands, as a fresh
@@ -96,6 +99,8 @@ __all__ = [
     "TRANSPOSE_INSTANCES",
     "check_transpose_config",
     "transpose_config_space",
+    "SMEM_PER_BLOCK",
+    "wgmma_smem_bytes",
 ]
 
 TileConfig = Tuple[int, int, int]
@@ -107,6 +112,20 @@ TUNABLE_KERNELS = ("matmul_nt", "matmul_nn", "matmul_tnn_fused", "matmul_bnt", "
                    "attention_fused")
 
 _DTYPES = {2: torch.bfloat16, 4: torch.float32}
+
+# The most shared memory one block may hold on Hopper (sm_90: 227 KB of
+# the SM's 228 KB).
+SMEM_PER_BLOCK = 227 * 1024
+
+
+def wgmma_smem_bytes(bn: int) -> int:
+    """Shared memory of one block of the NN and fused TNN kernels' wgmma
+    instance of width ``bn`` (csrc ``WgCfg``): the TMA ring of 128 x 64 A
+    and bn x 64 B bf16 stages (3 at bn 256, else 4), the two warpgroups'
+    64 x (bn + 8) epilogue tiles, a 1 KiB alignment pad and the ring's
+    barriers."""
+    stages = 3 if bn == 256 else 4
+    return 1024 + stages * (128 * 64 + bn * 64) * 2 + 2 * 64 * (bn + 8) * 2 + 2 * stages * 8
 
 
 def tile_plans(kernel: str, m: int, n: int, k: int, dsize: int = 4, g: int = 1,

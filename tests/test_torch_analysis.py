@@ -333,8 +333,8 @@ def test_lint_cli_repo_is_clean():
                           capture_output=True, text=True,
                           env={**os.environ, "PYTHONPATH": os.path.join(REPO_ROOT, "src")})
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert ("3 pass(es) [dispatch, registry, concurrency]: 0 error(s), 0 warning(s), "
-            "11 baselined") in proc.stdout
+    assert ("6 pass(es) [dispatch, registry, artifacts, contracts, numerics, concurrency]: "
+            "0 error(s), 0 warning(s), 11 baselined") in proc.stdout
 
 
 def test_lint_cli_fails_without_baseline(capsys):

@@ -62,7 +62,10 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.benchmarks.fault_drill, repro_torch.examples.serve_lm, "
         "repro_torch.examples.arch_tour, repro_torch.distributed, "
         "repro_torch.launch.dryrun, repro_torch.launch.accounting, "
-        "repro_torch.benchmarks.roofline_table, repro_torch.benchmarks.gemma2_accum_iter\n"
+        "repro_torch.benchmarks.roofline_table, repro_torch.benchmarks.gemma2_accum_iter, "
+        "repro_torch.analysis.lint, repro_torch.analysis.artifacts_lint, "
+        "repro_torch.analysis.contracts, repro_torch.analysis.numerics, "
+        "repro_torch.analysis.sanitize\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"
