@@ -40,6 +40,16 @@ Phases (each prints one JSON line; any failed check exits non-zero):
               Fails on any finding, on any allocation that did not come back
               poisoned, on any plan never launched (counted per (kernel,
               config)), or past 60 s
+ 3b. gridspec every CUDA launch takes its grid from kernels/gridspec.py's
+              declared spec: analysis/coverage.py's proof (KC310-KC315) on
+              the card's own SM count, 0 findings and all eight tunable
+              (candidate, op) pairs proven; each route launched from its spec
+              on the sanitizer's poisoned output allocation writes every
+              element and matches the plain version; and each non-persistent
+              route, its spec function replaced for the call by one whose
+              grid is a block short on the output's slowest axis, leaves
+              exactly the blocks the proof names (KC313, KC310) poisoned and
+              every other block bit-equal to the full grid's.  About 10 s
   4. serve    repro_torch.launch.serve.main on smollm-135m at full config
               in bf16: class interactive under fixed:nt=PALLAS_TNN,attn=fused,
               class bulk under fixed:nt=PALLAS_NT,attn=fused, then the same
@@ -988,11 +998,15 @@ def replaced_kernel(torch, name, inp, variant):
         (g, m, k), nt = a.shape, name == "matmul_bnt"
         n = b.shape[1] if nt else b.shape[2]
 
+        from repro_torch.kernels.matmul_batched import batched_grid_specs
+
+        grid = batched_grid_specs(g, m, n, k, nt, ("fma", None, 1, 1))[0].launch
+
         def fma_batched():
             c = torch.empty((g, m, n), dtype=a.dtype, device=a.device)
             _build.launch("matmul_batched", "repro_matmul_batched_fma", _build.ptr(a),
                           _build.ptr(b), _build.ptr(c), g, m, n, k, int(nt),
-                          _build.dtype_code(a.dtype), _build.stream_of(a))
+                          _build.dtype_code(a.dtype), *grid, _build.stream_of(a))
             return c
 
         return fma_batched
@@ -1007,11 +1021,16 @@ def replaced_kernel(torch, name, inp, variant):
     if name == "matmul_nt":
         return lambda: launch_matmul(a, b, m, n, k, b_stored_nk=True)
 
+    from repro_torch.kernels.common import H100_SMS
+    from repro_torch.kernels.matmul_tnn_fused import tnn_fused_grid_specs
+
+    grid = tnn_fused_grid_specs(m, n, k, ("mma_sync", None, 1, 1), H100_SMS)[0].launch
+
     def replaced_tnn_fused():  # the mma.sync variant (bf16) or the FMA kernel (f32)
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
         _build.launch("matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a),
                       _build.ptr(b), _build.ptr(c), m, n, k, _build.dtype_code(a.dtype),
-                      _build.stream_of(a))
+                      *grid, _build.stream_of(a))
         return c
 
     return replaced_tnn_fused
@@ -1020,9 +1039,11 @@ def replaced_kernel(torch, name, inp, variant):
 def fma_attention(torch, inp):
     """A call of the FMA attention kernel on the case's inputs."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.attention_fused import attention_grid_specs
 
     q, k, v, lengths, mask = (inp[x] for x in ("q", "k", "v", "lengths", "mask"))
     g, m, dh = q.shape
+    grid = attention_grid_specs(g, m, k.shape[1], dh, ("fma", 1, 1), mask)[0].launch
 
     def call():
         out = torch.empty_like(q)
@@ -1031,7 +1052,7 @@ def fma_attention(torch, inp):
                       g, m, k.shape[1], dh, int(mask.causal), int(mask.window),
                       int(mask.q_start), int(mask.k_start), int(mask.prefix_len),
                       int(mask.q_seg), float(mask.softcap), _build.dtype_code(q.dtype),
-                      _build.stream_of(q))
+                      *grid, _build.stream_of(q))
         return out
 
     return call
@@ -2472,6 +2493,48 @@ def phase_sanitize(torch, card):
     check(not unlaunched, f"sanitizer: plans never launched: {unlaunched}")
     check(rep.seconds <= SANITIZE_SECONDS,
           f"sanitizer took {rep.seconds:.1f} s, over its {SANITIZE_SECONDS} s budget")
+    return row
+
+
+GRIDSPEC_SECONDS = 30  # phase 3b's limit; about 10 s expected
+
+
+def phase_gridspec(torch, card):
+    """Phase 3b: the declared grids (kernels/gridspec.py) and their proof
+    (analysis/coverage.py) on the card: check_coverage on the card's SM
+    count, then every route launched from its spec, and each non-persistent
+    route on a grid one block short (coverage.launch_routes).  Its launches
+    are a check's: the counts are reset after it."""
+    from repro_torch.analysis import coverage
+    from repro_torch.core.candidates import CANDIDATES
+    from repro_torch.kernels.common import reset_launches, sm_count
+
+    t0 = time.perf_counter()
+    sms = sm_count(torch.cuda.current_device())
+    rep = coverage.check_coverage(sms=sms, repo_root=str(ROOT))
+    proof_s = time.perf_counter() - t0
+    tunable = sorted((n, op) for n, c in CANDIDATES.items() for op in c.ops if c.tunable)
+    reset_launches()
+    t1 = time.perf_counter()
+    routes = coverage.launch_routes(DEVICE, sms)
+    launch_s = time.perf_counter() - t1
+    reset_launches()
+    seconds = time.perf_counter() - t0
+    row = {"phase": "gridspec", "card": card, "sms": sms, "cells": rep.cells,
+           "specs": rep.specs, "findings": [f.render() for f in rep.findings[:20]],
+           "proven_pairs": [list(p) for p in sorted(rep.proven_pairs)],
+           "proof_seconds": proof_s, "routes": routes, "launch_seconds": launch_s,
+           "seconds": seconds, "budget_seconds": GRIDSPEC_SECONDS}
+    check(not rep.findings, f"gridspec: {len(rep.findings)} findings: {row['findings']}")
+    check(sorted(rep.proven_pairs) == tunable,
+          f"gridspec: proven {sorted(rep.proven_pairs)}, tunable {tunable}")
+    bad = [r for r in routes if not r["ok"]]
+    check(not bad, f"gridspec: routes failed: {bad}")
+    short = sum(not r[-1] for r in coverage.LAUNCH_ROUTES)
+    check(sum(1 for r in routes if "short" in r) == short,
+          f"gridspec: fewer than {short} routes ran a short grid")
+    check(seconds <= GRIDSPEC_SECONDS,
+          f"gridspec took {seconds:.1f} s, over its {GRIDSPEC_SECONDS} s limit")
     return row
 
 
@@ -4033,6 +4096,9 @@ def main() -> int:
     # 3a. sanitize: every plan on poisoned memory, no leak
     sanitize_row = emit_phase(phase_sanitize(torch, card))
     results["sanitize"] = sanitize_row
+
+    # 3b. gridspec: the declared grids proven, and run as declared
+    results["gridspec"] = emit_phase(phase_gridspec(torch, card))
 
     # 4. serve smollm-135m, full config, bf16
     reset_launches()

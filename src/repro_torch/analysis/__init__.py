@@ -4,7 +4,8 @@ The port's central contract is the JAX package's: every GEMM-shaped
 contraction of a model or launcher routes through the selection policy
 (``core.dispatch``, ``core.dispatch_attention``), the candidate registry
 stays consistent, persisted artifacts match their schemas, every
-candidate keeps its shape contract on every plan, bf16 products
+candidate keeps its shape contract on every plan, every launch runs a
+grid that writes each output block once, bf16 products
 accumulate in f32, no kernel reads memory it was not given, and shared
 state is mutated under its declared lock.  These passes check it:
 
@@ -20,6 +21,10 @@ state is mutated under its declared lock.  These passes check it:
   * ``contracts``      -- every candidate's output shape and dtype on the
     meta route (the port's ``eval_shape``) against the plain route's, and
     every enumerated tile plan's split and shared memory (rules KC30x);
+  * ``coverage``       -- every CUDA launch's declared grid
+    (``kernels/gridspec.py``) evaluated over the whole grid for every plan:
+    coverage, no overlap, blocks inside their operands, the launch within
+    CUDA's limits (rules KC310-KC315);
   * ``numerics``       -- f32 accumulation read from the CUDA sources (mma
     types and outputs, accumulator declarations, downcasts) and the
     kernel arms' plain routes (rules NM401-NM403);

@@ -60,6 +60,19 @@ RULES: Dict[str, str] = {
     "KC302": "enumerated tile config fails static validation "
              "(not a plan of its route / split does not cover the extent / "
              "shared memory over one Hopper block's)",
+    # index-map/coverage pass (every launch's declared grid, evaluated)
+    "KC310": "output blocks left unwritten: index maps never produce some "
+             "output block index, or a persistent walk skips a unit (coverage gap)",
+    "KC311": "two parallel grid points write the same output block, or a "
+             "persistent walk visits a unit twice (racy double-write)",
+    "KC312": "index map addresses a block that starts outside its operand's "
+             "extent",
+    "KC313": "grid does not match cdiv(extent, block edge) over the output "
+             "axes, or the launch is not the declared grid within CUDA's limits",
+    "KC314": "index map malformed: wrong arity for the grid or wrong "
+             "result rank for the block (or its grid-spec function failed)",
+    "KC315": "tunable candidate has no registered grid spec, so its "
+             "schedule cannot be verified",
     # numerics-accumulation pass
     "NM401": "low-precision product without f32 accumulation (PTX mma D/C type "
              "or asm outputs, a plain route's matmul, cuBLAS reduced-precision "

@@ -1,6 +1,6 @@
 """``python -m repro_torch.analysis.lint`` -- the port's own static analyzer.
 
-Runs the six passes and exits non-zero when any *unsuppressed*
+Runs the seven passes and exits non-zero when any *unsuppressed*
 error-severity finding remains:
 
   dispatch     AST: GEMM-shaped calls bypassing core.dispatch (DL0xx)
@@ -8,6 +8,9 @@ error-severity finding remains:
   artifacts    torch-free schema validation of persisted JSON (AR2xx)
   contracts    meta-route output shape/dtype against the plain route's,
                and every enumerated plan's split and shared memory (KC30x)
+  coverage     every CUDA launch's declared grid evaluated over the whole
+               grid for every (candidate, op, plan): coverage, no overlap,
+               blocks inside their operands, CUDA's limits (KC31x)
   numerics     f32 accumulation in the CUDA sources' mma instructions,
                accumulators and downcasts, and in the kernel arms' plain
                routes (NM401-NM403)
@@ -53,7 +56,8 @@ from .findings import RULES, Baseline, Finding, apply_baseline
 
 __all__ = ["PASSES", "RULE_SECTIONS", "main", "run_passes"]
 
-PASSES = ("dispatch", "registry", "artifacts", "contracts", "numerics", "concurrency")
+PASSES = ("dispatch", "registry", "artifacts", "contracts", "coverage", "numerics",
+          "concurrency")
 # modules are imported lazily so the torch-free passes stay torch-free
 # under --passes
 _IMPORTS_TORCH = {
@@ -62,6 +66,7 @@ _IMPORTS_TORCH = {
     "concurrency": False,
     "registry": True,
     "contracts": True,
+    "coverage": True,
     "numerics": True,
 }
 _PASS_MODULES = {
@@ -69,6 +74,7 @@ _PASS_MODULES = {
     "registry": "registry_lint",
     "artifacts": "artifacts_lint",
     "contracts": "contracts",
+    "coverage": "coverage",
     "numerics": "numerics",
     "concurrency": "concurrency",
 }
@@ -83,6 +89,8 @@ RULE_SECTIONS: Tuple[Tuple[str, str, Tuple[str, ...]], ...] = (
      ("RC101", "RC102", "RC103", "RC104", "RC105", "RC106")),
     ("Artifact schemas", "artifacts", ("AR201", "AR202", "AR203", "AR204")),
     ("Kernel contracts", "contracts", ("KC301", "KC302")),
+    ("Index-map coverage", "coverage",
+     ("KC310", "KC311", "KC312", "KC313", "KC314", "KC315")),
     ("Numerics accumulation", "numerics + --sanitize",
      ("NM401", "NM402", "NM403", "NM404")),
     ("Concurrency discipline", "concurrency",

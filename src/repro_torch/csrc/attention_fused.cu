@@ -695,10 +695,9 @@ __global__ void __launch_bounds__(kFlashThreads)
 
 template <int DH>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, const int* lengths,
-                         void* out, int g, int m, int n, int dh, Mask mask, cudaStream_t s) {
+                         void* out, int m, int n, int dh, Mask mask, dim3 grid, cudaStream_t s) {
   const cudaError_t e = repro::allow_dynamic_smem<attention_flash<DH>>(FlashCfg<DH>::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(g, repro::cdiv(m, kFlashRows));
   attention_flash<DH><<<grid, kFlashThreads, FlashCfg<DH>::kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), m, n, dh,
@@ -1001,21 +1000,20 @@ __global__ void __launch_bounds__(kCombineThreads)
       make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
 }
 
+// grid: the kernel's, (slice, q-block, split); cgrid: the combine's.
 template <int DH>
 cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const int* lengths,
-                             void* out, void* ws, int g, int m, int n, int dh, Mask mask,
-                             int splits, cudaStream_t s) {
+                             void* out, void* ws, int m, int n, int dh, Mask mask, int splits,
+                             dim3 grid, dim3 cgrid, cudaStream_t s) {
   constexpr int kSmem = FlashF32Cfg<DH>::kSmem;
   const cudaError_t e = repro::allow_dynamic_smem<attention_flash_f32<DH>>(kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(g, repro::cdiv(m, kF32Rows), splits);
   float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
   attention_flash_f32<DH><<<grid, kF32Threads, kSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       lengths, static_cast<float*>(out), part, m, n, dh, mask);
   const cudaError_t e2 = cudaGetLastError();
   if (e2 != cudaSuccess || splits == 1) return e2;
-  const dim3 cgrid(repro::cdiv(m * (dh / 4), kCombineThreads), g);
   attention_flash_combine<<<cgrid, kCombineThreads, 0, s>>>(part, static_cast<float*>(out), m,
                                                            dh, splits);
   return cudaGetLastError();
@@ -1300,72 +1298,76 @@ __global__ void __launch_bounds__(kDecodeThreads)
 // The split kernel for MR rows at most, head dims up to DHMAX.
 template <typename T, int VEC, int MR, int DHMAX>
 cudaError_t launch_split(const T* q, const T* k, const T* v, const int* lengths, T* out,
-                         float* part, int g, int m, int n, int dh, int splits, int per,
-                         int lanes, Mask mask, cudaStream_t s) {
+                         float* part, int m, int n, int dh, int per, int lanes, Mask mask,
+                         dim3 grid, cudaStream_t s) {
   int smem = 0;
   const cudaError_t e =
       launch_smem<DecodeSmem<MR, DHMAX>, attention_decode_split<T, VEC, MR, DHMAX>>(smem);
   if (e != cudaSuccess) return e;
-  attention_decode_split<T, VEC, MR, DHMAX><<<dim3(g, splits), kDecodeThreads, smem, s>>>(
+  attention_decode_split<T, VEC, MR, DHMAX><<<grid, kDecodeThreads, smem, s>>>(
       q, k, v, lengths, out, part, m, n, dh, per, lanes, mask);
   return cudaGetLastError();
 }
 
+// grid: the split kernel's, (slice, split); cgrid: the combine's, a block
+// a slice (used where splits > 1).
 template <typename T, int VEC, int DHMAX>
 cudaError_t launch_decode(const T* q, const T* k, const T* v, const int* lengths, T* out,
-                          float* ws, int g, int m, int n, int dh, int splits, int per,
-                          Mask mask, cudaStream_t s) {
+                          float* ws, int m, int n, int dh, int splits, int per, Mask mask,
+                          dim3 grid, dim3 cgrid, cudaStream_t s) {
   int lanes = 1;
   while (lanes < 32 && lanes * VEC < dh) lanes *= 2;
   float* part = splits > 1 ? ws : nullptr;
   const cudaError_t e =
-      m <= 4 ? launch_split<T, VEC, 4, DHMAX>(q, k, v, lengths, out, part, g, m, n, dh, splits,
-                                              per, lanes, mask, s)
-             : launch_split<T, VEC, kDecodeMaxRows, DHMAX>(q, k, v, lengths, out, part, g, m, n,
-                                                           dh, splits, per, lanes, mask, s);
+      m <= 4 ? launch_split<T, VEC, 4, DHMAX>(q, k, v, lengths, out, part, m, n, dh, per, lanes,
+                                              mask, grid, s)
+             : launch_split<T, VEC, kDecodeMaxRows, DHMAX>(q, k, v, lengths, out, part, m, n, dh,
+                                                           per, lanes, mask, grid, s);
   if (e != cudaSuccess || splits == 1) return e;
-  attention_combine<T><<<g, kDecodeThreads, 0, s>>>(ws, out, m, dh, splits);
+  attention_combine<T><<<cgrid, kDecodeThreads, 0, s>>>(ws, out, m, dh, splits);
   return cudaGetLastError();
 }
 
 template <typename T, int DHMAX>
 cudaError_t launch_decode_dh(const T* q, const T* k, const T* v, const int* lengths, T* out,
-                             float* ws, int g, int m, int n, int dh, int splits, int per,
-                             Mask mask, cudaStream_t s) {
+                             float* ws, int m, int n, int dh, int splits, int per, Mask mask,
+                             dim3 grid, dim3 cgrid, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
   // 16-byte loads when every key row starts on a 16-byte boundary
   const bool vec = dh % kVec == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  return vec ? launch_decode<T, kVec, DHMAX>(q, k, v, lengths, out, ws, g, m, n, dh, splits,
-                                             per, mask, s)
-             : launch_decode<T, 1, DHMAX>(q, k, v, lengths, out, ws, g, m, n, dh, splits, per,
-                                          mask, s);
+  return vec ? launch_decode<T, kVec, DHMAX>(q, k, v, lengths, out, ws, m, n, dh, splits, per,
+                                             mask, grid, cgrid, s)
+             : launch_decode<T, 1, DHMAX>(q, k, v, lengths, out, ws, m, n, dh, splits, per,
+                                          mask, grid, cgrid, s);
 }
 
 template <typename T>
 cudaError_t launch_decode_any(const void* q, const void* k, const void* v, const int* lengths,
-                              void* out, void* ws, int g, int m, int n, int dh, int splits,
-                              int per, Mask mask, cudaStream_t s) {
+                              void* out, void* ws, int m, int n, int dh, int splits, int per,
+                              Mask mask, dim3 grid, dim3 cgrid, cudaStream_t s) {
   const auto* qp = static_cast<const T*>(q);
   const auto* kp = static_cast<const T*>(k);
   const auto* vp = static_cast<const T*>(v);
   auto* op = static_cast<T*>(out);
   auto* wp = static_cast<float*>(ws);
   return dh <= kDhSmall
-             ? launch_decode_dh<T, kDhSmall>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits,
-                                             per, mask, s)
-             : launch_decode_dh<T, kDhMax>(qp, kp, vp, lengths, op, wp, g, m, n, dh, splits,
-                                           per, mask, s);
+             ? launch_decode_dh<T, kDhSmall>(qp, kp, vp, lengths, op, wp, m, n, dh, splits, per,
+                                             mask, grid, cgrid, s)
+             : launch_decode_dh<T, kDhMax>(qp, kp, vp, lengths, op, wp, m, n, dh, splits, per,
+                                           mask, grid, cgrid, s);
 }
 
-// The FMA kernel at head dims up to DHMAX.
+// The FMA kernel at head dims up to DHMAX, block (x, y) = (slice, 16-row
+// q-block).
 template <typename T, int DHMAX>
 cudaError_t launch_fma_dh(const void* q, const void* k, const void* v, const int* lengths,
-                          void* out, int g, int m, int n, int dh, Mask mask, cudaStream_t s) {
+                          void* out, int m, int n, int dh, Mask mask, dim3 grid,
+                          cudaStream_t s) {
   int smem = 0;
   const cudaError_t e = launch_smem<FmaSmem<DHMAX>, attention_kernel<T, DHMAX>>(smem);
   if (e != cudaSuccess) return e;
-  attention_kernel<T, DHMAX><<<dim3(g, repro::cdiv(m, kBQ)), kThreads, smem, s>>>(
+  attention_kernel<T, DHMAX><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
       static_cast<T*>(out), m, n, dh, mask);
   return cudaGetLastError();
@@ -1373,30 +1375,38 @@ cudaError_t launch_fma_dh(const void* q, const void* k, const void* v, const int
 
 template <typename T>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, const int* lengths,
-                       void* out, int g, int m, int n, int dh, Mask mask, cudaStream_t s) {
-  return dh <= kDhSmall ? launch_fma_dh<T, kDhSmall>(q, k, v, lengths, out, g, m, n, dh, mask, s)
-                        : launch_fma_dh<T, kDhMax>(q, k, v, lengths, out, g, m, n, dh, mask, s);
+                       void* out, int m, int n, int dh, Mask mask, dim3 grid, cudaStream_t s) {
+  return dh <= kDhSmall ? launch_fma_dh<T, kDhSmall>(q, k, v, lengths, out, m, n, dh, mask, grid, s)
+                        : launch_fma_dh<T, kDhMax>(q, k, v, lengths, out, m, n, dh, mask, grid, s);
 }
 
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
 
+// Every entry point launches the grids of the wrapper's specs
+// (kernels/attention_fused.py::attention_grid_specs): (gx, gy, gz) the
+// kernel's, (cx, cy, cz) the combine's where the keys split.
+
 // The FMA kernel, for any operands of either dtype, dh <= 256.
 REPRO_EXPORT int repro_attention_fused_fma(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int g, int m, int n, int dh, int causal, int window,
     int q_start, int k_start, int prefix_len, int q_seg, float softcap,
-    int dtype, void* stream) {
-  if (dh < 1 || dh > kDhMax) return static_cast<int>(cudaErrorInvalidValue);
+    int dtype, int gx, int gy, int gz, void* stream) {
+  dim3 grid;
+  if (dh < 1 || dh > kDhMax || !repro::declared_grid(gx, gy, gz, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   if (dtype == repro::kF32) {
-    return static_cast<int>(launch_fma<float>(q, k, v, len, out, g, m, n, dh, mask, s));
+    return static_cast<int>(launch_fma<float>(q, k, v, len, out, m, n, dh, mask, grid, s));
   }
   if (dtype == repro::kBF16) {
-    return static_cast<int>(launch_fma<__nv_bfloat16>(q, k, v, len, out, g, m, n, dh, mask, s));
+    return static_cast<int>(
+        launch_fma<__nv_bfloat16>(q, k, v, len, out, m, n, dh, mask, grid, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1406,22 +1416,24 @@ REPRO_EXPORT int repro_attention_fused_fma(
 REPRO_EXPORT int repro_attention_fused_flash(
     const void* q, const void* k, const void* v, const void* lengths, void* out, int g, int m,
     int n, int dh, int causal, int window, int q_start, int k_start, int prefix_len, int q_seg,
-    float softcap, void* stream) {
+    float softcap, int gx, int gy, int gz, void* stream) {
+  dim3 grid;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0 ||
+      !repro::declared_grid(gx, gy, gz, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   if (dh == 64) {
-    return static_cast<int>(launch_flash<64>(q, k, v, len, out, g, m, n, dh, mask, s));
+    return static_cast<int>(launch_flash<64>(q, k, v, len, out, m, n, dh, mask, grid, s));
   }
   if (dh == 112 || dh == 120 || dh == 128) {
-    return static_cast<int>(launch_flash<128>(q, k, v, len, out, g, m, n, dh, mask, s));
+    return static_cast<int>(launch_flash<128>(q, k, v, len, out, m, n, dh, mask, grid, s));
   }
   if (dh == 256) {
-    return static_cast<int>(launch_flash<256>(q, k, v, len, out, g, m, n, dh, mask, s));
+    return static_cast<int>(launch_flash<256>(q, k, v, len, out, m, n, dh, mask, grid, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1433,11 +1445,15 @@ REPRO_EXPORT int repro_attention_fused_flash(
 REPRO_EXPORT int repro_attention_fused_flash_f32(
     const void* q, const void* k, const void* v, const void* lengths, void* out, void* ws, int g,
     int m, int n, int dh, int causal, int window, int q_start, int k_start, int prefix_len,
-    int q_seg, float softcap, int splits, void* stream) {
+    int q_seg, float softcap, int splits, int gx, int gy, int gz, int cx, int cy, int cz,
+    void* stream) {
+  dim3 grid, cgrid;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
        reinterpret_cast<uintptr_t>(ws)) % 16 != 0 ||
-      splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr)) {
+      splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr) ||
+      !repro::declared_grid(gx, gy, gz, grid) ||
+      (splits > 1 && !repro::declared_grid(cx, cy, cz, cgrid))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
@@ -1445,15 +1461,15 @@ REPRO_EXPORT int repro_attention_fused_flash_f32(
   const int* len = static_cast<const int*>(lengths);
   if (dh == 64) {
     return static_cast<int>(
-        launch_flash_f32<64>(q, k, v, len, out, ws, g, m, n, dh, mask, splits, s));
+        launch_flash_f32<64>(q, k, v, len, out, ws, m, n, dh, mask, splits, grid, cgrid, s));
   }
   if (dh == 112 || dh == 120 || dh == 128) {
     return static_cast<int>(
-        launch_flash_f32<128>(q, k, v, len, out, ws, g, m, n, dh, mask, splits, s));
+        launch_flash_f32<128>(q, k, v, len, out, ws, m, n, dh, mask, splits, grid, cgrid, s));
   }
   if (dh == 256) {
     return static_cast<int>(
-        launch_flash_f32<256>(q, k, v, len, out, ws, g, m, n, dh, mask, splits, s));
+        launch_flash_f32<256>(q, k, v, len, out, ws, m, n, dh, mask, splits, grid, cgrid, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1464,22 +1480,25 @@ REPRO_EXPORT int repro_attention_fused_flash_f32(
 REPRO_EXPORT int repro_attention_fused_decode(
     const void* q, const void* k, const void* v, const void* lengths, void* out, void* ws,
     int g, int m, int n, int dh, int causal, int window, int q_start, int k_start,
-    int prefix_len, int q_seg, float softcap, int splits, int per, int dtype, void* stream) {
+    int prefix_len, int q_seg, float softcap, int splits, int per, int dtype, int gx, int gy,
+    int gz, int cx, int cy, int cz, void* stream) {
+  dim3 grid, cgrid;
   if (m < 1 || m > kDecodeMaxRows || dh < 1 || dh > kDhMax || splits < 1 || per < 1 ||
       splits > kCombineMaxSplits || static_cast<long long>(splits) * per < n ||
-      (splits > 1 && ws == nullptr)) {
+      (splits > 1 && ws == nullptr) || !repro::declared_grid(gx, gy, gz, grid) ||
+      (splits > 1 && !repro::declared_grid(cx, cy, cz, cgrid))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Mask mask{causal, window, q_start, k_start, prefix_len, q_seg, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   if (dtype == repro::kF32) {
-    return static_cast<int>(launch_decode_any<float>(q, k, v, len, out, ws, g, m, n, dh, splits,
-                                                     per, mask, s));
+    return static_cast<int>(launch_decode_any<float>(q, k, v, len, out, ws, m, n, dh, splits,
+                                                     per, mask, grid, cgrid, s));
   }
   if (dtype == repro::kBF16) {
-    return static_cast<int>(launch_decode_any<__nv_bfloat16>(q, k, v, len, out, ws, g, m, n, dh,
-                                                              splits, per, mask, s));
+    return static_cast<int>(launch_decode_any<__nv_bfloat16>(q, k, v, len, out, ws, m, n, dh,
+                                                              splits, per, mask, grid, cgrid, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -116,16 +116,25 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// splitk_reduce on `programs` blocks of 256 threads (the grid of the
+// wrapper's spec, kernels/common.py::splitk_reduce_spec).
 template <typename T>
-cudaError_t launch_splitk_reduce(const float* ws, T* out, size_t mn, int splits,
+cudaError_t launch_splitk_reduce(const float* ws, T* out, size_t mn, int splits, int programs,
                                  cudaStream_t s) {
-  const size_t blocks = (mn + 255) / 256;
-  splitk_reduce<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-      ws, out, mn, splits);
+  if (programs < 1) return cudaErrorInvalidValue;
+  splitk_reduce<T><<<programs, 256, 0, s>>>(ws, out, mn, splits);
   return cudaGetLastError();
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+// The grid a wrapper declared (kernels/gridspec.py), as the dim3 to
+// launch; false for one CUDA cannot take (an extent below 1, y or z over
+// 65535), and the entry point then returns cudaErrorInvalidValue.  No
+// entry point computes a grid of its own or corrects the one it is given.
+inline bool declared_grid(int x, int y, int z, dim3& grid) {
+  if (x < 1 || y < 1 || z < 1 || y > 65535 || z > 65535) return false;
+  grid = dim3(static_cast<unsigned>(x), static_cast<unsigned>(y), static_cast<unsigned>(z));
+  return true;
+}
 
 // Host-side facts a launch needs on every call, looked up once per device.
 constexpr int kMaxDevices = 64;
@@ -134,16 +143,6 @@ inline int current_device() {
   int dev = 0;
   cudaGetDevice(&dev);
   return dev;
-}
-
-inline int sm_count() {
-  static int cache[kMaxDevices] = {};
-  const int dev = current_device();
-  if (dev < kMaxDevices && cache[dev] != 0) return cache[dev];
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (dev < kMaxDevices) cache[dev] = sms;
-  return sms;
 }
 
 // Lets `Kernel` take `bytes` of dynamic shared memory (above the default

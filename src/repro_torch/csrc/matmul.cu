@@ -134,17 +134,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The 16-row tile for m <= 16, else the 64-row one, on the declared grid.
 template <typename T, bool kBStoredNK>
-void launch(const void* a, const void* b, void* c, int m, int n, int k,
+void launch(const void* a, const void* b, void* c, int m, int n, int k, dim3 grid,
             cudaStream_t s) {
   const T* ap = static_cast<const T*>(a);
   const T* bp = static_cast<const T*>(b);
   T* cp = static_cast<T*>(c);
   if (m <= 16) {
-    const dim3 grid(repro::cdiv(n, kBN), repro::cdiv(m, 16));
     matmul_kernel<T, 16, kBStoredNK><<<grid, kThreads, 0, s>>>(ap, bp, cp, m, n, k);
   } else {
-    const dim3 grid(repro::cdiv(n, kBN), repro::cdiv(m, 64));
     matmul_kernel<T, 64, kBStoredNK><<<grid, kThreads, 0, s>>>(ap, bp, cp, m, n, k);
   }
 }
@@ -329,26 +328,30 @@ __global__ void __launch_bounds__(F32Tile<BM, BN, TM, TN>::kThreads,
 
 template <int BM, int BN, int TM, int TN, bool kBStoredNK>
 cudaError_t launch_f32(const float* a, const float* b, float* c, float* ws, int m, int n, int k,
-                       int splits, int per, cudaStream_t s) {
-  const dim3 grid(repro::cdiv(n, BN), repro::cdiv(m, BM), splits);
+                       int splits, int per, dim3 grid, int reduce_programs, cudaStream_t s) {
   gemm_f32<BM, BN, TM, TN, kBStoredNK><<<grid, F32Tile<BM, BN, TM, TN>::kThreads, 0, s>>>(
       a, b, c, splits > 1 ? ws : nullptr, m, n, k, per);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  return repro::launch_splitk_reduce<float>(ws, c, static_cast<size_t>(m) * n, splits, s);
+  return repro::launch_splitk_reduce<float>(ws, c, static_cast<size_t>(m) * n, splits,
+                                            reduce_programs, s);
 }
 
 template <bool kBStoredNK>
 cudaError_t launch_f32_tile(const float* a, const float* b, float* c, float* ws, int m, int n,
-                            int k, int bm, int bn, int splits, int per, cudaStream_t s) {
+                            int k, int bm, int bn, int splits, int per, dim3 grid,
+                            int reduce_programs, cudaStream_t s) {
   if (bm == 128 && bn == 128) {
-    return launch_f32<128, 128, 8, 8, kBStoredNK>(a, b, c, ws, m, n, k, splits, per, s);
+    return launch_f32<128, 128, 8, 8, kBStoredNK>(a, b, c, ws, m, n, k, splits, per, grid,
+                                                  reduce_programs, s);
   }
   if (bm == 16 && bn == 128) {
-    return launch_f32<16, 128, 4, 4, kBStoredNK>(a, b, c, ws, m, n, k, splits, per, s);
+    return launch_f32<16, 128, 4, 4, kBStoredNK>(a, b, c, ws, m, n, k, splits, per, grid,
+                                                 reduce_programs, s);
   }
   if (bm == 128 && bn == 16) {
-    return launch_f32<128, 16, 4, 4, kBStoredNK>(a, b, c, ws, m, n, k, splits, per, s);
+    return launch_f32<128, 16, 4, 4, kBStoredNK>(a, b, c, ws, m, n, k, splits, per, grid,
+                                                 reduce_programs, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -357,22 +360,26 @@ cudaError_t launch_f32_tile(const float* a, const float* b, float* c, float* ws,
 
 REPRO_DEFINE_ERROR_STRING
 
-// b_stored_nk = 1: NT (B is (n, k)); 0: NN (B is (k, n)).
+// b_stored_nk = 1: NT (B is (n, k)); 0: NN (B is (k, n)).  Grid (gx, gy,
+// gz): the wrapper's spec (kernels/common.py::fma_grid_spec), block (x, y)
+// at n-tile x, m-tile y.
 REPRO_EXPORT int repro_matmul(const void* a, const void* b, void* c, int m,
-                              int n, int k, int b_stored_nk, int dtype,
-                              void* stream) {
+                              int n, int k, int b_stored_nk, int dtype, int gx, int gy,
+                              int gz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  if (!repro::declared_grid(gx, gy, gz, grid)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == repro::kF32) {
     if (b_stored_nk) {
-      launch<float, true>(a, b, c, m, n, k, s);
+      launch<float, true>(a, b, c, m, n, k, grid, s);
     } else {
-      launch<float, false>(a, b, c, m, n, k, s);
+      launch<float, false>(a, b, c, m, n, k, grid, s);
     }
   } else if (dtype == repro::kBF16) {
     if (b_stored_nk) {
-      launch<__nv_bfloat16, true>(a, b, c, m, n, k, s);
+      launch<__nv_bfloat16, true>(a, b, c, m, n, k, grid, s);
     } else {
-      launch<__nv_bfloat16, false>(a, b, c, m, n, k, s);
+      launch<__nv_bfloat16, false>(a, b, c, m, n, k, grid, s);
     }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -384,16 +391,20 @@ REPRO_EXPORT int repro_matmul(const void* a, const void* b, void* c, int m,
 // (the wrapper checks); (bm, bn) one of the three tiles; k-steps of 16 in
 // `splits` runs of `per`, none empty; splits > 1: ws holds splits x m x n
 // f32 (allocated by the caller) and a second kernel sums them into c.
+// Grid (gx, gy, gz): the wrapper's spec (kernels/common.py::
+// f32_grid_specs), block (x, y, z) at n-tile x, m-tile y, split z;
+// reduce_programs: the blocks of the split's reduce.
 REPRO_EXPORT int repro_matmul_f32(const void* a, const void* b, void* c, void* ws, int m, int n,
                                   int k, int b_stored_nk, int bm, int bn, int splits, int per,
-                                  void* stream) {
+                                  int gx, int gy, int gz, int reduce_programs, void* stream) {
   const int nks = (k + kFBK - 1) / kFBK;
+  dim3 grid;
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(ws)) % 16 != 0 ||
       m < 1 || n < 1 || k < 1 || bm < 1 || bn < 1 || k % 4 != 0 || (!b_stored_nk && n % 4 != 0) || splits < 1 ||
       per < 1 || splits > 65535 || static_cast<long long>(splits) * per < nks ||
       static_cast<long long>(splits - 1) * per >= nks || (splits > 1 && ws == nullptr) ||
-      repro::cdiv(m, bm) > 65535) {
+      !repro::declared_grid(gx, gy, gz, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -402,6 +413,8 @@ REPRO_EXPORT int repro_matmul_f32(const void* a, const void* b, void* c, void* w
   auto* cp = static_cast<float*>(c);
   auto* wp = static_cast<float*>(ws);
   return static_cast<int>(
-      b_stored_nk ? launch_f32_tile<true>(ap, bp, cp, wp, m, n, k, bm, bn, splits, per, s)
-                  : launch_f32_tile<false>(ap, bp, cp, wp, m, n, k, bm, bn, splits, per, s));
+      b_stored_nk ? launch_f32_tile<true>(ap, bp, cp, wp, m, n, k, bm, bn, splits, per, grid,
+                                          reduce_programs, s)
+                  : launch_f32_tile<false>(ap, bp, cp, wp, m, n, k, bm, bn, splits, per, grid,
+                                           reduce_programs, s));
 }

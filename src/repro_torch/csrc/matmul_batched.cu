@@ -134,17 +134,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The 16-row tile for m <= 16, else the 64-row one, on the declared grid.
 template <typename T, bool kBStoredNK>
-void launch(const void* a, const void* b, void* c, int g, int m, int n, int k,
+void launch(const void* a, const void* b, void* c, int m, int n, int k, dim3 grid,
             cudaStream_t s) {
   const T* ap = static_cast<const T*>(a);
   const T* bp = static_cast<const T*>(b);
   T* cp = static_cast<T*>(c);
   if (m <= 16) {
-    const dim3 grid(repro::cdiv(n, kBN), repro::cdiv(m, 16), g);
     batched_kernel<T, 16, kBStoredNK><<<grid, kThreads, 0, s>>>(ap, bp, cp, m, n, k);
   } else {
-    const dim3 grid(repro::cdiv(n, kBN), repro::cdiv(m, 64), g);
     batched_kernel<T, 64, kBStoredNK><<<grid, kThreads, 0, s>>>(ap, bp, cp, m, n, k);
   }
 }
@@ -442,22 +441,22 @@ __global__ void __launch_bounds__(kMThreads)
 
 template <bool kBStoredNK>
 cudaError_t launch_f32(const float* a, const float* b, float* c, float* ws, int g, int m, int n,
-                       int k, int splits, int ks_per_split, cudaStream_t s) {
-  const dim3 grid(repro::cdiv(n, kTBN), repro::cdiv(m, kTBM), g * splits);
+                       int k, int splits, int ks_per_split, dim3 grid, int reduce_programs,
+                       cudaStream_t s) {
   bmm_f32<kBStoredNK><<<grid, kTThreads, 0, s>>>(a, b, c, splits > 1 ? ws : nullptr, g, m, n,
                                                   k, splits, ks_per_split);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  return repro::launch_splitk_reduce(ws, c, static_cast<size_t>(g) * m * n, splits, s);
+  return repro::launch_splitk_reduce(ws, c, static_cast<size_t>(g) * m * n, splits,
+                                     reduce_programs, s);
 }
 
 template <bool kBStoredNK>
-cudaError_t launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* c, int g,
-                        int m, int n, int k, cudaStream_t s) {
+cudaError_t launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* c, int m,
+                        int n, int k, dim3 grid, cudaStream_t s) {
   const cudaError_t e =
       repro::allow_dynamic_smem<bmm_bf16<kBStoredNK>>(MmaCfg<kBStoredNK>::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(repro::cdiv(n, kMBN), repro::cdiv(m, kMBM), g);
   bmm_bf16<kBStoredNK><<<grid, kMThreads, MmaCfg<kBStoredNK>::kSmem, s>>>(a, b, c, m, n, k);
   return cudaGetLastError();
 }
@@ -466,23 +465,30 @@ cudaError_t launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfl
 
 REPRO_DEFINE_ERROR_STRING
 
+// Every entry point: grid (gx, gy, gz) is the wrapper's spec
+// (kernels/matmul_batched.py::batched_grid_specs), block (x, y, z) at
+// n-tile x, m-tile y, slice z / splits, split z % splits.
+
 // b_stored_nk = 1: BNT (B_i is (n, k)); 0: BNN (B_i is (k, n)).  The FMA
 // kernel, for any operands of either dtype.
 REPRO_EXPORT int repro_matmul_batched_fma(const void* a, const void* b, void* c,
                                       int g, int m, int n, int k,
-                                      int b_stored_nk, int dtype, void* stream) {
+                                      int b_stored_nk, int dtype, int gx, int gy, int gz,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  if (!repro::declared_grid(gx, gy, gz, grid)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == repro::kF32) {
     if (b_stored_nk) {
-      launch<float, true>(a, b, c, g, m, n, k, s);
+      launch<float, true>(a, b, c, m, n, k, grid, s);
     } else {
-      launch<float, false>(a, b, c, g, m, n, k, s);
+      launch<float, false>(a, b, c, m, n, k, grid, s);
     }
   } else if (dtype == repro::kBF16) {
     if (b_stored_nk) {
-      launch<__nv_bfloat16, true>(a, b, c, g, m, n, k, s);
+      launch<__nv_bfloat16, true>(a, b, c, m, n, k, grid, s);
     } else {
-      launch<__nv_bfloat16, false>(a, b, c, g, m, n, k, s);
+      launch<__nv_bfloat16, false>(a, b, c, m, n, k, grid, s);
     }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -496,28 +502,36 @@ REPRO_EXPORT int repro_matmul_batched_fma(const void* a, const void* b, void* c,
 // cover the cdiv(k, 16) k-steps with none empty, and g * splits <= 65535.
 REPRO_EXPORT int repro_matmul_batched_f32(const void* a, const void* b, void* c, void* ws,
                                           int g, int m, int n, int k, int b_stored_nk,
-                                          int splits, int ks_per_split, void* stream) {
+                                          int splits, int ks_per_split, int gx, int gy, int gz,
+                                          int reduce_programs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ap = static_cast<const float*>(a);
   const auto* bp = static_cast<const float*>(b);
   auto* cp = static_cast<float*>(c);
   auto* wp = static_cast<float*>(ws);
-  if (splits < 1 || ks_per_split < 1 || (splits > 1 && wp == nullptr)) {
+  dim3 grid;
+  if (splits < 1 || ks_per_split < 1 || (splits > 1 && wp == nullptr) ||
+      !repro::declared_grid(gx, gy, gz, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(
-      b_stored_nk ? launch_f32<true>(ap, bp, cp, wp, g, m, n, k, splits, ks_per_split, s)
-                  : launch_f32<false>(ap, bp, cp, wp, g, m, n, k, splits, ks_per_split, s));
+      b_stored_nk ? launch_f32<true>(ap, bp, cp, wp, g, m, n, k, splits, ks_per_split, grid,
+                                     reduce_programs, s)
+                  : launch_f32<false>(ap, bp, cp, wp, g, m, n, k, splits, ks_per_split, grid,
+                                      reduce_programs, s));
 }
 
 // bf16, k % 8 == 0, BNN's n % 8 == 0, A and B 16-byte aligned (the wrapper
 // checks).
 REPRO_EXPORT int repro_matmul_batched_bf16(const void* a, const void* b, void* c, int g, int m,
-                                           int n, int k, int b_stored_nk, void* stream) {
+                                           int n, int k, int b_stored_nk, int gx, int gy,
+                                           int gz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ap = static_cast<const __nv_bfloat16*>(a);
   const auto* bp = static_cast<const __nv_bfloat16*>(b);
   auto* cp = static_cast<__nv_bfloat16*>(c);
-  return static_cast<int>(b_stored_nk ? launch_bf16<true>(ap, bp, cp, g, m, n, k, s)
-                                      : launch_bf16<false>(ap, bp, cp, g, m, n, k, s));
+  dim3 grid;
+  if (!repro::declared_grid(gx, gy, gz, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(b_stored_nk ? launch_bf16<true>(ap, bp, cp, m, n, k, grid, s)
+                                      : launch_bf16<false>(ap, bp, cp, m, n, k, grid, s));
 }

@@ -240,25 +240,25 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// `programs` persistent blocks walk the (split, tile) units: the wrapper's
+// spec (kernels/matmul_nn.py::nn_grid_specs), min(units, SMs).
 template <int BN>
 cudaError_t launch_wgmma(const void* a, const void* b, __nv_bfloat16* c, float* ws, int m,
-                         int n, int k, int splits, int kb_per_split, cudaStream_t s) {
+                         int n, int k, int splits, int kb_per_split, int programs,
+                         int reduce_programs, cudaStream_t s) {
   CUtensorMap map_a, map_b;
   if (!encode_map(&map_a, a, m, k, kWgBM) || !encode_map(&map_b, b, k, n, kWgBK)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t e = repro::allow_dynamic_smem<nn_wgmma<BN>>(WgCfg<BN>::kSmem);
   if (e != cudaSuccess) return e;
-  const int sms = repro::sm_count();
-  const long long units = static_cast<long long>(repro::cdiv(m, kWgBM)) *
-                          repro::cdiv(n, BN) * splits;
-  const int grid = static_cast<int>(units < sms ? units : sms);
-  nn_wgmma<BN><<<grid, kWgThreads, WgCfg<BN>::kSmem, s>>>(
+  nn_wgmma<BN><<<programs, kWgThreads, WgCfg<BN>::kSmem, s>>>(
       map_a, map_b, c, splits > 1 ? ws : nullptr, m, n, k, splits, kb_per_split,
       /*n_fast=*/m > n);  // A is (m, k), B (k, n): A is the larger when m > n
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  return repro::launch_splitk_reduce(ws, c, static_cast<size_t>(m) * n, splits, s);
+  return repro::launch_splitk_reduce(ws, c, static_cast<size_t>(m) * n, splits,
+                                     reduce_programs, s);
 }
 
 // -- the skinny variant ----------------------------------------------------------
@@ -389,10 +389,9 @@ __global__ void __launch_bounds__(kThreads)
 template <int MA>
 cudaError_t launch_skinny(const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* c,
                           float* ws, int m, int n, int k, int splits, int kb_per_split,
-                          cudaStream_t s) {
+                          dim3 grid, cudaStream_t s) {
   const cudaError_t e = repro::allow_dynamic_smem<nn_skinny<MA>>(SkCfg<MA>::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(repro::cdiv(n, kCols), repro::cdiv(m, kMTile), splits);
   nn_skinny<MA><<<grid, kThreads, SkCfg<MA>::kSmem, s>>>(a, b, c, splits > 1 ? ws : nullptr,
                                                          m, n, k, kb_per_split);
   return cudaGetLastError();
@@ -411,47 +410,68 @@ REPRO_DEFINE_ERROR_STRING
 // by the caller) and a second kernel sums it into C; splits * kb_per_split
 // must cover the cdiv(k, 64) k-blocks with none empty.
 
-// m > 64; block_n: 64, 128, 192 or 256.
+// m > 64; block_n: 64, 128, 192 or 256; `programs` persistent blocks
+// (kernels/matmul_nn.py::nn_grid_specs).
 REPRO_EXPORT int repro_matmul_nn_wgmma(const void* a, const void* b, void* c, void* ws, int m,
                                        int n, int k, int block_n, int splits,
-                                       int kb_per_split, void* stream) {
+                                       int kb_per_split, int programs, int reduce_programs,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* cp = static_cast<__nv_bfloat16*>(c);
   auto* wp = static_cast<float*>(ws);
-  if (bad_split(ws, splits, kb_per_split)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  if (bad_split(ws, splits, kb_per_split) || !repro::declared_grid(programs, 1, 1, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t e;
   switch (block_n) {
-    case 64: e = launch_wgmma<64>(a, b, cp, wp, m, n, k, splits, kb_per_split, s); break;
-    case 128: e = launch_wgmma<128>(a, b, cp, wp, m, n, k, splits, kb_per_split, s); break;
-    case 192: e = launch_wgmma<192>(a, b, cp, wp, m, n, k, splits, kb_per_split, s); break;
-    case 256: e = launch_wgmma<256>(a, b, cp, wp, m, n, k, splits, kb_per_split, s); break;
+    case 64:
+      e = launch_wgmma<64>(a, b, cp, wp, m, n, k, splits, kb_per_split, programs,
+                           reduce_programs, s);
+      break;
+    case 128:
+      e = launch_wgmma<128>(a, b, cp, wp, m, n, k, splits, kb_per_split, programs,
+                            reduce_programs, s);
+      break;
+    case 192:
+      e = launch_wgmma<192>(a, b, cp, wp, m, n, k, splits, kb_per_split, programs,
+                            reduce_programs, s);
+      break;
+    case 256:
+      e = launch_wgmma<256>(a, b, cp, wp, m, n, k, splits, kb_per_split, programs,
+                            reduce_programs, s);
+      break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
 }
 
-// Any m (tuned for m <= 64: gridDim.y walks 64-row tiles of A).
+// Any m (tuned for m <= 64).  Grid (gx, gy, gz): the wrapper's spec,
+// block (x, y, z) at 128 columns x, 64 rows of A y, split z.
 REPRO_EXPORT int repro_matmul_nn_skinny(const void* a, const void* b, void* c, void* ws, int m,
-                                        int n, int k, int splits, int kb_per_split,
-                                        void* stream) {
+                                        int n, int k, int splits, int kb_per_split, int gx,
+                                        int gy, int gz, int reduce_programs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ap = static_cast<const __nv_bfloat16*>(a);
   const auto* bp = static_cast<const __nv_bfloat16*>(b);
   auto* cp = static_cast<__nv_bfloat16*>(c);
   auto* wp = static_cast<float*>(ws);
-  if (bad_split(ws, splits, kb_per_split)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  if (bad_split(ws, splits, kb_per_split) || !repro::declared_grid(gx, gy, gz, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int rows = m < kMTile ? m : kMTile;
   cudaError_t e;
   if (rows <= 8) {
-    e = launch_skinny<8>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_skinny<8>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   } else if (rows <= 16) {
-    e = launch_skinny<16>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_skinny<16>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   } else if (rows <= 32) {
-    e = launch_skinny<32>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_skinny<32>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   } else {
-    e = launch_skinny<64>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_skinny<64>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  return static_cast<int>(
-      repro::launch_splitk_reduce(wp, cp, static_cast<size_t>(m) * n, splits, s));
+  return static_cast<int>(repro::launch_splitk_reduce(wp, cp, static_cast<size_t>(m) * n,
+                                                      splits, reduce_programs, s));
 }

@@ -166,11 +166,10 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int MA>
 cudaError_t launch_nt(const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* c,
-                      float* ws, int m, int n, int k, int splits, int kb_per_split,
+                      float* ws, int m, int n, int k, int splits, int kb_per_split, dim3 grid,
                       cudaStream_t s) {
   const cudaError_t e = repro::allow_dynamic_smem<nt_bf16<MA>>(NtCfg<MA>::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(repro::cdiv(n, kRows), repro::cdiv(m, kMTile), splits);
   nt_bf16<MA><<<grid, kThreads, NtCfg<MA>::kSmem, s>>>(a, b, c, splits > 1 ? ws : nullptr,
                                                        m, n, k, kb_per_split);
   return cudaGetLastError();
@@ -182,29 +181,35 @@ REPRO_DEFINE_ERROR_STRING
 
 // bf16 only.  splits > 1: ws holds splits x m x n f32 (allocated by the
 // caller) and a second kernel sums it into C; splits * kb_per_split must
-// cover the cdiv(k, 64) k-blocks with none empty.
+// cover the cdiv(k, 64) k-blocks with none empty.  Grid (gx, gy, gz): the
+// wrapper's spec (kernels/matmul_nt.py::nt_grid_specs), block (x, y, z) at
+// 128 rows of B x, 64 rows of A y, split z; reduce_programs: the blocks
+// of the split's reduce.
 REPRO_EXPORT int repro_matmul_nt(const void* a, const void* b, void* c, void* ws, int m,
-                                 int n, int k, int splits, int kb_per_split, void* stream) {
+                                 int n, int k, int splits, int kb_per_split, int gx, int gy,
+                                 int gz, int reduce_programs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ap = static_cast<const __nv_bfloat16*>(a);
   const auto* bp = static_cast<const __nv_bfloat16*>(b);
   auto* cp = static_cast<__nv_bfloat16*>(c);
   auto* wp = static_cast<float*>(ws);
-  if (splits < 1 || kb_per_split < 1 || (splits > 1 && wp == nullptr)) {
+  dim3 grid;
+  if (splits < 1 || kb_per_split < 1 || (splits > 1 && wp == nullptr) ||
+      !repro::declared_grid(gx, gy, gz, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows = m < kMTile ? m : kMTile;
   cudaError_t e;
   if (rows <= 8) {
-    e = launch_nt<8>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_nt<8>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   } else if (rows <= 16) {
-    e = launch_nt<16>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_nt<16>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   } else if (rows <= 32) {
-    e = launch_nt<32>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_nt<32>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   } else {
-    e = launch_nt<64>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, s);
+    e = launch_nt<64>(ap, bp, cp, wp, m, n, k, splits, kb_per_split, grid, s);
   }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  return static_cast<int>(
-      repro::launch_splitk_reduce(wp, cp, static_cast<size_t>(m) * n, splits, s));
+  return static_cast<int>(repro::launch_splitk_reduce(wp, cp, static_cast<size_t>(m) * n,
+                                                      splits, reduce_programs, s));
 }

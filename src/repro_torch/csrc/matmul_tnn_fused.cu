@@ -400,17 +400,17 @@ __global__ void __launch_bounds__(TnnF32<BM, BN, TM, TN>::kThreads,
 
 template <int BM, int BN, int TM, int TN>
 cudaError_t launch_f32(const float* a, const float* b, float* c, float* ws, int m, int n, int k,
-                       int splits, int per, cudaStream_t s) {
+                       int splits, int per, dim3 grid, int reduce_programs, cudaStream_t s) {
   using Cfg = TnnF32<BM, BN, TM, TN>;
   const cudaError_t e =
       repro::allow_dynamic_smem<tnn_fused_f32_tiled<BM, BN, TM, TN>>(Cfg::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(repro::cdiv(n, BN), repro::cdiv(m, BM), splits);
   tnn_fused_f32_tiled<BM, BN, TM, TN><<<grid, Cfg::kThreads, Cfg::kSmem, s>>>(
       a, b, c, splits > 1 ? ws : nullptr, m, n, k, per);
   const cudaError_t e2 = cudaGetLastError();
   if (e2 != cudaSuccess || splits == 1) return e2;
-  return repro::launch_splitk_reduce<float>(ws, c, static_cast<size_t>(m) * n, splits, s);
+  return repro::launch_splitk_reduce<float>(ws, c, static_cast<size_t>(m) * n, splits,
+                                            reduce_programs, s);
 }
 
 
@@ -550,20 +550,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// `programs` persistent blocks walk the tiles: the wrapper's spec
+// (kernels/matmul_tnn_fused.py::tnn_fused_grid_specs), min(tiles, SMs).
 template <int BN>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, int m, int n, int k,
-                         cudaStream_t s) {
+                         int programs, cudaStream_t s) {
   CUtensorMap map_a, map_b;
   if (!encode_map(&map_a, a, m, k, kWgBM) || !encode_map(&map_b, b, n, k, BN)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t e = repro::allow_dynamic_smem<tnn_fused_wgmma<BN>>(WgCfg<BN>::kSmem);
   if (e != cudaSuccess) return e;
-  const int sms = repro::sm_count();
-  const long long tiles =
-      static_cast<long long>(repro::cdiv(m, kWgBM)) * repro::cdiv(n, BN);
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  tnn_fused_wgmma<BN><<<grid, kWgThreads, WgCfg<BN>::kSmem, s>>>(
+  tnn_fused_wgmma<BN><<<programs, kWgThreads, WgCfg<BN>::kSmem, s>>>(
       map_a, map_b, static_cast<__nv_bfloat16*>(c), m, n, k);
   return cudaGetLastError();
 }
@@ -571,11 +569,14 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int m, int n, in
 
 REPRO_DEFINE_ERROR_STRING
 
+// The mma.sync (bf16) and FMA (f32) variants.  Grid (gx, gy, gz): the
+// wrapper's spec, block (x, y) at m-tile x, n-tile y.
 REPRO_EXPORT int repro_matmul_tnn_fused(const void* a, const void* b, void* c,
-                                        int m, int n, int k, int dtype,
-                                        void* stream) {
+                                        int m, int n, int k, int dtype, int gx, int gy,
+                                        int gz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(repro::cdiv(m, kBM), repro::cdiv(n, kBN));
+  dim3 grid;
+  if (!repro::declared_grid(gx, gy, gz, grid)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == repro::kBF16) {
     tnn_fused_bf16<<<grid, kMmaThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
@@ -592,15 +593,18 @@ REPRO_EXPORT int repro_matmul_tnn_fused(const void* a, const void* b, void* c,
 
 // bf16 only; the wrapper calls it when k % 8 == 0 and A, B are 16-byte
 // aligned (TMA's rule for addresses and row strides).  block_n: 64, 96, 192
-// or 256.
+// or 256; `programs` persistent blocks.
 REPRO_EXPORT int repro_matmul_tnn_fused_wgmma(const void* a, const void* b, void* c, int m,
-                                              int n, int k, int block_n, void* stream) {
+                                              int n, int k, int block_n, int programs,
+                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  if (!repro::declared_grid(programs, 1, 1, grid)) return static_cast<int>(cudaErrorInvalidValue);
   switch (block_n) {
-    case 64: return static_cast<int>(launch_wgmma<64>(a, b, c, m, n, k, s));
-    case 96: return static_cast<int>(launch_wgmma<96>(a, b, c, m, n, k, s));
-    case 192: return static_cast<int>(launch_wgmma<192>(a, b, c, m, n, k, s));
-    case 256: return static_cast<int>(launch_wgmma<256>(a, b, c, m, n, k, s));
+    case 64: return static_cast<int>(launch_wgmma<64>(a, b, c, m, n, k, programs, s));
+    case 96: return static_cast<int>(launch_wgmma<96>(a, b, c, m, n, k, programs, s));
+    case 192: return static_cast<int>(launch_wgmma<192>(a, b, c, m, n, k, programs, s));
+    case 256: return static_cast<int>(launch_wgmma<256>(a, b, c, m, n, k, programs, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -608,17 +612,21 @@ REPRO_EXPORT int repro_matmul_tnn_fused_wgmma(const void* a, const void* b, void
 // f32, k % 4 == 0, a, b, c and ws 16-byte aligned (the wrapper checks);
 // (bm, bn) one of the three tiles; k-steps of 16 in `splits` runs of
 // `per`, none empty; splits > 1: ws holds splits x m x n f32 (allocated by
-// the caller) and a second kernel sums them into c in split order.
+// the caller) and a second kernel sums them into c in split order.  Grid
+// (gx, gy, gz): the wrapper's spec, block (x, y, z) at n-tile x, m-tile y,
+// split z; reduce_programs: the blocks of the split's reduce.
 REPRO_EXPORT int repro_matmul_tnn_fused_f32(const void* a, const void* b, void* c, void* ws,
                                             int m, int n, int k, int bm, int bn, int splits,
-                                            int per, void* stream) {
+                                            int per, int gx, int gy, int gz,
+                                            int reduce_programs, void* stream) {
   const int nks = (k + kFBK - 1) / kFBK;
+  dim3 grid;
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(ws)) % 16 != 0 ||
       m < 1 || n < 1 || k < 1 || k % 4 != 0 || splits < 1 || per < 1 || splits > 65535 ||
       static_cast<long long>(splits) * per < nks ||
       static_cast<long long>(splits - 1) * per >= nks || (splits > 1 && ws == nullptr) ||
-      bm < 1 || repro::cdiv(m, bm) > 65535) {
+      bm < 1 || !repro::declared_grid(gx, gy, gz, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -627,13 +635,16 @@ REPRO_EXPORT int repro_matmul_tnn_fused_f32(const void* a, const void* b, void* 
   auto* cp = static_cast<float*>(c);
   auto* wp = static_cast<float*>(ws);
   if (bm == 128 && bn == 128) {
-    return static_cast<int>(launch_f32<128, 128, 8, 8>(ap, bp, cp, wp, m, n, k, splits, per, s));
+    return static_cast<int>(launch_f32<128, 128, 8, 8>(ap, bp, cp, wp, m, n, k, splits, per, grid,
+                                                        reduce_programs, s));
   }
   if (bm == 16 && bn == 128) {
-    return static_cast<int>(launch_f32<16, 128, 4, 4>(ap, bp, cp, wp, m, n, k, splits, per, s));
+    return static_cast<int>(launch_f32<16, 128, 4, 4>(ap, bp, cp, wp, m, n, k, splits, per, grid,
+                                                       reduce_programs, s));
   }
   if (bm == 128 && bn == 16) {
-    return static_cast<int>(launch_f32<128, 16, 4, 4>(ap, bp, cp, wp, m, n, k, splits, per, s));
+    return static_cast<int>(launch_f32<128, 16, 4, 4>(ap, bp, cp, wp, m, n, k, splits, per, grid,
+                                                       reduce_programs, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

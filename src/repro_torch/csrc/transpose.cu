@@ -65,9 +65,8 @@ __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 }
 
 template <int BR, int BC>
-cudaError_t launch(const void* in, void* out, int rows, int cols, int dtype,
+cudaError_t launch(const void* in, void* out, int rows, int cols, int dtype, dim3 grid,
                    cudaStream_t s) {
-  const dim3 grid(repro::cdiv(cols, BC), repro::cdiv(rows, BR));
   const dim3 block(kThreadsX, kThreadsY);
   if (dtype == repro::kF32) {
     transpose_kernel<uint32_t, BR, BC><<<grid, block, 0, s>>>(
@@ -88,19 +87,23 @@ cudaError_t launch(const void* in, void* out, int rows, int cols, int dtype,
 REPRO_DEFINE_ERROR_STRING
 
 // The (b_rows, b_cols) instances, 32 or 64 each; (32, 32) is the default.
-// rows <= 65535 * b_rows (gridDim.y; the wrapper checks).
+// Grid (gx, gy, gz): the wrapper's spec (kernels/transpose.py::
+// transpose_grid_spec), block (x, y) at column-tile x, row-tile y.
 REPRO_EXPORT int repro_transpose(const void* in, void* out, int rows, int cols,
-                                 int b_rows, int b_cols, int dtype, void* stream) {
+                                 int b_rows, int b_cols, int dtype, int gx, int gy, int gz,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  if (!repro::declared_grid(gx, gy, gz, grid)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (b_rows == 32 && b_cols == 32) {
-    e = launch<32, 32>(in, out, rows, cols, dtype, s);
+    e = launch<32, 32>(in, out, rows, cols, dtype, grid, s);
   } else if (b_rows == 32 && b_cols == 64) {
-    e = launch<32, 64>(in, out, rows, cols, dtype, s);
+    e = launch<32, 64>(in, out, rows, cols, dtype, grid, s);
   } else if (b_rows == 64 && b_cols == 32) {
-    e = launch<64, 32>(in, out, rows, cols, dtype, s);
+    e = launch<64, 32>(in, out, rows, cols, dtype, grid, s);
   } else if (b_rows == 64 && b_cols == 64) {
-    e = launch<64, 64>(in, out, rows, cols, dtype, s);
+    e = launch<64, 64>(in, out, rows, cols, dtype, grid, s);
   } else {
     e = cudaErrorInvalidValue;
   }

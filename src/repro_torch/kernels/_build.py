@@ -54,30 +54,35 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry point ends in its launch's grid -- (gx, gy, gz), a persistent
+# kernel's programs, a split's second launch -- then the stream: the grids
+# of the wrapper's specs (kernels/gridspec.py).
+_G3 = [_I] * 3
 _SIGNATURES = {
-    "transpose": {"repro_transpose": [_P, _P, _I, _I, _I, _I, _I, _P]},
-    "matmul": {"repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-               "repro_matmul_f32": [_P] * 4 + [_I] * 8 + [_P]},
+    "transpose": {"repro_transpose": [_P, _P] + [_I] * 5 + _G3 + [_P]},
+    "matmul": {"repro_matmul": [_P, _P, _P] + [_I] * 5 + _G3 + [_P],
+               "repro_matmul_f32": [_P] * 4 + [_I] * 8 + _G3 + [_I, _P]},
     "attention_fused": {
-        "repro_attention_fused_fma": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
-        "repro_attention_fused_flash": [_P] * 5 + [_I] * 10 + [_F, _P],
-        "repro_attention_fused_flash_f32": [_P] * 6 + [_I] * 10 + [_F, _I, _P],
-        "repro_attention_fused_decode": [_P] * 6 + [_I] * 10 + [_F, _I, _I, _I, _P],
+        "repro_attention_fused_fma": [_P] * 5 + [_I] * 10 + [_F, _I] + _G3 + [_P],
+        "repro_attention_fused_flash": [_P] * 5 + [_I] * 10 + [_F] + _G3 + [_P],
+        "repro_attention_fused_flash_f32": [_P] * 6 + [_I] * 10 + [_F, _I] + _G3 + _G3 + [_P],
+        "repro_attention_fused_decode": ([_P] * 6 + [_I] * 10 + [_F, _I, _I, _I] + _G3 + _G3
+                                         + [_P]),
     },
-    "matmul_nt": {"repro_matmul_nt": [_P] * 4 + [_I] * 5 + [_P]},
+    "matmul_nt": {"repro_matmul_nt": [_P] * 4 + [_I] * 5 + _G3 + [_I, _P]},
     "matmul_tnn_fused": {
-        "repro_matmul_tnn_fused": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "repro_matmul_tnn_fused_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "repro_matmul_tnn_fused_f32": [_P] * 4 + [_I] * 7 + [_P],
+        "repro_matmul_tnn_fused": [_P, _P, _P] + [_I] * 4 + _G3 + [_P],
+        "repro_matmul_tnn_fused_wgmma": [_P, _P, _P] + [_I] * 5 + [_P],
+        "repro_matmul_tnn_fused_f32": [_P] * 4 + [_I] * 7 + _G3 + [_I, _P],
     },
     "matmul_batched": {
-        "repro_matmul_batched_fma": [_P] * 3 + [_I] * 6 + [_P],
-        "repro_matmul_batched_f32": [_P] * 4 + [_I] * 7 + [_P],
-        "repro_matmul_batched_bf16": [_P] * 3 + [_I] * 5 + [_P],
+        "repro_matmul_batched_fma": [_P] * 3 + [_I] * 6 + _G3 + [_P],
+        "repro_matmul_batched_f32": [_P] * 4 + [_I] * 7 + _G3 + [_I, _P],
+        "repro_matmul_batched_bf16": [_P] * 3 + [_I] * 5 + _G3 + [_P],
     },
     "matmul_nn": {
-        "repro_matmul_nn_wgmma": [_P] * 4 + [_I] * 6 + [_P],
-        "repro_matmul_nn_skinny": [_P] * 4 + [_I] * 5 + [_P],
+        "repro_matmul_nn_wgmma": [_P] * 4 + [_I] * 8 + [_P],
+        "repro_matmul_nn_skinny": [_P] * 4 + [_I] * 5 + _G3 + [_I, _P],
     },
 }
 

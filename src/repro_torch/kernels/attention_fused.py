@@ -54,6 +54,13 @@ and those of 1, 2, 4, ... 64 splits: a multiple of 16, at least 32).  The
 (64, 64) or at dh 256 (64, 32), and the ``fma`` route (16, 32).  Any other
 config raises, on both routes.
 
+``attention_grid_specs`` declares each route's launches
+(``kernels/gridspec.py``): block (x, y, z) takes slice x, the q-block
+``flash_block_row`` gives rank y (on the flash routes; the FMA kernel's
+in order) and split z; the split kernels' second launch combines the f32
+partials.  The GQA fold makes a kv head's query group rows of one slice,
+so a slice's k and v are its own.
+
 Each kernel keeps the live key range of the mask and never reads K or V
 beyond ``lengths``.  Each call counts one launch, split or not, in
 ``LAUNCHES`` and under its (route, dh) in ``ATTENTION_ROUTES``.  On CPU
@@ -87,14 +94,15 @@ from .common import (
     sm_count,
     validate_config,
 )
+from .gridspec import MAX_GRID_Y, BlockMap, check_launch, dense_spec
 
 __all__ = ["MaskParams", "NEG_INF", "DH_MAX", "attention_fused", "attention_variant",
-           "decode_split_plan", "flash_f32_splits", "attention_plans"]
+           "decode_split_plan", "flash_f32_splits", "attention_plans", "attention_grid_specs",
+           "flash_block_row"]
 
 NEG_INF = -1e30  # finite: exp(NEG_INF - finite_max) == 0.0 exactly, no nan
 
 DH_MAX = 256  # largest head dim the kernels take (csrc kDhMax)
-_MAX_GRID_Y = 65535  # gridDim.y: the q-blocks of the flash and FMA kernels
 _FMA_ROWS = 16  # csrc kBQ: query rows per FMA block
 _FLASH_ROWS = 64  # csrc kFlashRows: query rows per flash block
 _FLASH_DH = (64, 112, 120, 128, 256)  # the head dims the flash kernel takes
@@ -109,6 +117,7 @@ _FLASH_KEYS = 64  # csrc kFlashKeys
 _FLASH_F32_ROWS = 64  # csrc kF32Rows
 _FLASH_F32_MAX_SPLITS = 4
 _DH_SMALL = 128  # csrc kDhSmall: the smaller instance of the split and FMA kernels
+_COMBINE_THREADS = 256  # csrc kCombineThreads: attention_flash_combine's block, 4 floats each
 
 
 def attention_variant(dtype: torch.dtype, g: int, m: int, n: int, dh: int,
@@ -202,6 +211,75 @@ class MaskParams:
     softcap: float = 0.0
 
 
+def flash_block_row(rank, blocks: int, rows: int, m: int, seg: int, causal: bool):
+    """The first row of the q-block that block ``rank`` of ``blocks`` takes
+    (csrc ``flash_block_row``): under a causal mask the latest blocks go
+    first -- the latest in each fold segment when whole blocks tile the
+    segments -- else in order.  ``rank`` is an int or an integer array."""
+    if not causal:
+        return rank * rows
+    if seg < m and seg % rows == 0 and m % seg == 0:
+        per_seg, segs = seg // rows, m // seg
+        return ((rank % segs) * per_seg + per_seg - 1 - rank // segs) * rows
+    return (blocks - 1 - rank) * rows
+
+
+@functools.lru_cache(maxsize=None)  # built once a shape: a wrapper runs it every call
+def attention_grid_specs(g: int, m: int, n: int, dh: int, plan: tuple,
+                         mask: MaskParams = MaskParams()) -> tuple:
+    """The launches of an ``attention_plans`` plan under ``mask``.
+
+    ``decode_split``: block (x, y) = (slice, split of ``per`` keys); with
+    splits, f32 partials (g, splits, m (dh + 2)) and ``attention_combine``,
+    a block a slice.  ``flash_mma`` / ``flash_f32``: block (x, y, z) =
+    (slice, rank of the q-block in ``flash_block_row``'s order, split of
+    the block's live key tiles); with splits, partials (g, splits, m, dh +
+    2) -- each row's O and its (max, sum) -- and ``attention_flash_combine``,
+    block (x, y) = 1024 floats x of slice y.  ``fma``: block (x, y) =
+    (slice, 16-row q-block y).  K and V are read whole (the flash split's
+    run of key tiles depends on ``lengths``), except by a decode split."""
+    variant, splits, per = plan
+    qkv = lambda rows: BlockMap((1, rows, dh), lambda x, y, z: (x, y, 0), (g, m, dh))  # noqa: E731
+    kv = BlockMap((1, n, dh), lambda x, y, z: (x, 0, 0), (g, n, dh))
+    lengths = BlockMap((1,), lambda x, y, z: (x,), (g,))
+    if variant == "decode_split":
+        q = BlockMap((1, m, dh), lambda x, y, z: (x, 0, 0), (g, m, dh))
+        kv = BlockMap((1, per, dh), lambda x, y, z: (x, y, 0), (g, n, dh))
+        out = BlockMap((1, m, dh), lambda x, y, z: (x, 0, 0), (g, m, dh))
+        if splits == 1:
+            return (dense_spec("attention_decode_split", (g, 1), (q, kv, kv, lengths), out),)
+        part = m * (dh + 2)
+        ws = BlockMap((1, 1, part), lambda x, y, z: (x, y, 0), (g, splits, part))
+        return (dense_spec("attention_decode_split", (g, splits), (q, kv, kv, lengths), ws),
+                dense_spec("attention_combine", (g,),
+                           (BlockMap((1, splits, part), lambda x, y, z: (x, 0, 0),
+                                     (g, splits, part)),), out))
+    if variant == "fma":
+        return (dense_spec("attention_fma", (g, cdiv(m, _FMA_ROWS)),
+                           (qkv(_FMA_ROWS), kv, kv, lengths), qkv(_FMA_ROWS)),)
+    rows = _FLASH_ROWS if variant == "flash_mma" else _FLASH_F32_ROWS
+    blocks = cdiv(m, rows)
+    seg = mask.q_seg if mask.q_seg > 0 else m
+
+    def rank(y):
+        return flash_block_row(y, blocks, rows, m, seg, bool(mask.causal)) // rows
+
+    q = BlockMap((1, rows, dh), lambda x, y, z: (x, rank(y), 0), (g, m, dh))
+    name = "attention_flash" if variant == "flash_mma" else "attention_flash_f32"
+    if splits == 1:
+        return (dense_spec(name, (g, blocks), (q, kv, kv, lengths),
+                           BlockMap((1, rows, dh), lambda x, y, z: (x, rank(y), 0),
+                                    (g, m, dh))),)
+    ws = BlockMap((1, 1, rows, dh + 2), lambda x, y, z: (x, z, rank(y), 0),
+                  (g, splits, m, dh + 2))
+    piece = 4 * _COMBINE_THREADS
+    return (dense_spec(name, (g, blocks, splits), (q, kv, kv, lengths), ws),
+            dense_spec("attention_flash_combine", (cdiv(m * dh, piece), g),
+                       (BlockMap((1, splits, m, dh + 2), lambda x, y, z: (y, 0, 0, 0),
+                                 (g, splits, m, dh + 2)),),
+                       BlockMap((1, piece), lambda x, y, z: (y, x), (g, m * dh))))
+
+
 def attention_fused(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -245,34 +323,32 @@ def attention_fused(
         return ref.attention_fused(q, k, v, lengths, mask)
     if r == "meta":
         return torch.empty_like(q)
-    if variant != "decode_split":
-        rows = _FMA_ROWS if variant == "fma" else _FLASH_ROWS
-        if cdiv(m, rows) > _MAX_GRID_Y:
-            raise ValueError(f"attention kernel takes at most {_MAX_GRID_Y * rows} query rows")
+    specs = attention_grid_specs(g, m, n, dh, (variant, splits, per), mask)
+    rows = _FMA_ROWS if variant == "fma" else _FLASH_ROWS
+    check_launch(specs, f"attention kernel takes at most {MAX_GRID_Y * rows} query rows")
     out = torch.empty_like(q)
     if not out.numel():
         return out
     head = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths), _build.ptr(out))
     geometry = (g, m, n, dh, int(mask.causal), int(mask.window), int(mask.q_start),
                 int(mask.k_start), int(mask.prefix_len), int(mask.q_seg), float(mask.softcap))
+    ws = (torch.empty(specs[0].out_spec.extent, dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
+    ws_ptr = _build.ptr(ws) if ws is not None else ctypes.c_void_p(None)
+    second = specs[1].launch if splits > 1 else (0, 0, 0)
     if variant == "decode_split":
-        ws = (torch.empty((g, splits, m * (dh + 2)), dtype=torch.float32, device=q.device)
-              if splits > 1 else None)
-        _build.launch("attention_fused", "repro_attention_fused_decode", *head,
-                      _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
-                      *geometry, splits, per, _build.dtype_code(q.dtype), _build.stream_of(q))
+        _build.launch("attention_fused", "repro_attention_fused_decode", *head, ws_ptr,
+                      *geometry, splits, per, _build.dtype_code(q.dtype), *specs[0].launch,
+                      *second, _build.stream_of(q))
     elif variant == "flash_mma":
         _build.launch("attention_fused", "repro_attention_fused_flash", *head, *geometry,
-                      _build.stream_of(q))
+                      *specs[0].launch, _build.stream_of(q))
     elif variant == "flash_f32":
-        ws = (torch.empty((g * splits * m * (dh + 2),), dtype=torch.float32, device=q.device)
-              if splits > 1 else None)
-        _build.launch("attention_fused", "repro_attention_fused_flash_f32", *head,
-                      _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
-                      *geometry, splits, _build.stream_of(q))
+        _build.launch("attention_fused", "repro_attention_fused_flash_f32", *head, ws_ptr,
+                      *geometry, splits, *specs[0].launch, *second, _build.stream_of(q))
     else:
         _build.launch("attention_fused", "repro_attention_fused_fma", *head, *geometry,
-                      _build.dtype_code(q.dtype), _build.stream_of(q))
+                      _build.dtype_code(q.dtype), *specs[0].launch, _build.stream_of(q))
     count_launch("attention_fused", block)
     ATTENTION_ROUTES[(variant, dh)] = ATTENTION_ROUTES.get((variant, dh), 0) + 1
     return out

@@ -1,8 +1,9 @@
 """Shared helpers of the port's kernel wrappers: tile-config keys and
 plan lookup, operand checks, routing by device, the launch counters, the
-card's SM count, and the f32 and FMA GEMMs of ``csrc/matmul.cu`` that the
+card's SM count, the f32 and FMA GEMMs of ``csrc/matmul.cu`` that the
 NN and NT wrappers share (``f32_plans``, ``launch_matmul_f32``,
-``launch_matmul``).
+``launch_matmul``), and the grid specs of the GEMM family
+(``gemm_grid_specs``, ``splitk_reduce_spec``; ``kernels/gridspec.py``).
 
 Routing rule of every wrapper: an operand on the CPU runs the kernel's
 plain PyTorch version (``ref.py``); an operand on a CUDA device launches
@@ -20,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from .gridspec import MAX_GRID_Y, BlockMap, check_launch, dense_spec, persistent_spec
 
 __all__ = [
     "cdiv",
@@ -29,6 +31,11 @@ __all__ = [
     "fma_tile",
     "f32_plans",
     "f32_split",
+    "gemm_grid_specs",
+    "fma_grid_spec",
+    "f32_grid_specs",
+    "splitk_reduce_spec",
+    "reduce_programs",
     "H100_SMS",
     "DEFAULT_CONFIG_KEY",
     "config_key",
@@ -121,28 +128,82 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_FMA_MAX_M = 65535 * 16  # csrc/matmul.cu: gridDim.y of the smallest row tile
+_FMA_MAX_M = MAX_GRID_Y * 16  # csrc/matmul.cu: gridDim.y of the smallest row tile
+_FMA_BN = 64  # csrc/matmul.cu kBN: the FMA kernels' output columns per block
+# csrc/common.cuh splitk_reduce: threads a block, and the most blocks its
+# grid-stride loop is launched with
+_REDUCE_THREADS = 256
+_REDUCE_MAX_PROGRAMS = 4096
 
 
 def fma_tile(m: int) -> Tuple[int, int, int]:
     """The one tile of the FMA kernels (``csrc/matmul.cu``, and the batched
     FMA kernel of ``csrc/matmul_batched.cu``): 16 or 64 rows as m asks, 64
     columns, 32 of k per stage."""
-    return (16 if m <= 16 else 64, 64, 32)
+    return (16 if m <= 16 else 64, _FMA_BN, 32)
+
+
+def splitk_reduce_spec(mn: int, splits: int):
+    """``splitk_reduce`` (csrc/common.cuh) summing ``splits`` f32 partials
+    of ``mn`` elements: a persistent grid-stride loop whose units are
+    256-element runs, on at most 4096 programs."""
+    units = cdiv(mn, _REDUCE_THREADS)
+    return persistent_spec(
+        "splitk_reduce", (units,), min(units, _REDUCE_MAX_PROGRAMS),
+        (BlockMap((splits, _REDUCE_THREADS), lambda u: (0, u), (splits, mn)),),
+        BlockMap((_REDUCE_THREADS,), lambda u: (u,), (mn,)))
+
+
+def reduce_programs(specs) -> int:
+    """The programs of a plan's ``splitk_reduce`` (its second spec), or 0
+    for a plan that does not split."""
+    return specs[1].launch[0] if len(specs) > 1 else 0
+
+
+def gemm_grid_specs(name: str, m: int, n: int, k: int, tile: Tuple[int, int], kspan: int,
+                    splits: int, nt: bool) -> tuple:
+    """The specs of a GEMM kernel whose block (x, y, z) computes the (bm,
+    bn) output tile at n-tile x, m-tile y over split z's ``kspan`` of k:
+    ``gemm_f32``, the FMA kernel, the bf16 NT and NN skinny kernels and the
+    fused TNN's f32 kernel.  ``nt``: B stored (n, k), else (k, n).  A
+    split writes its f32 partials, (splits, m, n), and ``splitk_reduce``
+    sums them into C."""
+    bm, bn = tile
+    launch = (cdiv(n, bn), cdiv(m, bm), splits)
+    a = BlockMap((bm, kspan), lambda x, y, z: (y, z), (m, k))
+    b = (BlockMap((bn, kspan), lambda x, y, z: (x, z), (n, k)) if nt
+         else BlockMap((kspan, bn), lambda x, y, z: (z, x), (k, n)))
+    if splits == 1:
+        return (dense_spec(name, launch, (a, b),
+                           BlockMap((bm, bn), lambda x, y, z: (y, x), (m, n))),)
+    ws = BlockMap((1, bm, bn), lambda x, y, z: (z, y, x), (splits, m, n))
+    return (dense_spec(name, launch, (a, b), ws), splitk_reduce_spec(m * n, splits))
+
+
+def fma_grid_spec(m: int, n: int, k: int, nt: bool):
+    """The FMA kernel of ``csrc/matmul.cu`` (NT with ``nt``, else NN): one
+    block per (n-tile, m-tile) over all of k."""
+    bm, bn, _ = fma_tile(m)
+    return gemm_grid_specs("matmul_fma", m, n, k, (bm, bn), k, 1, nt)[0]
 
 
 def launch_matmul(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
-                  b_stored_nk: bool) -> torch.Tensor:
+                  b_stored_nk: bool, spec=None) -> torch.Tensor:
     """Allocate C and launch the FMA kernel of ``csrc/matmul.cu``
-    (``repro_matmul``): NN, or NT with ``b_stored_nk``, in f32 or bf16.
-    The NN and NT wrappers route to it; it counts no launch itself."""
+    (``repro_matmul``): NN, or NT with ``b_stored_nk``, in f32 or bf16, on
+    the grid of ``spec`` (None: ``fma_grid_spec``'s).  The NN and NT
+    wrappers route to it; it counts no launch itself."""
+    if spec is None:
+        spec = fma_grid_spec(m, n, k, b_stored_nk)
     if m > _FMA_MAX_M:
         raise ValueError(f"matmul kernel takes at most {_FMA_MAX_M} rows, got {m}")
+    check_launch((spec,), f"matmul kernel takes at most {_FMA_MAX_M} rows, got {m}")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel():
         _build.launch(
             "matmul", "repro_matmul", _build.ptr(a), _build.ptr(b), _build.ptr(c),
-            m, n, k, int(b_stored_nk), _build.dtype_code(a.dtype), _build.stream_of(a),
+            m, n, k, int(b_stored_nk), _build.dtype_code(a.dtype), *spec.launch,
+            _build.stream_of(a),
         )
     return c
 
@@ -154,7 +215,6 @@ _F32_SKINNY_ROWS = (16, 128)  # m <= 16: B, the long operand, streamed once
 _F32_SKINNY_COLS = (128, 16)  # n <= 64: A streamed once
 _F32_BK = 16
 _F32_MAX_SPLITS = 32
-_F32_MAX_M_TILES = 65535  # gridDim.y
 # The split's cost model, in us on an H100: a 16-deep k-step of one block
 # alone on its SM, at 60 % of its share of the f32 FMA rate or at its share
 # of ~3 TB/s, whichever is slower; a split's reduce launch and the partials'
@@ -220,23 +280,32 @@ def f32_plans(m: int, n: int, k: int, nt: bool, aligned: bool = True, sms: int =
     return tuple(plans.items())
 
 
+def f32_grid_specs(m: int, n: int, k: int, nt: bool, plan: tuple) -> tuple:
+    """The specs of ``gemm_f32`` at an f32 plan of ``f32_plans`` (the
+    kernel, then ``splitk_reduce`` where k splits)."""
+    _, tile, splits, per = plan
+    return gemm_grid_specs("gemm_f32", m, n, k, tile, per * _F32_BK, splits, nt)
+
+
 def launch_matmul_f32(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
-                      b_stored_nk: bool, plan: tuple) -> torch.Tensor:
+                      b_stored_nk: bool, plan: tuple, specs=None) -> torch.Tensor:
     """Allocate C (and the split's f32 partials) and launch ``gemm_f32``
     of ``csrc/matmul.cu`` (``repro_matmul_f32``) at an f32 plan of
-    ``f32_plans``.  The NN and NT wrappers route to it; it counts no launch
-    itself."""
+    ``f32_plans``, on the grids of ``specs`` (None: ``f32_grid_specs``').
+    The NN and NT wrappers route to it; it counts no launch itself."""
     _, (bm, bn), splits, per = plan
-    if cdiv(m, bm) > _F32_MAX_M_TILES:
-        raise ValueError(f"f32 matmul kernel takes at most {_F32_MAX_M_TILES * bm} rows, got {m}")
+    if specs is None:
+        specs = f32_grid_specs(m, n, k, b_stored_nk, plan)
+    check_launch(specs, f"f32 matmul kernel takes at most {MAX_GRID_Y * bm} rows, got {m}")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel():
-        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+        ws = (torch.empty(specs[0].out_spec.extent, dtype=torch.float32, device=a.device)
               if splits > 1 else None)
         _build.launch(
             "matmul", "repro_matmul_f32", _build.ptr(a), _build.ptr(b), _build.ptr(c),
             _build.ptr(ws) if ws is not None else ctypes.c_void_p(None), m, n, k,
-            int(b_stored_nk), bm, bn, splits, per, _build.stream_of(a),
+            int(b_stored_nk), bm, bn, splits, per, *specs[0].launch, reduce_programs(specs),
+            _build.stream_of(a),
         )
     return c
 

@@ -31,6 +31,10 @@ splits with g x splits within gridDim.z); the ``mma`` route runs one
 tile, (64, 64, 64), and the ``fma`` route ``fma_tile(m)``.  Any other
 config raises, on both routes.
 
+``batched_grid_specs`` declares each route's launches
+(``kernels/gridspec.py``): block (x, y, z) at n-tile x, m-tile y and z
+folding (slice, split) as slice z / splits, split z % splits.
+
 Each call counts one launch, split or not.  On CPU tensors the wrappers
 run the plain versions in ``ref.py``.
 """
@@ -51,16 +55,19 @@ from .common import (
     count_launch,
     fma_tile,
     pick_plan,
+    reduce_programs,
     route,
     sm_count,
     split_choices,
+    splitk_reduce_spec,
     validate_config,
 )
+from .gridspec import MAX_GRID_Y, MAX_GRID_Z, BlockMap, check_launch, dense_spec
 
-__all__ = ["matmul_bnt", "matmul_bnn", "batched_plans", "batched_plan"]
+__all__ = ["matmul_bnt", "matmul_bnn", "batched_plans", "batched_plan", "batched_grid_specs"]
 
-_MAX_Z = 65535  # gridDim.z: slices (times splits for the tiled kernel)
-_MAX_M = 65535 * 16  # gridDim.y of the smallest row tile
+_MAX_Z = MAX_GRID_Z  # gridDim.z: slices (times splits for the tiled kernel)
+_MAX_M = MAX_GRID_Y * 16  # gridDim.y of the smallest row tile
 _TILE = 64  # the tiled and mma kernels' output tile, 64 x 64
 _TILED_BK = 16  # the tiled kernel's k step, the unit of a split
 _MIN_STEPS_PER_SPLIT = 4  # a split walks at least 64 of k
@@ -122,6 +129,34 @@ def _tiled_split(g: int, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     return cdiv(steps, per), per
 
 
+@functools.lru_cache(maxsize=None)  # built once a shape: a wrapper runs it every call
+def batched_grid_specs(g: int, m: int, n: int, k: int, nt: bool, plan: tuple) -> tuple:
+    """The launches of a ``batched_plans`` plan (``nt``: B is (g, n, k),
+    else (g, k, n)): block (x, y, z) computes the output tile at n-tile x,
+    m-tile y of slice z / splits over split z % splits's run of k; a split
+    plan writes f32 partials, (splits, g, m, n), and ``splitk_reduce``
+    sums them."""
+    variant, _, splits, per = plan
+    if variant == "tiled":
+        name, (bm, bn), kspan = "bmm_f32", (_TILE, _TILE), per * _TILED_BK
+    elif variant == "mma":
+        name, (bm, bn), kspan = "bmm_bf16", (_TILE, _TILE), k
+    else:
+        name, (bm, bn, _), kspan = "batched_fma", fma_tile(m), k
+    launch = (cdiv(n, bn), cdiv(m, bm), g * splits)
+    a = BlockMap((1, bm, kspan), lambda x, y, z: (z // splits, y, z % splits), (g, m, k))
+    if nt:
+        b = BlockMap((1, bn, kspan), lambda x, y, z: (z // splits, x, z % splits), (g, n, k))
+    else:
+        b = BlockMap((1, kspan, bn), lambda x, y, z: (z // splits, z % splits, x), (g, k, n))
+    if splits == 1:
+        return (dense_spec(name, launch, (a, b),
+                           BlockMap((1, bm, bn), lambda x, y, z: (z, y, x), (g, m, n))),)
+    ws = BlockMap((1, 1, bm, bn), lambda x, y, z: (z % splits, z // splits, y, x),
+                  (splits, g, m, n))
+    return (dense_spec(name, launch, (a, b), ws), splitk_reduce_spec(g * m * n, splits))
+
+
 def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
     if block is not None:
         block = validate_config(block)
@@ -139,28 +174,31 @@ def _batched(a: torch.Tensor, b: torch.Tensor, nt: bool, block) -> torch.Tensor:
         if r == "meta":
             return a.new_empty((g, m, n))
         return ref.matmul_bnt(a, b) if nt else ref.matmul_bnn(a, b)
-    if g > _MAX_Z:
-        raise ValueError(f"batched kernel takes at most {_MAX_Z} slices, got {g}")
     if m > _MAX_M:
         raise ValueError(f"batched kernel takes at most {_MAX_M} rows, got {m}")
+    plan = batched_plan(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(),
+                        sm_count(torch.cuda.current_device()), block)
+    variant, _, splits, per = plan
+    specs = batched_grid_specs(g, m, n, k, nt, plan)
+    check_launch(specs, f"batched kernel takes at most {_MAX_Z} slices, got {g}")
     c = torch.empty((g, m, n), dtype=a.dtype, device=a.device)
     if not c.numel():
         return c
-    variant, _, splits, per = batched_plan(a.dtype, g, m, n, k, nt, a.data_ptr(), b.data_ptr(),
-                                           sm_count(torch.cuda.current_device()), block)
     args = (_build.ptr(a), _build.ptr(b), _build.ptr(c))
     if variant == "tiled":
-        ws = (torch.empty((splits, g, m, n), dtype=torch.float32, device=a.device)
+        ws = (torch.empty(specs[0].out_spec.extent, dtype=torch.float32, device=a.device)
               if splits > 1 else None)
         _build.launch("matmul_batched", "repro_matmul_batched_f32", *args,
                       _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
-                      g, m, n, k, int(nt), splits, per, _build.stream_of(a))
+                      g, m, n, k, int(nt), splits, per, *specs[0].launch,
+                      reduce_programs(specs), _build.stream_of(a))
     elif variant == "mma":
         _build.launch("matmul_batched", "repro_matmul_batched_bf16", *args, g, m, n, k,
-                      int(nt), _build.stream_of(a))
+                      int(nt), *specs[0].launch, _build.stream_of(a))
     else:
         _build.launch("matmul_batched", "repro_matmul_batched_fma", *args, g, m, n, k,
-                      int(nt), _build.dtype_code(a.dtype), _build.stream_of(a))
+                      int(nt), _build.dtype_code(a.dtype), *specs[0].launch,
+                      _build.stream_of(a))
     count_launch("matmul_bnt" if nt else "matmul_bnn", block)
     return c
 

@@ -37,6 +37,10 @@ on f32's ``tiled`` and ``skinny``, the route's tile and the k of a split
 config -- a wgmma tile at an m the skinny kernel owns, a BN with no
 instance, a split the route does not list -- raises, on both routes.
 
+``nn_grid_specs`` declares each plan's launches (``kernels/gridspec.py``):
+the ``wgmma`` kernel's persistent grid of (split, tile) units walked by
+min(units, SMs) programs, the others' one block per output tile and split.
+
 Each call counts one launch, split or not.  A launch that fails raises; no
 variant stands in for another.  On CPU tensors the wrapper runs the plain
 version in ``ref.py``.
@@ -56,26 +60,31 @@ from .common import (
     cdiv,
     check_operand,
     count_launch,
+    f32_grid_specs,
     f32_plans,
+    fma_grid_spec,
     fma_tile,
+    gemm_grid_specs,
     launch_matmul,
     launch_matmul_f32,
     pick_plan,
+    reduce_programs,
     route,
     sm_count,
     split_choices,
+    splitk_reduce_spec,
     validate_config,
 )
+from .gridspec import MAX_GRID_Y, MAX_UNITS, BlockMap, check_launch, persistent_spec
 from .matmul_nt import nt_split, skinny_rows
 
-__all__ = ["matmul_nn", "nn_plans", "nn_plan"]
+__all__ = ["matmul_nn", "nn_plans", "nn_plan", "nn_grid_specs", "wgmma_tile_map"]
 
 _SKINNY_M = 64  # csrc kMTile: the swap-AB kernel's A rows per block
 _SKINNY_COLS = 128  # kCols: B columns per block
-_SKINNY_MAX_M = 65535 * _SKINNY_M  # its gridDim.y walks further 64-row tiles
+_SKINNY_MAX_M = MAX_GRID_Y * _SKINNY_M  # its gridDim.y walks further 64-row tiles
 _WG_BM = 128  # csrc kWgBM: the wgmma variant's tile rows
 _WG_BK = 64  # kWgBK: k per stage, the unit of a split
-_MAX_UNITS = 2**31 - 1  # the wgmma variant numbers its (split, tile) units with an int
 _MAX_SPLITS = 32
 # The wgmma variant's tile widths (csrc launch_wgmma instances), widest
 # first so that a tie picks the wider one, and the relative cost of a tile
@@ -119,7 +128,7 @@ def nn_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
     plans = {(_WG_BM, bn0, per0 * _WG_BK): ("wgmma", bn0, cdiv(nkb, per0), per0)}
     for bn in sorted(_WG_BN_COST):
         for per in split_choices(nkb, _MAX_SPLITS):
-            if cdiv(m, _WG_BM) * cdiv(n, bn) * cdiv(nkb, per) <= _MAX_UNITS:
+            if cdiv(m, _WG_BM) * cdiv(n, bn) * cdiv(nkb, per) <= MAX_UNITS:
                 plans.setdefault((_WG_BM, bn, per * _WG_BK), ("wgmma", bn, cdiv(nkb, per), per))
     return tuple(plans.items())
 
@@ -147,7 +156,7 @@ def _wgmma_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
         for want in range(1, min(nkb, _MAX_SPLITS) + 1):
             per = cdiv(nkb, want)
             splits = cdiv(nkb, per)  # no empty split
-            if tiles * splits > _MAX_UNITS:
+            if tiles * splits > MAX_UNITS:
                 break
             us = cdiv(tiles * splits, sms) * per * bn * col_cost * _US_PER_COL_KB
             if splits > 1:  # partials written, read back, and C written
@@ -155,8 +164,47 @@ def _wgmma_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
             if best is None or us < best[0]:
                 best = (us, bn, splits, per)
     if best is None:
-        raise ValueError(f"NN kernel takes at most {_MAX_UNITS} tiles, got ({m}, {n})")
+        raise ValueError(f"NN kernel takes at most {MAX_UNITS} tiles, got ({m}, {n})")
     return best[1:]
+
+
+def wgmma_tile_map(m_tiles: int, n_tiles: int, n_fast: bool):
+    """Tile t of a persistent ``wgmma`` walk (csrc ``tile_origin``) as its
+    (m-tile, n-tile): the n-tiles fastest with ``n_fast``, else the
+    m-tiles."""
+    if n_fast:
+        return lambda t: (t // n_tiles, t % n_tiles)
+    return lambda t: (t % m_tiles, t // m_tiles)
+
+
+@functools.lru_cache(maxsize=None)  # built once a shape: a wrapper runs it every call
+def nn_grid_specs(m: int, n: int, k: int, plan: tuple, sms: int) -> tuple:
+    """The launches of an ``nn_plans`` plan on ``sms`` SMs: the ``wgmma``
+    kernel's units (split, tile), tile t decoded by ``wgmma_tile_map`` with
+    the n-tiles fastest when A is the larger (m > n), walked by min(units,
+    sms) programs; the skinny kernel's block (x, y, z) at 128 columns x,
+    64 rows y, split z; ``gemm_f32``'s or the FMA kernel's; each split
+    plan then ``splitk_reduce``."""
+    variant, bn, splits, per = plan
+    if variant == "fma":
+        return (fma_grid_spec(m, n, k, False),)
+    if isinstance(bn, tuple):  # gemm_f32's plan names its (bm, bn) tile
+        return f32_grid_specs(m, n, k, False, plan)
+    if variant == "skinny":
+        return gemm_grid_specs("nn_skinny", m, n, k, (_SKINNY_M, _SKINNY_COLS), per * _WG_BK,
+                               splits, False)
+    m_tiles, n_tiles = cdiv(m, _WG_BM), cdiv(n, bn)
+    tile = wgmma_tile_map(m_tiles, n_tiles, m > n)
+    kspan = per * _WG_BK
+    a = BlockMap((_WG_BM, kspan), lambda sp, t: (tile(t)[0], sp), (m, k))
+    b = BlockMap((kspan, bn), lambda sp, t: (sp, tile(t)[1]), (k, n))
+    if splits == 1:
+        out = BlockMap((_WG_BM, bn), lambda sp, t: tile(t), (m, n))
+    else:
+        out = BlockMap((1, _WG_BM, bn), lambda sp, t: (sp, *tile(t)), (splits, m, n))
+    units = splits * m_tiles * n_tiles
+    spec = persistent_spec("nn_wgmma", (splits, m_tiles * n_tiles), min(units, sms), (a, b), out)
+    return (spec,) if splits == 1 else (spec, splitk_reduce_spec(m * n, splits))
 
 
 def matmul_nn(
@@ -184,23 +232,24 @@ def matmul_nn(
         return a.new_empty((m, n))
     if m * n == 0:
         return torch.empty((m, n), dtype=a.dtype, device=a.device)
+    specs = nn_grid_specs(m, n, k, plan, sms)
     if variant == "fma":
-        c = launch_matmul(a, b, m, n, k, b_stored_nk=False)
+        c = launch_matmul(a, b, m, n, k, False, specs[0])
     elif a.dtype == torch.float32:
-        c = launch_matmul_f32(a, b, m, n, k, False, plan)
+        c = launch_matmul_f32(a, b, m, n, k, False, plan, specs)
     else:
-        if variant == "skinny" and m > _SKINNY_MAX_M:
-            raise ValueError(f"NN kernel takes at most {_SKINNY_MAX_M} rows, got {m}")
+        check_launch(specs, f"NN kernel takes at most {_SKINNY_MAX_M} rows, got {m}")
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+        ws = (torch.empty(specs[0].out_spec.extent, dtype=torch.float32, device=a.device)
               if splits > 1 else None)
         ws_ptr = _build.ptr(ws) if ws is not None else ctypes.c_void_p(None)
         if variant == "wgmma":
             _build.launch("matmul_nn", "repro_matmul_nn_wgmma", _build.ptr(a), _build.ptr(b),
                           _build.ptr(c), ws_ptr, m, n, k, bn, splits, per,
-                          _build.stream_of(a))
+                          specs[0].launch[0], reduce_programs(specs), _build.stream_of(a))
         else:
             _build.launch("matmul_nn", "repro_matmul_nn_skinny", _build.ptr(a), _build.ptr(b),
-                          _build.ptr(c), ws_ptr, m, n, k, splits, per, _build.stream_of(a))
+                          _build.ptr(c), ws_ptr, m, n, k, splits, per, *specs[0].launch,
+                          reduce_programs(specs), _build.stream_of(a))
     count_launch("matmul_nn", block, (variant, a.dtype))
     return c

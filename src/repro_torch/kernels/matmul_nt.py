@@ -35,7 +35,10 @@ the f32 kernel is its route's tile and the k of one split (``f32_plans``);
 the FMA kernel runs one tile, ``fma_tile(m)``.  Any other config raises,
 on both routes.
 
-The wide arm, for training, is the fused TNN kernel.  On CPU tensors the
+``nt_grid_specs`` declares each route's launch (``kernels/gridspec.py``):
+the bf16 kernel's block (x, y, z) takes 128 rows of B at x, 64 rows of
+A at y and split z of k.  The wide arm, for training, is the fused TNN
+kernel.  On CPU tensors the
 wrapper runs the plain version in ``ref.py``.
 """
 
@@ -53,22 +56,28 @@ from .common import (
     cdiv,
     check_operand,
     count_launch,
+    f32_grid_specs,
     f32_plans,
+    fma_grid_spec,
+    gemm_grid_specs,
     launch_matmul,
     launch_matmul_f32,
     pick_plan,
+    reduce_programs,
     route,
     sm_count,
     split_choices,
     validate_config,
 )
+from .gridspec import MAX_GRID_Y, check_launch
 
-__all__ = ["matmul_nt", "nt_split", "nt_workspace_shape", "nt_plans", "skinny_rows"]
+__all__ = ["matmul_nt", "nt_split", "nt_workspace_shape", "nt_plans", "nt_grid_specs",
+           "skinny_rows"]
 
 _ROWS = 128  # csrc/matmul_nt.cu kRows: B rows per block
 _M_TILE = 64  # kMTile: A rows per block; gridDim.y walks further tiles
 _BK = 64  # kBK: k per pipeline stage, the unit of a split
-_MAX_M = 65535 * _M_TILE
+_MAX_M = MAX_GRID_Y * _M_TILE
 
 
 @functools.lru_cache(maxsize=None)  # a model repeats a few shapes on every step
@@ -117,6 +126,19 @@ def nt_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
     return tuple(plans.items())
 
 
+@functools.lru_cache(maxsize=None)  # built once a shape: a wrapper runs it every call
+def nt_grid_specs(m: int, n: int, k: int, plan: tuple) -> tuple:
+    """The launches of an ``nt_plans`` plan: the bf16 kernel (``nt_bf16``,
+    then ``splitk_reduce`` where k splits), ``gemm_f32``'s, or the FMA
+    kernel's."""
+    route_, _, splits, per = plan
+    if route_ == "fma":
+        return (fma_grid_spec(m, n, k, True),)
+    if route_ != "mma":
+        return f32_grid_specs(m, n, k, True, plan)
+    return gemm_grid_specs("nt_bf16", m, n, k, (_M_TILE, _ROWS), per * _BK, splits, True)
+
+
 def matmul_nt(
     a: torch.Tensor, b: torch.Tensor, *, block: Optional[Tuple[int, int, int]] = None
 ) -> torch.Tensor:
@@ -142,21 +164,22 @@ def matmul_nt(
         return ref.matmul_nt(a, b)
     if r == "meta":
         return a.new_empty((m, n))
+    specs = nt_grid_specs(m, n, k, plan)
     if route_ == "fma":
-        c = launch_matmul(a, b, m, n, k, b_stored_nk=True)
+        c = launch_matmul(a, b, m, n, k, True, specs[0])
     elif a.dtype == torch.float32:
-        c = launch_matmul_f32(a, b, m, n, k, True, plan)
+        c = launch_matmul_f32(a, b, m, n, k, True, plan, specs)
     else:
-        if m > _MAX_M:
-            raise ValueError(f"NT kernel takes at most {_MAX_M} rows, got {m}")
+        check_launch(specs, f"NT kernel takes at most {_MAX_M} rows, got {m}")
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
         if c.numel():
-            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+            ws = (torch.empty(specs[0].out_spec.extent, dtype=torch.float32, device=a.device)
                   if splits > 1 else None)
             _build.launch(
                 "matmul_nt", "repro_matmul_nt", _build.ptr(a), _build.ptr(b), _build.ptr(c),
                 _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
-                m, n, k, splits, per, _build.stream_of(a),
+                m, n, k, splits, per, *specs[0].launch, reduce_programs(specs),
+                _build.stream_of(a),
             )
     if c.numel():
         count_launch("matmul_nt", block, (route_, a.dtype))

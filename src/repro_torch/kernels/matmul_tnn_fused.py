@@ -36,7 +36,8 @@ and ``block=None`` launches that one.  On the ``wgmma`` route a config
 a stage); on the f32 routes a config (bm, bn, bk) is the route's tile and
 the k of one split (the cost model's, and that of 1, 2, 4, ... up to 32
 splits); the ``mma_sync`` and ``fma`` routes run one tile each, (64, 64,
-32).  Any other config raises, on both routes.  Each launch is counted
+32).  Any other config raises, on both routes.  ``tnn_fused_grid_specs``
+declares each route's launches (``kernels/gridspec.py``).  Each launch is counted
 under its route and dtype in ``GEMM_ROUTES``.  On CPU tensors the wrapper
 runs the plain version in ``ref.py``.
 """
@@ -57,19 +58,23 @@ from .common import (
     count_launch,
     f32_plans,
     f32_route,
+    gemm_grid_specs,
     pick_plan,
+    reduce_programs,
     route,
     sm_count,
     validate_config,
 )
+from .gridspec import MAX_GRID_Y, MAX_UNITS, BlockMap, check_launch, dense_spec, persistent_spec
+from .matmul_nn import wgmma_tile_map
 
-__all__ = ["matmul_tnn_fused", "tnn_fused_variant", "tnn_fused_plans"]
+__all__ = ["matmul_tnn_fused", "tnn_fused_variant", "tnn_fused_plans", "tnn_fused_grid_specs"]
 
 _TILE = 64  # csrc kBM = kBN of the mma.sync and FMA variants
 _TILE_BK = 32  # their kBK
 _WG_BK = 64  # kWgBK: k per stage of the wgmma variant
-_MAX_GRID_Y = 65535
-_MAX_N = _MAX_GRID_Y * _TILE  # their gridDim.y walks the n-tiles; the f32 ones' the m-tiles
+_F32_BK = 16  # kFBK: k per step of the f32 variants, the unit of a split
+_MAX_N = MAX_GRID_Y * _TILE  # their gridDim.y walks the n-tiles; the f32 ones' the m-tiles
 _WG_BM = 128  # csrc kWgBM: the wgmma variant's tile rows
 _SMS = 132  # an H100's SMs: the persistent grid's width
 # The wgmma variant's tile widths (csrc launch_wgmma instances), widest
@@ -77,7 +82,6 @@ _SMS = 132  # an H100's SMs: the persistent grid's width
 # column at each: a 64- or 96-wide wgmma reads A from shared memory for few
 # columns and is bound by shared memory, not by the tensor cores.
 _WG_BN_COST = {256: 1.0, 192: 1.0, 96: 1.15, 64: 1.3}
-_MAX_TILES = 2**31 - 1  # the wgmma variant numbers its tiles with an int
 
 
 def tnn_fused_variant(dtype: torch.dtype, m: int, n: int, k: int, a_ptr: int,
@@ -122,8 +126,34 @@ def tnn_fused_plans(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = 
     if variant != "wgmma":
         return (((_TILE, _TILE, _TILE_BK), (variant, None, 1, 1)),)
     widths = [bn0] + [bn for bn in sorted(_WG_BN_COST)
-                      if bn != bn0 and cdiv(m, _WG_BM) * cdiv(n, bn) <= _MAX_TILES]
+                      if bn != bn0 and cdiv(m, _WG_BM) * cdiv(n, bn) <= MAX_UNITS]
     return tuple(((_WG_BM, bn, _WG_BK), ("wgmma", bn, 1, 1)) for bn in widths)
+
+
+@functools.lru_cache(maxsize=None)  # built once a shape: a wrapper runs it every call
+def tnn_fused_grid_specs(m: int, n: int, k: int, plan: tuple, sms: int) -> tuple:
+    """The launches of a ``tnn_fused_plans`` plan on ``sms`` SMs: the
+    ``wgmma`` kernel's persistent walk of its 128 x BN tiles, m-tiles
+    fastest (n-major), on min(tiles, sms) programs; the ``mma_sync`` and
+    FMA kernels' block (x, y) at m-tile x, n-tile y; the f32 kernel's
+    block (x, y, z) at n-tile x, m-tile y, split z, then ``splitk_reduce``
+    where k splits."""
+    variant, tile, splits, per = plan
+    if variant.startswith("f32_"):
+        return gemm_grid_specs("tnn_fused_f32", m, n, k, tile, per * _F32_BK, splits, True)
+    if variant != "wgmma":
+        name = "tnn_fused_bf16" if variant == "mma_sync" else "tnn_fused_fma"
+        return (dense_spec(name, (cdiv(m, _TILE), cdiv(n, _TILE)),
+                           (BlockMap((_TILE, k), lambda x, y, z: (x, 0), (m, k)),
+                            BlockMap((_TILE, k), lambda x, y, z: (y, 0), (n, k))),
+                           BlockMap((_TILE, _TILE), lambda x, y, z: (x, y), (m, n))),)
+    m_tiles, n_tiles = cdiv(m, _WG_BM), cdiv(n, tile)
+    at = wgmma_tile_map(m_tiles, n_tiles, False)
+    return (persistent_spec(
+        "tnn_fused_wgmma", (m_tiles * n_tiles,), min(m_tiles * n_tiles, sms),
+        (BlockMap((_WG_BM, k), lambda t: (at(t)[0], 0), (m, k)),
+         BlockMap((tile, k), lambda t: (at(t)[1], 0), (n, k))),
+        BlockMap((_WG_BM, tile), at, (m, n))),)
 
 
 def matmul_tnn_fused(
@@ -152,35 +182,36 @@ def matmul_tnn_fused(
     if r == "meta":
         return a.new_empty((m, n))
     f32 = variant.startswith("f32_")
+    specs = tnn_fused_grid_specs(m, n, k, (variant, tile, splits, per), sms)
     if variant == "wgmma":
-        if cdiv(m, _WG_BM) * cdiv(n, tile) > _MAX_TILES:
-            raise ValueError(f"fused TNN kernel takes at most {_MAX_TILES} tiles, "
-                             f"got ({m}, {n})")
+        check_launch(specs, f"fused TNN kernel takes at most {MAX_UNITS} tiles, got ({m}, {n})")
     elif f32:
-        if cdiv(m, tile[0]) > _MAX_GRID_Y:
-            raise ValueError(f"fused TNN f32 kernel takes at most {_MAX_GRID_Y * tile[0]} "
-                             f"rows, got {m}")
-    elif n > _MAX_N:
-        raise ValueError(f"fused TNN kernel takes at most {_MAX_N} columns, got {n}")
+        check_launch(specs, f"fused TNN f32 kernel takes at most {MAX_GRID_Y * tile[0]} rows, "
+                            f"got {m}")
+    else:
+        check_launch(specs, f"fused TNN kernel takes at most {_MAX_N} columns, got {n}")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel():
         if variant == "wgmma":
             _build.launch(
                 "matmul_tnn_fused", "repro_matmul_tnn_fused_wgmma", _build.ptr(a),
-                _build.ptr(b), _build.ptr(c), m, n, k, tile, _build.stream_of(a),
+                _build.ptr(b), _build.ptr(c), m, n, k, tile, specs[0].launch[0],
+                _build.stream_of(a),
             )
         elif f32:
-            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+            ws = (torch.empty(specs[0].out_spec.extent, dtype=torch.float32, device=a.device)
                   if splits > 1 else None)
             _build.launch(
                 "matmul_tnn_fused", "repro_matmul_tnn_fused_f32", _build.ptr(a), _build.ptr(b),
                 _build.ptr(c), _build.ptr(ws) if ws is not None else ctypes.c_void_p(None),
-                m, n, k, tile[0], tile[1], splits, per, _build.stream_of(a),
+                m, n, k, tile[0], tile[1], splits, per, *specs[0].launch,
+                reduce_programs(specs), _build.stream_of(a),
             )
         else:
             _build.launch(
                 "matmul_tnn_fused", "repro_matmul_tnn_fused", _build.ptr(a), _build.ptr(b),
-                _build.ptr(c), m, n, k, _build.dtype_code(a.dtype), _build.stream_of(a),
+                _build.ptr(c), m, n, k, _build.dtype_code(a.dtype), *specs[0].launch,
+                _build.stream_of(a),
             )
         count_launch("matmul_tnn_fused", block, (variant, a.dtype))
     return c

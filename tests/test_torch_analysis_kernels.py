@@ -509,7 +509,7 @@ def test_sanitizer_detects_a_read_into_the_next_row(seeded):
 def test_lint_cli_runs_every_pass_and_the_sanitizer(capsys):
     from repro_torch.analysis.lint import PASSES, RULE_SECTIONS, main
 
-    assert PASSES == ("dispatch", "registry", "artifacts", "contracts", "numerics",
+    assert PASSES == ("dispatch", "registry", "artifacts", "contracts", "coverage", "numerics",
                       "concurrency")
     sections = {title: rules for title, _, rules in RULE_SECTIONS}
     assert sections["Artifact schemas"] == ("AR201", "AR202", "AR203", "AR204")
