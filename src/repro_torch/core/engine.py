@@ -62,6 +62,13 @@ a GEMM or an attention plan, forward or backward -- whatever candidate
 ran it; the sub-dispatches of the unfused attention plan and the aten
 ops beneath a dispatch are inside it (``dispatch_depth() > 0``).
 
+While spans record (``core/spans.py``: a profiler session, or
+``spans.recording()``), every dispatch, inner ones included, adds its
+host time from its entry to the call of the arm that runs it to the
+counter ``dispatch.select`` (a ``remat="dots"`` replay selects nothing
+and is not counted), and the attention backward is the span
+``repro_torch.attn.backward``.  No span is opened a dispatch.
+
 ``remat="dots"`` (``models/lm.py``) saves the outputs of the non-batched
 GEMMs of a checkpointed unit and recomputes the rest: inside
 ``remat_record`` each NT/NN/TN dispatch keeps its output, and inside
@@ -74,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import time
 import warnings
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -83,7 +91,7 @@ from repro_torch.kernels.attention_fused import NEG_INF, MaskParams
 from repro_torch.kernels.common import TileConfigError
 from repro_torch.kernels.ref import attention_visibility
 
-from . import faults
+from . import faults, spans
 from .candidates import DEFAULT_BY_OP, current_platform, fallback_chain, get_candidate
 from .opkey import BATCHED_OPS, OPS, OpKey, check_op
 from .policy import (
@@ -305,12 +313,14 @@ def _walk_chain(key: OpKey, decision: Decision, run: Callable[[Decision], torch.
     ) from last_err
 
 
-def run_decision(key: OpKey, decision: Decision, *operands):
+def run_decision(key: OpKey, decision: Decision, *operands, t0: int = 0):
     """Execute a policy decision fault-tolerantly, down its fallback
-    chain (``_walk_chain``)."""
+    chain (``_walk_chain``).  ``t0``: the dispatch's entry (``spans.stamp``),
+    counted to the first arm's call as ``dispatch.select``."""
     platform = current_platform(operands[0])
 
     def run(dec: Decision) -> torch.Tensor:
+        nonlocal t0
         cand = get_candidate(dec.name)
         # every candidate takes meta operands (the kernel wrappers' meta route)
         if platform != "meta" and not cand.supports(platform=platform):
@@ -318,9 +328,19 @@ def run_decision(key: OpKey, decision: Decision, *operands):
                 f"candidate {dec.name!r} does not run on {platform!r} "
                 f"(runs on {cand.platforms})"
             )
+        if t0:
+            t0 = _selected(t0)
         return cand.run(*operands, config=dec.config)
 
     return _walk_chain(key, decision, run)
+
+
+def _selected(t0: int) -> int:
+    """Count the host time from a dispatch's entry ``t0`` to its arm's
+    call (the ``dispatch.select`` counter); 0, so a fallback arm's call
+    is not counted again."""
+    spans.add("dispatch.select", time.perf_counter_ns() - t0)
+    return 0
 
 
 # -- remat="dots": the non-batched GEMM outputs of a checkpointed unit ------------
@@ -381,6 +401,7 @@ def _dense_gemm(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _run(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Select and execute one 2-D GEMM."""
+    t0 = spans.stamp()
     if op == "NT":  # a:(m,k) b:(n,k)
         m, k = a.shape
         n = b.shape[0]
@@ -395,22 +416,23 @@ def _run(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if mode is not None and mode[0] == "replay":
         REMAT_COUNTS["recompute_gemms"] += 1
     if _ACCOUNT is not None:
-        return _accounted(key, (a, b), _select_gemm, key, a, b)
-    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
+        return _accounted(key, (a, b), _select_gemm, key, a, b, t0)
+    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b, t0=t0)
 
 
-def _select_gemm(key: OpKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
+def _select_gemm(key: OpKey, a: torch.Tensor, b: torch.Tensor, t0: int) -> torch.Tensor:
+    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b, t0=t0)
 
 
 def _run3(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Select and execute one batched GEMM on (g, ., .) operands."""
+    t0 = spans.stamp()
     g, m, k = a.shape
     n = b.shape[1] if op == "BNT" else b.shape[2]
     key = OpKey(op, int(m), int(n), int(k), a.element_size(), int(g))
     if _ACCOUNT is not None:
-        return _accounted(key, (a, b), _select_gemm, key, a, b)
-    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b)
+        return _accounted(key, (a, b), _select_gemm, key, a, b, t0)
+    return run_decision(key, policy_select(current_policy(), key, (a, b)), a, b, t0=t0)
 
 
 def _swap(x: torch.Tensor) -> torch.Tensor:
@@ -506,18 +528,23 @@ def _run_attn(mask: MaskParams, q, k, v, lengths):
     arm (``UNFUSED_ATTN``, the chain's last, included) runs the unfused
     sub-dispatch plan, so a faulted fused kernel degrades to the BNT/BNN
     pair."""
+    t0 = spans.stamp()
     g, m, dh = q.shape
     n = k.shape[1]
     key = OpKey("ATTN", int(m), int(n), int(dh), q.element_size(), int(g))
     if _ACCOUNT is not None:
-        return _accounted(key, (q, k, v, lengths), _select_attn, key, mask, q, k, v, lengths)
-    return _select_attn(key, mask, q, k, v, lengths)
+        return _accounted(key, (q, k, v, lengths), _select_attn, key, mask, q, k, v, lengths,
+                          t0)
+    return _select_attn(key, mask, q, k, v, lengths, t0)
 
 
-def _select_attn(key: OpKey, mask: MaskParams, q, k, v, lengths):
+def _select_attn(key: OpKey, mask: MaskParams, q, k, v, lengths, t0: int):
     decision = policy_select(current_policy(), key, (q, k, v))
 
     def run(dec: Decision) -> torch.Tensor:
+        nonlocal t0
+        if t0:
+            t0 = _selected(t0)
         if dec.name == "FUSED_ATTN":
             from repro_torch.kernels.attention_fused import attention_fused
 
@@ -542,7 +569,8 @@ class _DispatchAttn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, lengths = ctx.saved_tensors
         mask = ctx.mask
-        with resume_scope(ctx.scope):
+        with spans.span("repro_torch.attn.backward", device=q.device, g=q.shape[0],
+                        m=q.shape[1], n=k.shape[1]), resume_scope(ctx.scope):
             s_raw = _attn_logits(q, k)
             probs = _attn_probs(mask, s_raw, lengths)  # (g, m, n) f32
             dout32 = dout.float().contiguous()

@@ -106,33 +106,27 @@ class Decision(NamedTuple):
 
 @dataclass
 class SelectorStats:
-    """Per-candidate, per-(candidate, tile-config) and per-op decision
-    counts, one per dispatched call."""
+    """Decision counts, one per dispatched call: ``calls`` in all, and
+    ``by_op``, op -> ``NAME[@tile]`` -> calls."""
 
     calls: int = 0
-    by_candidate: Dict[str, int] = field(default_factory=dict)
-    by_decision: Dict[str, int] = field(default_factory=dict)
     by_op: Dict[str, Dict[str, int]] = field(default_factory=dict)
 
     def record(self, name: str, config=None, op: str = "NT") -> None:
         self.calls += 1
-        self.by_candidate[name] = self.by_candidate.get(name, 0) + 1
         label = Decision(name, config).label()
-        self.by_decision[label] = self.by_decision.get(label, 0) + 1
         per_op = self.by_op.setdefault(op, {})
         per_op[label] = per_op.get(label, 0) + 1
 
     def reset(self) -> None:
         self.calls = 0
-        self.by_candidate = {}
-        self.by_decision = {}
         self.by_op = {}
 
 
 @runtime_checkable
 class SelectionPolicy(Protocol):
     """Anything that picks a (candidate, tile config) for an ``OpKey`` and
-    exposes ``stats`` (``calls``, ``by_candidate``, ``by_op``)."""
+    exposes ``stats`` (a ``SelectorStats``: ``calls``, ``by_op``)."""
 
     stats: "object"
 

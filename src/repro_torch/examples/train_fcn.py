@@ -33,6 +33,7 @@ from repro_torch.core import (
     device_spec,
     train_paper_model,
 )
+from repro_torch.core import spans
 from repro_torch.core.engine import POLICY_SPEC_HELP, dispatch_report, policy_from_spec
 from repro_torch.models.fcn import FCNConfig, fcn_loss_and_grads, init_fcn
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, warmup_cosine
@@ -42,11 +43,13 @@ __all__ = ["make_fcn_step", "synthetic_batch", "main"]
 
 def make_fcn_step(policy, sched, max_grad_norm: float = 1.0):
     """``step(params, opt, step, batch) -> (params, opt, loss, grad_norm)``:
-    loss and gradients under ``policy``, clipping, one AdamW update."""
+    loss and gradients under ``policy``, clipping, one AdamW update (the
+    last two the span ``repro_torch.optim.update``)."""
 
     def step_fn(params, opt, step, batch):
         loss, grads = fcn_loss_and_grads(params, batch, policy)
-        with torch.no_grad():
+        with torch.no_grad(), spans.span("repro_torch.optim.update", device=loss.device,
+                                         step=step):
             grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
             params, opt = adamw_update(grads, opt, params, sched(step))
         return params, opt, loss, gnorm

@@ -7,10 +7,11 @@ rank of a mesh.
 batch) -> (state, metrics)``.  The state is ``{"params", "opt", "step"}``
 (``init_train_state`` builds it); ``batch`` holds ``tokens`` and ``labels``
 tensors on the params' device; the metrics are ``loss`` and ``grad_norm``
-(0-d tensors on the device) and ``lr`` (a float).  The forward and the
-backward of every microbatch run in one ``use_policy`` block, as the JAX
-package wraps ``value_and_grad``, so the policy selects the gradient GEMMs
-too.  Updates are functional: the step returns new params and optimizer
+(0-d tensors on the device) and ``lr`` (a float).  The update, clipping
+included, is the span ``repro_torch.optim.update`` (``core/spans.py``).
+The forward and the backward of every microbatch run in one
+``use_policy`` block, as the JAX package wraps ``value_and_grad``, so the
+policy selects the gradient GEMMs too.  Updates are functional: the step returns new params and optimizer
 state and leaves its inputs as they were.
 
 ``make_prefill_step(cfg, max_seq, policy)`` and ``make_serve_step(cfg,
@@ -53,6 +54,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.policy import SelectionPolicy, use_policy
 from repro_torch.distributed.collectives import all_reduce, reduce_scatter
 from repro_torch.distributed.context import mesh_scope
@@ -265,10 +267,13 @@ def make_train_step(
             params = state["params"]
             loss, grads = _grads(params, batch)
             loss = all_reduce(loss, daxes, mesh=ranks) / ranks.axis_size(daxes)
-            lr = sched(int(state["step"]))
-            new_params, new_opt, gnorm = update(grads, state["opt"], params, lr,
-                                                specs["params"], specs["opt"], ranks,
-                                                max_grad_norm=sc.max_grad_norm, reduced=zero1)
+            step = int(state["step"])
+            lr = sched(step)
+            with spans.span("repro_torch.optim.update", device=loss.device, step=step):
+                new_params, new_opt, gnorm = update(grads, state["opt"], params, lr,
+                                                    specs["params"], specs["opt"], ranks,
+                                                    max_grad_norm=sc.max_grad_norm,
+                                                    reduced=zero1)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 

@@ -27,6 +27,17 @@ architectures with Mamba blocks (``exact_prefill``): an SSM state sums
 over every position of a right-padded prompt, so they prefill at each
 prompt's exact length.
 
+Spans (``core/spans.py``, while a profiler session runs or inside
+``spans.recording()``): ``repro_torch.engine.step`` around each step;
+``repro_torch.engine.prefill`` around one request's admission, from its
+padded tokens to its first token's read and slot insert;
+``repro_torch.engine.decode`` around one class's decode step, from its
+rows to the synchronising read and the cache's advance; and
+``repro_torch.engine.queued``, one request's wait from ``submit`` to the
+start of its prefill, recorded at admission.  Every timestamp of the
+engine (``submit_time``, ``token_lat``, deadlines, the spans) is on
+``time.perf_counter``.
+
 ``ServeEngine(mesh=)`` serves on a mesh: each rank holds its pieces of
 the params (it shards the full ``params`` it is given) and of the cache
 pool, runs the same schedule on the same requests, and takes its greedy
@@ -50,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import spans
 from repro_torch.core.engine import dispatch_report
 from repro_torch.core.policy import SelectionPolicy, use_policy
 from repro_torch.distributed.context import mesh_scope
@@ -99,7 +111,7 @@ class Request:
     submit_step: int = -1
     admit_step: int = -1
     finish_step: int = -1
-    submit_time: float = 0.0  # monotonic wall clock at submit
+    submit_time: float = 0.0  # time.perf_counter() at submit
 
     def overdue(self, now: float) -> bool:
         return self.deadline_s is not None and now - self.submit_time >= self.deadline_s
@@ -260,7 +272,7 @@ class ServeEngine:
         req = Request(
             rid=self._next_rid, tokens=tokens, max_new=int(max_new), cls=cls,
             deadline_s=deadline_s, submit_step=self.clock,
-            submit_time=time.monotonic(),
+            submit_time=time.perf_counter(),
         )
         self._next_rid += 1
         self.requests[req.rid] = req
@@ -295,7 +307,7 @@ class ServeEngine:
 
     def _expire_deadlines(self) -> List[Request]:
         """Evict every live request past its wall-clock deadline."""
-        now = time.monotonic()
+        now = time.perf_counter()
         expired = []
         for req in self.requests.values():
             if req.state not in TERMINAL_STATES and req.overdue(now):
@@ -325,15 +337,21 @@ class ServeEngine:
             req.admit_step = self.clock
             P = req.prompt_len
             Lb = P if self.exact_prefill else self.buckets.bucket_len(P)
-            padded = np.zeros((1, Lb), np.int64)
-            padded[0, :P] = req.tokens
-            t0 = time.perf_counter()
             try:
-                tok, cache = self._prefill_step(
-                    req.cls, torch.from_numpy(padded).to(self.device), P
-                )
-                self.kv.insert(cache, slot, P)
-                tok = int(tok[0])  # synchronises with the device
+                with spans.span("repro_torch.engine.prefill", rid=req.rid, bucket=Lb,
+                                prompt_len=P) as rec:
+                    if rec is not None:  # the wait in the queue ends where prefill starts
+                        spans.record("repro_torch.engine.queued",
+                                     int(req.submit_time * 1e9), rec.start_ns,
+                                     rid=req.rid, cls=req.cls)
+                    padded = np.zeros((1, Lb), np.int64)
+                    padded[0, :P] = req.tokens
+                    t0 = time.perf_counter()
+                    tok, cache = self._prefill_step(
+                        req.cls, torch.from_numpy(padded).to(self.device), P
+                    )
+                    self.kv.insert(cache, slot, P)
+                    tok = int(tok[0])  # synchronises with the device
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception as e:
@@ -363,21 +381,22 @@ class ServeEngine:
     def _decode_class(self, cls: str, reqs: List[Request]) -> None:
         """One bucketed decode step for one class's active requests."""
         Bb = self.buckets.bucket_batch(len(reqs))
-        slot_ids = np.full(Bb, self.kv.null_slot, np.int64)
-        tok = np.zeros((Bb, 1), np.int64)
-        lengths = np.zeros(Bb, np.int64)
-        for i, req in enumerate(reqs):
-            slot_ids[i] = req.slot
-            tok[i, 0] = req.generated[-1]
-            lengths[i] = self.kv.lengths[req.slot]
-        t0 = time.perf_counter()
-        next_tok = self._decode_step(
-            cls, torch.from_numpy(tok).to(self.device),
-            torch.from_numpy(slot_ids).to(self.device),
-            torch.from_numpy(lengths).to(self.device),
-        ).cpu().numpy()  # synchronises with the device
-        dt = time.perf_counter() - t0
-        self.kv.advance([r.slot for r in reqs])
+        with spans.span("repro_torch.engine.decode", cls=cls, rows=len(reqs), bucket=Bb):
+            slot_ids = np.full(Bb, self.kv.null_slot, np.int64)
+            tok = np.zeros((Bb, 1), np.int64)
+            lengths = np.zeros(Bb, np.int64)
+            for i, req in enumerate(reqs):
+                slot_ids[i] = req.slot
+                tok[i, 0] = req.generated[-1]
+                lengths[i] = self.kv.lengths[req.slot]
+            t0 = time.perf_counter()
+            next_tok = self._decode_step(
+                cls, torch.from_numpy(tok).to(self.device),
+                torch.from_numpy(slot_ids).to(self.device),
+                torch.from_numpy(lengths).to(self.device),
+            ).cpu().numpy()  # synchronises with the device
+            dt = time.perf_counter() - t0
+            self.kv.advance([r.slot for r in reqs])
         for i, req in enumerate(reqs):
             req.generated.append(int(next_tok[i]))
             req.token_lat.append(dt)
@@ -394,28 +413,29 @@ class ServeEngine:
         decode step per class with active requests.  Returns the number of
         tokens emitted.  A class whose decode step raises loses only that
         batch (evicted, ``crashed_steps`` counted)."""
-        before = sum(len(r.generated) for r in self.requests.values())
-        self._expire_deadlines()
-        self._admit()
-        by_cls = self._active_by_class()
-        for cls in sorted(by_cls):
-            try:
-                self._decode_class(cls, by_cls[cls])
-            except (KeyboardInterrupt, SystemExit):
-                raise
-            except Exception as e:
-                self.crashed_steps += 1
-                for req in by_cls[cls]:
-                    if req.state is RequestState.ACTIVE:
-                        self._release(req, RequestState.EVICTED)
-                warnings.warn(
-                    f"decode step for class {cls!r} crashed "
-                    f"({type(e).__name__}: {e}); {len(by_cls[cls])} "
-                    "request(s) evicted, engine continues",
-                    UserWarning,
-                )
-        self.clock += 1
-        return sum(len(r.generated) for r in self.requests.values()) - before
+        with spans.span("repro_torch.engine.step", clock=self.clock):
+            before = sum(len(r.generated) for r in self.requests.values())
+            self._expire_deadlines()
+            self._admit()
+            by_cls = self._active_by_class()
+            for cls in sorted(by_cls):
+                try:
+                    self._decode_class(cls, by_cls[cls])
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as e:
+                    self.crashed_steps += 1
+                    for req in by_cls[cls]:
+                        if req.state is RequestState.ACTIVE:
+                            self._release(req, RequestState.EVICTED)
+                    warnings.warn(
+                        f"decode step for class {cls!r} crashed "
+                        f"({type(e).__name__}: {e}); {len(by_cls[cls])} "
+                        "request(s) evicted, engine continues",
+                        UserWarning,
+                    )
+            self.clock += 1
+            return sum(len(r.generated) for r in self.requests.values()) - before
 
     def run(self, max_steps: int = 100_000) -> None:
         """Drain: step until queue and slots are empty."""

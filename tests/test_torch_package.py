@@ -66,7 +66,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.analysis.lint, repro_torch.analysis.artifacts_lint, "
         "repro_torch.analysis.contracts, repro_torch.analysis.numerics, "
         "repro_torch.analysis.sanitize, repro_torch.analysis.coverage, "
-        "repro_torch.kernels.gridspec\n"
+        "repro_torch.kernels.gridspec, repro_torch.core.spans\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'repro' not in sys.modules\n"
         "from repro_torch.kernels import _build\n"
