@@ -7,6 +7,12 @@ Two data sources (kept separate, labelled in every report):
     port's chips.  Samples whose working set (incl. B^T) does not fit
     device memory are dropped, mirroring the paper's OOM filter.
 
+  * ``collect_attn_analytic`` — the same cost model's two attention arms
+    (fused kernel, unfused plan) over ATTN rows of the port's own shapes:
+    decode, GQA-folded prefill and training chunks, the port's flash head
+    dims, both dtypes.  The default selector's ATTN decision learns from
+    it (``selector.DefaultSelector``).
+
   * measurements on a torch device — ``collect_measured`` times one NT
     pair directly; ``dataset_from_measurements`` converts a
     ``MeasurementCache`` filled by ``measure.measure_candidates`` (every
@@ -19,6 +25,7 @@ mbw, l2c, m, n, k, op, g) -> label, label = +1 if P_direct >= P_alt
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -28,12 +35,13 @@ from repro_torch import resolve_device
 
 from . import simulate
 from .candidates import BINARY_PAIRS_BY_OP, CANDIDATES, PAPER_PAIR, current_platform
-from .features import make_features
-from .hardware import SIMULATED_CHIPS, HardwareSpec, device_spec, known_specs
+from .features import make_attn_features, make_features
+from .hardware import H100, SIMULATED_CHIPS, HardwareSpec, device_spec, known_specs
 
 __all__ = [
     "SelectionDataset",
     "collect_analytic",
+    "collect_attn_analytic",
     "collect_measured",
     "dataset_from_measurements",
     "paper_grid",
@@ -162,6 +170,47 @@ def collect_analytic(
     ds.times["NT"] = ds.times["NT_DIRECT"]
     ds.times["TNN"] = ds.times["TNN"]
     return ds
+
+
+# ATTN rows at per-slice extents: m query rows (decode's GQA group of 1-16
+# rows; prefill and training chunks fold the group into up to 16384 rows),
+# n keys, the port's flash head dims, both dtypes, g slices (a batch times
+# its kv heads: one prompt's 8 to a full decode slot pool's 256).
+ATTN_MS = (1, 2, 4, 8, 16, 64, 256, 1024, 4096, 16384)
+ATTN_NS = (128, 512, 1024, 2048, 4096, 8192, 16384)
+ATTN_DHS = (64, 112, 120, 128, 256)
+ATTN_DSIZES = (2, 4)
+ATTN_GS = (1, 8, 64, 256)
+
+
+def collect_attn_analytic(hw: HardwareSpec = H100) -> SelectionDataset:
+    """ATTN rows labelled by the analytic model of the attention subgraph:
+    +1 where the op pair's direct arm (the unfused plan, ``ATTN_UNFUSED``)
+    is no slower than the fused kernel (``ATTN_FUSED``), else -1.  ``X``
+    holds ``make_attn_features`` rows; ``mnk`` is (m, n, dh); ``times``
+    carries both arms and, as every dataset does, the direct and
+    alternative arm under 'NT' and 'TNN'."""
+    rows_X, rows_y, rows_mnk = [], [], []
+    t_unfused, t_fused = [], []
+    for m, n, dh, dsize, g in itertools.product(ATTN_MS, ATTN_NS, ATTN_DHS, ATTN_DSIZES,
+                                                ATTN_GS):
+        tu = simulate.simulate_time(hw, "ATTN_UNFUSED", m, n, dh, dsize, g=g)
+        tf = simulate.simulate_time(hw, "ATTN_FUSED", m, n, dh, dsize, g=g)
+        rows_X.append(make_attn_features(hw, m, n, dh, dsize, g))
+        rows_y.append(1 if tu <= tf else -1)
+        rows_mnk.append((m, n, dh))
+        t_unfused.append(tu)
+        t_fused.append(tf)
+    times = {"ATTN_UNFUSED": np.array(t_unfused), "ATTN_FUSED": np.array(t_fused)}
+    times["NT"], times["TNN"] = times["ATTN_UNFUSED"], times["ATTN_FUSED"]
+    return SelectionDataset(
+        X=np.array(rows_X),
+        y=np.array(rows_y),
+        times=times,
+        mnk=np.array(rows_mnk),
+        hw=np.array([hw.name] * len(rows_y)),
+        source="analytic-attn",
+    )
 
 
 def collect_measured(

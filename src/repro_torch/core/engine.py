@@ -66,7 +66,9 @@ While spans record (``core/spans.py``: a profiler session, or
 ``spans.recording()``), every dispatch, inner ones included, adds its
 host time from its entry to the call of the arm that runs it to the
 counter ``dispatch.select`` (a ``remat="dots"`` replay selects nothing
-and is not counted), and the attention backward is the span
+and is not counted), every attention plan counts the arm that ran it in
+``attn.fused`` or ``attn.unfused`` (a fused dispatch that degraded to the
+unfused plan counts there), and the attention backward is the span
 ``repro_torch.attn.backward``.  No span is opened a dispatch.
 
 ``remat="dots"`` (``models/lm.py``) saves the outputs of the non-batched
@@ -549,8 +551,12 @@ def _select_attn(key: OpKey, mask: MaskParams, q, k, v, lengths, t0: int):
             from repro_torch.kernels.attention_fused import attention_fused
 
             block = tuple(dec.config) if dec.config is not None else None
-            return attention_fused(q, k, v, lengths, mask=mask, block=block)
-        return _unfused_attn_plan(mask, q, k, v, lengths)
+            out = attention_fused(q, k, v, lengths, mask=mask, block=block)
+            spans.add("attn.fused", 0)
+            return out
+        out = _unfused_attn_plan(mask, q, k, v, lengths)
+        spans.add("attn.unfused", 0)
+        return out
 
     return _walk_chain(key, decision, run)
 
@@ -858,7 +864,7 @@ def policy_from_spec(spec: str, distributed: bool = False, device="cuda") -> Sel
         raise _spec_error("empty policy spec")
     if kind == "model":
         if not arg:
-            return default_policy()  # the default selector: distributed-safe
+            return default_policy()  # the default selector
         # recover=True: a corrupt artifact is moved aside and a fallback
         # selector trained, never a crash
         return ModelPolicy.from_artifact(arg, distributed=distributed, recover=True)

@@ -12,6 +12,11 @@ collapsed batch extent ``g`` as the last column.  Each extension appends
 or the 9-dim op-space format keep predicting unchanged (tree-based
 learners never look past the feature indices they were trained on).
 
+The port's default selector decides attention (ATTN) with a model of its
+own (``make_attn_features``): the same 10 columns plus the element size,
+since attention's two arms part most where f32 makes the core
+compute-bound, and the ATTN rows sweep both dtypes.
+
 Feature generation is O(1) — the paper stresses this so the predictor adds
 negligible overhead.  PyTorch dispatches eagerly, so the selectors memoise
 their decision per ``OpKey``: features are built once per distinct key.
@@ -30,6 +35,7 @@ __all__ = [
     "FEATURE_NAMES",
     "OP_FEATURE",
     "make_features",
+    "make_attn_features",
     "make_feature_matrix",
     "normalize01",
 ]
@@ -52,6 +58,14 @@ def make_features(
         [gm, sm, cc, mbw, l2c, float(m), float(n), float(k),
          OP_FEATURE[check_op(op)], float(g)]
     )
+
+
+def make_attn_features(
+    hw: HardwareSpec, m: int, n: int, dh: int, dsize: int, g: int
+) -> np.ndarray:
+    """An ATTN row's vector: ``make_features`` at (m, n, dh) plus the
+    element size as an 11th column.  O(1)."""
+    return np.append(make_features(hw, m, n, dh, op="ATTN", g=g), float(dsize))
 
 
 def make_feature_matrix(

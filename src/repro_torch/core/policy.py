@@ -595,9 +595,11 @@ _default_pair: Tuple[Optional[object], Optional[ModelPolicy]] = (None, None)
 
 
 def default_policy() -> SelectionPolicy:
-    """The ambient policy: the default learned selector (trained at first
-    use on the analytic H100 dataset), distributed-safe -- what dispatch
-    uses outside any ``use_policy`` scope."""
+    """The ambient policy: the default learned selector
+    (``selector.DefaultSelector``, trained at first use on the analytic
+    H100 datasets: the reference's distributed-safe GEMM decisions, and
+    an attention decision of its own that admits the fused kernel) --
+    what dispatch uses outside any ``use_policy`` scope."""
     global _default_pair
     from .selector import default_selector
 

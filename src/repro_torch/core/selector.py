@@ -20,9 +20,11 @@ choose the tile a tunable candidate runs at (``tile_config_for``: the exact
 shape, else the nearest recorded one in log space, else the modal entry),
 where the port's wrapper has that plan at the dispatched shape.
 
-No artifact ships with the port: the default selector is trained at first
-use on the analytic dataset of the port's chips (``collect_analytic``,
-the H100 roofline).
+No artifact ships with the port: the default selector (``DefaultSelector``)
+is trained at first use on the analytic datasets of the port's chips (the
+H100 roofline): its GEMM decisions on the paper grid (``collect_analytic``),
+as the reference's default, and its attention decision on ATTN rows
+(``collect_attn_analytic``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.kernels.attention_fused import DH_MAX
+
 from . import faults
 from .candidates import (
     BINARY_PAIRS_BY_OP,
@@ -44,7 +48,7 @@ from .candidates import (
     candidate_allowed,
     candidate_fits_memory,
 )
-from .features import make_features
+from .features import make_attn_features, make_features
 from .gbdt import GBDTClassifier
 from .hardware import H100, HardwareSpec, known_specs
 from .opkey import OpKey, check_op, coerce_key, parse_shape_key, shape_key
@@ -53,6 +57,7 @@ from .train_model import KWayModel
 
 __all__ = [
     "MTNNSelector",
+    "DefaultSelector",
     "SelectorStats",
     "default_selector",
     "set_default_selector",
@@ -231,6 +236,13 @@ class MTNNSelector:
         if hit is not None:
             self.stats.record(hit, None, op=key.op)
             return hit
+        name = self._decide(key)
+        self._cache[key] = name
+        self.stats.record(name, None, op=key.op)
+        return name
+
+    def _decide(self, key: OpKey) -> str:
+        """The decision at a key not in the memo."""
         x = make_features(
             self.hardware, key.m, key.n, key.k, op=key.op, g=key.g
         )[None, :]
@@ -255,8 +267,6 @@ class MTNNSelector:
                     break
             if name is None:
                 name = self._fallback_candidate(key)
-        self._cache[key] = name
-        self.stats.record(name, None, op=key.op)
         return name
 
     def reset_stats(self) -> None:
@@ -363,6 +373,40 @@ class MTNNSelector:
             distributed=distributed,
             tile_tables=payload.get("tile_tables", {}),
         )
+
+
+class DefaultSelector(MTNNSelector):
+    """The port's builtin default: two decisions on separate paths.
+
+    Every GEMM op (NT, NN, TN, BNT, BNN) is decided as the reference's
+    default decides it: the paper's NT model over distributed-safe
+    candidates only, so NN, TN and the batched ops stay on cuBLAS.
+
+    ATTN is decided by ``attn_model``, a model of its own trained on ATTN
+    rows (``dataset.collect_attn_analytic``, ``make_attn_features``): the
+    NT model was never fit on an ATTN row.  The fused kernel is admitted
+    wherever it has a route for the key (d_head up to ``DH_MAX``, either
+    dtype; above it the kernel raises, so the unfused plan runs) and is
+    not quarantined, as a local program: each rank of the port runs one.
+    The reference's default never admits its fused kernel, which cannot
+    run in a partitioned program.
+
+    ``save`` writes the GEMM model alone, as an artifact of the reference's
+    schema."""
+
+    def __init__(self, model, attn_model, hardware: Optional[HardwareSpec] = None):
+        super().__init__(model, hardware=hardware, distributed=True)
+        self.attn_model = attn_model
+
+    def _decide(self, key: OpKey) -> str:
+        if key.op != "ATTN":
+            return super()._decide(key)
+        unfused, fused = BINARY_PAIRS_BY_OP["ATTN"]
+        if key.k > DH_MAX or not candidate_allowed(CANDIDATES[fused], distributed=False,
+                                                   op="ATTN"):
+            return unfused
+        x = make_attn_features(self.hardware, key.m, key.n, key.k, key.dsize, key.g)[None, :]
+        return unfused if int(self.attn_model.predict(x)[0]) == 1 else fused
 
 
 def _move_aside(path: str, reason: BaseException) -> None:
@@ -501,8 +545,13 @@ def set_default_selector(sel: Optional[MTNNSelector]) -> None:
 
 @functools.lru_cache(maxsize=1)
 def _builtin_selector() -> MTNNSelector:
-    # no artifact ships: train a small model on the analytic dataset here
-    return _fresh_fallback_selector(distributed=True)
+    # no artifact ships: train small models on the analytic datasets here
+    from .dataset import collect_attn_analytic
+    from .train_model import train_paper_model
+
+    gemm = _fresh_fallback_selector(distributed=True)
+    attn, _ = train_paper_model(collect_attn_analytic(gemm.hardware))
+    return DefaultSelector(gemm.model, attn, hardware=gemm.hardware)
 
 
 def default_selector() -> MTNNSelector:

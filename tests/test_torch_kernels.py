@@ -1278,6 +1278,61 @@ def test_flash_at_wide_heads_matches_plain_on_card(cuda, mask_name, dh):
         assert torch.isfinite(out).all()
 
 
+# The danube3 cells' attention (d_head 120, bf16, 32 query heads over 8 kv
+# heads, the group of 4 folded over a chunk's rows): g, m, n, the mask, and
+# whether each slot has its own valid length.
+DANUBE_LAYOUTS = {
+    # training: 8 sequences x 8 kv heads, the second 1024-row chunk of 2048
+    "train_chunk": (64, 4 * 1024, 2048,
+                    dict(causal=True, window=4096, q_start=1024, k_start=0, q_seg=1024), False),
+    # one prompt right-padded to the 4096 bucket: its third chunk, whose rows
+    # and keys past the prompt's 2500 tokens are the padding's
+    "prefill_padded": (8, 4 * 1024, 3072, dict(causal=True, q_start=2048, k_start=0, q_seg=1024),
+                       False),
+    # decode over 32 slots of 4128 positions, each slot at its own length
+    "decode_ragged": (256, 4, 4128, {}, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(DANUBE_LAYOUTS))
+def test_the_default_runs_the_danube_layouts_fused_as_the_unfused_plan_on_card(cuda, layout):
+    """The default policy sends each of the danube3 cells' attention layouts
+    to the fused kernel (one launch on flash_mma or decode_split, counted
+    in ``attn.fused``), and its output holds to the unfused plan's (cuBLAS
+    BNT and BNN, f32 softmax, probabilities rounded to bf16) in bf16 within
+    the attention bound; K and V are NaN beyond each slot's length."""
+    from repro_torch.core import spans
+    from repro_torch.core.engine import dispatch_attention
+    from repro_torch.core.policy import FixedPolicy
+
+    g, m, n, kw, ragged = DANUBE_LAYOUTS[layout]
+    dh = 120
+    gen = torch.Generator(device=cuda).manual_seed(len(layout))
+    q = (torch.randn(g, m, dh, device=cuda, generator=gen) * dh**-0.5).to(torch.bfloat16)
+    k, v = (torch.randn(g, n, dh, device=cuda, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    lengths = None
+    if ragged:
+        per_slot = torch.randint(1, n + 1, (g // 8,), device=cuda, generator=gen)
+        per_slot[:2] = torch.tensor([1, n], device=cuda)
+        lengths = per_slot.repeat_interleave(8).to(torch.int32)
+        for i, length in enumerate(lengths.tolist()):
+            k[i, length:] = float("nan")
+            v[i, length:] = float("nan")
+    reset_launches()
+    with spans.recording():
+        out = dispatch_attention(q, k, v, lengths=lengths, **kw)
+    variant = attention_variant(q.dtype, g, m, n, dh)
+    assert variant == ("decode_split" if m <= 16 else "flash_mma")
+    assert ATTENTION_ROUTES == {(variant, dh): 1} and LAUNCHES["attention_fused"] == 1
+    assert spans.counter("attn.fused") == (0, 1) and spans.counter("attn.unfused") is None
+    want = dispatch_attention(q, k, v, lengths=lengths, policy=FixedPolicy("UNFUSED_ATTN"), **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2,
+                               msg=lambda s: f"{layout}: {s}")
+
+
 F32_SIDES = (1, 3, 17, 127, 129, 1000)
 
 

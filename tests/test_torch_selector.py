@@ -454,3 +454,92 @@ def test_autotune_policy_measures_once_and_persists(tmp_path):
     assert again.n_measured == 0 and len(again.cache) == 1
     off = ppolicy.AutotunePolicy(measure=False, device="cpu")
     assert off.select(key) == off.fallback.select(key) and off.n_fallbacks == 1
+
+
+# -- the port's builtin default: attention decided apart from the GEMMs ------------
+
+# The danube3 cells' ATTN keys (d_head 120, bf16): training chunks (8
+# sequences x 8 kv heads, the group of 4 folded over 1024 rows), a prompt's
+# prefill chunks over the 4096 bucket, decode at one slot and at 32 slots.
+CELL_ATTN_KEYS = ([("ATTN", 4096, n, 120, 2, 64) for n in (1024, 2048)]
+                  + [("ATTN", 4096, n, 120, 2, 8) for n in (1024, 2048, 3072, 4096)]
+                  + [("ATTN", 4, 4128, 120, 2, g) for g in (8, 256)])
+GEMM_OPS = ("NT", "NN", "TN", "BNT", "BNN")
+
+
+@pytest.fixture(scope="module")
+def reference_default():
+    """What the default decided before it had an attention model of its
+    own: the paper's NT model over distributed-safe candidates."""
+    return pselector._fresh_fallback_selector(distributed=True)
+
+
+@pytest.mark.parametrize("row", CELL_ATTN_KEYS, ids=str)
+def test_the_default_sends_the_cells_attention_to_the_fused_kernel(row):
+    assert pselector._builtin_selector().select(OpKey(*row)) == "FUSED_ATTN"
+    assert ppolicy.default_policy().select(OpKey(*row)).name == "FUSED_ATTN"
+
+
+@pytest.mark.parametrize("row", [("ATTN", 4096, 2048, 288, 2, 8), ("ATTN", 4, 4128, 288, 2, 8),
+                                 ("ATTN", 1024, 1024, 288, 4, 8), ("ATTN", 4, 512, 320, 4, 1)],
+                         ids=str)
+def test_the_default_keeps_the_unfused_plan_beyond_the_kernels_head_dims(row):
+    assert pselector._builtin_selector().select(OpKey(*row)) == "UNFUSED_ATTN"
+
+
+@pytest.mark.parametrize("op", GEMM_OPS)
+def test_the_default_keeps_every_gemm_decision(reference_default, op):
+    """No GEMM decision of the builtin default moved: name for name what
+    the reference's default (distributed-safe) gives on the whole grid."""
+    builtin = pselector._builtin_selector()
+    rows = [row for row in op_keys() if row[0] == op]
+    assert rows
+    for row in rows:
+        assert builtin.select(OpKey(*row)) == reference_default.select(OpKey(*row)), row
+
+
+def _default_with(attn_model):
+    built = pselector._builtin_selector()
+    return pselector.DefaultSelector(built.model, attn_model, hardware=built.hardware)
+
+
+def test_the_attention_decision_comes_from_the_attention_model_alone():
+    built = pselector._builtin_selector()
+    sel = _default_with(built.attn_model)
+
+    def no_gemm_model(x):
+        raise AssertionError("the NT model answered an ATTN key")
+
+    sel.model = types.SimpleNamespace(predict=no_gemm_model)
+    assert [sel.select(OpKey(*row)) for row in CELL_ATTN_KEYS] == ["FUSED_ATTN"] * 8
+    unfused = _default_with(types.SimpleNamespace(predict=lambda x: np.ones(len(x), int)))
+    assert {unfused.select(OpKey(*row)) for row in CELL_ATTN_KEYS} == {"UNFUSED_ATTN"}
+
+
+def test_a_quarantined_fused_kernel_leaves_the_default_on_the_unfused_plan():
+    from repro_torch.core import faults
+
+    sel = _default_with(pselector._builtin_selector().attn_model)
+    key = OpKey(*CELL_ATTN_KEYS[0])
+    assert sel.select(key) == "FUSED_ATTN"
+    try:
+        faults.quarantine("FUSED_ATTN", "ATTN", None, RuntimeError("injected"))
+        assert sel.select(key) == "UNFUSED_ATTN"
+    finally:
+        faults.clear_quarantine()
+    assert sel.select(key) == "FUSED_ATTN"
+
+
+def test_the_attention_model_learns_from_attention_rows_of_the_ports_shapes():
+    ds = pdataset.collect_attn_analytic()
+    assert ds.X.shape == (10 * 7 * 5 * 2 * 4, 11)
+    assert set(ds.X[:, 8]) == {5.0}  # every row is an ATTN row
+    m, n, dh = ds.mnk.T
+    assert min(m) == 1 and max(m) == 16384 and max(n) == 16384
+    assert set(dh) == {64, 112, 120, 128, 256} and set(ds.X[:, 10]) == {2.0, 4.0}
+    assert set(ds.X[:, 9]) == {1.0, 8.0, 64.0, 256.0}
+    assert (ds.y == np.where(ds.times["ATTN_UNFUSED"] <= ds.times["ATTN_FUSED"], 1, -1)).all()
+    model, report = ptrain.train_paper_model(ds)
+    assert report["full_data_accuracy"]["total"] >= 0.999
+    assert json.dumps(model.to_dict(), sort_keys=True) == json.dumps(
+        pselector._builtin_selector().attn_model.to_dict(), sort_keys=True)

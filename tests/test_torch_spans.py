@@ -2,6 +2,8 @@
 it places: the optimizer update, the attention backward, the serving
 engine's step, queue, prefill and decode, and the dispatch counter."""
 
+import warnings
+
 import numpy as np
 import pytest
 
@@ -12,7 +14,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs.arch import ArchConfig, BlockCfg  # noqa: E402
 from repro_torch.core import spans  # noqa: E402
-from repro_torch.core.engine import policy_from_spec  # noqa: E402
+from repro_torch.core.engine import dispatch_attention, policy_from_spec  # noqa: E402
+from repro_torch.core.faults import clear_quarantine, fallback_counts, inject_faults  # noqa: E402
+from repro_torch.core.policy import FixedPolicy  # noqa: E402
 from repro_torch.examples.train_fcn import make_fcn_step  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, init_train_state, make_train_step  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -254,3 +258,43 @@ def test_fcn_step_has_one_update_span_a_step():
     s = spans.summary("repro_torch.optim.update")
     assert s.count == 3 and [u.ids["step"] for u in spans.records()
                              if u.name == "repro_torch.optim.update"] == [0, 1, 2]
+
+
+# -- the attention arm counters -------------------------------------------------
+
+
+def _attend(policy=None, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(4, s, 16, generator=g) for s in (8, 12, 12))
+    return dispatch_attention(q, k, v, causal=True, q_start=4, policy=policy)
+
+
+@pytest.mark.parametrize("arm", ["FUSED_ATTN", "UNFUSED_ATTN", None])
+def test_attention_dispatches_count_the_arm_that_ran(arm):
+    """A fixed arm counts under its own name; the default policy sends this
+    d_head 16 key to the fused kernel.  Off, nothing counts."""
+    with spans.recording():
+        pass
+    _attend(None if arm is None else FixedPolicy(arm))
+    assert spans.counter("attn.fused") is None and spans.counter("attn.unfused") is None
+    with spans.recording():
+        for seed in range(3):
+            _attend(None if arm is None else FixedPolicy(arm), seed)
+    ran, other = ("attn.unfused", "attn.fused") if arm == "UNFUSED_ATTN" else (
+        "attn.fused", "attn.unfused")
+    assert spans.counter(ran) == (0, 3) and spans.counter(other) is None
+
+
+def test_a_degraded_fused_dispatch_counts_as_unfused():
+    want = _attend(FixedPolicy("UNFUSED_ATTN"))
+    try:
+        with warnings.catch_warnings(), spans.recording():
+            warnings.simplefilter("ignore")
+            with inject_faults("raise:FUSED_ATTN.ATTN"):
+                out = _attend(FixedPolicy("FUSED_ATTN"))
+            out2 = _attend(FixedPolicy("FUSED_ATTN"))  # quarantined: not tried again
+        assert spans.counter("attn.unfused") == (0, 2) and spans.counter("attn.fused") is None
+        assert fallback_counts()[("ATTN", "FUSED_ATTN", "UNFUSED_ATTN")] >= 2
+        assert torch.equal(out, want) and torch.equal(out2, want)
+    finally:
+        clear_quarantine()
