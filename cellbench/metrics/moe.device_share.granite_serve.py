@@ -1,0 +1,12 @@
+"""moe.device_share.granite_serve: the device time of the kernels launched
+under the ``repro_torch.moe.experts`` spans (one layer's routed expert
+work: the sort, the grouped GEMMs and the combine) over the traced
+window's busy time, in %.  The kernels' own intervals, joined
+(``cellbench/span_kernels.py``): the device's idle time inside a span
+does not count."""
+
+from cellbench.span_kernels import busy_share
+
+
+def read(r):
+    return busy_share(r, "moe.experts")

@@ -7,7 +7,25 @@ order.  The fields are the JAX package's that the architectures set,
 ``models/attention.py``); its ``unroll_segments`` has no counterpart
 here (the port's layer stack is a Python loop, which the dry run's
 accounting counts whole).  ``param_count`` and ``active_param_count``
-are the JAX package's formulas.
+are the JAX package's formulas, with the port's xBC conv, NoPE and
+shared expert counted where a config sets them.
+
+Settings the JAX package's ten architectures do not have stay off its
+field list (the port-vs-JAX tests build one ``ArchConfig`` from the
+other field by field): they are fields of the subclass
+``PortArchConfig``, which a config that needs them (granite-4.0-h-small)
+is built from, and class attributes of ``ArchConfig`` at the same
+defaults, which change nothing:
+
+  emb_mult       the token embeddings multiplied by it (muP's
+                 ``embedding_multiplier``)
+  residual_mult  every block's mixer and FFN outputs multiplied by it
+                 before the residual add (``residual_multiplier``)
+  logits_div     the logits divided by it (``logits_scaling``)
+  rms_eps        the epsilon of the blocks' and the final RMSNorm and of
+                 the Mamba gated norm (the QK-norms keep 1e-6)
+  attn_rope      False: no rotary positions (NoPE)
+  attn_scale     the query scale (None: ``d_head ** -0.5``)
 """
 
 from __future__ import annotations
@@ -20,7 +38,7 @@ from repro_torch.models.blocks import BlockCfg
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
 
-__all__ = ["ArchConfig", "BlockCfg", "MoEConfig", "SSMConfig"]
+__all__ = ["ArchConfig", "PortArchConfig", "BlockCfg", "MoEConfig", "SSMConfig"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,7 +117,8 @@ class ArchConfig:
                     s = self.ssm
                     di, N, H = s.d_inner, s.d_state, s.n_heads
                     per += 2 * di * d + 2 * N * d + H * d  # z,x,B,C,dt proj
-                    per += s.d_conv * di + di  # conv
+                    conv = s.conv_width
+                    per += s.d_conv * conv + conv  # conv
                     per += 3 * H  # A_log, D, dt_bias
                     per += di + d * di  # norm + out proj
                 if self.post_norm:
@@ -109,6 +128,7 @@ class ArchConfig:
                 elif b.ffn == "moe":
                     m = self.moe
                     per += d + m.n_experts * (3 * d * m.d_ff) + m.n_experts * d
+                    per += 3 * d * m.shared_d_ff
                     per += d if self.post_norm else 0
                 n += count * per
         if any(b.mixer == "shared_attn" for _, bl in self.segments for b in bl):
@@ -127,3 +147,24 @@ class ArchConfig:
         all_experts = moe_blocks * m.n_experts * 3 * self.d_model * m.d_ff
         active = moe_blocks * m.top_k * 3 * self.d_model * m.d_ff
         return total - all_experts + active
+
+
+@dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An ``ArchConfig`` with the port's settings beyond the JAX package's
+    (the module docstring) as fields."""
+
+    emb_mult: float = 1.0
+    residual_mult: float = 1.0
+    logits_div: float = 1.0
+    rms_eps: float = 1e-6
+    attn_rope: bool = True
+    attn_scale: Optional[float] = None
+
+
+# ... which ``ArchConfig`` reads at their defaults, as class attributes
+_BASE = {f.name for f in dataclasses.fields(ArchConfig)}
+for _f in dataclasses.fields(PortArchConfig):
+    if _f.name not in _BASE:
+        setattr(ArchConfig, _f.name, _f.default)
+del _BASE, _f

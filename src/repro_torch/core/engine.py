@@ -61,6 +61,9 @@ calls ``hook(key, operands, out)`` once for each outermost dispatch --
 a GEMM or an attention plan, forward or backward -- whatever candidate
 ran it; the sub-dispatches of the unfused attention plan and the aten
 ops beneath a dispatch are inside it (``dispatch_depth() > 0``).
+``account_replayed(keys)`` calls it for dispatches that a replayed CUDA
+graph made when it was captured (``serving/engine.py``'s decode graphs),
+with ``operands`` and ``out`` None.
 
 While spans record (``core/spans.py``: a profiler session, or
 ``spans.recording()``), every dispatch, inner ones included, adds its
@@ -129,6 +132,7 @@ __all__ = [
     "current_policy",
     "POLICY_SPEC_HELP",
     "account_dispatches",
+    "account_replayed",
     "dispatch_depth",
 ]
 
@@ -183,6 +187,16 @@ def account_dispatches(hook: Callable) -> Iterator[None]:
         yield
     finally:
         _ACCOUNT = prev
+
+
+def account_replayed(keys) -> None:
+    """Call the accounting hook, if one is set, once for each of ``keys``:
+    the outermost dispatches a CUDA graph made when it was captured, for
+    each of its replays (``operands`` and ``out`` None: the graph keeps
+    no tensors for them)."""
+    if _ACCOUNT is not None:
+        for key in keys:
+            _ACCOUNT(key, None, None)
 
 
 def dispatch_depth() -> int:

@@ -28,6 +28,10 @@ Readers take aggregates by name (``summary``): the count, host and
 device seconds, each span's durations, and its self time -- its host
 duration less the part its child spans cover.  ``counter`` gives a
 counter's nanoseconds and count.
+
+An id or a counted amount may be a device tensor (one element): it is
+kept as it is and read only when the records or the counter are read,
+so that recording does not wait for the device.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ class _State:
     forced = False  # inside recording()
     spans: List["Span"] = []
     counters: Dict[str, List[int]] = {}  # name -> [ns, n]
+    deferred: Dict[str, List[torch.Tensor]] = {}  # name -> amounts not read yet
 
 
 _PARENT: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
@@ -67,6 +72,7 @@ def enabled() -> bool:
 def _new_session() -> None:
     _State.spans = []
     _State.counters = {}
+    _State.deferred = {}
 
 
 def _hook_profiler_start() -> None:
@@ -165,12 +171,16 @@ def record(name: str, start_ns: int, end_ns: int, **ids) -> None:
         _State.spans.append(Span(name, None, ids, start_ns, end_ns))
 
 
-def add(name: str, ns: int, n: int = 1) -> None:
-    """Add ``ns`` nanoseconds and ``n`` to the counter ``name``."""
+def add(name: str, ns, n: int = 1) -> None:
+    """Add ``ns`` nanoseconds (or another amount; a device tensor is read
+    when the counter is) and ``n`` to the counter ``name``."""
     if enabled():
         with _COUNTER_LOCK:
             c = _State.counters.setdefault(name, [0, 0])
-            c[0] += ns
+            if isinstance(ns, torch.Tensor):
+                _State.deferred.setdefault(name, []).append(ns)
+            else:
+                c[0] += ns
             c[1] += n
 
 
@@ -191,10 +201,20 @@ def recording():
         _State.forced = prev
 
 
+def _read(values: List[torch.Tensor]) -> List:
+    """The numbers of one-element tensors, read in one transfer."""
+    return torch.stack([v.reshape(()) for v in values]).tolist()
+
+
 def records(name: Optional[str] = None) -> List[Span]:
     """The finished spans of the last session (of ``name``), in the order
-    they ended."""
-    return [s for s in _State.spans if name is None or s.name == name]
+    they ended, their tensor ids read."""
+    found = [s for s in _State.spans if name is None or s.name == name]
+    pending = [(s, k) for s in found for k, v in s.ids.items() if isinstance(v, torch.Tensor)]
+    if pending:
+        for (s, k), x in zip(pending, _read([s.ids[k] for s, k in pending])):
+            s.ids[k] = x
+    return found
 
 
 @dataclass
@@ -224,5 +244,11 @@ def summary(name: str) -> Optional[Summary]:
 def counter(name: str) -> Optional[Tuple[int, int]]:
     """(nanoseconds, count) of the counter ``name`` in the last session;
     None if it never counted."""
-    c = _State.counters.get(name)
-    return (c[0], c[1]) if c else None
+    with _COUNTER_LOCK:
+        c = _State.counters.get(name)
+        if not c:
+            return None
+        pending = _State.deferred.pop(name, None)
+        if pending:
+            c[0] += sum(_read(pending))
+        return (c[0], c[1])

@@ -1,5 +1,8 @@
 """Grouped-query attention with RoPE, sliding windows, logit soft-capping,
-QK-norm and prefix-LM masking.
+QK-norm and prefix-LM masking.  ``AttnConfig.rope=False`` leaves the
+positions out (NoPE), and ``q_scale`` replaces the query scale
+``d_head ** -0.5``; the queries reach the attention plan already scaled
+either way.
 
 Prefill uses the statically-chunked causal schedule of the JAX package: a
 loop over query chunks where chunk ``i`` attends the key prefix
@@ -93,11 +96,17 @@ class AttnConfig:
     # shard the attention block over ``model`` along the query rows where
     # the heads do not divide it (the module docstring)
     sp_attention: bool = False
+    rope: bool = True  # False: NoPE
+    q_scale: Optional[float] = None  # None: d_head ** -0.5
 
     @property
     def group(self) -> int:
         assert self.n_heads % self.n_kv == 0
         return self.n_heads // self.n_kv
+
+    @property
+    def scale(self) -> float:
+        return self.q_scale if self.q_scale is not None else self.d_head**-0.5
 
 
 def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
@@ -175,8 +184,9 @@ def _project_qkv(
             qn, kn = ({"scale": copy_to_group(n["scale"])} for n in (qn, kn))
         q = rmsnorm(qn, q)
         k = rmsnorm(kn, k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     q = q.reshape(B, S, cfg.n_kv, cfg.group, cfg.d_head)
     return q, k, v, cfg
 
@@ -224,7 +234,7 @@ def _sp_project(p: Param, x: torch.Tensor, cfg: AttnConfig, positions: torch.Ten
         if norm is not None:
             scale = p[norm]["scale"]
             y = rmsnorm({"scale": copy_to_group(scale) if rows else scale}, y)
-        if name != "wv":
+        if name != "wv" and cfg.rope:
             y = apply_rope(y, pos_rows if rows else positions, cfg.rope_theta)
         if name == "wq":
             y = y if rows else _rows(y, chunk, m)
@@ -311,7 +321,7 @@ def attention(
     else:
         q, k, v, cfg = _project_qkv(p, x, cfg, positions)
         rows, first = chunk, 0
-    q = q * (cfg.d_head**-0.5)
+    q = q * cfg.scale
 
     outs = []
     for i in range(S // chunk):
@@ -394,7 +404,7 @@ def attention_decode(
     slots = cache["k"].shape[1]
     pos_b = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B).long()
     q, k_new, v_new, cfg = _project_qkv(p, x, cfg, pos_b[:, None])
-    q = q * (cfg.d_head**-0.5)
+    q = q * cfg.scale
 
     axes = spec_axes(cspec[-3]) if cspec is not None else ()
     total, lo = slots, 0

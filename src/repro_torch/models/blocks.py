@@ -2,7 +2,11 @@
 Zamba-style *shared* attention whose weights live in the model-level
 ``shared`` slot) and an optional pre-normed FFN (gated MLP or MoE), with
 optional post-norms (Gemma-2/3).  Layer params stack along a leading
-axis (the JAX package's scan layout); ``lm.py`` loops over it.
+axis (the JAX package's scan layout); ``lm.py`` loops over it.  The
+model's ``residual_mult`` scales the mixer's and the FFN's outputs
+before each residual add, and ``rms_eps`` is the epsilon of the blocks'
+norms and the Mamba gated norm (``configs/arch.py``; the QK-norms keep
+1e-6).
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ def _attn_cfg(b: BlockCfg, mc) -> AttnConfig:
         qk_norm=mc.qk_norm,
         chunk=mc.attn_chunk,
         sp_attention=mc.sp_attention,
+        rope=mc.attn_rope,
+        q_scale=mc.attn_scale,
     )
 
 
@@ -80,21 +86,25 @@ def init_block(gen: torch.Generator, b: BlockCfg, mc, dtype=torch.float32,
     return p
 
 
+def _add(x: torch.Tensor, h: torch.Tensor, mc) -> torch.Tensor:
+    return x + h if mc.residual_mult == 1.0 else x + mc.residual_mult * h
+
+
 def _ffn(p: Param, x: torch.Tensor, b: BlockCfg, mc) -> torch.Tensor:
     if b.ffn == "none":
         return x
-    h = rmsnorm(p["ln2"], x)
+    h = rmsnorm(p["ln2"], x, eps=mc.rms_eps)
     h = (gated_mlp(p["mlp"], h, mc.activation, d_ff=mc.d_ff) if b.ffn == "mlp"
          else moe_layer(p["moe"], h, mc.moe))
     if mc.post_norm:
-        h = rmsnorm(p["ln2b"], h)
-    return x + h
+        h = rmsnorm(p["ln2b"], h, eps=mc.rms_eps)
+    return _add(x, h, mc)
 
 
 def _residual(p: Param, x: torch.Tensor, h: torch.Tensor, mc) -> torch.Tensor:
     if mc.post_norm:
-        h = rmsnorm(p["ln1b"], h)
-    return x + h
+        h = rmsnorm(p["ln1b"], h, eps=mc.rms_eps)
+    return _add(x, h, mc)
 
 
 def _attn_params(p: Param, b: BlockCfg, shared: Optional[Param]) -> Param:
@@ -103,9 +113,9 @@ def _attn_params(p: Param, b: BlockCfg, shared: Optional[Param]) -> Param:
 
 def apply_block(p: Param, x: torch.Tensor, b: BlockCfg, mc, shared: Optional[Param] = None,
                 positions=None, prefix_len: int = 0) -> torch.Tensor:
-    h = rmsnorm(p["ln1"], x)
+    h = rmsnorm(p["ln1"], x, eps=mc.rms_eps)
     if b.mixer == "mamba":
-        h = ssm_layer(p["ssm"], h, mc.ssm)
+        h = ssm_layer(p["ssm"], h, mc.ssm, eps=mc.rms_eps)
     else:
         h = attention(_attn_params(p, b, shared), h, _attn_cfg(b, mc), positions, prefix_len)
     return _ffn(p, _residual(p, x, h, mc), b, mc)
@@ -130,9 +140,10 @@ def prefill_block(
     cumulative over the whole padded sequence, so padded prefill is an
     attention-only feature: the serving engine prefills SSM archs at exact
     lengths."""
-    h = rmsnorm(p["ln1"], x)
+    h = rmsnorm(p["ln1"], x, eps=mc.rms_eps)
     if b.mixer == "mamba":
-        h, cache = ssm_layer(p["ssm"], h, mc.ssm, return_state=True, cache_dtype=cache_dtype)
+        h, cache = ssm_layer(p["ssm"], h, mc.ssm, return_state=True, cache_dtype=cache_dtype,
+                             eps=mc.rms_eps)
     else:
         h, cache = attention(
             _attn_params(p, b, shared), h, _attn_cfg(b, mc), positions, prefix_len,
@@ -157,9 +168,9 @@ def decode_block(p: Param, x: torch.Tensor, b: BlockCfg, mc, cache, pos,
     place and returned; a Mamba block returns a new ``{"conv", "ssm"}``
     cache, which the caller writes back.  ``cspec``, the spec of its
     ``k`` leaf: see ``attention_decode``."""
-    h = rmsnorm(p["ln1"], x)
+    h = rmsnorm(p["ln1"], x, eps=mc.rms_eps)
     if b.mixer == "mamba":
-        h, cache = ssm_decode(p["ssm"], h, mc.ssm, cache)
+        h, cache = ssm_decode(p["ssm"], h, mc.ssm, cache, eps=mc.rms_eps)
     else:
         h, cache = attention_decode(_attn_params(p, b, shared), h, _attn_cfg(b, mc), cache, pos,
                                     cspec=cspec)

@@ -1,5 +1,8 @@
 """The decoder-only LM of all ten architectures: attention, Mamba-2 and
-Zamba-style shared-attention mixers, gated-MLP and MoE FFNs.  The layer
+Zamba-style shared-attention mixers, gated-MLP and MoE FFNs, and the
+muP multipliers of ``PortArchConfig`` (``configs/arch.py``: the
+embeddings times ``emb_mult``, each block's outputs times
+``residual_mult``, the logits over ``logits_div``).  The layer
 stack is a Python loop over each config segment's stacked block params
 (the JAX package scans them); shared-attention blocks read the one
 unstacked ``params["shared"]["attn"]``.  Modalities, as in the JAX package:
@@ -199,7 +202,8 @@ def gather_logits(cfg, logits: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_tokens(params: Param, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return embed(params["embed"], tokens, cfg.emb_scale, vocab_split=vocab_split(cfg))
+    x = embed(params["embed"], tokens, cfg.emb_scale, vocab_split=vocab_split(cfg))
+    return x if cfg.emb_mult == 1.0 else x * cfg.emb_mult
 
 
 def _embed_input(params: Param, cfg, batch: Dict[str, torch.Tensor]):
@@ -217,9 +221,12 @@ def _embed_input(params: Param, cfg, batch: Dict[str, torch.Tensor]):
 
 
 def _logits(params: Param, cfg, x: torch.Tensor) -> torch.Tensor:
-    x = rmsnorm(params["final_norm"], x)
+    x = rmsnorm(params["final_norm"], x, eps=cfg.rms_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return softcap(unembed(head, x, vocab_split(cfg)), cfg.final_softcap)
+    logits = unembed(head, x, vocab_split(cfg))
+    if cfg.logits_div != 1.0:
+        logits = logits / cfg.logits_div
+    return softcap(logits, cfg.final_softcap)
 
 
 def lm_forward(params: Param, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -300,8 +307,8 @@ def init_lm_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     """Zero cache on ``device`` with the tree lm_prefill produces: per
     segment, one dict per block slot, ``{"k", "v"}`` with leaves (layers,
     batch, slots, kv, dh) for attention or ``{"conv", "ssm"}`` with leaves
-    (layers, batch, d_conv - 1, d_inner) and (layers, batch, heads,
-    head_dim, d_state) for Mamba.  ``per_seq_pos`` makes ``pos`` a
+    (layers, batch, d_conv - 1, conv_width) and (layers, batch, heads,
+    head_dim, d_state) for Mamba (``SSMConfig.conv_width``).  ``per_seq_pos`` makes ``pos`` a
     ``(batch,)`` vector."""
     device = resolve_device(device)
     caches = []

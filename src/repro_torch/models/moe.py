@@ -1,12 +1,40 @@
-"""Top-k mixture-of-experts with GShard-style grouped dense dispatch.
+"""Top-k mixture-of-experts, on one of two paths by ``capacity_factor``.
 
-Tokens are routed within fixed-size groups, so the dispatch and combine
-products stay O(tokens * group * d); tokens beyond an expert's capacity
-are dropped (``capacity_factor``).  Expert weights are stored ``(E, out,
-in)``.  As in the JAX package, the router is the one policy-dispatched
-GEMM (an f32 NT op: an f32 weight against the f32-cast tokens); the
-dispatch, expert and combine contractions are ``torch.einsum`` products,
-which the JAX package leaves to ``jnp.einsum``.
+With a capacity (the default, the JAX package's layer): GShard-style
+grouped dense dispatch.  Tokens are routed within fixed-size groups, so
+the dispatch and combine products stay O(tokens * group * d); tokens
+beyond an expert's capacity are dropped.  The dispatch, expert and
+combine contractions are ``torch.einsum`` products, which the JAX
+package leaves to ``jnp.einsum``.
+
+With ``capacity_factor=None``: dropless, as granite-4.0-h-small's
+published layer routes.  Each token takes exactly its top-k experts (the
+softmax over its k largest logits, the same weights as the softmax over
+all E renormalised over those k); the token-expert pairs are sorted by
+expert (each expert's row range found in the sorted picks on the device,
+so the layer never waits for the card and a CUDA graph can hold it),
+gate and up run as two grouped GEMMs over the experts' row ranges and
+down as a third (``grouped_mm``: ``torch._grouped_mm`` on
+the card, an NT dispatch an expert elsewhere), and each token's k
+outputs are summed under its gates.  Every routed row is computed once,
+whatever the load.  Not served on a mesh: it raises there.
+
+``shared_d_ff`` > 0 adds a shared expert: a SiLU-gated MLP of that
+width that every token passes through (``layers.gated_mlp``'s dense
+calls), summed with the routed experts' output.
+
+Expert weights are stored ``(E, out, in)``.  As in the JAX package, the
+router is the one policy-dispatched GEMM of the routed experts (an f32
+NT op: an f32 weight against the f32-cast tokens).
+
+Span and counters (``core/spans.py``, recording only while a profiler
+runs or inside ``spans.recording()``): ``repro_torch.moe.experts``
+around one layer's routed expert work on the dropless path (the sort,
+the grouped GEMMs and the combine; ids ``rows``, the token-expert rows,
+and ``experts``, the experts that took any); counters ``moe.rows`` (the
+rows routed) and ``moe.rows_max`` (the busiest expert's rows, a call).
+The experts taken and the busiest expert's rows stay device tensors
+until the records are read: recording adds no wait for the device.
 
 Under a mesh each rank holds the pieces of the expert tensors that the
 sharding rules give (``distributed/sharding.py``: one dim over
@@ -36,11 +64,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spans
 from repro_torch.distributed.collectives import (
     copy_to_group,
     gather_from_group,
@@ -52,14 +81,17 @@ from repro_torch.distributed.context import current_mesh
 from .layers import (
     Param,
     _normal,
+    dense,
     dense_tp,
+    gated_mlp,
     gather_data_dims,
     init_dense,
+    init_gated_mlp,
     weight_dim,
     weight_spec,
 )
 
-__all__ = ["MoEConfig", "init_moe", "moe_layer", "router_aux_loss"]
+__all__ = ["MoEConfig", "init_moe", "moe_layer", "grouped_mm", "router_aux_loss"]
 
 
 @dataclass(frozen=True)
@@ -69,10 +101,13 @@ class MoEConfig:
     n_experts: int
     top_k: int
     group: int = 256
-    capacity_factor: float = 2.0
+    # None: dropless (the module docstring)
+    capacity_factor: Optional[float] = 2.0
     # 'expert' (EP) or 'ffn' (TP within expert): the JAX package's label; the
     # split under a mesh is the sharding rules' (the module docstring)
     shard: str = "expert"
+    # the shared expert's hidden width (0: none)
+    shared_d_ff: int = 0
 
     def capacity(self, group: int) -> int:
         c = int(math.ceil(group * self.top_k * self.capacity_factor / self.n_experts))
@@ -80,15 +115,18 @@ class MoEConfig:
 
 
 def init_moe(gen: torch.Generator, cfg: MoEConfig, dtype=torch.float32, device="cpu") -> Param:
-    """The JAX package's tree; the router weight is f32 whatever ``dtype``
-    is."""
+    """The JAX package's tree, and ``shared`` (a gated MLP) with a shared
+    expert; the router weight is f32 whatever ``dtype`` is."""
     E, f, d = cfg.n_experts, cfg.d_ff, cfg.d_model
-    return {
+    p = {
         "router": init_dense(gen, E, d, torch.float32, device),
         "gate": _normal(gen, (E, f, d), 1.0 / math.sqrt(d), dtype, device),
         "up": _normal(gen, (E, f, d), 1.0 / math.sqrt(d), dtype, device),
         "down": _normal(gen, (E, d, f), 1.0 / math.sqrt(f), dtype, device),
     }
+    if cfg.shared_d_ff:
+        p["shared"] = init_gated_mlp(gen, d, cfg.shared_d_ff, dtype, device)
+    return p
 
 
 def _route(logits: torch.Tensor, cfg: MoEConfig, capacity: int
@@ -126,6 +164,64 @@ def _expert_specs(cfg: MoEConfig):
 def moe_layer(p: Param, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d); under a mesh, this rank's program on its
     pieces (the module docstring)."""
+    routed = _capacity_layer if cfg.capacity_factor is not None else _dropless_layer
+    out = routed(p, x, cfg)
+    if cfg.shared_d_ff:
+        out = out + gated_mlp(p["shared"], x, "silu", d_ff=cfg.shared_d_ff)
+    return out
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Rows ``[offs[e-1], offs[e])`` of ``a`` (M, k) times ``w[e]^T``, for
+    ``w`` (E, n, k) stored ``(out, in)``: (M, n).  On the card one
+    ``torch._grouped_mm`` (bf16); elsewhere, or in another dtype, one NT
+    dispatch an expert that takes rows."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch._grouped_mm(a, w.transpose(-2, -1), offs=offs)
+    out = a.new_empty((a.shape[0], w.shape[1]))
+    lo = 0
+    for e, hi in enumerate(offs.tolist()):
+        if hi > lo:
+            out[lo:hi] = dense({"w": w[e]}, a[lo:hi])
+        lo = hi
+    return out
+
+
+def _dropless_layer(p: Param, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """The dropless path (the module docstring): x (B, S, d) -> (B, S, d)."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError("the dropless MoE (capacity_factor=None) is not served on "
+                                  "a mesh")
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(B * S, d)
+    T = xt.shape[0]
+    logits = dense(p["router"], xt.float())  # (T, E): the f32 NT router
+    top, experts = torch.topk(logits, k, dim=-1)
+    gates = torch.softmax(top, dim=-1)  # (T, k)
+    with spans.span("repro_torch.moe.experts", rows=T * k) as rec:
+        flat = experts.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        # each expert's row range from the sorted picks: no wait for the device
+        # (``bincount`` reads the largest pick back to size its output)
+        ends = torch.searchsorted(flat[order], torch.arange(E, device=flat.device), right=True)
+        offs = ends.to(torch.int32)
+        counts = torch.diff(ends, prepend=ends.new_zeros(1))
+        rows = xt[order // k]  # (T k, d), by expert
+        h = F.silu(grouped_mm(rows, p["gate"], offs)) * grouped_mm(rows, p["up"], offs)
+        y = grouped_mm(h, p["down"], offs)  # (T k, d), by expert
+        y = torch.empty_like(y).index_copy_(0, order, y)  # back to (token, pick) order
+        out = (y.view(T, k, d) * gates.to(x.dtype)[..., None]).sum(1)
+    if rec is not None:  # after the span, so that its kernels are not the span's
+        rec.ids["experts"] = (counts > 0).sum()
+        spans.add("moe.rows", T * k)
+        spans.add("moe.rows_max", counts.max())
+    return out.reshape(B, S, d)
+
+
+def _capacity_layer(p: Param, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """The capacity path (the module docstring): x (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
     group = min(cfg.group, S)
     if S % group != 0:  # ragged tail: one group per sequence

@@ -2,15 +2,26 @@
 quadratic within a chunk and linear across chunks, and the O(1)-state
 decode form.
 
-The JAX package's layer (Dao & Gu 2024, section 6) with its two
-simplifications: ``ngroups=1`` (B and C shared across heads) and the
-short causal conv applied to x only.  Every projection is ``dense``, the
-paper's NT op through ``core.engine.dispatch``; the SSD's contractions
-are ``torch.einsum`` products, as the JAX package leaves them to
+The JAX package's layer (Dao & Gu 2024, section 6) with ``ngroups=1``
+(B and C shared across heads).  The short causal conv runs over x alone
+by default, as the JAX package's does; with ``SSMConfig.conv_xbc`` it
+runs over x, B and C together, as the published Mamba-2 layer and
+granite-4.0-h-small's do: its taps, bias and decode cache are then
+``d_inner + 2 d_state`` wide (``SSMConfig.conv_width``), and B and C
+come out of the conv.  Every projection is ``dense``, the paper's NT
+op through ``core.engine.dispatch``; the SSD's contractions are
+``torch.einsum`` products, as the JAX package leaves them to
 ``jnp.einsum``.  The inter-chunk scan is a Python loop over chunks (the
-JAX package scans them).  The casts follow the JAX package's: B and C
-run in the activation dtype, the scores and the carried state too, and
-decode works in f32 and stores the state in the cache dtype.
+JAX package scans them).  A length that is not a multiple of the chunk
+keeps the chunk length: the tail is padded to a whole chunk with dt = 0
+and x = B = C = 0, which adds nothing to the state and leaves its decay
+as it was, and the padded rows' outputs are dropped.  The casts follow
+the JAX package's: B and C run in the activation dtype, the scores and
+the carried state too, and decode works in f32 and stores the state in
+the cache dtype.  The gated norm takes the model's epsilon (``eps``).
+
+Spans (``core/spans.py``): ``repro_torch.ssm.scan`` around the SSD of a
+prefill or forward and around the state update of a decode step.
 
 Under a mesh whose ``model`` axis is larger than one, each rank holds
 the pieces the sharding rules give: ``wz``, ``wx``, ``conv_w`` and
@@ -27,7 +38,7 @@ split misses a head boundary, every projection's output is gathered
 whole, every rank runs every head, and ``out`` takes this rank's columns
 (the head-boundary gather of ``attention.py``); a ``conv`` cache split
 over d_inner is then cut from the whole state and gathered back to
-decode.
+decode.  The xBC conv is not served on a mesh: it raises there.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spans
 from repro_torch.distributed.collectives import (
     all_gather,
     copy_to_group,
@@ -71,10 +83,17 @@ class SSMConfig:
     expand: int = 2
     head_dim: int = 64
     chunk: int = 64
+    # the conv over x, B and C together (the module docstring)
+    conv_xbc: bool = False
 
     @property
     def d_inner(self) -> int:
         return self.expand * self.d_model
+
+    @property
+    def conv_width(self) -> int:
+        """The channels the conv runs over."""
+        return self.d_inner + 2 * self.d_state if self.conv_xbc else self.d_inner
 
     @property
     def n_heads(self) -> int:
@@ -93,8 +112,8 @@ def init_ssm(gen: torch.Generator, cfg: SSMConfig, dtype=torch.float32, device="
         "wB": init_dense(gen, cfg.d_state, cfg.d_model, dtype, device),
         "wC": init_dense(gen, cfg.d_state, cfg.d_model, dtype, device),
         "wdt": init_dense(gen, H, cfg.d_model, dtype, device),
-        "conv_w": _normal(gen, (cfg.d_conv, cfg.d_inner), 0.1, dtype, device),
-        "conv_b": torch.zeros((cfg.d_inner,), dtype=dtype, device=device),
+        "conv_w": _normal(gen, (cfg.d_conv, cfg.conv_width), 0.1, dtype, device),
+        "conv_b": torch.zeros((cfg.conv_width,), dtype=dtype, device=device),
         "A_log": torch.zeros((H,), **f32),  # A = -exp(A_log) = -1
         "D": torch.ones((H,), **f32),
         "dt_bias": torch.zeros((H,), **f32),
@@ -122,13 +141,16 @@ def _ssd_chunked(
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y: (B, S, H, P), h_final: (B, H, P, N))."""
+    """Returns (y: (B, S, H, P), h_final: (B, H, P, N)).  A ragged tail
+    is padded to a whole chunk with dt = x = B = C = 0 (the module
+    docstring)."""
     Bsz, S, H, P = xh.shape
     N = Bv.shape[-1]
     L = min(chunk, S)
-    if S % L != 0:  # ragged tail: fall back to one chunk
-        L = S
-    nc = S // L
+    pad = -S % L
+    if pad:
+        xh, Bv, Cv, dt = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xh, Bv, Cv, dt))
+    nc = (S + pad) // L
     xh, Bv, Cv, dt = (t.reshape((Bsz, nc, L) + t.shape[2:]) for t in (xh, Bv, Cv, dt))
 
     a = dt * A  # (B, nc, L, H) log-decay per step
@@ -161,8 +183,8 @@ def _ssd_chunked(
 
     # inter-chunk contribution: y_t += C_t . (exp(cum_t) H_prev)
     inter = torch.einsum("bcln,bchpn,bclh->bclhp", Cv, h_prevs, torch.exp(cum).to(xh.dtype))
-    y = (y + inter).reshape(Bsz, S, H, P)
-    return y, h
+    y = (y + inter).reshape(Bsz, nc * L, H, P)
+    return y[:, :S], h
 
 
 @dataclass(frozen=True)
@@ -224,10 +246,11 @@ def _project(p: Param, x: torch.Tensor, cfg: SSMConfig, sp: Optional[_Split]):
     return z, xi_raw, Bv, Cv, dt_raw, q
 
 
-def _gate_out(p: Param, y: torch.Tensor, z: torch.Tensor, sp: Optional[_Split]) -> torch.Tensor:
+def _gate_out(p: Param, y: torch.Tensor, z: torch.Tensor, sp: Optional[_Split],
+              eps: float) -> torch.Tensor:
     """The gated RMSNorm over the whole d_inner, then ``out``."""
     split = sp is not None and sp.local
-    y = rmsnorm(p["norm"], y * F.silu(z), split=split)
+    y = rmsnorm(p["norm"], y * F.silu(z), eps=eps, split=split)
     out, _ = dense_tp(p["out"], y, sp.dims["out"] if sp else None, x_split=split)
     return out
 
@@ -241,20 +264,38 @@ def _conv_piece(conv: torch.Tensor, sp: Optional[_Split]) -> torch.Tensor:
     return conv.narrow(-1, current_mesh().axis_index("model") * n, n)
 
 
+def _mesh_check(cfg: SSMConfig, sp: Optional[_Split]) -> None:
+    if cfg.conv_xbc and sp is not None:
+        raise NotImplementedError("the xBC conv (SSMConfig.conv_xbc) is not served on a mesh "
+                                  "whose model axis splits the Mamba layer")
+
+
+def _split_xbc(xbc: torch.Tensor, cfg: SSMConfig):
+    """(x, B, C) of the conv's output over x, B and C together."""
+    di, N = cfg.d_inner, cfg.d_state
+    return xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+
+
 def ssm_layer(p: Param, x: torch.Tensor, cfg: SSMConfig, return_state: bool = False,
-              cache_dtype=torch.bfloat16):
+              cache_dtype=torch.bfloat16, eps: float = 1e-6):
     """x: (B, S, d_model) -> (B, S, d_model) [, decode cache]."""
     B, S, _ = x.shape
     sp = _split(cfg)
+    _mesh_check(cfg, sp)
     z, xi_raw, Bv, Cv, dt_raw, q = _project(p, x, cfg, sp)
-    xi = _causal_conv(xi_raw, q["conv_w"], q["conv_b"])
+    if cfg.conv_xbc:
+        xi_raw = torch.cat([xi_raw, Bv, Cv], dim=-1)
+        xi, Bv, Cv = _split_xbc(_causal_conv(xi_raw, q["conv_w"], q["conv_b"]), cfg)
+    else:
+        xi = _causal_conv(xi_raw, q["conv_w"], q["conv_b"])
     Bv, Cv = Bv.float(), Cv.float()
     dt = F.softplus(dt_raw.float() + q["dt_bias"])
     A = -torch.exp(q["A_log"])
     xh = xi.reshape(B, S, -1, cfg.head_dim)
-    y, h_final = _ssd_chunked(xh, Bv.to(xh.dtype), Cv.to(xh.dtype), dt, A, cfg.chunk)
+    with spans.span("repro_torch.ssm.scan", tokens=B * S):
+        y, h_final = _ssd_chunked(xh, Bv.to(xh.dtype), Cv.to(xh.dtype), dt, A, cfg.chunk)
     y = y + xh * q["D"][None, None, :, None].to(xh.dtype)
-    out = _gate_out(p, y.reshape(B, S, -1), z, sp)
+    out = _gate_out(p, y.reshape(B, S, -1), z, sp, eps)
     if not return_state:
         return out
     tail = cfg.d_conv - 1
@@ -269,7 +310,8 @@ def ssm_layer(p: Param, x: torch.Tensor, cfg: SSMConfig, return_state: bool = Fa
 def init_ssm_cache(batch: int, cfg: SSMConfig, dtype=torch.bfloat16,
                    device="cpu") -> Dict[str, torch.Tensor]:
     return {
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.conv_width), dtype=dtype,
+                            device=device),
         "ssm": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state), dtype=dtype,
                            device=device),
     }
@@ -280,13 +322,17 @@ def ssm_decode(
     x: torch.Tensor,  # (B, 1, d_model)
     cfg: SSMConfig,
     cache: Dict[str, Any],
+    eps: float = 1e-6,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step; returns the output and a new cache (the input
     cache is left as it was)."""
     B = x.shape[0]
     sp = _split(cfg)
+    _mesh_check(cfg, sp)
     z, xi_raw, Bv, Cv, dt_raw, q = _project(p, x, cfg, sp)
-    z, xi_raw = z[:, 0], xi_raw[:, 0]  # (B, d_inner)
+    if cfg.conv_xbc:
+        xi_raw = torch.cat([xi_raw, Bv, Cv], dim=-1)
+    z, xi_raw = z[:, 0], xi_raw[:, 0]  # (B, conv_width)
 
     # conv ring: taps over [cache, new]
     conv = cache["conv"]
@@ -296,16 +342,21 @@ def ssm_decode(
     conv_out = torch.einsum("btd,td->bd", hist, q["conv_w"]) + q["conv_b"]
     xi = F.silu(conv_out)
     new_conv = _conv_piece(hist[:, 1:], sp).to(cache["conv"].dtype)
+    if cfg.conv_xbc:
+        xi, Bv, Cv = _split_xbc(xi, cfg)
+        Bv, Cv = Bv.float(), Cv.float()  # (B, N)
+    else:
+        Bv, Cv = Bv[:, 0].float(), Cv[:, 0].float()  # (B, N)
 
-    Bv, Cv = Bv[:, 0].float(), Cv[:, 0].float()  # (B, N)
     dt = F.softplus(dt_raw[:, 0].float() + q["dt_bias"])  # (B, H)
     A = -torch.exp(q["A_log"])
     xh = xi.reshape(B, -1, cfg.head_dim)
 
-    dA = torch.exp(dt * A)  # (B, H)
-    h = cache["ssm"].float()
-    h = h * dA[..., None, None] + torch.einsum("bh,bhp,bn->bhpn", dt, xh.float(), Bv)
-    y = torch.einsum("bn,bhpn->bhp", Cv, h) + xh.float() * q["D"][None, :, None]
+    with spans.span("repro_torch.ssm.scan", tokens=B):
+        dA = torch.exp(dt * A)  # (B, H)
+        h = cache["ssm"].float()
+        h = h * dA[..., None, None] + torch.einsum("bh,bhp,bn->bhpn", dt, xh.float(), Bv)
+        y = torch.einsum("bn,bhpn->bhp", Cv, h) + xh.float() * q["D"][None, :, None]
     y = y.reshape(B, 1, -1).to(x.dtype)
-    out = _gate_out(p, y, z[:, None], sp)
+    out = _gate_out(p, y, z[:, None], sp, eps)
     return out, {"conv": new_conv, "ssm": h.to(cache["ssm"].dtype)}

@@ -25,7 +25,10 @@ Decode batches are bucketed (``buckets.BucketSpec``): padding rows point
 at the cache's null slot with length 0.  Prompts bucket too, except for
 architectures with Mamba blocks (``exact_prefill``): an SSM state sums
 over every position of a right-padded prompt, so they prefill at each
-prompt's exact length.
+prompt's exact length (mamba2, zamba2, and granite-4.0-h-small, whose
+Mamba conv runs over x, B and C and whose every layer's MoE is dropless,
+``models/ssm.py`` and ``models/moe.py``); the SSD keeps its chunk length
+at any prompt length, padding the last chunk.
 
 Spans (``core/spans.py``, while a profiler session runs or inside
 ``spans.recording()``): ``repro_torch.engine.step`` around each step;
@@ -37,6 +40,20 @@ rows to the synchronising read and the cache's advance; and
 start of its prefill, recorded at admission.  Every timestamp of the
 engine (``submit_time``, ``token_lat``, deadlines, the spans) is on
 ``time.perf_counter``.
+
+``ServeEngine(decode_graphs=True)`` on a card runs each class's decode
+step at each batch bucket as a CUDA graph, captured by ``warmup()``
+(largest bucket first, all of them in one memory pool) and replayed on
+the step's slots, tokens and lengths copied into its static inputs: the
+step's kernels then run without the host launching each one, so a step
+takes the card's time rather than the host's.  The graph runs the eager
+step's kernels on the same inputs (the same tokens, bit for bit); the
+dispatch accounting hook sees the dispatches made at capture again at
+every replay (``core.engine.account_replayed``), and a span or counter
+inside the step records at capture only.  A step that reads the device
+back cannot be captured (the f32 dropless MoE's per-expert loop reads
+its row ranges): ``warmup`` raises there.  Off by default; on the CPU it
+changes nothing, and a mesh refuses it.
 
 ``ServeEngine(mesh=)`` serves on a mesh: each rank holds its pieces of
 the params (it shards the full ``params`` it is given) and of the cache
@@ -62,7 +79,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import spans
-from repro_torch.core.engine import dispatch_report
+from repro_torch.core.engine import account_dispatches, account_replayed, dispatch_report
 from repro_torch.core.policy import SelectionPolicy, use_policy
 from repro_torch.distributed.context import mesh_scope
 from repro_torch.distributed.sharding import param_specs, shard
@@ -130,6 +147,37 @@ def _policy_scope(policy: Optional[SelectionPolicy]):
     return use_policy(policy) if policy is not None else contextlib.nullcontext()
 
 
+class _DecodeGraph:
+    """One class's decode step at one batch bucket as a CUDA graph: its
+    static inputs (all rows on the null slot until replayed), the step
+    captured once after a warm-up run on a side stream, its output, and
+    the outermost dispatches it made (``keys``)."""
+
+    def __init__(self, engine: "ServeEngine", cls: str, batch: int, pool):
+        dev = engine.device
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.slot_ids = torch.full((batch,), engine.kv.null_slot, dtype=torch.long, device=dev)
+        self.lengths = torch.zeros((batch,), dtype=torch.long, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            engine._decode_eager(cls, self.tok, self.slot_ids, self.lengths)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.keys: List = []
+        self.graph = torch.cuda.CUDAGraph()
+        with account_dispatches(lambda key, operands, out: self.keys.append(key)), \
+                torch.cuda.graph(self.graph, pool=pool):
+            self.out = engine._decode_eager(cls, self.tok, self.slot_ids, self.lengths)
+
+    def replay(self, tok, slot_ids, lengths) -> torch.Tensor:
+        self.tok.copy_(tok)
+        self.slot_ids.copy_(slot_ids)
+        self.lengths.copy_(lengths)
+        self.graph.replay()
+        account_replayed(self.keys)
+        return self.out
+
+
 class ServeEngine:
     """Request-queue engine: continuous batching over a paged KV cache.
 
@@ -139,7 +187,8 @@ class ServeEngine:
     ``n_slots * max_seq``); admission is strictly FCFS.  ``max_queue``
     bounds the waiting queue (default ``8 * n_slots``).  ``params`` must
     lie on ``device``; asking for CUDA without a card raises
-    ``RuntimeError``.
+    ``RuntimeError``.  ``decode_graphs`` replays the decode steps as CUDA
+    graphs (the module docstring).
     """
 
     def __init__(
@@ -156,9 +205,14 @@ class ServeEngine:
         cache_dtype=torch.bfloat16,
         device="cuda",
         mesh=None,
+        decode_graphs: bool = False,
     ):
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if decode_graphs and self.mesh is not None:
+            raise ValueError("decode_graphs is not served on a mesh")
+        self.decode_graphs = bool(decode_graphs) and self.device.type == "cuda"
+        self._graphs: Dict[tuple, "_DecodeGraph"] = {}  # (class, batch bucket) -> graph
         if cfg.input_mode != "tokens":
             raise ValueError(
                 f"ServeEngine serves token LMs; arch {cfg.name!r} has "
@@ -207,6 +261,15 @@ class ServeEngine:
     # -- steps (run under the class's policy scope) --------------------------
 
     def _decode_step(self, cls: str, tok, slot_ids, lengths) -> torch.Tensor:
+        """Decode one bucketed batch (its class's graph at its bucket if
+        ``warmup`` captured one, else ``_decode_eager``): the batch's next
+        greedy tokens."""
+        graph = self._graphs.get((cls, int(tok.shape[0])))
+        if graph is not None:
+            return graph.replay(tok, slot_ids, lengths)
+        return self._decode_eager(cls, tok, slot_ids, lengths)
+
+    def _decode_eager(self, cls: str, tok, slot_ids, lengths) -> torch.Tensor:
         """Decode one bucketed batch: gather its slots' cache rows, run
         ``lm_decode`` (which writes each row's new K/V in place), and copy
         the rows back into the pool in place.  Padding rows all target
@@ -458,7 +521,8 @@ class ServeEngine:
         prompt lengths are not known ahead).  This builds the kernels and
         warms the libraries, so no request pays for it, and an autotune
         class measures its keys here: each class's ``n_measured`` is
-        recorded for ``cold_misses``."""
+        recorded for ``cold_misses``.  With ``decode_graphs`` it then
+        captures every decode step (the module docstring)."""
         n_shapes = 0
         for cls in sorted(self.policies):
             for Bb in self.buckets.decode_batches:
@@ -472,6 +536,13 @@ class ServeEngine:
                 self._prefill_step(cls, tokens, Lb)
                 n_shapes += 1
         if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self.decode_graphs and not self._graphs:
+            torch.cuda.empty_cache()  # the eager steps' blocks, for the graphs' pool
+            pool = torch.cuda.graph_pool_handle()
+            for cls in sorted(self.policies):
+                for Bb in sorted(self.buckets.decode_batches, reverse=True):
+                    self._graphs[(cls, Bb)] = _DecodeGraph(self, cls, Bb, pool)
             torch.cuda.synchronize(self.device)
         self.kv.lengths[:] = 0  # warmup scribbled on the null row only
         for cls, policy in self.policies.items():

@@ -4,9 +4,11 @@ One device-resident cache tree (the ``segments`` half of
 ``models/lm.py::init_lm_cache``) holds ``n_slots + 1`` sequences: every
 leaf has the sequence axis at position 1 -- ``(layers, n_slots + 1,
 slots, kv, dh)`` for attention K/V, and for a Mamba block's state, which
-has no position axis, ``(layers, n_slots + 1, d_conv - 1, d_inner)`` and
-``(layers, n_slots + 1, heads, head_dim, d_state)``.  A request is admitted by allocating a slot and copying its
-(batch=1) prefill cache into that row; it is evicted by freeing the slot.
+has no position axis, ``(layers, n_slots + 1, d_conv - 1, conv_width)``
+(``conv_width`` is ``d_inner``, or ``d_inner + 2 d_state`` with the xBC
+conv) and ``(layers, n_slots + 1, heads, head_dim, d_state)``.  A
+request is admitted by allocating a slot and copying its (batch=1)
+prefill cache into that row; it is evicted by freeing the slot.
 Every slot carries its own write position (``lengths``).
 
 The extra row -- ``null_slot`` -- is scratch: decode steps run at
